@@ -5,16 +5,25 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
 
   1. the card, its power limit, and the torch / CUDA versions;
   2. builds every CUDA kernel from the sources in this checkout (one nvcc
-     per source, all started together);
-  3. holds each kernel against its plain PyTorch version on the card,
-     bit for bit, and times both with CUDA events beside the kernel's
-     bound (the least time the card could take, from bytes or operations);
+     per source, all started together), with ptxas's registers and
+     spills, and counts each kernel's SASS instructions per row
+     (`cuobjdump -sass`);
+  3. holds each kernel (the partition kernel's vector and scalar
+     variants) against its plain PyTorch version on the card, bit for
+     bit, and times them
+     with CUDA events, L2 flushed clean, beside the bound (the least time
+     the card could take: bytes over the memory rate or instructions over
+     the issue rate, whichever is larger);
   4. Q6 over `create_dataframe` (every batch tensor must lie on CUDA);
   5. Q6 over `read.parquet` of the same table written as 16 files;
   6. the repartition path: `select(...).repartition(200, "l_shipdate")`
      and Q6 on top, with the kernel launch counts set to 0 just before
-     and read just after; then, on a 1M-row sample, every row of reduce
-     partition p must hash to p by the plain version on the CPU.
+     and read just after (every launch must be the vector variant), and
+     the pinned-host allocator's counters around the map side;
+  7. the same query under torch.profiler: device busy share, device time
+     by kernel, and the partition kernel's share of the map side's device
+     time; then, on a 1M-row sample, every row of reduce partition p must
+     hash to p by the plain version on the CPU.
 
 Each Q6 revenue must equal `q6_numpy_baseline`. Each phase prints one JSON
 line; any failure raises and exits non-zero. The line before the last is
@@ -26,6 +35,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -36,7 +46,12 @@ SF = 10.0
 BATCH_ROWS = 1 << 20
 REPARTITION_N = 200
 PARTITION_CASES = (1, 7, 16, 200, 2**31 - 1)
+KERNEL_SOURCES = ("partition_ids",)
+SWEEP_ROWS = (BATCH_ROWS, 1 << 22, 1 << 24, 60_000_000)
+TILE_EDGE_LENGTHS = (2, 3, 4, 5, 15, 16, 17, 4095, 4096, 4097, 4099,
+                     4096 + 17, 8191, 8192, 8195)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+SM_SLOTS_PER_CLOCK = 4 * 32    # thread-instructions an SM issues a clock
 
 
 def emit(obj):
@@ -99,11 +114,184 @@ def partition_keys(n, seed, validity="mixed"):
     return vals, valid
 
 
+def l2_flush(torch, dev, dirty=False):
+    """A call that evicts the 50 MB L2 before a timed call, over a 256 MB
+    buffer: by default it sums the buffer and leaves L2 holding clean
+    lines; `dirty` writes it instead and leaves 50 MB of dirty lines,
+    whose writeback the timed call's own misses then pay for
+    (partition_kernel_ab.py times both)."""
+    scratch = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
+    return scratch.zero_ if dirty else scratch.sum
+
+
+_PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per function in an `nvcc -Xptxas -v` log: registers, stack frame
+    and spill bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_PROPS.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+_SASS_FUNC = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+
+
+def sass_counts(text: str) -> dict:
+    """Per function of a `cuobjdump -sass` listing: its instructions (no
+    NOPs, not the branch-to-self after EXIT) and those of its largest
+    loop (the widest backward branch; 0 when it has none)."""
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = _SASS_FUNC.search(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSTR.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                cur[1][label] = addr
+            pending = []
+            cur[0].append((addr, m.group(2).strip()))
+    out = {}
+    for name, (ins, labels) in funcs.items():
+        kept, loops = [], []
+        for addr, op in ins:
+            words = op.split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            mnemonic = words[0] if words else ""
+            if mnemonic == "NOP":
+                continue
+            target = None
+            if mnemonic == "BRA":
+                t = _SASS_TARGET.search(op)
+                if t:
+                    target = labels.get(t.group(1)) if t.group(1) \
+                        else int(t.group(2), 16)
+            if target == addr:
+                continue
+            kept.append(addr)
+            if target is not None and target < addr:
+                loops.append((target, addr))
+        loop = max((sum(1 for a in kept if lo <= a <= hi)
+                    for lo, hi in loops), default=0)
+        out[name] = {"instructions": len(kept), "loop_instructions": loop}
+    return out
+
+
+def kernel_of(symbol: str):
+    """'vector' or 'scalar' for a partition kernel's mangled name, else
+    None."""
+    for kind in ("vector", "scalar"):
+        if f"partition_ids_i32_{kind}_kernel" in symbol:
+            return kind
+    return None
+
+
+# rows a thread handles per pass of its straight-line code or loop body
+ROWS_PER_PASS = {"vector": 4, "scalar": 1}
+
+
+def instr_per_row(counts: dict) -> dict:
+    """SASS instructions per row of each partition kernel: its loop body
+    (scalar) or its whole body (vector, which has no loop) over the
+    rows a thread handles in one pass of it. A static count: for the
+    vector kernel it includes the code of the last 1-3 rows, which one
+    thread runs, so it is an upper estimate of what a row costs."""
+    out = {}
+    for symbol, c in counts.items():
+        kind = kernel_of(symbol)
+        if kind:
+            body = c["loop_instructions"] or c["instructions"]
+            out[kind] = body / ROWS_PER_PASS[kind]
+    return out
+
+
+def sm_max_clock_hz() -> float:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def partition_bound(rows: int, per_row_instr: float, sms: int,
+                    clock_hz: float) -> dict:
+    """The least time for `rows` rows: 9 B a row over the memory rate,
+    or the instructions over the issue rate (4 warp schedulers of 32
+    lanes per SM, at the SM's maximum clock), whichever is larger."""
+    bytes_ms = rows * (4 + 1 + 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * per_row_instr / (sms * SM_SLOTS_PER_CLOCK * clock_hz) \
+        * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_bound_ms": bytes_ms,
+            "instr_bound_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def offset_copy(torch, t, k):
+    """t's values in a fresh buffer, as a view starting k elements in."""
+    buf = torch.empty(t.shape[0] + k, dtype=t.dtype, device=t.device)
+    buf[k:].copy_(t)
+    return buf[k:]
+
+
 def check_partition_kernel(torch, pk, last_batch_rows):
-    """Kernel vs plain version on the card: every case bit for bit."""
+    """Both partition kernels against the plain version on the card, bit
+    for bit, through the wrapper, whose per-variant counts must move as
+    the alignment rule says: the vector kernel on fresh tensors, the
+    scalar kernel on views one row in; the lengths and key patterns below
+    and the tile edges."""
     dev = torch.device("cuda")
-    cases = 0
-    max_err = 0
+    cases = dict.fromkeys(("vector", "scalar"), 0)
+    max_err = dict.fromkeys(cases, 0)
+
+    def hold(kind, got, ref, what):
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        max_err[kind] = max(max_err[kind], err)
+        cases[kind] += 1
+        if err:
+            raise AssertionError(f"{kind} partition kernel differs from its "
+                                 f"plain version: {what}")
+
+    def through_wrapper(kind, vals, valid, parts):
+        before = (pk.vector_launches, pk.scalar_launches)
+        got = pk.partition_ids_i32(vals, valid, parts)
+        moved = (pk.vector_launches - before[0],
+                 pk.scalar_launches - before[1])
+        if moved != ((1, 0) if kind == "vector" else (0, 1)):
+            raise AssertionError(f"expected the {kind} kernel, counts "
+                                 f"moved {moved}")
+        return got
+
     lengths = (1, 1000, BATCH_ROWS, BATCH_ROWS + 3, last_batch_rows,
                60_000_000)
     for n in lengths:
@@ -112,39 +300,111 @@ def check_partition_kernel(torch, pk, last_batch_rows):
                                          validity=validity)
             kv = torch.from_numpy(vals).to(dev)
             vv = torch.from_numpy(valid).to(dev)
+            ko, vo = offset_copy(torch, kv, 1), offset_copy(torch, vv, 1)
             for parts in PARTITION_CASES:
-                got = pk.partition_ids_i32(kv, vv, parts)
+                what = f"n={n} validity={validity} parts={parts}"
                 ref = pk.partition_ids_i32_ref(kv, vv, parts)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int64) - ref.to(torch.int64))
-                          .abs().max())
-                max_err = max(max_err, err)
-                if err:
-                    raise AssertionError(
-                        f"partition kernel differs from its plain version:"
-                        f" n={n} validity={validity} parts={parts}")
-                cases += 1
-            del kv, vv
-    # time both at the main path's batch shape, L2 flushed before each
-    vals, valid = partition_keys(BATCH_ROWS, seed=5)
-    kv = torch.from_numpy(vals).to(dev)
-    vv = torch.from_numpy(valid).to(dev)
-    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    flush = lambda: scratch.zero_()  # noqa: E731
-    ms = cuda_ms(lambda: pk.partition_ids_i32(kv, vv, REPARTITION_N),
-                 flush=flush)
-    b2b_ms = back_to_back_ms(
-        lambda: pk.partition_ids_i32(kv, vv, REPARTITION_N))
-    plain_ms = cuda_ms(
-        lambda: pk.partition_ids_i32_ref(kv, vv, REPARTITION_N),
-        iters=20, flush=flush)
-    nbytes = BATCH_ROWS * (4 + 1 + 4)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                hold("vector", through_wrapper("vector", kv, vv, parts),
+                     ref, what)
+                hold("scalar", through_wrapper("scalar", ko, vo, parts),
+                     ref, what)
+            del kv, vv, ko, vo
+    for n in TILE_EDGE_LENGTHS:
+        vals, valid = partition_keys(n, seed=n)
+        kv = torch.from_numpy(vals).to(dev)
+        vv = torch.from_numpy(valid).to(dev)
+        for parts in (REPARTITION_N, 2**31 - 1):
+            ref = pk.partition_ids_i32_ref(kv, vv, parts)
+            for k in (0, 1, 2, 3, 4):
+                kind = "vector" if k in (0, 4) else "scalar"
+                got = through_wrapper(kind, offset_copy(torch, kv, k),
+                                      offset_copy(torch, vv, k), parts)
+                hold(kind, got, ref, f"n={n} offset={k} parts={parts}")
+
     return {"cases": cases, "lengths": list(lengths),
-            "num_partitions": list(PARTITION_CASES),
-            "max_abs_err": max_err, "rows": BATCH_ROWS, "ms": ms,
-            "back_to_back_ms": b2b_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_bytes": nbytes}
+            "tile_edge_lengths": list(TILE_EDGE_LENGTHS),
+            "num_partitions": list(PARTITION_CASES), "max_abs_err": max_err}
+
+
+def kernel_device_us(torch, fn, flush, name_part, iters=20):
+    """Mean device duration in µs of the kernels whose name holds
+    `name_part`, over `iters` calls each after a flush, as torch.profiler
+    (CUPTI) records them: the kernel alone, without the cost of the
+    events and the launch around it that `cuda_ms` includes."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name_part in e.key]
+    count = sum(e.count for e in hits)
+    return sum(device_us(e) for e in hits) / count if count else None
+
+
+def host_us_per_call(torch, fn, iters=500):
+    """The host's own cost of a call: host clock over calls issued back
+    to back without a synchronize (the device runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / iters * 1e6
+
+
+def time_partition_kernels(torch, pk):
+    """Each partition kernel at the main path's batch shape, L2 flushed
+    clean before each call, in turns (so drift shows as a difference
+    between a kind's two readings): CUDA-event ms, the kernel's own
+    device time (CUPTI), back to back, and the host's cost per call;
+    then the floor (the vector kernel on 4 rows: what any launch costs,
+    by events and on the device) and the time at larger sizes, where the
+    fixed cost no longer hides the memory rate."""
+    dev = torch.device("cuda")
+    flush = l2_flush(torch, dev)
+    data = {}
+    for rows in SWEEP_ROWS:
+        vals, valid = partition_keys(rows, seed=5)
+        kv = torch.from_numpy(vals).to(dev)
+        vv = torch.from_numpy(valid).to(dev)
+        data[rows] = (kv, vv, offset_copy(torch, kv, 1),
+                      offset_copy(torch, vv, 1))
+
+    def calls(rows):
+        kv, vv, ko, vo = data[rows]
+        return {
+            "vector": lambda: pk.partition_ids_i32(kv, vv, REPARTITION_N),
+            "scalar": lambda: pk.partition_ids_i32(ko, vo, REPARTITION_N)}
+    batch = calls(BATCH_ROWS)
+    timed = {kind: {"ms": [], "back_to_back_ms": []} for kind in batch}
+    for kind in ("vector", "scalar", "scalar", "vector"):
+        timed[kind]["ms"].append(cuda_ms(batch[kind], flush=flush))
+        timed[kind]["back_to_back_ms"].append(back_to_back_ms(batch[kind]))
+    for kind, fn in batch.items():
+        timed[kind]["device_us"] = kernel_device_us(
+            torch, fn, flush, f"partition_ids_i32_{kind}_kernel")
+        timed[kind]["host_us_per_call"] = host_us_per_call(torch, fn)
+        timed[kind]["ms_by_rows"] = {}
+    for rows in SWEEP_ROWS:
+        for kind, fn in calls(rows).items():
+            timed[kind]["ms_by_rows"][str(rows)] = cuda_ms(
+                fn, iters=20, flush=flush)
+    kv, vv = data[BATCH_ROWS][:2]
+    floor = (kv[:4].clone(), vv[:4].clone())
+
+    def tiny():
+        return pk.partition_ids_i32(*floor, REPARTITION_N)
+    return {"timed": timed, "rows": BATCH_ROWS,
+            "sweep_rows": list(SWEEP_ROWS),
+            "floor_ms": cuda_ms(tiny, flush=flush),
+            "floor_device_us": kernel_device_us(
+                torch, tiny, flush, "partition_ids_i32_vector_kernel"),
+            "plain_ms": cuda_ms(
+                lambda: pk.partition_ids_i32_ref(kv, vv, REPARTITION_N),
+                iters=20, flush=flush)}
 
 
 def unscaled(at, name):
@@ -213,30 +473,133 @@ def timed_q6(df, tpch, device):
     return out, time.perf_counter() - t0, metric_totals(q)
 
 
+MAP_RANGE = "exchange.map_batch"
+PINNED_KEYS = ("num_host_alloc", "num_host_free", "allocations.current",
+               "allocated_bytes.current", "active_requests.allocated",
+               "active_bytes.allocated", "host_alloc_time.total")
+KERNEL_GROUPS = (("partition_kernel", r"partition_ids"),
+                 ("argsort", r"[Ss]ort|[Rr]adix"),
+                 ("bincount", r"[Hh]istogram|bincount"),
+                 ("gather", r"[Ii]ndex|[Gg]ather"),
+                 ("d2h", r"DtoH"), ("h2d", r"HtoD"))
+
+
+class MapSideProbe:
+    """Around ShuffleExchangeExec's map side: the pinned-host allocator's
+    counters (torch.cuda.host_memory_stats) are read before and after the
+    whole map side, and `host` gets their differences, one dict per
+    exchange; with `ranged`, for a profiled run, each map batch also runs
+    under a profiler range named MAP_RANGE."""
+
+    def __init__(self, exchange_cls, ranged=False):
+        self.cls = exchange_cls
+        self.orig = (exchange_cls._map_batch, exchange_cls._ensure_shuffled)
+        self.ranged = ranged
+        self.host = []
+
+    @staticmethod
+    def _pinned():
+        import torch
+        if not torch.cuda.is_initialized():    # a rehearsal on the CPU
+            return {}
+        return torch.cuda.host_memory_stats()
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        map_batch, ensure = self.orig
+        probe = self
+
+        def ranged(exch, batch):
+            with record_function(MAP_RANGE):
+                return map_batch(exch, batch)
+
+        def counted(exch, ctx):
+            if exch._pieces is not None:
+                return ensure(exch, ctx)
+            before = probe._pinned()
+            ensure(exch, ctx)
+            after = probe._pinned()
+            probe.host.append({k: after[k] - before[k] for k in PINNED_KEYS
+                               if k in before and k in after})
+        self.cls._ensure_shuffled = counted
+        if self.ranged:
+            self.cls._map_batch = ranged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._map_batch, self.cls._ensure_shuffled = self.orig
+
+
+def device_us(e):
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def kernels_under(evt):
+    """The device kernels and copies launched inside a profiled CPU
+    event, its children's included (not the range's own annotation)."""
+    out = [k for k in evt.kernels if k.name != evt.name]
+    for ch in evt.cpu_children:
+        out += kernels_under(ch)
+    return out
+
+
+def group_of(name: str) -> str:
+    for group, pattern in KERNEL_GROUPS:
+        if re.search(pattern, name):
+            return group
+    return "other"
+
+
 def profiled_q6(df, tpch, device):
-    """Q6 under torch.profiler: the device's busy time (the device-side
-    entries only, kernels and copies: a host op that launched them
-    carries the same time again), its share of the wall time, and the
-    top device entries."""
+    """Q6 over `df` under torch.profiler: the device's busy time (the
+    device-side entries only, kernels and copies: a host op that launched
+    them carries the same time again) and its share of the wall time,
+    device time by kernel name and by group; where the plan has an
+    exchange, the map side's device time (every kernel and copy launched
+    inside a map batch) by group, and the partition kernel's share of
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        out, wall, _ = timed_q6(df, tpch, device)
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
+    with MapSideProbe(ShuffleExchangeExec, ranged=True) as probe, \
+            profile(activities=acts) as prof:
+        out, wall, layers = timed_q6(df, tpch, device)
     ka = [e for e in prof.key_averages()
-          if e.device_type != DeviceType.CPU and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in ka) / 1e6
-    top = sorted(ka, key=dev_us, reverse=True)[:8]
-    return out, {"wall_s": wall, "device_busy_s": busy_s,
-                 "device_busy_share": busy_s / wall,
-                 "device_entries": len(ka),
-                 "top_device_us": {e.key[:60]: dev_us(e) for e in top}}
+          if e.device_type != DeviceType.CPU and device_us(e) > 0
+          and e.key != MAP_RANGE]
+    busy_us = sum(device_us(e) for e in ka)
+    by_group = collections.Counter()
+    for e in ka:
+        by_group[group_of(e.key)] += device_us(e)
+    ranges = [e for e in prof.events()
+              if e.name == MAP_RANGE and e.device_type == DeviceType.CPU]
+    map_group = collections.Counter()
+    for r in ranges:
+        for k in kernels_under(r):
+            map_group[group_of(k.name)] += k.duration
+    # the profiler links a kernel to the torch op that launched it, and a
+    # ctypes launch is no torch op, so the partition kernel is not found
+    # under the ranges; it runs on the map side only, so its whole time is
+    map_group["partition_kernel"] = by_group["partition_kernel"]
+    map_us = sum(map_group.values())
+    top = sorted(ka, key=device_us, reverse=True)[:12]
+    return out, {
+        "wall_s": wall, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "device_entries": len(ka), "layers_s": layers,
+        "device_us_by_group": dict(by_group),
+        "top_device_us": {e.key[:80]: device_us(e) for e in top},
+        "map_batches_profiled": len(ranges),
+        "map_side_device_us": map_us,
+        "map_side_device_us_by_group": dict(map_group),
+        "partition_kernel_share_of_map_side":
+            map_group["partition_kernel"] / map_us if map_us else None,
+        "pinned_host_over_map_side": probe.host}
 
 
 def check_revenue(out, expect, what):
@@ -264,14 +627,15 @@ def q6_runs(make_df, tpch, device, expect, what, runs=2):
             "batch_tensors_by_device": dict(devs.seen)}
 
 
-def path_phases(session, lineitem, expect) -> int:
-    """Phases 4-6 on the session's device; returns the partition
-    kernel's launches on the repartition path. On a CPU session (a
-    rehearsal without a card) the plain version runs and the kernel
-    never launches."""
+def path_phases(session, lineitem, expect) -> dict:
+    """Phases 4-7 on the session's device; returns the partition
+    kernel's launches on the repartition path, in all and per variant. On
+    a CPU session (a rehearsal without a card) the plain version runs and
+    the kernel never launches."""
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.exec.batch import DeviceBatch
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
     from spark_rapids_tpu_torch.ops import partition_kernels as pk
     from spark_rapids_tpu_torch.workloads import tpch
 
@@ -309,24 +673,35 @@ def path_phases(session, lineitem, expect) -> int:
 
     # ---- the repartition path: the kernel's main path ----------------
     cols = list(tpch.Q6_COLUMNS) + ["l_orderkey"]
-    df = session.create_dataframe(lineitem).select(*cols) \
-        .repartition(REPARTITION_N, "l_shipdate")
-    with BatchDevices(DeviceBatch) as devs:
-        pk.launches = 0
-        out, wall, layers = timed_q6(df, tpch, dev)
-        launches = pk.launches
+
+    def repartitioned():
+        return session.create_dataframe(lineitem).select(*cols) \
+            .repartition(REPARTITION_N, "l_shipdate")
+    with BatchDevices(DeviceBatch) as devs, \
+            MapSideProbe(ShuffleExchangeExec) as probe:
+        pk.launches = pk.vector_launches = pk.scalar_launches = 0
+        out, wall, layers = timed_q6(repartitioned(), tpch, dev)
+        launches = {"all": pk.launches, "vector": pk.vector_launches,
+                    "scalar": pk.scalar_launches}
     check_revenue(out, expect, "repartition")
     check_devices(devs, dev)
     map_batches = int(layers.get("mapBatches", 0))
-    if map_batches == 0 or launches != (map_batches if dev.type == "cuda"
-                                        else 0):
+    want = map_batches if dev.type == "cuda" else 0
+    if map_batches == 0 or launches != {"all": want, "vector": want,
+                                        "scalar": 0}:
         raise AssertionError(f"partition kernel launches {launches}, "
-                             f"map batches {map_batches}")
+                             f"map batches {map_batches}: every launch "
+                             f"of the path must be the vector kernel")
     emit({"phase": "q6_over_repartition", "rows": rows,
           "num_partitions": REPARTITION_N, "wall_s": wall,
           "rows_per_s": rows / wall, "layers_s": layers,
           "map_batches": map_batches, "partition_kernel_launches": launches,
+          "pinned_host_over_map_side": probe.host,
           "batch_tensors_by_device": dict(devs.seen)})
+
+    out, prof = profiled_q6(repartitioned(), tpch, dev)
+    check_revenue(out, expect, "repartition (profiled)")
+    emit({"phase": "q6_over_repartition_profiled", **prof})
 
     # every row of reduce partition p hashes to p (plain version, CPU)
     sample = session.create_dataframe(lineitem.slice(0, BATCH_ROWS)) \
@@ -369,18 +744,51 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    built = cuda_build.build(["partition_ids"])
+    built = cuda_build.build(KERNEL_SOURCES)
+    ptxas = {}
+    for v in built.values():
+        for symbol, props in ptxas_report(v["log"]).items():
+            ptxas[kernel_of(symbol) or symbol] = props
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "flags": list(cuda_build.NVCC_FLAGS),
-          "kernels": {k: {"seconds": v["seconds"], "path": v["path"],
-                          "ptxas": v["log"].strip().splitlines()[-4:]}
-                      for k, v in built.items()}})
+          "kernels": {k: {"seconds": v["seconds"], "path": v["path"]}
+                      for k, v in built.items()},
+          "ptxas": ptxas})
+    counts = {}
+    for name in KERNEL_SOURCES:
+        counts.update(sass_counts(cuda_build.sass(name)))
+    sass = {"functions": counts, "instr_per_row": instr_per_row(counts)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = sm_max_clock_hz()
+    emit({"phase": "sass", "sms": sms, "sm_max_clock_hz": clock_hz, **sass})
 
     rows = int(tpch.LINEITEM_ROWS_PER_SF * SF)
     last_batch = rows - (rows - 1) // BATCH_ROWS * BATCH_ROWS
     kcheck = check_partition_kernel(torch, pk, last_batch)
+    ktime = time_partition_kernels(torch, pk)
+    ipr = sass["instr_per_row"]
+    per_kind = {}
+    for kind, t in ktime["timed"].items():
+        per_kind[kind] = {
+            "ms": t["ms"][0], "ms_again": t["ms"][1],
+            "back_to_back_ms": t["back_to_back_ms"][0],
+            "back_to_back_ms_again": t["back_to_back_ms"][1],
+            "device_us": t["device_us"],
+            "host_us_per_call": t["host_us_per_call"],
+            "ms_by_rows": t["ms_by_rows"],
+            "max_abs_err": kcheck["max_abs_err"][kind],
+            "cases": kcheck["cases"][kind],
+            "instr_per_row": ipr.get(kind),
+            **partition_bound(BATCH_ROWS, ipr.get(kind, 0.0), sms, clock_hz),
+            **ptxas.get(kind, {})}
     emit({"phase": "kernel_vs_plain", "kernel": "partition_ids_i32",
-          **kcheck})
+          "lengths": kcheck["lengths"],
+          "tile_edge_lengths": kcheck["tile_edge_lengths"],
+          "num_partitions": kcheck["num_partitions"],
+          "rows": BATCH_ROWS, "plain_ms": ktime["plain_ms"],
+          "floor_ms": ktime["floor_ms"],
+          "floor_device_us": ktime["floor_device_us"],
+          "variants": per_kind})
 
     t0 = time.perf_counter()
     lineitem = tpch.gen_lineitem(SF, seed=0)
@@ -396,15 +804,20 @@ def main() -> int:
                              BATCH_ROWS})
     launches = path_phases(session, lineitem, expect)
 
+    variants = {k: dict(v, launches=launches[k])
+                for k, v in per_kind.items()}
+    vec = variants["vector"]
     emit({"kernels": [{
         "name": "partition_ids_i32", "route": "cuda",
         "source": pk.SOURCE,
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:64",
         "tpu_kernel": "ops/pallas_kernels.py:pallas_partition_ids_i32",
-        "launches": launches, "checked_against_plain": True,
-        "max_abs_err": kcheck["max_abs_err"], "ms": kcheck["ms"],
-        "plain_ms": kcheck["plain_ms"], "bound_ms": kcheck["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]})
+        "launches": launches["all"], "checked_against_plain": True,
+        "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+        "ms": vec["ms"], "back_to_back_ms": vec["back_to_back_ms"],
+        "plain_ms": ktime["plain_ms"], "bound_ms": vec["bound_ms"],
+        "bound_by": vec["bound_by"], "instr_per_row": vec["instr_per_row"],
+        "library_ms": None, "variants": variants}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

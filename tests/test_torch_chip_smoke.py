@@ -1,0 +1,104 @@
+"""chip_smoke.py's readers of the compiler's output and its kernel bound,
+on listings in the formats nvcc's `-Xptxas -v` and `cuobjdump -sass`
+print. They run on the card only inside chip_smoke.py, so they are
+checked here on fixed text."""
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+VEC = "_ZN12_GLOBAL__N_131partition_ids_i32_vector_kernelEPK4int4PKjPS0_ljm"
+SCA = "_ZN12_GLOBAL__N_131partition_ids_i32_scalar_kernelEPKiPKhPiljm"
+TAIL = "_ZN12_GLOBAL__N_19tail_rowsEPKiPKhPiijm"
+
+PTXAS = f"""\
+ptxas info    : 0 bytes gmem
+ptxas info    : Function properties for {TAIL}
+    24 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '{SCA}' for 'sm_90a'
+ptxas info    : Function properties for {SCA}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, used 0 barriers, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '{VEC}' for 'sm_90a'
+ptxas info    : Function properties for {VEC}
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers, 392 bytes cmem[0]
+"""
+
+SASS = f"""
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,7]
+host = linux
+compile_size = 64bit
+
+	code for sm_90a
+		Function : {SCA}
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;              /* 0x0000000000007919 */
+                                                                   /* 0x000e220000002100 */
+        /*0020*/              @P0 EXIT ;                           /* 0x000000000000094d */
+                                                                   /* 0x000fea0003800000 */
+.L_x_0:
+        /*0030*/                   IMAD R3, R0, 0x5, RZ ;          /* 0x0000000500037824 */
+                                                                   /* 0x000fca00078e02ff */
+        /*0040*/                   LOP3.LUT R3, R3, 0x4, RZ, 0x3c, !PT ;
+        /*0050*/              @!P0 BRA `(.L_x_0) ;                 /* 0xfffffffc00f08947 */
+        /*0060*/                   EXIT ;                          /* 0x000000000000794d */
+.L_x_1:
+        /*0070*/                   BRA `(.L_x_1);                  /* 0xfffffffc00fc7947 */
+        /*0080*/                   NOP;                            /* 0x0000000000007918 */
+        /*0090*/                   NOP;                            /* 0x0000000000007918 */
+		..........
+
+		Function : {VEC}
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+""" + "".join(f"        /*{0x10 * i:04x}*/                   IMAD R2, R2, 0x5, RZ ;\n"
+              for i in range(1, 32)) + """\
+        /*0200*/                   EXIT ;
+        /*0210*/                   BRA 0x210;
+        /*0220*/                   NOP;
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    rep = chip_smoke.ptxas_report(PTXAS)
+    assert rep[SCA] == {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                        "registers": 22}
+    assert rep[VEC] == {"stack": 8, "spill_stores": 4, "spill_loads": 8,
+                        "registers": 48}
+    assert rep[TAIL] == {"stack": 24, "spill_stores": 0, "spill_loads": 0}
+
+
+def test_sass_counts_skip_nops_and_the_branch_to_self():
+    counts = chip_smoke.sass_counts(SASS)
+    # LDC S2R EXIT IMAD LOP3 BRA EXIT; the loop is IMAD LOP3 BRA
+    assert counts[SCA] == {"instructions": 7, "loop_instructions": 3}
+    # LDC, 31 IMADs, EXIT; no loop (BRA 0x210 branches to itself)
+    assert counts[VEC] == {"instructions": 33, "loop_instructions": 0}
+
+
+def test_instr_per_row_per_kernel():
+    per_row = chip_smoke.instr_per_row(chip_smoke.sass_counts(SASS))
+    assert per_row == {"scalar": 3.0, "vector": 33 / 4}
+    assert chip_smoke.kernel_of(TAIL) is None
+
+
+@pytest.mark.parametrize("per_row,bound_by", [(10.0, "bytes"),
+                                              (400.0, "operations")])
+def test_partition_bound_is_the_larger_of_bytes_and_issue(per_row,
+                                                          bound_by):
+    rows, sms, clock = 1 << 20, 132, 1.98e9
+    b = chip_smoke.partition_bound(rows, per_row, sms, clock)
+    assert b["bytes_bound_ms"] == pytest.approx(rows * 9 / 3.35e12 * 1e3)
+    assert b["instr_bound_ms"] == pytest.approx(
+        rows * per_row / (sms * 128 * clock) * 1e3)
+    assert b["bound_ms"] == max(b["bytes_bound_ms"], b["instr_bound_ms"])
+    assert b["bound_by"] == bound_by

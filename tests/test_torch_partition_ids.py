@@ -5,7 +5,11 @@ kernel) must equal, bit for bit, both the Pallas kernel it replaces (run
 in interpret mode, as the JAX package's own tests run it on the CPU) and
 the JAX package's `hash.partition_ids`; the port's murmur3 fold must
 equal `hash.partition_ids` for int64, decimal64, boolean and two-key
-rows. Tolerance: exact, since ids are integers.
+rows. The kernels' division (Lemire's fastmod by the host-computed
+`pmod_magic`, emulated step for step by `pmod_fastmod`) must equal floor
+modulo and, after the port's murmur3, the Pallas kernel; the alignment
+rule that picks the vector or scalar kernel is checked on CPU tensors
+and views. Tolerance: exact, since ids are integers.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,8 @@ from spark_rapids_tpu_torch.ops.kernel_utils import CV as PCV
 
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 NUM_PARTITIONS = [1, 7, 16, 200, 2**31 - 1]
+PMOD_PARTITIONS = [1, 2, 3, 7, 16, 200, 2**30 + 1, 2**31 - 1]
+EDGE_KEYS = [I32_MIN, I32_MAX, 0, 1, -1, 42]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -144,3 +150,90 @@ def test_murmur3_fold_matches_jax(kind, num_partitions):
     jrow = np.asarray(jhash.murmur3_row_hash(jcvs, jts))
     prow = phash.to_signed32(phash.murmur3_row_hash(pcvs, pts)).numpy()
     np.testing.assert_array_equal(prow, jrow)
+
+
+def _hashes(n, seed):
+    """int32 values as signed hashes: the extremes, then random ones."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+    edge = np.array(EDGE_KEYS + [I32_MIN + 1, I32_MAX - 1, -42], np.int32)
+    h[:len(edge)] = edge
+    return h
+
+
+@pytest.mark.parametrize("num_partitions", PMOD_PARTITIONS)
+def test_pmod_fastmod_is_floor_modulo(num_partitions):
+    magic = pk.pmod_magic(num_partitions)
+    assert 0 <= magic < 2**64
+    # magic = ceil(2^64 / n) mod 2^64: magic * n overshoots 2^64 by < n
+    assert (magic * num_partitions) % 2**64 < num_partitions
+    h = _hashes(20000, seed=num_partitions % 101)
+    got = pk.pmod_fastmod(h, num_partitions)
+    exp = torch.remainder(torch.from_numpy(h).to(torch.int64),
+                          num_partitions).to(torch.int32).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("num_partitions", PMOD_PARTITIONS)
+def test_kernel_arithmetic_matches_pallas(num_partitions):
+    """murmur3, null -> 42, then the kernels' fastmod pmod, against the
+    Pallas kernel on the same keys."""
+    vals, valid = _keys(2048, "mixed", seed=num_partitions % 89)
+    valid[:len(EDGE_KEYS)] = True
+    valid[len(EDGE_KEYS):2 * len(EDGE_KEYS)] = False
+    vals[len(EDGE_KEYS):2 * len(EDGE_KEYS)] = EDGE_KEYS
+    seed = torch.full((len(vals),), 42, dtype=torch.int64)
+    h = phash.to_signed32(phash.hash_int32(torch.from_numpy(vals), seed))
+    h = torch.where(torch.from_numpy(valid), h, 42).numpy()
+    got = pk.pmod_fastmod(h, num_partitions)
+    pallas = np.asarray(pallas_partition_ids_i32(
+        jnp.asarray(vals), jnp.asarray(valid), num_partitions,
+        interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    ref = pk.partition_ids_i32_ref(torch.from_numpy(vals),
+                                   torch.from_numpy(valid), num_partitions)
+    np.testing.assert_array_equal(ref.numpy(), pallas)
+
+
+@pytest.mark.parametrize("key_off,valid_off,out_off,kind", [
+    (0, 0, 0, "vector"),
+    (4, 4, 0, "vector"),      # 16 B key offset, 4 B validity offset
+    (8, 8, 4, "vector"),
+    (1, 1, 0, "scalar"),      # a view at an odd row offset
+    (2, 2, 0, "scalar"),
+    (3, 3, 0, "scalar"),
+    (0, 2, 0, "scalar"),      # validity word misaligned
+    (0, 0, 1, "scalar"),      # output misaligned
+    (2, 0, 0, "scalar"),      # keys 8 B aligned only
+])
+def test_variant_follows_pointer_alignment(key_off, valid_off, out_off,
+                                           kind):
+    keys = torch.zeros(64, dtype=torch.int32)
+    valid = torch.ones(64, dtype=torch.bool)
+    out = torch.empty(64, dtype=torch.int32)
+    assert keys.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    assert valid.data_ptr() % 16 == 0
+    assert pk.variant(keys[key_off:].data_ptr(),
+                      valid[valid_off:].data_ptr(),
+                      out[out_off:].data_ptr()) == kind
+
+
+@pytest.mark.parametrize("offset", range(8))
+def test_variant_of_row_offset_views(offset):
+    """Keys and validity viewed one row range in, output fresh: the
+    vector kernel exactly when the offset is a multiple of 4 rows."""
+    vals, valid = _keys(100, "mixed", seed=offset)
+    # clones: torch's allocator aligns a buffer to 64 B
+    kv = torch.from_numpy(vals).clone()[offset:]
+    vv = torch.from_numpy(valid).clone()[offset:]
+    out = torch.empty_like(kv)
+    assert pk.variant(kv.data_ptr(), vv.data_ptr(), out.data_ptr()) == (
+        "vector" if offset % 4 == 0 else "scalar")
+    # on the CPU the wrapper runs the plain version, whatever the rule
+    before = (pk.launches, pk.vector_launches, pk.scalar_launches)
+    got = pk.partition_ids_i32(kv, vv, 200)
+    assert (pk.launches, pk.vector_launches, pk.scalar_launches) == before
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_ids(vals[offset:], valid[offset:],
+                                           200))
