@@ -23,12 +23,29 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
   7. the same query under torch.profiler: device busy share, device time
      by kernel, and the partition kernel's share of the map side's device
      time; then, on a 1M-row sample, every row of reduce partition p must
-     hash to p by the plain version on the CPU.
+     hash to p by the plain version on the CPU;
+  8. TPC-H Q1 (`tpch.q1(df).sort("l_returnflag", "l_linestatus")`) over
+     `create_dataframe`, twice, and over the 16 Parquet files: the
+     grouped hash aggregate, partial -> exchange on the two string keys
+     -> final, then the sort;
+  9. `group_by("l_shipdate").agg(sum(l_quantity), count(*))`: the
+     partial states go through the exchange on a date key, so the
+     partition kernel runs under an aggregation (every launch must be
+     the vector variant), with the pinned-host counters around the map
+     side;
+ 10. Q1 under torch.profiler: device busy share, device time by group
+     (sort, scatter/index_add, gathers, elementwise, H2D, D2H, partition
+     kernel), kernel launches and host syncs per input batch.
 
-Each Q6 revenue must equal `q6_numpy_baseline`. Each phase prints one JSON
-line; any failure raises and exits non-zero. The line before the last is
-the kernels table; the last line is {"ok": true, "device": {...}}.
-Exits non-zero, printing no result, when CUDA is not available.
+Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
+integer reference `q1_reference` (numpy int64 per group, HALF_UP
+averages), row for row; the per-date sums and counts numpy's. The
+partition kernel's launches are counted on every path that runs it,
+each path with the counts set to 0 just before it and read just after.
+Each phase prints one JSON line; any failure raises and exits non-zero.
+The line before the last is the kernels table; the last line is
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
+CUDA is not available.
 """
 from __future__ import annotations
 
@@ -626,12 +643,308 @@ def q6_runs(make_df, tpch, device, expect, what, runs=2):
             "layers_s": [m for _, _, m in results],
             "batch_tensors_by_device": dict(devs.seen)}
 
+# ----------------------------------------------------------------------
+# Q1 and the grouped path
+# ----------------------------------------------------------------------
+Q1_KEYS = ("l_returnflag", "l_linestatus")
+#: Q1's result columns and the scale of each one's unscaled integer
+Q1_SCALES = {"sum_qty": 2, "sum_base_price": 2, "sum_disc_price": 4,
+             "sum_charge": 6, "avg_qty": 6, "avg_price": 6, "avg_disc": 6,
+             "count_order": 0}
+Q1_GROUPS = (("sort", r"[Ss]ort|[Rr]adix"),
+             ("partition_kernel", r"partition_ids"),
+             ("scatter_index_add", r"[Ss]catter|indexFunc|index_add"),
+             ("gather", r"[Ii]ndex|[Gg]ather"),
+             ("scan", r"[Ss]can|cumsum|cummax"),
+             ("reduce", r"[Rr]educe"),
+             ("d2h", r"DtoH"), ("h2d", r"HtoD"),
+             ("elementwise", r"[Ee]lementwise"))
 
-def path_phases(session, lineitem, expect) -> dict:
-    """Phases 4-7 on the session's device; returns the partition
-    kernel's launches on the repartition path, in all and per variant. On
-    a CPU session (a rehearsal without a card) the plain version runs and
-    the kernel never launches."""
+
+def q1_group_of(name: str) -> str:
+    """The Q1_GROUPS group of a device kernel or copy, by its name."""
+    for group, pattern in Q1_GROUPS:
+        if re.search(pattern, name):
+            return group
+    return "other"
+
+
+def _codes(arr):
+    """(int32 code per row, the distinct values) of a string column."""
+    import pyarrow as pa
+    enc = arr.combine_chunks().dictionary_encode() \
+        if isinstance(arr, pa.ChunkedArray) else arr.dictionary_encode()
+    return enc.indices.to_numpy(), enc.dictionary.to_pylist()
+
+
+def _half_up_div(num: int, den: int) -> int:
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return q if num >= 0 else -q
+
+
+def q1_reference(lineitem) -> dict:
+    """Q1's exact result: {(returnflag, linestatus): {column: unscaled
+    int}}. Sums and counts in numpy int64 per group (each group's bound
+    is checked so a sum cannot wrap); the averages are the decimal(18, 6)
+    HALF_UP quotients, in Python ints."""
+    import numpy as np
+    ship = lineitem.column("l_shipdate").to_numpy()
+    m = ship <= 10471
+    qty, price, disc, tax = (unscaled(lineitem, c)[m] for c in
+                             ("l_quantity", "l_extendedprice",
+                              "l_discount", "l_tax"))
+    rf, rf_vals = _codes(lineitem.column("l_returnflag"))
+    ls, ls_vals = _codes(lineitem.column("l_linestatus"))
+    g = rf[m].astype(np.int64) * len(ls_vals) + ls[m]
+    out = {}
+    for gi in np.flatnonzero(np.bincount(g)):
+        sel = g == gi
+        n = int(sel.sum())
+        q, p, d, t = qty[sel], price[sel], disc[sel], tax[sel]
+        disc_price = p * (100 - d)                       # scale 4
+        charge = disc_price * (100 + t)                  # scale 6
+        if int(np.abs(charge).max()) * n >= 2**63:
+            raise AssertionError("Q1 reference would overflow int64")
+        sums = [int(x.sum()) for x in (q, p, disc_price, charge)]
+        out[(rf_vals[gi // len(ls_vals)], ls_vals[gi % len(ls_vals)])] = {
+            "sum_qty": sums[0], "sum_base_price": sums[1],
+            "sum_disc_price": sums[2], "sum_charge": sums[3],
+            "avg_qty": _half_up_div(sums[0] * 10**4, n),
+            "avg_price": _half_up_div(sums[1] * 10**4, n),
+            "avg_disc": _half_up_div(int(d.sum()) * 10**4, n),
+            "count_order": n}
+    return out
+
+
+def q1_rows(at) -> list:
+    """Q1's Arrow result as [((returnflag, linestatus), {column: unscaled
+    int})], in its row order."""
+    rows = []
+    for r in at.to_pylist():
+        vals = {}
+        for c, scale in Q1_SCALES.items():
+            v = r[c]
+            if v is None:
+                raise AssertionError(f"Q1 {c} is null")
+            vals[c] = int(v.scaleb(scale)) if scale else int(v)
+        rows.append(((r[Q1_KEYS[0]], r[Q1_KEYS[1]]), vals))
+    return rows
+
+
+def check_q1(at, expect: dict, what: str):
+    """Row for row: the groups in key order, each equal to the exact
+    reference."""
+    rows = q1_rows(at)
+    keys = [k for k, _ in rows]
+    if keys != sorted(expect):
+        raise AssertionError(f"Q1 over {what}: groups {keys}, expected "
+                             f"{sorted(expect)}")
+    for k, vals in rows:
+        if vals != expect[k]:
+            raise AssertionError(f"Q1 over {what}: group {k} is {vals}, "
+                                 f"expected {expect[k]}")
+
+
+def shipdate_reference(lineitem):
+    """(dates, sum of l_quantity unscaled, count) per date, numpy."""
+    import numpy as np
+    ship = lineitem.column("l_shipdate").to_numpy().astype(np.int64)
+    qty = unscaled(lineitem, "l_quantity")
+    lo = int(ship.min())
+    counts = np.bincount(ship - lo)
+    if int(qty.max()) * int(counts.max()) >= 2**53:
+        raise AssertionError("per-date sums would leave float64's exact "
+                             "integers")
+    sums = np.bincount(ship - lo, weights=qty).astype(np.int64)
+    dates = np.flatnonzero(counts)
+    return dates + lo, sums[dates], counts[dates]
+
+
+def check_shipdate(at, expect, what: str):
+    import numpy as np
+    dates, sums, counts = expect
+    order = np.argsort(at.column("l_shipdate").cast("int32").to_numpy())
+    got_dates = at.column("l_shipdate").cast("int32").to_numpy()[order]
+    words = unscaled(at, "q")
+    got_sums = (words[:, 0] if words.ndim == 2 else words)[order]
+    got_counts = at.column("c").to_numpy()[order]
+    if not (np.array_equal(got_dates, dates)
+            and np.array_equal(got_sums, sums)
+            and np.array_equal(got_counts, counts)):
+        raise AssertionError(f"group_by(l_shipdate) over {what} differs "
+                             f"from numpy's per-date sums")
+
+
+def grouped_shipdate(df):
+    import spark_rapids_tpu_torch.functions as F
+    return df.group_by("l_shipdate").agg(F.sum("l_quantity").alias("q"),
+                                         F.count("*").alias("c"))
+
+
+def sorted_q1(tpch, df):
+    return tpch.q1(df).sort(*Q1_KEYS)
+
+
+def timed_query(q, device):
+    """(result, wall seconds, layer metrics, host syncs) of a fresh
+    DataFrame through `to_arrow`, ending in a device sync."""
+    from spark_rapids_tpu_torch.utils import transfer
+    transfer.syncs = 0
+    t0 = time.perf_counter()
+    out = q.to_arrow()
+    sync(device)
+    return out, time.perf_counter() - t0, metric_totals(q), transfer.syncs
+
+
+def plan_chain(q) -> list:
+    """The physical plan of a DataFrame, root first, down the first
+    children: each node's class (and an aggregate's mode)."""
+    node, _ = q.physical_plan()
+    out = []
+    while node is not None:
+        mode = getattr(node, "mode", None)
+        out.append(type(node).__name__ + (f"[{mode}]" if mode else ""))
+        node = node.children[0] if node.children else None
+    return out
+
+
+def profiled_query(q, device, batches: int):
+    """A query under torch.profiler: device busy time (kernels and copies
+    only) and share of the wall time, device time by group (Q1_GROUPS),
+    device launches and host syncs per input batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out, wall, layers, syncs = timed_query(q, device)
+    ka = [e for e in prof.key_averages()
+          if e.device_type != DeviceType.CPU and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in ka)
+    by_group, launches = collections.Counter(), collections.Counter()
+    for e in ka:
+        grp = q1_group_of(e.key)
+        by_group[grp] += device_us(e)
+        launches[grp] += e.count
+    top = sorted(ka, key=device_us, reverse=True)[:15]
+    n = max(batches, 1)
+    return out, {
+        "wall_s": wall, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall, "layers_s": layers,
+        "device_us_by_group": dict(by_group),
+        "device_launches_by_group": dict(launches),
+        "device_launches": sum(launches.values()),
+        "input_batches": batches,
+        "device_launches_per_batch": sum(launches.values()) / n,
+        "host_syncs": syncs, "host_syncs_per_batch": syncs / n,
+        "top_device_us": {e.key[:80]: device_us(e) for e in top}}
+
+
+def q1_phases(session, lineitem, parquet_dir, q1_expect,
+              shipdate_expect) -> dict:
+    """Phases 8-10 on the session's device; returns the partition
+    kernel's launches per grouped path."""
+    from spark_rapids_tpu_torch.exec.batch import DeviceBatch
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    from spark_rapids_tpu_torch.workloads import tpch
+
+    dev = session.device
+    rows = lineitem.num_rows
+    launches = {}
+
+    def counted(make_q, check, what):
+        with BatchDevices(DeviceBatch) as devs, \
+                MapSideProbe(ShuffleExchangeExec) as probe:
+            q = make_q()
+            pk.launches = pk.vector_launches = pk.scalar_launches = 0
+            out, wall, layers, syncs = timed_query(q, dev)
+            got = {"all": pk.launches, "vector": pk.vector_launches,
+                   "scalar": pk.scalar_launches}
+        check(out, what)
+        check_devices(devs, dev)
+        batches = int(layers.get("inputBatches", 0))
+        return {"wall_s": wall, "rows_per_s": rows / wall,
+                "layers_s": layers, "input_batches": batches,
+                "host_syncs": syncs,
+                "host_syncs_per_batch": syncs / max(batches, 1),
+                "partition_kernel_launches": got,
+                "pinned_host_over_map_side": probe.host,
+                "batch_tensors_by_device": dict(devs.seen)}, got
+
+    def q1_check(out, what):
+        check_q1(out, q1_expect, what)
+
+    # ---- Q1 over create_dataframe, twice ------------------------------
+    runs = []
+    for _ in range(2):
+        res, got = counted(
+            lambda: sorted_q1(tpch, session.create_dataframe(lineitem)),
+            q1_check, "create_dataframe")
+        runs.append(res)
+    launches["q1_create_dataframe"] = got
+    emit({"phase": "q1_create_dataframe", "rows": rows,
+          "plan": plan_chain(sorted_q1(tpch,
+                                       session.create_dataframe(lineitem))),
+          "runs": runs})
+
+    # ---- Q1 over the 16 Parquet files --------------------------------
+    res, got = counted(lambda: sorted_q1(tpch,
+                                         session.read.parquet(parquet_dir)),
+                       q1_check, "read.parquet")
+    launches["q1_read_parquet"] = got
+    emit({"phase": "q1_read_parquet", "rows": rows, "files": 16,
+          "plan": plan_chain(sorted_q1(tpch,
+                                       session.read.parquet(parquet_dir))),
+          **res})
+
+    # ---- group_by(l_shipdate): the kernel under an aggregation -------
+    res, got = counted(
+        lambda: grouped_shipdate(session.create_dataframe(lineitem)),
+        lambda out, what: check_shipdate(out, shipdate_expect, what),
+        "create_dataframe")
+    map_batches = int(res["layers_s"].get("mapBatches", 0))
+    want = map_batches if dev.type == "cuda" else 0
+    if map_batches == 0 or got != {"all": want, "vector": want,
+                                   "scalar": 0}:
+        raise AssertionError(f"grouped path: partition kernel launches "
+                             f"{got}, map batches {map_batches}: every "
+                             f"launch must be the vector kernel")
+    launches["groupby_shipdate"] = got
+    emit({"phase": "groupby_shipdate", "rows": rows,
+          "groups": len(shipdate_expect[0]), "map_batches": map_batches,
+          "plan": plan_chain(grouped_shipdate(
+              session.create_dataframe(lineitem))), **res})
+
+    # ---- Q1 profiled --------------------------------------------------
+    q = sorted_q1(tpch, session.create_dataframe(lineitem))
+    batches = -(-rows // session.conf.batch_size_rows)
+    out, prof = profiled_query(q, dev, batches)
+    check_q1(out, q1_expect, "create_dataframe (profiled)")
+    emit({"phase": "q1_profiled", **prof})
+    return launches
+
+
+def path_phases(session, lineitem, expect, q1_expect=None,
+                shipdate_expect=None) -> dict:
+    """Phases 4-10 on the session's device (8-10 when the Q1 and per-date
+    references are given); returns the partition kernel's launches per
+    path, in all and per variant. On a CPU session (a rehearsal without a
+    card) the plain version runs and the kernel never launches."""
+    import shutil
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _path_phases(session, lineitem, expect, q1_expect,
+                            shipdate_expect, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _path_phases(session, lineitem, expect, q1_expect, shipdate_expect,
+                 d) -> dict:
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.exec.batch import DeviceBatch
@@ -654,22 +967,21 @@ def path_phases(session, lineitem, expect) -> dict:
     emit({"phase": "q6_create_dataframe_profiled", **prof})
 
     # ---- Q6 over read.parquet (16 files) -----------------------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-        t0 = time.perf_counter()
-        per = -(-rows // 16)
-        for i in range(16):
-            pq.write_table(lineitem.slice(i * per, per),
-                           os.path.join(d, f"part-{i:02d}.parquet"))
-        write_s = time.perf_counter() - t0
-        root, ctx = tpch.q6(session.read.parquet(d)).physical_plan()
-        scan = root
-        while scan.children:
-            scan = scan.children[0]
-        res = q6_runs(lambda: session.read.parquet(d), tpch, dev,
-                      expect, "read.parquet")
-        emit({"phase": "q6_read_parquet", "rows": rows, "files": 16,
-              "reader": scan._reader_type(ctx), "write_s": write_s, **res,
-              "rows_per_s": [rows / w for w in res["wall_s"]]})
+    t0 = time.perf_counter()
+    per = -(-rows // 16)
+    for i in range(16):
+        pq.write_table(lineitem.slice(i * per, per),
+                       os.path.join(d, f"part-{i:02d}.parquet"))
+    write_s = time.perf_counter() - t0
+    root, ctx = tpch.q6(session.read.parquet(d)).physical_plan()
+    scan = root
+    while scan.children:
+        scan = scan.children[0]
+    res = q6_runs(lambda: session.read.parquet(d), tpch, dev,
+                  expect, "read.parquet")
+    emit({"phase": "q6_read_parquet", "rows": rows, "files": 16,
+          "reader": scan._reader_type(ctx), "write_s": write_s, **res,
+          "rows_per_s": [rows / w for w in res["wall_s"]]})
 
     # ---- the repartition path: the kernel's main path ----------------
     cols = list(tpch.Q6_COLUMNS) + ["l_orderkey"]
@@ -721,7 +1033,11 @@ def path_phases(session, lineitem, expect) -> dict:
         raise AssertionError(f"sample lost rows: {seen}")
     emit({"phase": "repartition_placement", "rows": seen,
           "num_partitions": REPARTITION_N, "ok": True})
-    return launches
+    by_path = {"q6_over_repartition": launches}
+    if q1_expect is not None:
+        by_path.update(q1_phases(session, lineitem, d, q1_expect,
+                                 shipdate_expect))
+    return by_path
 
 
 def main() -> int:
@@ -796,13 +1112,24 @@ def main() -> int:
         lineitem.column("l_shipdate").to_numpy(),
         unscaled(lineitem, "l_discount"), unscaled(lineitem, "l_quantity"),
         unscaled(lineitem, "l_extendedprice"))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q1_expect = q1_reference(lineitem)
+    shipdate_expect = shipdate_reference(lineitem)
     emit({"phase": "data", "sf": SF, "rows": lineitem.num_rows,
-          "gen_and_baseline_s": time.perf_counter() - t0,
-          "q6_expected_unscaled": expect})
+          "gen_and_baseline_s": gen_s,
+          "q1_and_shipdate_reference_s": time.perf_counter() - t0,
+          "q6_expected_unscaled": expect,
+          "q1_expected_unscaled": {"|".join(k): v
+                                   for k, v in sorted(q1_expect.items())},
+          "shipdate_groups": len(shipdate_expect[0])})
 
     session = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows":
                              BATCH_ROWS})
-    launches = path_phases(session, lineitem, expect)
+    by_path = path_phases(session, lineitem, expect, q1_expect,
+                          shipdate_expect)
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in ("all", "vector", "scalar")}
 
     variants = {k: dict(v, launches=launches[k])
                 for k, v in per_kind.items()}
@@ -812,7 +1139,9 @@ def main() -> int:
         "source": pk.SOURCE,
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:64",
         "tpu_kernel": "ops/pallas_kernels.py:pallas_partition_ids_i32",
-        "launches": launches["all"], "checked_against_plain": True,
+        "launches": launches["all"],
+        "launches_by_path": {k: v["all"] for k, v in by_path.items()},
+        "checked_against_plain": True,
         "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
         "ms": vec["ms"], "back_to_back_ms": vec["back_to_back_ms"],
         "plain_ms": ktime["plain_ms"], "bound_ms": vec["bound_ms"],

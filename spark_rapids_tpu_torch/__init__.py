@@ -8,8 +8,10 @@ kernel under `csrc/`, built with nvcc for sm_90a at first use. The port
 imports nothing of the JAX engine and never imports JAX.
 
 Ported so far: TPC-H Q6's path (in-memory and Parquet scans, filter,
-projection, the exact decimal sum) and the hash exchange behind
-`DataFrame.repartition`. Anything else raises `NotPorted`.
+projection, the exact decimal sum), TPC-H Q1's (string columns, exact
+decimal128 arithmetic, the grouped hash aggregate, the sort), and the
+hash exchange behind `DataFrame.repartition` and grouped aggregation.
+Anything else raises `NotPorted`.
 
     import spark_rapids_tpu_torch as st
     s = st.TpuSession()              # CUDA; TpuSession(device="cpu") on CPU

@@ -1,7 +1,8 @@
 """Device column: Arrow layout in torch tensors.
 
 A column is a data tensor plus a bool validity tensor (True = valid) of
-one length. Unlike the JAX package, which pads every buffer to a
+one length; a string or binary column adds int32 offsets [n + 1] over
+uint8 bytes, as Arrow lays them out. Unlike the JAX package, which pads every buffer to a
 power-of-two capacity to bound XLA recompiles, the port keeps columns at
 their true length: eager PyTorch compiles nothing per shape. A column may
 still arrive padded (`interop.batch_from_numpy` takes the JAX package's
@@ -21,18 +22,32 @@ import torch
 from ..errors import NotPorted
 from . import dtypes as dt
 
-__all__ = ["Column"]
+__all__ = ["Column", "buffer_names"]
+
+
+def buffer_names(dtype: dt.DataType):
+    """The host/device buffers of a column of `dtype`, in the order every
+    transfer lists them."""
+    if dtype.is_variable_width:
+        return ("data", "validity", "offsets")
+    return ("data", "validity")
 
 
 class Column:
     """An immutable device column."""
 
     def __init__(self, dtype: dt.DataType, length: int, data: torch.Tensor,
-                 validity: torch.Tensor):
+                 validity: torch.Tensor,
+                 offsets: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.length = int(length)
         self.data = data
         self.validity = validity
+        self.offsets = offsets
+
+    def buffers(self):
+        """This column's tensors in `buffer_names` order."""
+        return [getattr(self, b) for b in buffer_names(self.dtype)]
 
     @property
     def capacity(self) -> int:
@@ -46,7 +61,7 @@ class Column:
     @staticmethod
     def host_from_arrow(arr, dtype: Optional[dt.DataType] = None):
         """Decode a pyarrow array into host numpy buffers (no transfer).
-        Returns (dtype, length, {"data", "validity"})."""
+        Returns (dtype, length, {"data", "validity"[, "offsets"]})."""
         import pyarrow as pa
         if isinstance(arr, pa.ChunkedArray):
             arr = arr.combine_chunks()
@@ -55,6 +70,27 @@ class Column:
         has_nulls = arr.null_count > 0
         validity = (np.logical_not(np.asarray(arr.is_null()))
                     if has_nulls else np.ones(n, np.bool_))
+
+        if dtype.is_variable_width:
+            # Arrow's own layout, rebased to start at byte 0; null rows
+            # become empty, so they own no bytes
+            if pa.types.is_large_string(arr.type):
+                arr = arr.cast(pa.string())
+            if pa.types.is_large_binary(arr.type):
+                arr = arr.cast(pa.binary())
+            if has_nulls:
+                arr = arr.fill_null(
+                    "" if isinstance(dtype, dt.StringType) else b"")
+            bufs = arr.buffers()
+            off = np.frombuffer(bufs[1], dtype=np.int32, count=n + 1 +
+                                arr.offset)[arr.offset:]
+            start, nbytes = int(off[0]), int(off[-1] - off[0])
+            data = (np.frombuffer(bufs[2], dtype=np.uint8,
+                                  count=start + nbytes)[start:]
+                    if bufs[2] is not None and nbytes
+                    else np.zeros(0, np.uint8))
+            return dtype, n, {"data": data, "validity": validity,
+                              "offsets": (off - off[0]).astype(np.int32)}
 
         if isinstance(dtype, dt.DecimalType):
             # The unscaled value is the int128 little-endian word pair. A
@@ -99,6 +135,16 @@ class Column:
         if isinstance(dtype, dt.NullType):
             return pa.nulls(n)
         all_valid = bool(validity.all())
+        if dtype.is_variable_width:
+            off = np.asarray(bufs["offsets"])[:n + 1].astype(np.int32)
+            bitmap = (None if all_valid else
+                      pa.py_buffer(np.packbits(validity,
+                                               bitorder="little")))
+            data = np.ascontiguousarray(np.asarray(bufs["data"]))
+            return pa.Array.from_buffers(
+                dt.to_arrow(dtype), n,
+                [bitmap, pa.py_buffer(off.tobytes()),
+                 pa.py_buffer(data.tobytes())])
         vals = np.asarray(bufs["data"])[:n]
         if not all_valid:
             keep = validity.reshape((n,) + (1,) * (vals.ndim - 1))

@@ -11,9 +11,10 @@ ported slice needs. Device representations:
                         p > 18 as an int64 [n, 2] (lo, hi) two's-complement
                         pair (decimal128)
   - NullType         -> int8, all null
+  - StringType / BinaryType -> uint8 bytes plus int32 offsets [n + 1]
 
-String, binary, timestamp and nested types exist so that schemas of real
-tables resolve; a column of one of them on the device raises NotPorted.
+Timestamp and nested types exist so that schemas of real tables
+resolve; a column of one of them on the device raises NotPorted.
 """
 from __future__ import annotations
 
@@ -52,6 +53,11 @@ class DataType:
     @property
     def is_floating(self) -> bool:
         return isinstance(self, (FloatType, DoubleType))
+
+    @property
+    def is_variable_width(self) -> bool:
+        """Bytes plus offsets: string and binary."""
+        return isinstance(self, (StringType, BinaryType))
 
     def simple_name(self) -> str:
         return type(self).__name__.replace("Type", "").lower()
@@ -95,11 +101,11 @@ class DoubleType(DataType):
 
 
 class StringType(DataType):
-    pass
+    np_dtype = np.dtype(np.uint8)
 
 
 class BinaryType(DataType):
-    pass
+    np_dtype = np.dtype(np.uint8)
 
 
 class DateType(DataType):
@@ -188,6 +194,7 @@ _TORCH = {
     IntegerType: torch.int32, LongType: torch.int64,
     FloatType: torch.float32, DoubleType: torch.float64,
     DateType: torch.int32, DecimalType: torch.int64, NullType: torch.int8,
+    StringType: torch.uint8, BinaryType: torch.uint8,
 }
 
 
@@ -201,7 +208,8 @@ def torch_dtype(dt: DataType) -> torch.dtype:
 
 def alloc_shape(dt: DataType, n: int) -> tuple:
     """Data-buffer shape of a fixed-width column of n rows: decimal128
-    keeps two int64 words per row."""
+    keeps two int64 words per row. (A string column's data is its bytes,
+    not n rows: its empty form is `alloc_shape(dt, 0)`.)"""
     if isinstance(dt, DecimalType) and dt.is_decimal128:
         return (n, 2)
     return (n,)

@@ -6,7 +6,7 @@ from typing import List, Sequence
 import torch
 
 from . import dtypes as dt
-from .column import Column
+from .column import Column, buffer_names
 
 __all__ = ["Field", "Schema", "Table"]
 
@@ -82,8 +82,8 @@ class Table:
         names = list(at.schema.names)
         host = [Column.host_from_arrow(at.column(i))
                 for i in range(len(names))]
-        flat = [a for _, _, b in host for a in (b["data"], b["validity"])]
-        dev = to_device(flat, device)
-        cols = [Column(dtype, n, dev[2 * i], dev[2 * i + 1])
-                for i, (dtype, n, _) in enumerate(host)]
+        flat = [b[k] for dtype, _, b in host for k in buffer_names(dtype)]
+        dev = iter(to_device(flat, device))
+        cols = [Column(dtype, n, *[next(dev) for _ in buffer_names(dtype)])
+                for dtype, n, _ in host]
         return Table(names, cols)

@@ -10,8 +10,9 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
-           "PARQUET_READER_TYPE",
-           "PARQUET_COALESCING_TARGET", "MESH_DEVICES"]
+           "PARQUET_READER_TYPE", "PARQUET_COALESCING_TARGET",
+           "MESH_DEVICES", "SHUFFLE_PARTITIONS", "AGG_STRING_HASH_KEYS",
+           "AGG_MAX_MERGE_ROWS"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -53,6 +54,24 @@ MESH_DEVICES = _conf(
     "mesh.devices", 0,
     "Devices in the SPMD mesh. The port has no mesh exchange: a plan "
     "that would use one raises NotPorted.", int)
+
+SHUFFLE_PARTITIONS = _conf(
+    "sql.shuffle.partitions", 8,
+    "Default partition count for exchanges (spark.sql.shuffle.partitions).",
+    int)
+AGG_STRING_HASH_KEYS = _conf(
+    "sql.agg.stringHashKeys.enabled", True,
+    "Hash-once 64-bit keying of string group-by columns: the "
+    "aggregation hash pass derives its bucket hashes from the same "
+    "packed order-key chunk words the exact verify step compares "
+    "(xxhash64-style fold), so string keys are read once per batch "
+    "instead of twice (murmur3 walk + chunk build).", bool)
+AGG_MAX_MERGE_ROWS = _conf(
+    "sql.agg.maxMergeRows", 1 << 21,
+    "Upper bound on buffered partial-aggregate rows merged in one "
+    "concat pass. Above it, every partial splits into hash buckets of "
+    "disjoint keys and each bucket merges and finalizes on its own. The "
+    "port keeps the partials on the device (no spill store yet).", int)
 
 
 class TpuConf:

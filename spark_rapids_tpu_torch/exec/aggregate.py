@@ -1,26 +1,127 @@
-"""Ungrouped aggregation: a reduction without grouping keys -> one row.
+"""Aggregation: ungrouped reductions and the grouped hash aggregate.
 
-The filter/project chain below the aggregate is applied inside it, per
-batch (the JAX package's collapse_fusable), then each aggregate updates
-its state and merges into the running state. States stay on the device
-until finalize; the one-row result is the only thing built afterwards.
+Ungrouped: the filter/project chain below the aggregate is applied
+inside it, per batch (the JAX package's collapse_fusable), then each
+aggregate updates its state and merges into the running state. States
+stay on the device until finalize; the one-row result is the only thing
+built afterwards.
+
+Grouped (`HashAggregateExec`, the port of the JAX package's
+`exec/aggregate.py:334`, modes complete / partial / final): each input
+batch first goes through a sort-free hash pass (rows bucket by key hash,
+each row is checked against its bucket's representative on the exact
+equality keys, matching rows segment-reduce; collisions retry in a
+second round with more buckets). If any row is still left over, the
+batch instead runs the sort-segmented path (one stable sort on the
+normalized keys, group boundaries, segment reductions), and the hash
+pass is off for the rest of the query. Per-batch partials then merge by
+the sort-segmented path and finalize. Partials stay on the device (the
+JAX package's spill handles wait for the memory runtime); above
+`sql.agg.maxMergeRows` buffered rows they split into hash buckets of
+disjoint keys that merge one at a time. The port keeps exact lengths
+where the JAX package pads to power-of-two capacities: a partial holds
+its live groups only, so the same groups and values come out, in an
+order only a sort defines.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.table import Schema
-from ..expr.aggregates import AggExpr
-from ..expr.expressions import EmitCtx
+from ..columnar.table import Field, Schema
+from ..config import AGG_MAX_MERGE_ROWS, AGG_STRING_HASH_KEYS
+from ..expr.aggregates import AggExpr, Count, seg_any, seg_sum
+from ..expr.expressions import (Alias, BoundRef, EmitCtx, Expression,
+                                UnsupportedExpr)
+from ..ops import sortkeys as sk
+from ..ops.concat import concat_cvs, concat_masks
+from ..ops.gather import compact, compaction_perm, gather_cols, take
+from ..ops.hash import (_mul32, hash_once_rows, murmur3_row_hash,
+                        partition_ids)
 from ..ops.kernel_utils import CV
+from ..utils.transfer import fetch_ints
 from .base import ExecContext, TpuExec, collapse_fusable
 from .batch import DeviceBatch
 from .nodes import make_table
 
-__all__ = ["UngroupedAggExec"]
+__all__ = ["UngroupedAggExec", "HashAggregateExec"]
+
+# Hash first pass: round 0 scatter-reduces into _HASH_BUCKETS buckets,
+# later rounds into ~rows/4 (at most _HASH_BUCKETS_MAX); rows whose bucket
+# another key owns retry the next round, and a batch with rows left after
+# _HASH_ROUNDS rounds goes to the sort-segmented path.
+_HASH_BUCKETS = 4096
+_HASH_ROUNDS = 2
+_HASH_BUCKETS_MAX = 1 << 18
+_M32 = 0xFFFFFFFF
+# deepest bucket recursion of the merge split (10 levels x 16 buckets)
+_MAX_BUCKET_DEPTH = 10
+# murmur3 of these key types is ported; any other key takes the sort path
+_HASHABLE = (dt.BooleanType, dt.ByteType, dt.ShortType, dt.IntegerType,
+             dt.DateType, dt.LongType, dt.TimestampType, dt.StringType,
+             dt.BinaryType)
+
+#: a partial: (key CVs, flat state tensors, live-row mask, rows)
+Partial = Tuple[List[CV], List[torch.Tensor], torch.Tensor, int]
+
+
+def _hash_buckets_for(cap: int) -> int:
+    """~cap/4 buckets (a power of two, at least _HASH_BUCKETS), which keeps
+    two rounds enough for high-cardinality batches."""
+    b = _HASH_BUCKETS
+    target = min(cap // 4, _HASH_BUCKETS_MAX)
+    while b < target:
+        b <<= 1
+    return b
+
+
+def _seg_reduce(reducer: str, arr, live, seg_ids, num_segments):
+    if reducer == "sum":
+        return seg_sum(torch.where(live, arr, torch.zeros_like(arr)),
+                       seg_ids, num_segments)
+    if reducer == "or":
+        return seg_any(live & arr.bool(), seg_ids, num_segments)
+    raise ValueError(reducer)
+
+
+def _pack_pair(hi, lo):
+    """Two unsigned 32-bit words as the int64 with bits hi:lo."""
+    return torch.where(hi >= (1 << 31), hi - (1 << 32), hi) * (1 << 32) + lo
+
+
+def _packed_eq_arrays(key_cvs, keys, nchunks):
+    """Per key column, its equality arrays: the null flag and the order
+    keys, adjacent 32-bit chunk words packed into one int64 (half the
+    gathers and compares of the verify step)."""
+    out = []
+    for kcv, k, nc in zip(key_cvs, keys, nchunks):
+        arrs = [(~kcv.validity).to(torch.uint8)] \
+            + sk.order_keys(kcv, k.dtype, nc)
+        widths = [8] + sk.key_widths(k.dtype, nc)
+        packed, i = [], 0
+        while i < len(arrs):
+            if widths[i] == 32 and i + 1 < len(arrs) \
+                    and widths[i + 1] == 32:
+                packed.append(_pack_pair(arrs[i], arrs[i + 1]))
+                i += 2
+            else:
+                packed.append(arrs[i])
+                i += 1
+        out.append(packed)
+    return out
+
+
+def _remix_round(h1, r: int):
+    """Round-r bucket hash from the base row hash (unsigned 32-bit words):
+    an integer finalizer, so only round 0 reads the keys."""
+    if r == 0:
+        return h1
+    hm = h1 ^ ((0x9E3779B9 * r) & _M32)
+    hm = _mul32(hm, 0x85EBCA6B)
+    hm = hm ^ (hm >> 13)
+    return _mul32(hm, 0xC2B2AE35)
 
 
 class UngroupedAggExec(TpuExec):
@@ -71,3 +172,395 @@ class UngroupedAggExec(TpuExec):
             v, ok = a.finalize(s)
             out.append(CV(v.reshape((1,) + tuple(v.shape)), ok.reshape(1)))
         yield DeviceBatch(make_table(self.schema, out, 1), 1)
+
+
+class HashAggregateExec(TpuExec):
+    """Grouped aggregation. Modes (the reference's partial / final
+    GpuHashAggregateExec around GpuShuffleExchangeExec):
+      complete - drain every child partition, merge, finalize (one
+                 output partition);
+      partial  - per child partition: first pass and merges, emit the
+                 keys and state columns (the exchange's input);
+      final    - merge the partial-format batches of one exchange
+                 partition and finalize."""
+
+    def __init__(self, child: TpuExec, key_names: Sequence[str],
+                 bound_keys: Sequence[Expression], agg_names: Sequence[str],
+                 bound_aggs: Sequence[AggExpr], schema: Schema,
+                 mode: str = "complete"):
+        if mode not in ("complete", "partial", "final"):
+            raise ValueError(f"aggregate mode {mode!r}")
+        self.mode = mode
+        self.key_names = list(key_names)
+        self.keys = list(bound_keys)
+        self.agg_names = list(agg_names)
+        self.aggs = list(bound_aggs)
+        for a in self.aggs:
+            if (a.child is not None and a.child.dtype.is_variable_width
+                    and not isinstance(a, Count)):
+                raise UnsupportedExpr(f"{a!r} over variable-width input")
+        if mode == "partial":
+            schema = self._partial_schema()
+        super().__init__([child], schema)
+        self._base = None
+        self._stages = None
+        self._hash_ok = all(isinstance(k.dtype, _HASHABLE)
+                            for k in self.keys)
+        self._hash_disabled = False
+
+    def _partial_schema(self) -> Schema:
+        """The partial-state wire schema: the keys, then one column per
+        state tensor."""
+        fields = [Field(f"_k_{nm}", k.dtype)
+                  for nm, k in zip(self.key_names, self.keys)]
+        states = [t for a in self.aggs for t in a.state_dtypes()]
+        return Schema(fields + [Field(f"_s{i}", t)
+                                for i, t in enumerate(states)])
+
+    def num_partitions(self, ctx):
+        if self.mode in ("partial", "final"):
+            return self.children[0].num_partitions(ctx)
+        return 1
+
+    def _resolve_fusion(self):
+        if self._base is None:
+            if self.mode == "final":
+                self._base = self.children[0]
+                self._stages = lambda cvs, mask: (cvs, mask)
+            else:
+                self._base, self._stages, _ = collapse_fusable(
+                    self.children[0], require_ordinals=True)
+
+    def _has_string_keys(self) -> bool:
+        return any(k.dtype.is_variable_width for k in self.keys)
+
+    # -- sizes read on the host ----------------------------------------
+    def _nchunks_for(self, key_cvs, mask) -> Tuple[int, ...]:
+        return sk.key_nchunks(key_cvs, [k.dtype for k in self.keys], mask)
+
+    def _batch_nchunks(self, batch: DeviceBatch) -> Tuple[int, ...]:
+        """nchunks of an input batch; a string key that is a plain column
+        reference reads the batch's offsets without evaluating the key."""
+        if not self._has_string_keys():
+            return tuple(0 for _ in self.keys)
+        cvs = batch.cvs()
+        key_cvs = []
+        for k in self.keys:
+            e = k.child if isinstance(k, Alias) else k
+            if not k.dtype.is_variable_width:
+                key_cvs.append(None)
+            elif isinstance(e, BoundRef):
+                key_cvs.append(cvs[e.ordinal])
+            else:
+                key_cvs.append(k.emit(EmitCtx(cvs, batch.capacity,
+                                              batch.device)))
+        return self._nchunks_for(key_cvs, batch.row_mask)
+
+    # -- per-batch first pass ------------------------------------------
+    def _emit_inputs(self, cvs, mask):
+        cvs, mask = self._stages(cvs, mask)
+        cap = mask.shape[0]
+        ectx = EmitCtx(cvs, cap, mask.device)
+        key_cvs = [k.emit(ectx) for k in self.keys]
+        inputs = []
+        for a in self.aggs:
+            if a.child is None:
+                inputs.append(CV(torch.zeros(cap, dtype=torch.int8,
+                                             device=mask.device),
+                                 torch.ones_like(mask)))
+                continue
+            cv = a.child.emit(ectx)
+            if cv.offsets is not None:    # count reads the validity only
+                cv = CV(torch.zeros(cap, dtype=torch.int8,
+                                    device=mask.device), cv.validity)
+            inputs.append(cv)
+        return key_cvs, inputs, mask
+
+    def _hash_update(self, cvs, mask, nchunks, hash_once: bool):
+        """The sort-free first pass. Returns (key CVs, rep row per slot,
+        flat states, live slots, leftover rows, live slots count) over
+        _HASH_ROUNDS rounds of buckets; the counts are 0-d tensors."""
+        key_cvs, inputs, mask = self._emit_inputs(cvs, mask)
+        cap = mask.shape[0]
+        dev = mask.device
+        eq_arrays = _packed_eq_arrays(key_cvs, self.keys, nchunks)
+        if hash_once:
+            h1 = hash_once_rows(eq_arrays)
+        else:
+            h1 = murmur3_row_hash(key_cvs, [k.dtype for k in self.keys],
+                                  seed=42)
+        remaining = mask
+        rowidx = torch.arange(cap, device=dev)
+        reps, lives, round_states = [], [], None
+        for r in range(_HASH_ROUNDS):
+            nb = _HASH_BUCKETS if r == 0 else _hash_buckets_for(cap)
+            b = _remix_round(h1, r) % nb
+            repmin = torch.full((nb,), cap, dtype=torch.int64, device=dev)
+            repmin.scatter_reduce_(0, b, torch.where(remaining, rowidx, cap),
+                                   "amin", include_self=True)
+            has = repmin < cap
+            rep = repmin.clamp(0, max(cap - 1, 0))
+            rep_of_row = rep[b]
+            match = remaining
+            for arrs in eq_arrays:
+                for arr in arrs:
+                    match = match & (arr == arr[rep_of_row])
+            flat = [c for a, icv in zip(self.aggs, inputs)
+                    for c in a.g_update(icv, match, b, nb)]
+            round_states = ([[f] for f in flat] if round_states is None
+                            else [o + [f] for o, f in
+                                  zip(round_states, flat)])
+            reps.append(rep)
+            lives.append(has)
+            remaining = remaining & ~match
+        live = torch.cat(lives)
+        return (key_cvs, torch.cat(reps),
+                [torch.cat(parts) for parts in round_states], live,
+                remaining.sum(), live.sum())
+
+    def _materialize_hash_partial(self, key_cvs, rep_rows, st, sl,
+                                  n_live: int) -> Partial:
+        """A hash-pass result as a partial of its live slots: the keys
+        gather from the batch's key columns at the live groups only."""
+        idx = compaction_perm(sl)[0][:n_live]
+        ks = gather_cols(key_cvs, rep_rows[idx], None)
+        return (ks, [s[idx] for s in st],
+                torch.ones(n_live, dtype=torch.bool, device=sl.device),
+                n_live)
+
+    def _sort_and_segment(self, key_cvs, mask, nchunks):
+        """One stable sort of (dead last, then each key's null flag and
+        order keys), group boundaries, segment ids; the first row of each
+        segment gives its keys. Output has the input's rows; live
+        segments come first."""
+        cap = mask.shape[0]
+        dev = mask.device
+        arrays = [(~mask).to(torch.uint8)]
+        widths = [None]
+        for kcv, k, nc in zip(key_cvs, self.keys, nchunks):
+            arrays.append((~kcv.validity).to(torch.uint8))
+            arrays += sk.order_keys(kcv, k.dtype, nc)
+            widths += [None] + sk.key_widths(k.dtype, nc)
+        words = sk.pack_keys(arrays, widths)
+        perm = sk.lexsort(words)
+        boundary = sk.group_boundaries([w[perm] for w in words])
+        seg_ids = torch.cumsum(boundary.to(torch.int64), 0) - 1
+        live_sorted = mask[perm]
+        seg_live = seg_any(live_sorted, seg_ids, cap)
+        seg_start = torch.full((cap,), cap, dtype=torch.int64, device=dev)
+        seg_start.scatter_reduce_(0, seg_ids,
+                                  torch.arange(cap, device=dev), "amin",
+                                  include_self=True)
+        src_rows = perm[seg_start.clamp(0, max(cap - 1, 0))]
+        key_out = [take(kcv, src_rows, in_bounds=seg_live)
+                   for kcv in key_cvs]
+        return perm, seg_ids, live_sorted, seg_live, key_out
+
+    def _update_sorted(self, cvs, mask, nchunks):
+        key_cvs, inputs, mask = self._emit_inputs(cvs, mask)
+        cap = mask.shape[0]
+        perm, seg_ids, live, seg_live, key_out = \
+            self._sort_and_segment(key_cvs, mask, nchunks)
+        flat = []
+        for a, cv in zip(self.aggs, inputs):
+            scv = CV(cv.data[perm], cv.validity[perm])
+            flat += a.g_update(scv, live, seg_ids, cap)
+        return key_out, flat, seg_live
+
+    def _update_one(self, ctx: ExecContext, batch: DeviceBatch,
+                    hash_once: bool) -> Partial:
+        """The first pass over one input batch. Host seconds go to
+        hashPassTime or sortPassTime; each ends in a host read, so it
+        also absorbs the device work queued before it (the upload)."""
+        if self._hash_ok and not self._hash_disabled \
+                and batch.capacity > 0:
+            with ctx.timer(self._op_id, "hashPassTime"):
+                nchunks = self._batch_nchunks(batch)
+                key_cvs, rep_rows, st, sl, leftover, n_live = \
+                    self._hash_update(batch.cvs(), batch.row_mask, nchunks,
+                                      hash_once)
+                lo, nl = fetch_ints([leftover, n_live])
+                if lo == 0:
+                    ctx.add_metric(self._op_id, "hashPassBatches", 1)
+                    return self._materialize_hash_partial(
+                        key_cvs, rep_rows, st, sl, nl)
+            # bucket collisions past the last round: the exact sort path
+            # takes this batch and the rest of the query
+            self._hash_disabled = True
+        with ctx.timer(self._op_id, "sortPassTime"):
+            ctx.add_metric(self._op_id, "sortPassBatches", 1)
+            ks, st, sl = self._update_sorted(
+                batch.cvs(), batch.row_mask, self._batch_nchunks(batch))
+            return (ks, st, sl, batch.capacity)
+
+    # -- merge and finalize --------------------------------------------
+    def _merge_sorted(self, key_cvs, flat_states, mask, nchunks):
+        cap = mask.shape[0]
+        perm, seg_ids, live, seg_live, key_out = \
+            self._sort_and_segment(key_cvs, mask, nchunks)
+        out, i = [], 0
+        for a in self.aggs:
+            for r in a.state_reducers:
+                out.append(_seg_reduce(r, flat_states[i][perm], live,
+                                       seg_ids, cap))
+                i += 1
+        return key_out, out, seg_live
+
+    def _merge_partials(self, ctx: ExecContext, parts) -> Partial:
+        ctx.add_metric(self._op_id, "mergePasses", 1)
+        if len(parts) == 1:
+            ks, st, sl, _ = parts[0]
+        else:
+            ks = [concat_cvs([p[0][ki] for p in parts], k.dtype)
+                  for ki, k in enumerate(self.keys)]
+            st = [torch.cat([p[1][si] for p in parts])
+                  for si in range(len(parts[0][1]))]
+            sl = concat_masks([p[2] for p in parts])
+        nchunks = self._nchunks_for(ks, sl)
+        return self._compact_partial(*self._merge_sorted(ks, st, sl,
+                                                         nchunks))
+
+    def _compact_partial(self, ks, st, sl) -> Partial:
+        """A merged partial cut to its live groups, which the merge put
+        first: one host read for the group count and the string keys'
+        byte counts."""
+        cap = sl.shape[0]
+        nlive_t = sl.sum()
+        strs = [i for i, kcv in enumerate(ks) if kcv.offsets is not None]
+        got = fetch_ints([nlive_t] + [ks[i].offsets[nlive_t] for i in strs])
+        nlive, nbytes = got[0], dict(zip(strs, got[1:]))
+        if nlive == cap:
+            return (ks, st, sl, cap)
+        ks2 = [CV(kcv.data[:nbytes[i]], kcv.validity[:nlive],
+                  kcv.offsets[:nlive + 1]) if i in nbytes
+               else CV(kcv.data[:nlive], kcv.validity[:nlive])
+               for i, kcv in enumerate(ks)]
+        return (ks2, [s[:nlive] for s in st], sl[:nlive], nlive)
+
+    def _finalize(self, ks, st, sl):
+        outs, i = list(ks), 0
+        for a in self.aggs:
+            k = len(a.state_reducers)
+            v, ok = a.finalize(tuple(st[i:i + k]))
+            i += k
+            outs.append(CV(v, ok & sl))
+        return outs
+
+    def _emit_batch(self, part: Partial, emit_partial: bool) -> DeviceBatch:
+        ks, st, sl, cap = part
+        if emit_partial:
+            cvs = list(ks) + [CV(s, torch.ones_like(sl)) for s in st]
+        else:
+            cvs = self._finalize(ks, st, sl)
+        return DeviceBatch(make_table(self.schema, cvs, cap), cap, sl)
+
+    def _bucket_slice(self, part: Partial, bucket: int, nbuckets: int,
+                      seed: int) -> Optional[Partial]:
+        """The live rows of a partial whose keys hash to `bucket` of
+        `nbuckets` (murmur3 under `seed`), compacted; None when empty."""
+        ks, st, sl, _ = part
+        pids = partition_ids(ks, [k.dtype for k in self.keys], nbuckets,
+                             seed=seed)
+        cvs = list(ks) + [CV(s, torch.ones_like(sl)) for s in st]
+        out, n = compact(cvs, sl & (pids == bucket))
+        if n == 0:
+            return None
+        nk = len(ks)
+        return (out[:nk], [cv.data for cv in out[nk:]],
+                torch.ones(n, dtype=torch.bool, device=sl.device), n)
+
+    def _emit_final(self, ctx: ExecContext, parts: List[Partial],
+                    force_merge: bool = False, depth: int = 0):
+        """Merge the partials and emit finalized (or partial-format)
+        batches. Above maxMergeRows buffered rows, every partial splits
+        into K hash buckets of disjoint keys, and each bucket merges on
+        its own, recursing with a fresh seed on a bucket still too big."""
+        max_rows = ctx.conf.get(AGG_MAX_MERGE_ROWS)
+        total = sum(p[3] for p in parts)
+        nb = 1
+        while nb < 16 and total > nb * max_rows:
+            nb *= 2
+        emit_partial = self.mode == "partial"
+        if nb == 1:
+            with ctx.timer(self._op_id, "mergeTime"):
+                if (len(parts) > 1 or force_merge
+                        or (not emit_partial and parts[0][3] > 4096)):
+                    part = self._merge_partials(ctx, parts)
+                else:
+                    part = parts[0]
+                out = self._emit_batch(part, emit_partial)
+            yield out
+            return
+        seed = (0x5EED ^ (depth * 0x9E3779B9)) & 0x7FFFFFFF
+        for b in range(nb):
+            with ctx.timer(self._op_id, "mergeTime"):
+                parts_b = [q for q in (self._bucket_slice(p, b, nb, seed)
+                                       for p in parts) if q is not None]
+            if not parts_b:
+                continue
+            rows = sum(p[3] for p in parts_b)
+            if (rows > max_rows and depth + 1 < _MAX_BUCKET_DEPTH
+                    and rows < total):
+                ctx.add_metric(self._op_id, "numBucketRecursions", 1)
+                yield from self._emit_final(ctx, parts_b, force_merge,
+                                            depth + 1)
+                continue
+            with ctx.timer(self._op_id, "mergeTime"):
+                out = self._emit_batch(self._merge_partials(ctx, parts_b),
+                                       emit_partial)
+            yield out
+
+    def _execute_final(self, ctx: ExecContext, pid: int):
+        """Merge the partial-format batches of one exchange partition and
+        finalize; a merge always runs, since one exchanged batch holds
+        same-key rows of different map partitions."""
+        nk = len(self.keys)
+        parts = []
+        for batch in self.children[0].execute_partition(ctx, pid):
+            cvs = batch.cvs()
+            parts.append((cvs[:nk], [cv.data for cv in cvs[nk:]],
+                          batch.row_mask, batch.capacity))
+        if parts:
+            yield from self._emit_final(ctx, parts, force_merge=True)
+
+    def _empty_batch(self, device) -> DeviceBatch:
+        cvs = [CV(torch.zeros(dt.alloc_shape(f.dtype, 0),
+                              dtype=dt.torch_dtype(f.dtype), device=device),
+                  torch.zeros(0, dtype=torch.bool, device=device),
+                  torch.zeros(1, dtype=torch.int32, device=device)
+                  if f.dtype.is_variable_width else None)
+               for f in self.schema.fields]
+        return DeviceBatch(make_table(self.schema, cvs, 0), 0,
+                           torch.zeros(0, dtype=torch.bool, device=device))
+
+    def execute_partition(self, ctx: ExecContext, pid: int):
+        self._resolve_fusion()
+        if self.mode == "final":
+            yield from self._execute_final(ctx, pid)
+            return
+        child = self._base
+        child_pids = ([pid] if self.mode == "partial"
+                      else range(child.num_partitions(ctx)))
+        hash_once = (self._has_string_keys()
+                     and bool(ctx.conf.get(AGG_STRING_HASH_KEYS)))
+        max_rows = ctx.conf.get(AGG_MAX_MERGE_ROWS)
+        parts: List[Partial] = []
+        buffered = 0
+        compactable = True      # do eager merges still shrink the state?
+        for cpid in child_pids:
+            for batch in child.execute_partition(ctx, cpid):
+                ctx.add_metric(self._op_id, "inputBatches", 1)
+                part = self._update_one(ctx, batch, hash_once)
+                parts.append(part)
+                buffered += part[3]
+                if compactable and buffered > max_rows and len(parts) > 1:
+                    with ctx.timer(self._op_id, "mergeTime"):
+                        merged = self._merge_partials(ctx, parts)
+                    parts, buffered = [merged], merged[3]
+                    # high cardinality: merging no longer shrinks
+                    compactable = merged[3] <= max_rows // 2
+        if not parts:
+            if self.mode != "partial":
+                yield self._empty_batch(ctx.device)
+            return
+        yield from self._emit_final(ctx, parts)

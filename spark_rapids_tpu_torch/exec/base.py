@@ -69,19 +69,27 @@ class TpuExec:
         parent may apply inline, or None."""
         return None
 
+    def preserves_ordinals(self) -> bool:
+        """Does fusable_stage keep the child's columns where they were (a
+        filter does, a projection does not)?"""
+        return False
+
     def execute_all(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         for pid in range(self.num_partitions(ctx)):
             yield from self.execute_partition(ctx, pid)
 
 
-def collapse_fusable(node: TpuExec):
+def collapse_fusable(node: TpuExec, require_ordinals: bool = False):
     """Walk down a chain of filter/project stages and return
     (base_child, composed_fn, n_stages); composed_fn applies the stages
-    bottom-up to a base batch's (cvs, mask)."""
+    bottom-up to a base batch's (cvs, mask). require_ordinals stops at a
+    stage that renumbers columns, for a parent that reads the base
+    batch's columns by ordinal."""
     stages = []
     while True:
         fn = node.fusable_stage()
-        if fn is None:
+        if fn is None or (require_ordinals
+                          and not node.preserves_ordinals()):
             break
         stages.append(fn)
         node = node.children[0]

@@ -8,7 +8,9 @@ mask.
 `to_device` and `to_host` are the port's only H2D and D2H paths. On CUDA
 each packs all buffers of a call into one pinned host buffer, so a batch
 moves in ONE copy on the current stream; on the CPU they only wrap or
-unwrap the numpy buffers.
+unwrap the numpy buffers. Every buffer of a packed copy, a string
+column's offsets and bytes included, starts on a 16 B boundary, so a
+kernel may read it in 16 B vectors.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from ..columnar.table import Table
 from ..ops.kernel_utils import CV
+from ..utils import transfer
 
 __all__ = ["DeviceBatch", "to_device", "to_host"]
 
@@ -66,6 +69,8 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     D2H into pinned memory, one stream synchronize; the arrays are views
     of that pinned buffer."""
     tensors = [t.contiguous() for t in tensors]
+    if tensors:
+        transfer.note_sync()
     if not tensors or all(t.device.type == "cpu" for t in tensors):
         return [t.numpy() for t in tensors]
     nbytes = [t.numel() * t.element_size() for t in tensors]
@@ -114,7 +119,8 @@ class DeviceBatch:
         return self.row_mask.device
 
     def cvs(self) -> List[CV]:
-        return [CV(c.data, c.validity) for c in self.table.columns]
+        return [CV(c.data, c.validity, c.offsets)
+                for c in self.table.columns]
 
     def __repr__(self):
         return (f"DeviceBatch(rows<={self.num_rows}, cap={self.capacity}, "

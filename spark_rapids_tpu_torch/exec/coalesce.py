@@ -7,8 +7,8 @@ from typing import List
 
 import torch
 
+from ..ops.concat import concat_cvs
 from ..ops.gather import compact
-from ..ops.kernel_utils import CV
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch
 from .nodes import make_table
@@ -31,10 +31,8 @@ class CoalesceBatchesExec(TpuExec):
     def _flush(self, pending: List[DeviceBatch]):
         if len(pending) == 1:
             return pending[0]
-        ncols = len(pending[0].table.columns)
-        cvs = [CV(torch.cat([b.cvs()[i].data for b in pending]),
-                  torch.cat([b.cvs()[i].validity for b in pending]))
-               for i in range(ncols)]
+        cvs = [concat_cvs([b.cvs()[i] for b in pending], f.dtype)
+               for i, f in enumerate(self.schema.fields)]
         mask = torch.cat([b.row_mask for b in pending])
         out_cvs, n = compact(cvs, mask)
         return DeviceBatch(make_table(self.schema, out_cvs, n), n,

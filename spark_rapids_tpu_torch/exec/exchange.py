@@ -2,13 +2,16 @@
 
 Map side, once per child batch, on the device: partition ids (for one
 int32/date key the Hopper kernel of `ops/partition_kernels.py`, else the
-murmur3 fold of `ops/hash.py`), dead rows to an overflow bucket n, a
-stable argsort by target, per-partition counts, and one gather; then ONE
-copy to pinned host memory and host slicing into per-reduce pieces, in
-map-partition order. Reduce side: a partition's pieces concatenate on
-the host and move to the device in ONE copy, one batch per non-empty
-partition. This is the JAX package's data path with its shuffle files
-replaced by pieces held in this process's memory.
+murmur3 fold of `ops/hash.py`, string keys included), dead rows to an
+overflow bucket n, a stable argsort by target, per-partition counts, and
+one gather (a string column's bytes too); then ONE copy to pinned host
+memory and host slicing into per-reduce pieces, in map-partition order.
+Reduce side: a partition's pieces concatenate on the host (string
+offsets rebased onto the joined bytes) and move to the device in ONE
+copy, one batch per non-empty partition. This is the JAX package's data
+path with its shuffle files replaced by pieces held in this process's
+memory. A grouped aggregate's partial states (keys plus flat state
+columns) take the same path.
 """
 from __future__ import annotations
 
@@ -18,10 +21,10 @@ import numpy as np
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.column import Column
+from ..columnar.column import Column, buffer_names
 from ..columnar.table import Schema, Table
 from ..expr.expressions import EmitCtx, Expression
-from ..ops.gather import take_fixed
+from ..ops.gather import take
 from ..ops.hash import partition_ids
 from ..ops.partition_kernels import partition_ids_i32
 from .base import ExecContext, TpuExec
@@ -59,17 +62,20 @@ class ShuffleExchangeExec(TpuExec):
 
     def _map_batch(self, batch: DeviceBatch):
         """Partition one batch on the device; return its host copy:
-        per-column (data, validity) sorted by target, and the counts."""
+        per-column buffers ({"data", "validity"[, "offsets"]}) sorted by
+        target, and the counts."""
         cvs, mask = batch.cvs(), batch.row_mask
         pids = self._partition_ids(cvs, mask)
         eff = torch.where(mask, pids, self.n)
         order = torch.argsort(eff, stable=True)
         counts = torch.bincount(eff.to(torch.int64),
                                 minlength=self.n + 1)[:self.n]
-        out = [take_fixed(cv, order, mask[order]) for cv in cvs]
-        host = to_host([t for cv in out for t in (cv.data, cv.validity)]
-                       + [counts])
-        return host[:-1], host[-1]
+        out = [take(cv, order, mask[order]) for cv in cvs]
+        names = [buffer_names(f.dtype) for f in self.schema.fields]
+        host = iter(to_host([getattr(cv, b) for cv, bs in zip(out, names)
+                             for b in bs] + [counts]))
+        cols = [{b: next(host) for b in bs} for bs in names]
+        return cols, next(host)
 
     def _ensure_shuffled(self, ctx: ExecContext):
         if self._pieces is not None:
@@ -86,8 +92,8 @@ class ShuffleExchangeExec(TpuExec):
                     starts = np.concatenate([[0], np.cumsum(counts)])
                     for rp in np.flatnonzero(counts):
                         lo, hi = int(starts[rp]), int(starts[rp + 1])
-                        pieces[rp].append(([c[lo:hi] for c in cols],
-                                           hi - lo))
+                        pieces[rp].append(([_slice(c, lo, hi)
+                                            for c in cols], hi - lo))
         self._pieces = pieces
 
     def execute_partition(self, ctx: ExecContext, pid: int):
@@ -96,12 +102,39 @@ class ShuffleExchangeExec(TpuExec):
         total = sum(rows for _, rows in subs)
         if total == 0:
             return
-        ncols = len(self.schema.fields)
+        names = [buffer_names(f.dtype) for f in self.schema.fields]
         with ctx.timer(self._op_id, "reduceTime"):
-            host = [np.concatenate([cols[j] for cols, _ in subs])
-                    for j in range(2 * ncols)]
-            dev = to_device(host, ctx.device)
-        cols = [Column(f.dtype, total, dev[2 * i], dev[2 * i + 1])
-                for i, f in enumerate(self.schema.fields)]
+            host = [a for j in range(len(names))
+                    for a in _concat([cols[j] for cols, _ in subs],
+                                     names[j])]
+            dev = iter(to_device(host, ctx.device))
+        cols = [Column(f.dtype, total, *[next(dev) for _ in bs])
+                for f, bs in zip(self.schema.fields, names)]
         yield DeviceBatch(Table(self.schema.names, cols), total,
                           device=ctx.device)
+
+
+def _slice(col: dict, lo: int, hi: int) -> dict:
+    """Rows [lo, hi) of one column's host buffers (views; a string
+    column's offsets stay absolute into its bytes)."""
+    out = {"data": col["data"][lo:hi], "validity": col["validity"][lo:hi]}
+    if "offsets" in col:
+        off = col["offsets"][lo:hi + 1]
+        out["offsets"] = off
+        out["data"] = col["data"][off[0]:off[-1]]
+    return out
+
+
+def _concat(parts, names):
+    """One column's pieces joined on the host, in `names` order; string
+    offsets rebased onto the joined bytes."""
+    joined = {b: np.concatenate([p[b] for p in parts])
+              for b in ("data", "validity")}
+    if "offsets" in names:
+        offs, base = [np.zeros(1, np.int32)], 0
+        for p in parts:
+            off = p["offsets"]
+            offs.append(off[1:] - off[0] + base)
+            base += int(off[-1] - off[0])
+        joined["offsets"] = np.concatenate(offs).astype(np.int32)
+    return [joined[b] for b in names]

@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 from typing import Iterator, List, Optional, Sequence
 
-from ..columnar.column import Column
+from ..columnar.column import Column, buffer_names
 from ..columnar.table import Schema, Table
 from ..config import PARQUET_COALESCING_TARGET, PARQUET_READER_TYPE
 from ..expr.expressions import EmitCtx, Expression
@@ -28,7 +28,7 @@ __all__ = ["InMemoryScanExec", "ParquetScanExec", "ProjectExec",
 
 def make_table(schema: Schema, cvs: Sequence[CV], num_rows: int) -> Table:
     return Table(schema.names, [Column(f.dtype, num_rows, cv.data,
-                                       cv.validity)
+                                       cv.validity, cv.offsets)
                                 for f, cv in zip(schema.fields, cvs)])
 
 
@@ -265,6 +265,9 @@ class FilterExec(TpuExec):
         super().__init__([child], child.schema)
         self.bound = bound_cond
 
+    def preserves_ordinals(self):
+        return True
+
     def fusable_stage(self):
         def fn(cvs, mask):
             ctx = EmitCtx(cvs, mask.shape[0], mask.device)
@@ -283,13 +286,13 @@ class FilterExec(TpuExec):
 def _batch_to_arrow(batch: DeviceBatch):
     import pyarrow as pa
     cols = batch.table.columns
-    host = to_host([t for c in cols for t in (c.data, c.validity)]
+    host = to_host([t for c in cols for t in c.buffers()]
                    + [batch.row_mask])
     mask = host[-1][:batch.num_rows]
-    arrs = [Column.arrow_from_host(c.dtype, c.length,
-                                   {"data": host[2 * i],
-                                    "validity": host[2 * i + 1]})
-            for i, c in enumerate(cols)]
+    it = iter(host)
+    arrs = [Column.arrow_from_host(
+        c.dtype, c.length, {k: next(it) for k in buffer_names(c.dtype)})
+        for c in cols]
     at = (pa.Table.from_arrays(arrs, names=list(batch.table.names))
           if arrs else pa.table({}))
     if at.num_rows == 0 and batch.num_rows > 0:

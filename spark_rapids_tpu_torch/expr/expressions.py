@@ -2,11 +2,13 @@
 tensors.
 
 The port's copy of the JAX package's expression layer, cut to the slice:
-column references, literals, aliases, decimal64 arithmetic (+, -, *),
-comparisons, Kleene AND/OR/NOT and the numeric casts. `bind(schema)`
-resolves names and types exactly as the JAX package does; `emit(ctx)`
-evaluates the bound tree eagerly and returns a CV. Results whose decimal
-precision exceeds 18 raise NotPorted at bind time.
+column references (string columns included), literals, aliases, decimal
+arithmetic (+, -, *; above precision 18 on the exact limb kernels of
+`ops/decimal128.py`), comparisons, Kleene AND/OR/NOT and the numeric
+casts. `bind(schema)` resolves names and types exactly as the JAX
+package does; `emit(ctx)` evaluates the bound tree eagerly and returns a
+CV. A comparison or cast of a decimal above precision 18, and string
+literals, raise NotPorted at bind time.
 """
 from __future__ import annotations
 
@@ -285,6 +287,8 @@ def _coerce_decimal(l, r):
             # Spark: Byte->dec(3,0) Short->dec(5,0) Int->dec(10,0)
             # Long->dec(20,0)
             p = {1: 3, 2: 5, 4: 10, 8: 20}[e.dtype.np_dtype.itemsize]
+            if p > dt.DecimalType.MAX_INT64_PRECISION:
+                raise NotPorted(f"cast {e.dtype} -> decimal({p},0)")
             return Cast.bound(e, dt.DecimalType(p, 0))
         raise UnsupportedExpr(f"decimal with {e.dtype}")
     if l.dtype.is_floating or r.dtype.is_floating:
@@ -307,6 +311,14 @@ def _adjust_precision_scale(p: int, s: int):
     int_digits = p - s
     min_scale = min(s, 6)
     return 38, max(38 - int_digits, min_scale)
+
+
+def _as_dec128(cv: CV, dtype) -> CV:
+    """Widen a decimal64 CV to the [n, 2] limb layout (no-op for 128)."""
+    if dtype.is_decimal128:
+        return cv
+    from ..ops.decimal128 import dec_from_i64
+    return CV(dec_from_i64(cv.data), cv.validity)
 
 
 def _dec_scale_shift(cv: CV, shift: int) -> CV:
@@ -336,6 +348,7 @@ class _BinaryOp(Expression):
 
 class _Arith(_BinaryOp):
     kernel = None
+    dec128_fn = None    # decimal128.dec_add / dec_sub
 
     def _resolve_type(self):
         self.left, self.right, out = _coerce_pair(self.left, self.right)
@@ -345,7 +358,6 @@ class _Arith(_BinaryOp):
             s = max(s1, s2)
             p = max(p1 - s1, p2 - s2) + s + 1
             self.dtype = dt.DecimalType(*_adjust_precision_scale(p, s))
-            _reject_d128(self.left.dtype, self.right.dtype, self.dtype)
         else:
             self.dtype = out
 
@@ -353,6 +365,21 @@ class _Arith(_BinaryOp):
         l, r = self.left.emit(ctx), self.right.emit(ctx)
         if isinstance(self.dtype, dt.DecimalType):
             s = self.dtype.scale
+            if self.dtype.is_decimal128:
+                # exact 128-bit limb path: both sides rescaled to the
+                # result scale, any overflow nulls the row
+                from ..ops import decimal128 as d128
+                la, o1 = d128.dec_rescale(
+                    _as_dec128(l, self.left.dtype).data,
+                    self.left.dtype.scale, s, 38)
+                ra, o2 = d128.dec_rescale(
+                    _as_dec128(r, self.right.dtype).data,
+                    self.right.dtype.scale, s, 38)
+                res, o3 = type(self).dec128_fn(la, ra)
+                ok = d128.fits_precision(d128.to_limbs(res),
+                                         self.dtype.precision)
+                return CV(res, l.validity & r.validity & ~o1 & ~o2 & ~o3
+                          & ok)
             l = _dec_scale_shift(l, s - self.left.dtype.scale)
             r = _dec_scale_shift(r, s - self.right.dtype.scale)
         return type(self).kernel(l, r)
@@ -362,10 +389,20 @@ class Add(_Arith):
     symbol = "+"
     kernel = staticmethod(ew.add)
 
+    @staticmethod
+    def dec128_fn(a, b):
+        from ..ops.decimal128 import dec_add
+        return dec_add(a, b)
+
 
 class Subtract(_Arith):
     symbol = "-"
     kernel = staticmethod(ew.sub)
+
+    @staticmethod
+    def dec128_fn(a, b):
+        from ..ops.decimal128 import dec_sub
+        return dec_sub(a, b)
 
 
 class Multiply(_BinaryOp):
@@ -376,14 +413,23 @@ class Multiply(_BinaryOp):
         if out is None:
             p1, s1 = self.left.dtype.precision, self.left.dtype.scale
             p2, s2 = self.right.dtype.precision, self.right.dtype.scale
+            self._full_scale = s1 + s2
             self.dtype = dt.DecimalType(
                 *_adjust_precision_scale(p1 + p2 + 1, s1 + s2))
-            _reject_d128(self.left.dtype, self.right.dtype, self.dtype)
         else:
             self.dtype = out
 
     def emit(self, ctx):
-        return ew.mul(self.left.emit(ctx), self.right.emit(ctx))
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        if isinstance(self.dtype, dt.DecimalType) \
+                and self.dtype.is_decimal128:
+            from ..ops import decimal128 as d128
+            res, ovf = d128.dec_mul_scaled(
+                _as_dec128(l, self.left.dtype).data,
+                _as_dec128(r, self.right.dtype).data,
+                self._full_scale - self.dtype.scale, self.dtype.precision)
+            return CV(res, l.validity & r.validity & ~ovf)
+        return ew.mul(l, r)
 
 
 class _Comparison(_BinaryOp):

@@ -5,7 +5,7 @@ from __future__ import annotations
 from .expr import aggregates as _agg
 from .expr.expressions import Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count"]
+__all__ = ["col", "lit", "sum", "count", "avg", "mean"]
 
 
 def sum(e):  # noqa: A001 - match pyspark naming
@@ -16,6 +16,13 @@ def count(e):
     if isinstance(e, str) and e == "*":
         return _agg.CountStar()
     return _agg.Count(_to_expr(e))
+
+
+def avg(e):
+    return _agg.Avg(_to_expr(e))
+
+
+mean = avg
 
 
 def _to_expr(e) -> Expression:

@@ -1,14 +1,20 @@
-"""Spark-compatible Murmur3_x86_32 (seed 42) and hash partitioning.
+"""Spark-compatible Murmur3_x86_32 (seed 42), hash partitioning, and the
+aggregation's hash-once 64-bit row hash.
 
-The port's copy of the JAX package's `ops/hash.py` for fixed-width keys:
-bool, byte/short/int/date (hashInt) and long/timestamp/decimal64
-(hashLong), folded left to right across key columns, and
-`pmod(hash, n)` partition ids. Bit-identical to the JAX functions.
+The port's copy of the JAX package's `ops/hash.py`: murmur3 of bool,
+byte/short/int/date (hashInt), long/timestamp/decimal64 (hashLong) and
+string/binary keys (hashUnsafeBytes, with the JAX package's fold past 64
+bytes, docs/compatibility.md:59), folded left to right across key
+columns; `pmod(hash, n)` partition ids; and `fold64` / `avalanche32` /
+`hash_once_rows`, the xxhash64-style bucket hash of the grouped
+aggregation. Bit-identical to the JAX functions. (Float keys and the
+Spark-facing xxhash64 / hive hashes wait.)
 
 torch has no unsigned 32-bit arithmetic on every build, and `>>` on
-int32 is arithmetic. So every 32-bit word here lives in an int64 tensor
+int64 is arithmetic. So every 32-bit word here lives in an int64 tensor
 holding its unsigned value in [0, 2^32); multiplies are split so no
-product leaves int64, and each step masks back to 32 bits.
+product leaves int64, and each step masks back to 32 bits. A 64-bit
+word is a pair (hi, lo) of such halves.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ from ..errors import NotPorted
 from .kernel_utils import CV
 
 __all__ = ["hash_int32", "hash_int64", "murmur3_cv", "murmur3_row_hash",
-           "partition_ids", "to_signed32"]
+           "partition_ids", "to_signed32", "fold64", "avalanche32",
+           "hash_once_rows"]
 
 _M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
@@ -90,9 +97,53 @@ def murmur3_cv(cv: CV, dtype: dt.DataType, seed):
     elif isinstance(dtype, (dt.LongType, dt.TimestampType)) or (
             isinstance(dtype, dt.DecimalType) and not dtype.is_decimal128):
         h = hash_int64(x, seed)
+    elif dtype.is_variable_width:
+        h = _hash_string(cv, seed)
     else:
         raise NotPorted(f"hash({dtype})")
     return torch.where(cv.validity, h, seed)
+
+
+def _hash_string(cv: CV, seed):
+    """Spark Murmur3_x86_32.hashUnsafeBytes: mix each full 4-byte
+    little-endian word, then each tail byte as a sign-extended int in its
+    own round. Exact for strings up to 64 bytes; past that the JAX
+    package folds in the last word instead of the tail, and so does
+    this."""
+    starts = cv.offsets[:-1].to(torch.int64)
+    lens = (cv.offsets[1:] - cv.offsets[:-1]).to(torch.int64)
+    data = cv.data
+    dcap = data.shape[0]
+
+    def byte_at(pos):
+        if dcap == 0:
+            return torch.zeros_like(pos)
+        return data[pos.clamp(0, dcap - 1)].to(torch.int64)
+
+    maxb = 64
+    h1 = seed
+    nfull = lens // 4
+    for w in range(maxb // 4):
+        base = starts + 4 * w
+        word = torch.zeros_like(starts)
+        for b in range(4):
+            word = word | (byte_at(base + b) << (8 * b))
+        h1 = torch.where(w < nfull, _mix_h1(h1, _mix_k1(word)), h1)
+    overlong = lens > maxb
+    aligned = nfull * 4
+    for t in range(3):
+        pos = aligned + t
+        byte = byte_at(starts + pos)
+        signed = torch.where(byte >= 128, byte - 256, byte)
+        active = (pos < lens) & ~overlong
+        h1 = torch.where(active, _mix_h1(h1, _mix_k1(_u32(signed))), h1)
+    tail_base = torch.maximum(starts, starts + lens - 4)
+    tail = torch.zeros_like(starts)
+    for b in range(4):
+        byte = torch.where(b < lens, byte_at(tail_base + b), 0)
+        tail = tail | (byte << (8 * b))
+    h1 = torch.where(overlong, _mix_h1(h1, _mix_k1(tail)), h1)
+    return _fmix(h1, lens)
 
 
 def murmur3_row_hash(cvs, dtypes, seed: int = 42):
@@ -115,3 +166,89 @@ def pmod_signed(h, num_partitions: int):
 def partition_ids(cvs, dtypes, num_partitions: int, seed: int = 42):
     """Spark's HashPartitioning: pmod(murmur3, n)."""
     return pmod_signed(murmur3_row_hash(cvs, dtypes, seed), num_partitions)
+
+
+# ----------------------------------------------------------------------
+# Hash-once 64-bit keying (xxhash64-style) for the aggregation's hash
+# pass: the bucket hash folds the same key arrays the exact verify step
+# compares, so a string key is read once. Engine-internal; exchanges keep
+# Spark's murmur3.
+# ----------------------------------------------------------------------
+_P64_1 = 0x9E3779B185EBCA87
+_P64_2 = 0xC2B2AE3D27D4EB4F
+_P64_3 = 0x165667B19E3779F9
+
+
+def _mul32_wide(x, c: int):
+    """The 64-bit product of x in [0, 2^32) and a 32-bit constant, as
+    (hi, lo) halves; each partial product stays below 2^48."""
+    t0 = x * (c & 0xFFFF)
+    t1 = x * (c >> 16)
+    s = (t0 & _M32) + ((t1 & 0xFFFF) << 16)
+    return ((t0 >> 32) + (t1 >> 16) + (s >> 32)) & _M32, s & _M32
+
+
+def _mul64(w, c: int):
+    """(hi, lo) * c mod 2^64 for a 64-bit constant c."""
+    hi, lo = w
+    ch, cl = c >> 32, c & _M32
+    p_hi, p_lo = _mul32_wide(lo, cl)
+    return (p_hi + _mul32(hi, cl) + _mul32(lo, ch)) & _M32, p_lo
+
+
+def _rotl64(w, r: int):
+    """Rotate left by 0 < r < 32."""
+    hi, lo = w
+    return (((hi << r) & _M32) | (lo >> (32 - r)),
+            ((lo << r) & _M32) | (hi >> (32 - r)))
+
+
+def _xor64(a, b):
+    return a[0] ^ b[0], a[1] ^ b[1]
+
+
+def _add64c(w, c: int):
+    hi, lo = w
+    lo = lo + (c & _M32)
+    return (hi + (c >> 32) + (lo >> 32)) & _M32, lo & _M32
+
+
+def _split64(a):
+    """An integer key array as the halves of its uint64 value (signed
+    values sign-extend, as a cast to uint64 does)."""
+    a = a.to(torch.int64)
+    return (a >> 32) & _M32, a & _M32
+
+
+def fold64(h, a):
+    """One xxhash64-style round folding integer array `a` into the 64-bit
+    accumulator `h` (a (hi, lo) pair)."""
+    a64 = _mul64(_rotl64(_mul64(_split64(a), _P64_2), 31), _P64_1)
+    h = _xor64(h, a64)
+    return _add64c(_mul64(_rotl64(h, 27), _P64_1), _P64_3)
+
+
+def avalanche32(h):
+    """A 64-bit accumulator finalized to its low 32 bits (unsigned, in
+    int64), the bucket index source."""
+    hi, lo = h
+    h = (hi, lo ^ (hi >> 1))                                # ^= h >> 33
+    hi, lo = _mul64(h, _P64_2)
+    h = (hi ^ (hi >> 29), lo ^ ((lo >> 29) | ((hi << 3) & _M32)))
+    hi, lo = _mul64(h, _P64_3)
+    return lo ^ hi                                          # ^= h >> 32
+
+
+def hash_once_rows(eq_arrays, seed: int = 0x9E3779B1):
+    """Row bucket hash from the equality key arrays (null flags and
+    order-key words, adjacent chunk words packed): every array of every
+    column folds into one 64-bit accumulator, avalanched to 32 bits.
+    Equal rows hash equal by construction."""
+    n = eq_arrays[0][0].shape[0] if eq_arrays and eq_arrays[0] else 0
+    dev = eq_arrays[0][0].device
+    h = (torch.zeros(n, dtype=torch.int64, device=dev),
+         torch.full((n,), seed & _M32, dtype=torch.int64, device=dev))
+    for arrs in eq_arrays:
+        for a in arrs:
+            h = fold64(h, a)
+    return avalanche32(h)

@@ -1,7 +1,7 @@
 """Logical plan nodes built by the DataFrame API: the ported subset.
 
-Scans (in-memory Arrow, Parquet), Project, Filter, Aggregate and
-Repartition. Expressions bind against the child schema when a node is
+Scans (in-memory Arrow, Parquet), Project, Filter, Aggregate (grouped
+or not), Sort and Repartition. Expressions bind against the child schema when a node is
 built, as in the JAX package; an expression the port cannot evaluate
 raises there (NotPorted or UnsupportedExpr) instead of planning a host
 fallback.
@@ -15,7 +15,7 @@ from ..expr import aggregates as agg
 from ..expr.expressions import Expression
 
 __all__ = ["LogicalPlan", "InMemoryScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "Repartition"]
+           "Filter", "Aggregate", "SortOrder", "Sort", "Repartition"]
 
 
 class LogicalPlan:
@@ -110,6 +110,36 @@ class Aggregate(LogicalPlan):
     @property
     def schema(self):
         return self._schema
+
+
+class SortOrder:
+    def __init__(self, expr: Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.expr = expr
+        self.ascending = ascending
+        # Spark default: nulls first for asc, nulls last for desc
+        self.nulls_first = ascending if nulls_first is None else nulls_first
+
+    def __repr__(self):
+        d = "ASC" if self.ascending else "DESC"
+        nf = "NULLS FIRST" if self.nulls_first else "NULLS LAST"
+        return f"{self.expr!r} {d} {nf}"
+
+
+class Sort(LogicalPlan):
+    """A global sort: orders bind against the child schema."""
+
+    def __init__(self, child: LogicalPlan, orders: Sequence[SortOrder]):
+        self.child = child
+        self.children = [child]
+        self.orders = list(orders)
+        self.bound_orders = [SortOrder(o.expr.bind(child.schema),
+                                       o.ascending, o.nulls_first)
+                             for o in self.orders]
+
+    @property
+    def schema(self):
+        return self.child.schema
 
 
 class Repartition(LogicalPlan):

@@ -88,6 +88,12 @@ def prune(plan: L.LogicalPlan,
         creq = _refs_of_all(list(plan.keys) +
                             [a.child for _, a in plan.aggs])
         return L.Aggregate(prune(plan.child, creq), plan.keys, plan.aggs)
+    if isinstance(plan, L.Sort):
+        creq = None
+        if required is not None:
+            r = _refs_of_all([o.expr for o in plan.orders])
+            creq = None if r is None else (required | r)
+        return L.Sort(prune(plan.child, creq), plan.orders)
     if isinstance(plan, L.Repartition):
         return L.Repartition(prune(plan.child, None), plan.num_partitions,
                              plan.keys)
@@ -102,6 +108,8 @@ def _rebuild(plan: L.LogicalPlan, kids) -> L.LogicalPlan:
         return L.Filter(kids[0], plan.condition)
     if isinstance(plan, L.Aggregate):
         return L.Aggregate(kids[0], plan.keys, plan.aggs)
+    if isinstance(plan, L.Sort):
+        return L.Sort(kids[0], plan.orders)
     if isinstance(plan, L.Repartition):
         return L.Repartition(kids[0], plan.num_partitions, plan.keys)
     return plan

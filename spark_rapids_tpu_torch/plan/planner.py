@@ -1,20 +1,27 @@
 """Planner: logical plan -> physical plan of the port's execs.
 
 One rule per logical node class, as in the JAX package's planner, for the
-ported nodes. A grouped Aggregate, a mesh exchange and any node without
-a rule raise NotPorted; nothing falls back to another engine.
+ported nodes. A grouped Aggregate over a multi-partition input becomes
+the JAX package's three stages: a partial aggregate per input partition,
+a hash exchange of the partial states on the grouping keys, and a final
+aggregate per exchange partition (without the AQE reader, which the
+port does not have yet). A mesh exchange and any node without a rule
+raise NotPorted; nothing falls back to another engine.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Type
 
-from ..config import BATCH_SIZE_ROWS, MESH_DEVICES, TpuConf
+from ..config import (BATCH_SIZE_ROWS, MESH_DEVICES, SHUFFLE_PARTITIONS,
+                      TpuConf)
 from ..errors import NotPorted
 from ..exec import nodes as x
-from ..exec.aggregate import UngroupedAggExec
-from ..exec.base import TpuExec
+from ..exec.aggregate import HashAggregateExec, UngroupedAggExec
+from ..exec.base import ExecContext, TpuExec
 from ..exec.coalesce import CoalesceBatchesExec
 from ..exec.exchange import ShuffleExchangeExec
+from ..exec.sort import SortExec
+from ..expr.expressions import BoundRef
 from . import logical as L
 from .optimizer import optimize
 
@@ -68,11 +75,34 @@ def _filter(node, conv, conf):
 
 @_rule(L.Aggregate)
 def _agg(node, conv, conf):
-    if node.keys:
-        raise NotPorted("grouped Aggregate (HashAggregateExec)")
     child = conv(node.child)
-    return UngroupedAggExec(child, [n for n, _ in node.bound_aggs],
-                            [a for _, a in node.bound_aggs], node.schema)
+    names = [n for n, _ in node.bound_aggs]
+    aggs = [a for _, a in node.bound_aggs]
+    if not node.keys:
+        return UngroupedAggExec(child, names, aggs, node.schema)
+    key_names = [k.name for k in node.keys]
+    nparts = conf.get(SHUFFLE_PARTITIONS)
+    if conf.get(MESH_DEVICES) > 1:
+        raise NotPorted("mesh exchange (MeshExchangeExec)")
+    if child.num_partitions(ExecContext(conf, None)) > 1 and nparts > 1:
+        # partial per input partition (rows shrink to the group count),
+        # exchange of the states on the keys, final merge per partition
+        partial = HashAggregateExec(child, key_names, node.bound_keys,
+                                    names, aggs, child.schema,
+                                    mode="partial")
+        pkeys = [BoundRef(i, k.dtype, f.name)
+                 for i, (k, f) in enumerate(
+                     zip(node.bound_keys, partial.schema.fields))]
+        exch = ShuffleExchangeExec(partial, nparts, pkeys, partial.schema)
+        return HashAggregateExec(exch, key_names, pkeys, names, aggs,
+                                 node.schema, mode="final")
+    return HashAggregateExec(child, key_names, node.bound_keys, names,
+                             aggs, node.schema)
+
+
+@_rule(L.Sort)
+def _sort(node, conv, conf):
+    return SortExec(conv(node.child), node.bound_orders, node.schema)
 
 
 @_rule(L.Repartition)

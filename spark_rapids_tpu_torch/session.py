@@ -2,7 +2,8 @@
 
 The same surface as the JAX package's `TpuSession` for the ported slice:
 `create_dataframe`, `read.parquet`, and `filter`, `select`, `agg`,
-`repartition`, `to_arrow` and `collect` on a DataFrame. A session runs on
+`group_by(...).agg`, `sort`, `repartition`, `to_arrow` and `collect` on
+a DataFrame. A session runs on
 one torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device.
 """
@@ -108,12 +109,19 @@ class DataFrame:
                          L.Filter(self._plan, _to_expr(cond)))
 
     def group_by(self, *keys) -> GroupedData:
-        """Grouped aggregation is not ported yet: its plan raises
-        NotPorted when the DataFrame runs."""
         return GroupedData(self, [_to_expr(k) for k in keys])
+
+    groupBy = group_by
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
+
+    def sort(self, *orders, ascending=True) -> "DataFrame":
+        sos = [o if isinstance(o, L.SortOrder)
+               else L.SortOrder(_to_expr(o), ascending) for o in orders]
+        return DataFrame(self._session, L.Sort(self._plan, sos))
+
+    orderBy = sort
 
     def repartition(self, n: int, *keys) -> "DataFrame":
         ks = [_to_expr(k) for k in keys] or None
@@ -134,9 +142,11 @@ class DataFrame:
 
     def last_metrics(self) -> Dict[str, Dict[str, float]]:
         """Per-operator metrics of this DataFrame's most recent action:
-        host seconds per layer (scanTime, decodeTime, mapTime, sliceTime,
-        reduceTime, collectTime) and counts (mapBatches,
-        skippedRowGroups)."""
+        host seconds per layer (scanTime, decodeTime, hashPassTime,
+        sortPassTime, mergeTime, mapTime, sliceTime, reduceTime, sortTime,
+        collectTime) and counts (mapBatches, skippedRowGroups,
+        inputBatches, hashPassBatches, sortPassBatches, mergePasses,
+        numBucketRecursions)."""
         return getattr(self, "_last_metrics", {})
 
     def collect(self) -> List[tuple]:

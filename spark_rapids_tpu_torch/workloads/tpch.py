@@ -1,7 +1,7 @@
-"""TPC-H lineitem generator, Q6, and its numpy reference.
+"""TPC-H lineitem generator, Q6 and Q1, and their numpy references.
 
 The port's own copy of the JAX package's `workloads/tpch.py` pieces that
-Q6 needs. `gen_lineitem(sf, seed)` draws the same numbers in the same
+Q6 and Q1 need. `gen_lineitem(sf, seed)` draws the same numbers in the same
 order, so it builds a table equal, column for column, to the first eight
 columns of the JAX generator's.
 """
@@ -16,12 +16,16 @@ from .. import functions as F
 from ..expr.expressions import col, lit
 
 __all__ = ["LINEITEM_ROWS_PER_SF", "dec_from_unscaled", "day",
-           "gen_lineitem", "q6", "q6_numpy_baseline", "Q6_COLUMNS"]
+           "gen_lineitem", "q6", "q6_numpy_baseline", "Q6_COLUMNS", "q1",
+           "q1_numpy_baseline", "Q1_COLUMNS"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 
 #: the lineitem columns Q6 reads
 Q6_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+#: the lineitem columns Q1 reads
+Q1_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+              "l_returnflag", "l_linestatus", "l_shipdate")
 
 
 def dec_from_unscaled(vals: np.ndarray, precision: int, scale: int):
@@ -88,3 +92,38 @@ def q6_numpy_baseline(ship, disc_unscaled, qty_unscaled, price_unscaled):
          & (disc_unscaled >= 5) & (disc_unscaled <= 7)
          & (qty_unscaled < 2400))
     return int(np.sum(price_unscaled[m] * disc_unscaled[m]))
+
+
+def q1(df):
+    """TPC-H Q1: pricing summary report (grouped agg, 8 aggregates)."""
+    d = decimal.Decimal
+    disc_price = col("l_extendedprice") * (lit(d("1")) - col("l_discount"))
+    charge = disc_price * (lit(d("1")) + col("l_tax"))
+    return (df.filter(col("l_shipdate") <= 10471)
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum("l_quantity").alias("sum_qty"),
+                 F.sum("l_extendedprice").alias("sum_base_price"),
+                 F.sum(disc_price).alias("sum_disc_price"),
+                 F.sum(charge).alias("sum_charge"),
+                 F.avg("l_quantity").alias("avg_qty"),
+                 F.avg("l_extendedprice").alias("avg_price"),
+                 F.avg("l_discount").alias("avg_disc"),
+                 F.count("*").alias("count_order")))
+
+
+def q1_numpy_baseline(ship, rf, ls, qty, price, disc, tax):
+    """Vectorized single-core Q1 reference: grouped sums via bincount over
+    the 6 (returnflag, linestatus) combinations. rf/ls are small int
+    codes. (sum_charge sums in float64, which is not exact at scale.)"""
+    m = ship <= 10471
+    g = (rf * 2 + ls)[m]
+    qty, price, disc, tax = qty[m], price[m], disc[m], tax[m]
+    disc_price = price * (100 - disc)          # scale 4
+    charge = disc_price * (100 + tax)          # scale 6
+    out = {}
+    out["sum_qty"] = np.bincount(g, qty, 6)
+    out["sum_base_price"] = np.bincount(g, price, 6)
+    out["sum_disc_price"] = np.bincount(g, disc_price, 6)
+    out["sum_charge"] = np.bincount(g, charge.astype(np.float64), 6)
+    out["count"] = np.bincount(g, minlength=6)
+    return out

@@ -102,3 +102,125 @@ def test_partition_bound_is_the_larger_of_bytes_and_issue(per_row,
         rows * per_row / (sms * 128 * clock) * 1e3)
     assert b["bound_ms"] == max(b["bytes_bound_ms"], b["instr_bound_ms"])
     assert b["bound_by"] == bound_by
+
+
+# ----------------------------------------------------------------------
+# Q1's exact reference and the grouped path's checks, on the CPU
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def small_lineitem():
+    from spark_rapids_tpu_torch.workloads import tpch
+    return tpch.gen_lineitem(0.0005, seed=21)
+
+
+def _python_q1(lineitem):
+    """Q1 in Python Decimals, row by row: the reference's reference."""
+    import decimal
+    out = {}
+    rows = lineitem.select(["l_quantity", "l_extendedprice", "l_discount",
+                            "l_tax", "l_returnflag", "l_linestatus",
+                            "l_shipdate"]).to_pylist()
+    for r in rows:
+        if r["l_shipdate"] > 10471:
+            continue
+        g = out.setdefault((r["l_returnflag"], r["l_linestatus"]),
+                           [0, 0, 0, 0, 0, 0])
+        q, p, d, t = (r[c] for c in ("l_quantity", "l_extendedprice",
+                                     "l_discount", "l_tax"))
+        dp = p * (1 - d)
+        g[0] += q
+        g[1] += p
+        g[2] += dp
+        g[3] += dp * (1 + t)
+        g[4] += d
+        g[5] += 1
+    ref = {}
+    six = decimal.Decimal("0.000001")
+    for k, (q, p, dp, ch, d, n) in out.items():
+        def avg(total):
+            return int((total / n).quantize(
+                six, rounding=decimal.ROUND_HALF_UP).scaleb(6))
+        ref[k] = {"sum_qty": int(q.scaleb(2)),
+                  "sum_base_price": int(p.scaleb(2)),
+                  "sum_disc_price": int(dp.scaleb(4)),
+                  "sum_charge": int(ch.scaleb(6)), "avg_qty": avg(q),
+                  "avg_price": avg(p), "avg_disc": avg(d),
+                  "count_order": n}
+    return ref
+
+
+def test_q1_reference_equals_decimal_arithmetic(small_lineitem):
+    assert chip_smoke.q1_reference(small_lineitem) == \
+        _python_q1(small_lineitem)
+
+
+def test_check_q1_accepts_the_port_and_rejects_faults(small_lineitem):
+    import decimal
+
+    import pyarrow as pa
+
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.workloads import tpch
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 1024},
+                      device="cpu")
+    q = chip_smoke.sorted_q1(tpch, s.create_dataframe(small_lineitem))
+    assert chip_smoke.plan_chain(q)[:4] == [
+        "SortExec", "HashAggregateExec[final]", "ShuffleExchangeExec",
+        "HashAggregateExec[partial]"]
+    out = q.to_arrow()
+    expect = chip_smoke.q1_reference(small_lineitem)
+    chip_smoke.check_q1(out, expect, "port")
+    with pytest.raises(AssertionError, match="groups"):
+        chip_smoke.check_q1(out.take(pa.array([1, 0, 2, 3, 4, 5])),
+                            expect, "reordered")
+    bad = out.to_pylist()
+    bad[2]["avg_disc"] += decimal.Decimal("0.000001")
+    with pytest.raises(AssertionError, match="group"):
+        chip_smoke.check_q1(pa.Table.from_pylist(bad, out.schema), expect,
+                            "off by one unit")
+
+
+@pytest.mark.parametrize("num,den,want", [(7, 2, 4), (5, 2, 3), (4, 3, 1),
+                                          (-7, 2, -4), (-4, 3, -1),
+                                          (0, 5, 0), (10**20 + 1, 2,
+                                                      5 * 10**19 + 1)])
+def test_half_up_div(num, den, want):
+    assert chip_smoke._half_up_div(num, den) == want
+
+
+def test_shipdate_reference_and_check(small_lineitem):
+    import numpy as np
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 1024},
+                      device="cpu")
+    expect = chip_smoke.shipdate_reference(small_lineitem)
+    dates, sums, counts = expect
+    assert counts.sum() == small_lineitem.num_rows
+    assert sums.sum() == chip_smoke.unscaled(small_lineitem,
+                                             "l_quantity").sum()
+    out = chip_smoke.grouped_shipdate(
+        s.create_dataframe(small_lineitem)).to_arrow()
+    chip_smoke.check_shipdate(out, expect, "port")
+    with pytest.raises(AssertionError):
+        chip_smoke.check_shipdate(out, (dates, sums + (np.arange(
+            len(sums)) == 3), counts), "one sum off")
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void at::native::indexFuncLargeIndex<long, long, unsigned int, 1>",
+     "scatter_index_add"),
+    ("void at::native::_scatter_gather_elementwise_kernel<128, 8>",
+     "scatter_index_add"),
+    ("void at::native::index_elementwise_kernel<128, 4>", "gather"),
+    ("void at::native::vectorized_elementwise_kernel<2, at::native::"
+     "CUDAFunctor_add<long> >", "elementwise"),
+    ("Memcpy HtoD (Pinned -> Device)", "h2d"),
+    ("Memcpy DtoH (Device -> Pinned)", "d2h"),
+    ("void cub::DeviceRadixSortOnesweepKernel<>", "sort"),
+    ("void cub::DeviceScanKernel<>", "scan"),
+    ("void at::native::reduce_kernel<512, 1>", "reduce"),
+    ("partition_ids_i32_vector_kernel", "partition_kernel"),
+    ("void cub::DeviceSelectSweepKernel<>", "other")])
+def test_q1_kernel_groups(name, group):
+    assert chip_smoke.q1_group_of(name) == group

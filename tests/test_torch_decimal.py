@@ -187,3 +187,153 @@ def test_dataframe_aggregates_over_empty_input():
                                       PF.count("*")).to_arrow()
     assert got.equals(exp)
     assert got.to_pylist() == [{"s": None, "count(w)": 0, "count(*)": 0}]
+
+
+# ----------------------------------------------------------------------
+# decimal128 arithmetic (the Q1 slice): add, subtract, multiply, rescale
+# ----------------------------------------------------------------------
+def _words(rng, n, bits=126):
+    """n random int128s of up to `bits` magnitude bits, as [n, 2] words,
+    with the extremes and zero up front."""
+    vals = [int(x) for x in rng.integers(-2**62, 2**62, n)]
+    vals = [v << int(rng.integers(0, bits - 62)) for v in vals]
+    vals[:6] = [0, 1, -1, 2**127 - 1, -2**127, 10**38 - 1]
+    u = [v & (2**128 - 1) for v in vals]
+    lo = [(x & (2**64 - 1)) - (2**64 if x & (1 << 63) else 0) for x in u]
+    hi = [(x >> 64) - (2**64 if x >> 127 else 0) for x in u]
+    return np.stack([np.array(lo, np.int64), np.array(hi, np.int64)], 1)
+
+
+def _same(port_out, jax_out):
+    for p, j in zip(port_out, jax_out):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("op", ["dec_add", "dec_sub"])
+def test_dec_add_sub_match_jax(seed, op):
+    rng = np.random.default_rng(seed)
+    a, b = _words(rng, 2000), _words(rng, 2000)
+    b[6:20] = a[6:20]            # a - a, and doubling near the bounds
+    _same(getattr(pd128, op)(torch.from_numpy(a), torch.from_numpy(b)),
+          getattr(jd128, op)(jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("down_shift,precision,bits",
+                         [(0, 38, 63), (0, 38, 80), (3, 38, 100),
+                          (7, 30, 90), (12, 20, 64)])
+def test_dec_mul_scaled_matches_jax(down_shift, precision, bits):
+    """Exact products, HALF_UP down-shifts of the 256-bit product, and
+    overflow past the precision (or 127 bits) to null."""
+    rng = np.random.default_rng(down_shift + bits)
+    a, b = _words(rng, 600, bits), _words(rng, 600, bits)
+    _same(pd128.dec_mul_scaled(torch.from_numpy(a), torch.from_numpy(b),
+                               down_shift, precision),
+          jd128.dec_mul_scaled(jnp.asarray(a), jnp.asarray(b), down_shift,
+                               precision))
+
+
+@pytest.mark.parametrize("from_s,to_s,half_up", [(2, 6, True), (6, 2, True),
+                                                 (6, 2, False), (4, 4, True),
+                                                 (0, 30, True)])
+def test_dec_rescale_matches_jax(from_s, to_s, half_up):
+    rng = np.random.default_rng(from_s * 7 + to_s)
+    a = _words(rng, 800, 110)
+    _same(pd128.dec_rescale(torch.from_numpy(a), from_s, to_s, 38, half_up),
+          jd128.dec_rescale(jnp.asarray(a), from_s, to_s, 38, half_up))
+
+
+def test_limb_splits_match_jax():
+    a = _words(np.random.default_rng(5), 1000)
+    for p, j in zip(pd128.split_d128_limbs(torch.from_numpy(a)),
+                    jd128.split_d128_limbs(jnp.asarray(a))):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+
+
+EXPR_SCHEMA = pa.schema([("price", pa.decimal128(12, 2)),
+                         ("disc", pa.decimal128(4, 2)),
+                         ("tax", pa.decimal128(4, 2)),
+                         ("big", pa.decimal128(38, 10)),
+                         ("mid", pa.decimal128(20, 10)),
+                         ("k", pa.int64())])
+
+
+def _expr_inputs(n=1500, seed=0):
+    rng = np.random.default_rng(seed)
+    D = __import__("decimal").Decimal
+    cols = {
+        "price": [D(int(x)).scaleb(-2) for x in
+                  rng.integers(-10**12 + 1, 10**12, n)],
+        "disc": [D(int(x)).scaleb(-2) for x in rng.integers(0, 11, n)],
+        "tax": [D(int(x)).scaleb(-2) for x in rng.integers(0, 9, n)],
+        "big": [D(int(x) * 10**int(e)).scaleb(-10) for x, e in zip(
+            rng.integers(-10**18, 10**18, n), rng.integers(0, 20, n))],
+        "mid": [D(int(x)).scaleb(-10) for x in
+                rng.integers(-10**18, 10**18, n)],
+        "k": [int(x) for x in rng.integers(-10**15, 10**15, n)],
+    }
+    valid = rng.random(n) > 0.1
+    at = pa.table({c: pa.array([v if ok else None
+                                for v, ok in zip(vals, valid)],
+                               EXPR_SCHEMA.field(c).type)
+                   for c, vals in cols.items()})
+    return at
+
+
+def _eval_both(build, at):
+    js = st.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096})
+    ps = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                       device="cpu")
+    exp = js.create_dataframe(at).select(build(jx).alias("r")).to_arrow()
+    got = ps.create_dataframe(at).select(build(px).alias("r")).to_arrow()
+    return got, exp
+
+
+D_ = __import__("decimal").Decimal
+EXPRS = {
+    # Q1's products: decimal(18,4) * decimal(5,2) -> decimal(24,6)
+    "q1_charge": lambda E: E.col("price") * (E.lit(D_("1")) - E.col("disc"))
+    * (E.lit(D_("1")) + E.col("tax")),
+    # `1 - disc` with an int literal: decimal(26,4) on the limb path
+    "int_literal_disc_price": lambda E: E.col("price")
+    * (E.lit(1) - E.col("disc")) * E.col("price"),
+    # clamped product: precision 59 -> 38, scale 20 -> 6 (a down-shift)
+    "clamped_product": lambda E: E.col("big") * E.col("mid"),
+    "d128_add_rescale": lambda E: E.col("big") + E.col("price"),
+    "d128_sub": lambda E: E.col("mid") - E.col("price") * E.col("disc"),
+    "d128_overflow_to_null": lambda E: E.col("big") * E.col("big")
+    * E.col("big"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPRS))
+def test_decimal128_expressions_match_jax(name):
+    got, exp = _eval_both(EXPRS[name], _expr_inputs())
+    assert got.schema == exp.schema
+    assert got.equals(exp)
+    if name == "clamped_product":
+        assert got.schema.field("r").type == pa.decimal128(38, 6)
+    if name == "d128_overflow_to_null":
+        assert got.column("r").null_count > got.num_rows // 2
+
+
+def test_sum_and_avg_over_q1_types_match_jax():
+    """Sum over a decimal128 input (Q1's sum_charge: four limbs) and the
+    HALF_UP decimal averages, ungrouped, negatives included."""
+    at = _expr_inputs(3000, seed=4)
+    js = st.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 512})
+    ps = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 512},
+                       device="cpu")
+
+    def q(s, F, E):
+        charge = E.col("price") * (E.lit(D_("1")) - E.col("disc")) \
+            * (E.lit(D_("1")) + E.col("tax"))
+        return s.create_dataframe(at).agg(
+            F.sum(charge).alias("sum_charge"), F.sum("mid").alias("sm"),
+            F.avg("price").alias("ap"), F.avg("disc").alias("ad"),
+            F.avg("k").alias("ak"))
+    exp = q(js, JF, jx).to_arrow()
+    got = q(ps, PF, px).to_arrow()
+    assert got.equals(exp)
+    assert got.schema.field("sum_charge").type == pa.decimal128(34, 6)
+    assert got.schema.field("ap").type == pa.decimal128(18, 6)
