@@ -35,11 +35,28 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      side;
  10. Q1 under torch.profiler: device busy share, device time by group
      (sort, scatter/index_add, gathers, elementwise, H2D, D2H, partition
-     kernel), kernel launches and host syncs per input batch.
+     kernel), kernel launches and host syncs per input batch;
+ 11. TPC-H Q3 (`tpch.q3(customer, orders, lineitem)`) over
+     `create_dataframe` of customer (1.5M rows), orders (15M) and the
+     lineitem table, twice, at the default conf: both joins shuffled (two
+     `HashJoinExec` per partition, each over two `ShuffleExchangeExec`,
+     no broadcast), with the layers, the build paths each join's stream
+     batches took, and 0 partition-kernel launches (every exchange key is
+     int64); then the same query without its limit, whose every row is
+     checked;
+ 12. Q3 with `sql.autoBroadcastJoinThreshold` at 4 GiB: both joins
+     broadcast (two `BroadcastExchangeExec`);
+ 13. Q3 under torch.profiler: device busy share, device time by group
+     (searchsorted, scatter, sort, gather, elementwise, H2D, D2H),
+     launches and host syncs per input batch.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
-averages), row for row; the per-date sums and counts numpy's. The
+averages), row for row; the per-date sums and counts numpy's; each Q3
+result `q3_reference` (numpy int64 revenue per order): the unlimited
+result row for row but for the order of rows tied on (revenue,
+o_orderdate), the top 10 on those keys with ties allowed at the 10th
+row. The
 partition kernel's launches are counted on every path that runs it,
 each path with the counts set to 0 just before it and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -661,9 +678,10 @@ Q1_GROUPS = (("sort", r"[Ss]ort|[Rr]adix"),
              ("elementwise", r"[Ee]lementwise"))
 
 
-def q1_group_of(name: str) -> str:
-    """The Q1_GROUPS group of a device kernel or copy, by its name."""
-    for group, pattern in Q1_GROUPS:
+def q1_group_of(name: str, groups=Q1_GROUPS) -> str:
+    """The group (of Q1_GROUPS, or `groups`) of a device kernel or copy,
+    by its name."""
+    for group, pattern in groups:
         if re.search(pattern, name):
             return group
     return "other"
@@ -809,10 +827,11 @@ def plan_chain(q) -> list:
     return out
 
 
-def profiled_query(q, device, batches: int):
+def profiled_query(q, device, batches: int, groups=Q1_GROUPS):
     """A query under torch.profiler: device busy time (kernels and copies
-    only) and share of the wall time, device time by group (Q1_GROUPS),
-    device launches and host syncs per input batch."""
+    only) and share of the wall time, device time by group (`groups`,
+    Q1_GROUPS by default), device launches and host syncs per input
+    batch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
@@ -825,7 +844,7 @@ def profiled_query(q, device, batches: int):
     busy_us = sum(device_us(e) for e in ka)
     by_group, launches = collections.Counter(), collections.Counter()
     for e in ka:
-        grp = q1_group_of(e.key)
+        grp = q1_group_of(e.key, groups)
         by_group[grp] += device_us(e)
         launches[grp] += e.count
     top = sorted(ka, key=device_us, reverse=True)[:15]
@@ -1040,6 +1059,250 @@ def _path_phases(session, lineitem, expect, q1_expect, shipdate_expect,
     return by_path
 
 
+# ----------------------------------------------------------------------
+# Q3: the joins
+# ----------------------------------------------------------------------
+Q3_COLUMNS = ("l_orderkey", "o_orderdate", "o_shippriority", "revenue")
+Q3_LIMIT = 10
+Q3_BROADCAST_THRESHOLD = 4 << 30
+Q3_GROUPS = (("searchsorted", r"searchsorted"),) + Q1_GROUPS
+Q3_LAYERS = ("scanTime", "mapTime", "sliceTime", "reduceTime", "buildTime",
+             "probeTime", "expandTime", "hashPassTime", "sortPassTime",
+             "mergeTime", "sortTime", "limitTime", "collectTime")
+JOIN_PATHS = ("streamBatches", "directProbeBatches", "promotedToSorted",
+              "sortedProbeBatches", "countProbeBatches", "fkOutputBatches",
+              "expandOutputBatches", "numOutputRows")
+
+
+def q3_tables(sf, lineitem=None):
+    """(customer, orders, lineitem) at `sf`, each from its generator's
+    default seed (lineitem: seed 0, the table of the earlier phases)."""
+    from spark_rapids_tpu_torch.workloads import tpch
+    if lineitem is None:
+        lineitem = tpch.gen_lineitem(sf, seed=0)
+    return tpch.gen_customer(sf), tpch.gen_orders(sf), lineitem
+
+
+def q3_reference(customer, orders, lineitem):
+    """Q3's whole result before its limit, exactly: int64 arrays
+    (l_orderkey, o_orderdate, o_shippriority, revenue unscaled at scale
+    4), sorted by revenue descending, o_orderdate, then l_orderkey."""
+    import numpy as np
+    import pyarrow.compute as pc
+    seg = pc.equal(customer.column("c_mktsegment"), "BUILDING")
+    cust = customer.column("c_custkey").to_numpy()[
+        seg.to_numpy(zero_copy_only=False)]
+    okey = orders.column("o_orderkey").to_numpy()
+    odate = orders.column("o_orderdate").to_numpy().astype(np.int64)
+    oprio = orders.column("o_shippriority").to_numpy().astype(np.int64)
+    om = (odate < 9204) & np.isin(orders.column("o_custkey").to_numpy(),
+                                  cust, kind="table")
+    o_sorted = np.argsort(okey[om], kind="stable")
+    okey, odate, oprio = okey[om][o_sorted], odate[om][o_sorted], \
+        oprio[om][o_sorted]
+    lkey = lineitem.column("l_orderkey").to_numpy()
+    lm = (lineitem.column("l_shipdate").to_numpy() > 9204) & \
+        np.isin(lkey, okey, kind="table")
+    rev = unscaled(lineitem, "l_extendedprice")[lm] * \
+        (100 - unscaled(lineitem, "l_discount")[lm])
+    lk = lkey[lm]
+    order = np.argsort(lk, kind="stable")
+    lk, rev = lk[order], rev[order]
+    if int(np.abs(rev).max(initial=0)) * len(rev) >= 2**63:
+        raise AssertionError("Q3 reference would overflow int64")
+    starts = np.flatnonzero(np.r_[True, lk[1:] != lk[:-1]]) if len(lk) \
+        else np.zeros(0, np.int64)
+    keys = lk[starts]
+    sums = np.add.reduceat(rev, starts) if len(lk) else rev
+    # each order key is once in orders: its date and priority
+    at = np.searchsorted(okey, keys)
+    date, prio = odate[at], oprio[at]
+    order = np.lexsort((keys, date, -sums))
+    return keys[order], date[order], prio[order], sums[order]
+
+
+def q3_rows(at) -> list:
+    """Q3's Arrow result as [(l_orderkey, o_orderdate, o_shippriority,
+    revenue unscaled)], in its row order."""
+    rows = []
+    for r in at.to_pylist():
+        if any(r[c] is None for c in Q3_COLUMNS):
+            raise AssertionError(f"Q3 row with a null: {r}")
+        rows.append((r["l_orderkey"], r["o_orderdate"], r["o_shippriority"],
+                     int(r["revenue"].scaleb(4))))
+    return rows
+
+
+def _ref_rows(expect) -> list:
+    return [tuple(int(x) for x in t) for t in zip(*expect)]
+
+
+def _ordered(rows, what):
+    """The rows must run by revenue descending, then o_orderdate."""
+    keys = [(-r[3], r[1]) for r in rows]
+    if keys != sorted(keys):
+        raise AssertionError(f"Q3 over {what}: rows out of (revenue DESC, "
+                             f"o_orderdate) order")
+
+
+def check_q3_full(at, expect, what: str):
+    """The unlimited result: every row of the reference once, in the
+    query's order (rows tied on both sort keys in any order)."""
+    rows = q3_rows(at)
+    _ordered(rows, what)
+    ref = _ref_rows(expect)
+    got = sorted(rows, key=lambda r: (-r[3], r[1], r[0]))
+    if got != ref:
+        raise AssertionError(f"Q3 over {what}: {len(rows)} rows differ from "
+                             f"the reference's {len(ref)}")
+
+
+def check_q3_top(at, expect, what: str, n: int = Q3_LIMIT):
+    """The limited result: the reference's first n sort keys, each row a
+    reference row (a tie at the n-th row may pick any of the tied)."""
+    rows = q3_rows(at)
+    ref = _ref_rows(expect)
+    _ordered(rows, what)
+    if [(r[3], r[1]) for r in rows] != [(r[3], r[1]) for r in ref[:n]]:
+        raise AssertionError(f"Q3 over {what}: top {n} keys differ from the "
+                             f"reference's")
+    if len(set(rows)) != len(rows) or not set(rows) <= set(ref):
+        raise AssertionError(f"Q3 over {what}: rows not in the reference")
+
+
+def plan_nodes(root) -> list:
+    """Every node of a physical plan, depth first."""
+    out, stack = [], [root]
+    while stack:
+        node = stack.pop()
+        out.append(node)
+        stack.extend(reversed(node.children))
+    return out
+
+
+def q3_plan_shape(root) -> dict:
+    """The join topology of a Q3 plan: each HashJoinExec's mode and its
+    children's classes, and the count of broadcast exchanges."""
+    joins = [{"per_partition": j.per_partition,
+              "children": [type(c).__name__ for c in j.children]}
+             for j in plan_nodes(root) if type(j).__name__ == "HashJoinExec"]
+    n_bcast = sum(type(x).__name__ == "BroadcastExchangeExec"
+                  for x in plan_nodes(root))
+    return {"joins": joins, "broadcast_exchanges": n_bcast}
+
+
+def check_q3_plan(root, shuffled: bool):
+    shape = q3_plan_shape(root)
+    if shuffled:
+        want = {"joins": [{"per_partition": True,
+                           "children": ["ShuffleExchangeExec"] * 2}] * 2,
+                "broadcast_exchanges": 0}
+    else:
+        want = {"joins": [{"per_partition": False,
+                           "children": [None, "BroadcastExchangeExec"]}] * 2,
+                "broadcast_exchanges": 2}
+        for j in shape["joins"]:
+            j["children"][0] = None
+    if shape != want:
+        raise AssertionError(f"Q3 plan {q3_plan_shape(root)}, expected "
+                             f"{'shuffled' if shuffled else 'broadcast'} "
+                             f"joins")
+    return q3_plan_shape(root)
+
+
+def per_node_metrics(q) -> dict:
+    """The last action's metrics per plan node, named by class and its
+    place in a depth-first walk (joins and exchanges apart)."""
+    mets = q.last_metrics()
+    out, seen = {}, collections.Counter()
+    for node in plan_nodes(q.last_plan()):
+        name = type(node).__name__
+        seen[name] += 1
+        m = mets.get(node._op_id)
+        if m:
+            out[f"{name}#{seen[name]}"] = m
+    return out
+
+
+def q3_query(tpch, session, tables, limit=True):
+    c, o, li = (session.create_dataframe(t) for t in tables)
+    q = tpch.q3(c, o, li)
+    if not limit:
+        from spark_rapids_tpu_torch.session import DataFrame
+        q = DataFrame(q._session, q._plan.child)
+    return q
+
+
+def q3_phases(session, tables, expect, profile=True) -> dict:
+    """Phases 11-13 on the session's device: Q3 at the session's conf
+    (whose joins must be shuffled: at SF10 the defaults, in a rehearsal a
+    threshold of -1), then with the broadcast threshold at 4 GiB, then
+    profiled. Returns the partition kernel's launches per path."""
+    from spark_rapids_tpu_torch import TpuSession
+    from spark_rapids_tpu_torch.exec.batch import DeviceBatch
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    from spark_rapids_tpu_torch.workloads import tpch
+
+    dev = session.device
+    per = session.conf.batch_size_rows
+    batches = sum(-(-t.num_rows // per) for t in tables)
+    launches = {}
+
+    def counted(sess, check, what, shuffled, limit=True):
+        with BatchDevices(DeviceBatch) as devs, \
+                MapSideProbe(ShuffleExchangeExec) as probe:
+            q = q3_query(tpch, sess, tables, limit)
+            pk.launches = pk.vector_launches = pk.scalar_launches = 0
+            out, wall, layers, syncs = timed_query(q, dev)
+            got = {"all": pk.launches, "vector": pk.vector_launches,
+                   "scalar": pk.scalar_launches}
+        check(out, expect, what)
+        check_devices(devs, dev)
+        shape = check_q3_plan(q.last_plan(), shuffled)
+        if got["all"]:
+            raise AssertionError(f"Q3 over {what}: partition kernel "
+                                 f"launched {got}; every key is int64")
+        nodes = per_node_metrics(q)
+        return {"wall_s": wall, "rows": out.num_rows,
+                "layers_s": {k: layers[k] for k in Q3_LAYERS if k in layers},
+                "by_node": nodes,
+                "join_paths": {k: {p: v.get(p, 0) for p in JOIN_PATHS}
+                               for k, v in nodes.items()
+                               if k.startswith("HashJoinExec")},
+                "input_batches": batches, "host_syncs": syncs,
+                "host_syncs_per_batch": syncs / max(batches, 1),
+                "partition_kernel_launches": got, "plan": shape,
+                "pinned_host_over_map_side": probe.host,
+                "batch_tensors_by_device": dict(devs.seen)}, got
+
+    runs = []
+    for _ in range(2):
+        res, got = counted(session, check_q3_top, "default conf", True)
+        runs.append(res)
+    launches["q3_shuffled"] = got
+    full, got = counted(session, check_q3_full, "default conf, no limit",
+                        True, limit=False)
+    launches["q3_shuffled_no_limit"] = got
+    emit({"phase": "q3_shuffled", "rows": [t.num_rows for t in tables],
+          "runs": runs, "no_limit": full})
+
+    bsess = TpuSession(dict(session.conf._settings, **{
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+            Q3_BROADCAST_THRESHOLD}), device=dev)
+    res, got = counted(bsess, check_q3_top, "broadcast threshold 4 GiB",
+                       False)
+    launches["q3_broadcast"] = got
+    emit({"phase": "q3_broadcast", **res})
+
+    if profile:
+        out, prof = profiled_query(q3_query(tpch, session, tables), dev,
+                                   batches, Q3_GROUPS)
+        check_q3_top(out, expect, "default conf (profiled)")
+        emit({"phase": "q3_profiled", **prof})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1128,6 +1391,20 @@ def main() -> int:
                              BATCH_ROWS})
     by_path = path_phases(session, lineitem, expect, q1_expect,
                           shipdate_expect)
+
+    t0 = time.perf_counter()
+    tables = q3_tables(SF, lineitem)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q3_expect = q3_reference(*tables)
+    emit({"phase": "q3_data", "sf": SF,
+          "rows": {n: t.num_rows for n, t in zip(
+              ("customer", "orders", "lineitem"), tables)},
+          "gen_s": gen_s, "reference_s": time.perf_counter() - t0,
+          "result_rows": len(q3_expect[0]),
+          "top": [[int(x) for x in t] for t in zip(*(
+              a[:Q3_LIMIT] for a in q3_expect))]})
+    by_path.update(q3_phases(session, tables, q3_expect))
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

@@ -12,7 +12,7 @@ from typing import Any, Callable, Dict, Optional
 __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "PARQUET_READER_TYPE", "PARQUET_COALESCING_TARGET",
            "MESH_DEVICES", "SHUFFLE_PARTITIONS", "AGG_STRING_HASH_KEYS",
-           "AGG_MAX_MERGE_ROWS"]
+           "AGG_MAX_MERGE_ROWS", "BROADCAST_THRESHOLD", "JOIN_BUILD_BUDGET"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -72,6 +72,18 @@ AGG_MAX_MERGE_ROWS = _conf(
     "concat pass. Above it, every partial splits into hash buckets of "
     "disjoint keys and each bucket merges and finalizes on its own. The "
     "port keeps the partials on the device (no spill store yet).", int)
+JOIN_BUILD_BUDGET = _conf(
+    "sql.join.buildSideBudgetBytes", 2 << 30,
+    "When a join partition's build side exceeds this many bytes, the JAX "
+    "package rehashes both sides into disjoint-key sub-partitions joined "
+    "one at a time. The port has no such out-of-core join: it raises "
+    "NotPorted instead. 0 disables the check.", int)
+BROADCAST_THRESHOLD = _conf(
+    "sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
+    "Build sides estimated at or below this many bytes use a broadcast "
+    "hash join (build collected once, no exchange); larger builds "
+    "shuffle both sides on the join keys and join per partition. -1 "
+    "disables broadcast.", int)
 
 
 class TpuConf:

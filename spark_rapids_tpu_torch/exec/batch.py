@@ -3,7 +3,7 @@
 A batch is a Table plus a live-row mask: filters clear mask bits instead
 of compacting, and padding rows (if any) are False. Consumers that need
 dense rows (the exchange, the coalescer) compact; the aggregate reads the
-mask.
+mask; the join compacts a sparse batch first (`maybe_compact`).
 
 `to_device` and `to_host` are the port's only H2D and D2H paths. On CUDA
 each packs all buffers of a call into one pinned host buffer, so a batch
@@ -23,7 +23,7 @@ from ..columnar.table import Table
 from ..ops.kernel_utils import CV
 from ..utils import transfer
 
-__all__ = ["DeviceBatch", "to_device", "to_host"]
+__all__ = ["DeviceBatch", "to_device", "to_host", "maybe_compact"]
 
 # buffer offsets inside a packed transfer, so every piece can be viewed
 # as its own dtype in place
@@ -122,6 +122,38 @@ class DeviceBatch:
         return [CV(c.data, c.validity, c.offsets)
                 for c in self.table.columns]
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every buffer of every column, and the row mask."""
+        return sum(t.numel() * t.element_size()
+                   for c in self.table.columns for t in c.buffers()) \
+            + self.capacity
+
     def __repr__(self):
         return (f"DeviceBatch(rows<={self.num_rows}, cap={self.capacity}, "
                 f"cols={len(self.table.columns)})")
+
+
+#: a batch at most this long is never compacted (the JAX package's
+#: smallest capacity bucket): the live-row read would cost more
+_COMPACT_FLOOR = 128
+
+
+def maybe_compact(batch: DeviceBatch, schema, factor: int = 4):
+    """A sparse batch (live rows at most 1/factor of its length) with its
+    live rows gathered to the front, at exactly the live-row count; any
+    other batch as it is. Holey masks ride through filters and FK joins
+    for free, but a join's build and probe pay for every row. Costs one
+    host read of the live count (counted), and a gather when it shrinks
+    the batch; strings cost one more read (their byte count)."""
+    from ..ops.gather import compaction_perm, gather_cols
+    from .nodes import make_table
+    if batch.capacity <= _COMPACT_FLOOR * factor:
+        return batch
+    live = transfer.fetch_int(batch.row_mask.sum())
+    if live * factor > batch.capacity:
+        return batch
+    perm, _ = compaction_perm(batch.row_mask)
+    out = gather_cols(batch.cvs(), perm[:live], None)
+    return DeviceBatch(make_table(schema, out, live), live,
+                       device=batch.device)

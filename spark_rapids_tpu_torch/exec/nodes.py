@@ -1,4 +1,4 @@
-"""Core physical operators: scans, project, filter, and collect.
+"""Core physical operators: scans, project, filter, limit, and collect.
 
 Partitioning mirrors the JAX package exactly, since an exchange's output
 order depends on it: an in-memory scan has one partition per
@@ -13,16 +13,19 @@ from __future__ import annotations
 import os
 from typing import Iterator, List, Optional, Sequence
 
+import torch
+
 from ..columnar.column import Column, buffer_names
 from ..columnar.table import Schema, Table
 from ..config import PARQUET_COALESCING_TARGET, PARQUET_READER_TYPE
 from ..expr.expressions import EmitCtx, Expression
 from ..ops.kernel_utils import CV
+from ..utils import transfer
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, to_host
 
 __all__ = ["InMemoryScanExec", "ParquetScanExec", "ProjectExec",
-           "FilterExec", "collect_to_arrow", "make_table",
+           "FilterExec", "LimitExec", "collect_to_arrow", "make_table",
            "prune_row_groups"]
 
 
@@ -280,6 +283,50 @@ class FilterExec(TpuExec):
         for batch in self.children[0].execute_partition(ctx, pid):
             _, mask = stage(batch.cvs(), batch.row_mask)
             yield DeviceBatch(batch.table, batch.num_rows, mask)
+
+
+class LimitExec(TpuExec):
+    """Global limit: one output partition; the count still to take lives
+    on the host. Each batch keeps its first `remaining` live rows (a
+    cumsum of the mask, then one counted host read of how many it kept);
+    a batch longer than twice the limit is compacted to exactly those
+    rows, so the collect copies O(n) rows, not the whole batch."""
+
+    def __init__(self, child: TpuExec, n: int):
+        super().__init__([child], child.schema)
+        self.n = n
+
+    def num_partitions(self, ctx):
+        return 1
+
+    def execute_partition(self, ctx, pid):
+        from ..ops.gather import compaction_perm, gather_cols
+        remaining = self.n
+        child = self.children[0]
+        for cpid in range(child.num_partitions(ctx)):
+            if remaining <= 0:
+                return
+            for batch in child.execute_partition(ctx, cpid):
+                if remaining <= 0:
+                    return
+                with ctx.timer(self._op_id, "limitTime"):
+                    mask = batch.row_mask
+                    ranks = torch.cumsum(mask.to(torch.int64), 0)
+                    mask = mask & (ranks <= remaining)
+                    took = transfer.fetch_int(mask.sum())
+                    if took and batch.capacity > 2 * self.n:
+                        perm, _ = compaction_perm(mask)
+                        out = gather_cols(batch.cvs(), perm[:took], None)
+                        batch = DeviceBatch(make_table(self.schema, out,
+                                                       took), took,
+                                            device=ctx.device)
+                    else:
+                        batch = DeviceBatch(batch.table, batch.num_rows,
+                                            mask)
+                if took == 0:
+                    continue
+                remaining -= took
+                yield batch
 
 
 # ----------------------------------------------------------------------

@@ -4,11 +4,13 @@ tensors.
 The port's copy of the JAX package's expression layer, cut to the slice:
 column references (string columns included), literals, aliases, decimal
 arithmetic (+, -, *; above precision 18 on the exact limb kernels of
-`ops/decimal128.py`), comparisons, Kleene AND/OR/NOT and the numeric
-casts. `bind(schema)` resolves names and types exactly as the JAX
-package does; `emit(ctx)` evaluates the bound tree eagerly and returns a
-CV. A comparison or cast of a decimal above precision 18, and string
-literals, raise NotPorted at bind time.
+`ops/decimal128.py`), comparisons (strings too: a literal `=`/`!=` by
+length and 4-byte chunks, any other by `ops/strings.py` `compare`),
+null-safe equality, coalesce, Kleene AND/OR/NOT and the numeric casts.
+`bind(schema)` resolves names and types exactly as the JAX package
+does; `emit(ctx)` evaluates the bound tree eagerly and returns a CV. A
+comparison or cast of a decimal above precision 18 raises NotPorted at
+bind time.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from ..ops.kernel_utils import CV
 __all__ = [
     "Expression", "UnsupportedExpr", "EmitCtx", "ColumnRef", "BoundRef",
     "Literal", "Alias", "Add", "Subtract", "Multiply", "Eq", "Ne", "Lt",
-    "Le", "Gt", "Ge", "And", "Or", "Not", "Cast", "lit", "col",
+    "Le", "Gt", "Ge", "EqNullSafe", "And", "Or", "Not", "Cast",
+    "Coalesce", "lit", "col",
 ]
 
 
@@ -179,6 +182,10 @@ def _infer_literal_dtype(v) -> dt.DataType:
         return dt.INT32 if -2**31 <= v < 2**31 else dt.INT64
     if isinstance(v, float):
         return dt.FLOAT64
+    if isinstance(v, str):
+        return dt.STRING
+    if isinstance(v, bytes):
+        return dt.BINARY
     if isinstance(v, decimal.Decimal):
         sign, digits, exp = v.as_tuple()
         scale = max(0, -exp)
@@ -188,8 +195,6 @@ def _infer_literal_dtype(v) -> dt.DataType:
         raise NotPorted("timestamp literals")
     if isinstance(v, datetime.date):
         return dt.DATE
-    if isinstance(v, (str, bytes)):
-        raise NotPorted("string literals")
     raise UnsupportedExpr(f"cannot infer literal type for {v!r}")
 
 
@@ -214,15 +219,27 @@ class Literal(Expression):
         return v
 
     def emit(self, ctx: EmitCtx) -> CV:
-        cap = ctx.capacity
+        cap, dev = ctx.capacity, ctx.device
         if isinstance(self.dtype, dt.DecimalType) \
                 and self.dtype.is_decimal128:
             raise NotPorted("decimal128 literals")
+        if self.dtype.is_variable_width:
+            # the bytes tiled once a row: offsets stay monotone
+            raw = b"" if self.value is None else (
+                self.value.encode() if isinstance(self.value, str)
+                else self.value)
+            nb = len(raw)
+            valid = torch.full((cap,), self.value is not None,
+                               dtype=torch.bool, device=dev)
+            data = torch.frombuffer(bytearray(raw * cap), dtype=torch.uint8) \
+                if nb and cap else torch.zeros(0, dtype=torch.uint8)
+            off = torch.arange(cap + 1, dtype=torch.int32, device=dev) * nb
+            return CV(data.to(dev), valid, off)
         if self.value is None:
             return CV(torch.zeros(dt.alloc_shape(self.dtype, cap),
                                   dtype=dt.torch_dtype(self.dtype),
-                                  device=ctx.device),
-                      torch.zeros(cap, dtype=torch.bool, device=ctx.device))
+                                  device=dev),
+                      torch.zeros(cap, dtype=torch.bool, device=dev))
         return CV(torch.full((cap,), self.device_value(),
                              dtype=dt.torch_dtype(self.dtype),
                              device=ctx.device),
@@ -432,18 +449,43 @@ class Multiply(_BinaryOp):
         return ew.mul(l, r)
 
 
+def _is_str(t) -> bool:
+    return isinstance(t, (dt.StringType, dt.BinaryType))
+
+
 class _Comparison(_BinaryOp):
     kernel = None
+    cmp_op = None   # string compares: applied to compare()'s -1/0/1
 
     def _resolve_type(self):
         lt_, rt = self.left.dtype, self.right.dtype
-        if lt_ != rt:
+        if _is_str(lt_) != _is_str(rt):
+            raise UnsupportedExpr("string/non-string compare")
+        if not _is_str(lt_) and lt_ != rt:
             self.left, self.right, _ = _coerce_pair(self.left, self.right)
         _reject_d128(self.left.dtype, self.right.dtype)
         self.dtype = dt.BOOL
 
     def emit(self, ctx):
+        from ..ops import strings as ops_str
+        if _is_str(self.left.dtype) and type(self) in (Eq, Ne):
+            # literal string equality: length + 4-byte chunks, not the
+            # byte-domain walk of compare()
+            lit = col = None
+            if isinstance(self.right, Literal):
+                lit, col = self.right, self.left
+            elif isinstance(self.left, Literal):
+                lit, col = self.left, self.right
+            if lit is not None and isinstance(lit.value, (str, bytes)):
+                cv = col.emit(ctx)
+                raw = (lit.value.encode() if isinstance(lit.value, str)
+                       else lit.value)
+                eq = ops_str.equals_literal(cv, raw)
+                return CV(~eq if type(self) is Ne else eq, cv.validity)
         l, r = self.left.emit(ctx), self.right.emit(ctx)
+        if _is_str(self.left.dtype):
+            c = ops_str.compare(l, r)
+            return CV(type(self).cmp_op(c), l.validity & r.validity)
         if isinstance(self.left.dtype, dt.DecimalType):
             lt_, rt = self.left.dtype, self.right.dtype
             s = max(lt_.scale, rt.scale)
@@ -455,31 +497,53 @@ class _Comparison(_BinaryOp):
 class Eq(_Comparison):
     symbol = "="
     kernel = staticmethod(ew.eq)
+    cmp_op = staticmethod(lambda c: c == 0)
 
 
 class Ne(_Comparison):
     symbol = "!="
     kernel = staticmethod(ew.ne)
+    cmp_op = staticmethod(lambda c: c != 0)
 
 
 class Lt(_Comparison):
     symbol = "<"
     kernel = staticmethod(ew.lt)
+    cmp_op = staticmethod(lambda c: c < 0)
 
 
 class Le(_Comparison):
     symbol = "<="
     kernel = staticmethod(ew.le)
+    cmp_op = staticmethod(lambda c: c <= 0)
 
 
 class Gt(_Comparison):
     symbol = ">"
     kernel = staticmethod(ew.gt)
+    cmp_op = staticmethod(lambda c: c > 0)
 
 
 class Ge(_Comparison):
     symbol = ">="
     kernel = staticmethod(ew.ge)
+    cmp_op = staticmethod(lambda c: c >= 0)
+
+
+class EqNullSafe(_Comparison):
+    """<=>: null <=> null is true; never null."""
+    symbol = "<=>"
+    kernel = staticmethod(ew.eq_null_safe)
+
+    def emit(self, ctx):
+        if not _is_str(self.left.dtype):
+            return super().emit(ctx)
+        from ..ops import strings as ops_str
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        c = ops_str.compare(l, r)
+        out = (~l.validity & ~r.validity) | (l.validity & r.validity
+                                             & (c == 0))
+        return CV(out, torch.ones_like(out))
 
 
 class And(_BinaryOp):
@@ -555,3 +619,45 @@ class Cast(Expression):
 
     def __repr__(self):
         return f"CAST({self.child} AS {self.to})"
+
+
+def _select_cv(pick_a, a: CV, b: CV, out_valid) -> CV:
+    """Row-wise select between two CVs; a string column gathers from the
+    concatenation of both."""
+    if a.offsets is not None or b.offsets is not None:
+        from ..ops.concat import concat_cvs
+        from ..ops.gather import take_strings
+        cap = pick_a.shape[0]
+        ar = torch.arange(cap, device=pick_a.device)
+        out = take_strings(concat_cvs([a, b], dt.STRING),
+                           torch.where(pick_a, ar, cap + ar))
+        return CV(out.data, out_valid, out.offsets)
+    return CV(torch.where(pick_a.reshape(-1, *([1] * (a.data.dim() - 1))),
+                          a.data, b.data), out_valid)
+
+
+class Coalesce(Expression):
+    """The first non-null child (the full outer join's key projection)."""
+
+    def __init__(self, *children: Expression):
+        self.children = list(children)
+
+    def bind(self, schema):
+        bc = [c.bind(schema) for c in self.children]
+        out = next((c.dtype for c in bc
+                    if not isinstance(c.dtype, dt.NullType)), dt.NULLTYPE)
+        bc = [c if c.dtype == out else Cast.bound(c, out) for c in bc]
+        b = Coalesce(*bc)
+        b.dtype = out
+        return b
+
+    def emit(self, ctx):
+        cvs = [c.emit(ctx) for c in self.children]
+        out = cvs[-1]
+        for cv in reversed(cvs[:-1]):
+            out = _select_cv(cv.validity, cv, out,
+                             cv.validity | out.validity)
+        return out
+
+    def __repr__(self):
+        return "coalesce(" + ", ".join(map(repr, self.children)) + ")"

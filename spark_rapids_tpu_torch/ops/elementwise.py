@@ -13,7 +13,7 @@ import torch
 from .kernel_utils import CV, and_validity
 
 __all__ = ["add", "sub", "mul", "eq", "ne", "lt", "le", "gt", "ge",
-           "logical_and", "logical_or", "logical_not"]
+           "eq_null_safe", "logical_and", "logical_or", "logical_not"]
 
 
 def add(a: CV, b: CV) -> CV:
@@ -64,6 +64,14 @@ def gt(a: CV, b: CV) -> CV:
 def ge(a: CV, b: CV) -> CV:
     return CV(_nan_lt(b.data, a.data) | _nan_safe_eq(a.data, b.data),
               and_validity(a, b))
+
+
+def eq_null_safe(a: CV, b: CV) -> CV:
+    """<=>: null <=> null is true; never returns null."""
+    both_null = ~a.validity & ~b.validity
+    both_valid = a.validity & b.validity
+    out = both_null | (both_valid & _nan_safe_eq(a.data, b.data))
+    return CV(out, torch.ones_like(out))
 
 
 # ----------------------------------------------------------------------

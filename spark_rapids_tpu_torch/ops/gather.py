@@ -19,7 +19,8 @@ from ..utils import transfer
 from .kernel_utils import CV
 
 __all__ = ["take_fixed", "take_strings", "take", "compact",
-           "compaction_perm", "gather_cols", "row_of_unit", "gather_bytes"]
+           "compaction_perm", "gather_cols", "gather_groups", "row_of_unit",
+           "gather_bytes"]
 
 
 def take_fixed(cv: CV, idx: torch.Tensor,
@@ -130,7 +131,17 @@ def gather_cols(cvs: Sequence[CV], idx: torch.Tensor,
     """Gather a table's columns by idx. String columns get a byte buffer
     of exactly the bytes gathered (a gather may repeat rows, so the
     source's length is no bound): one host read for all of them."""
-    var = [i for i, cv in enumerate(cvs) if cv.offsets is not None]
+    return gather_groups([(cvs, idx, inb)])[0]
+
+
+def gather_groups(groups) -> List[List[CV]]:
+    """`gather_cols` of several (cvs, idx, inb) groups (a join's two
+    sides), with one host read for the string columns of all of them."""
+    var = [(g, i) for g, (cvs, _, _) in enumerate(groups)
+           for i, cv in enumerate(cvs) if cv.offsets is not None]
     caps = dict(zip(var, transfer.fetch_ints(
-        [_bytes_taken(cvs[i], idx, inb) for i in var])))
-    return [take(cv, idx, inb, caps.get(i)) for i, cv in enumerate(cvs)]
+        [_bytes_taken(groups[g][0][i], groups[g][1], groups[g][2])
+         for g, i in var])))
+    return [[take(cv, idx, inb, caps.get((g, i)))
+             for i, cv in enumerate(cvs)]
+            for g, (cvs, idx, inb) in enumerate(groups)]

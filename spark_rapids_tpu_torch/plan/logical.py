@@ -1,7 +1,8 @@
 """Logical plan nodes built by the DataFrame API: the ported subset.
 
 Scans (in-memory Arrow, Parquet), Project, Filter, Aggregate (grouped
-or not), Sort and Repartition. Expressions bind against the child schema when a node is
+or not), Join (every `how` of the JAX package; the planner raises on
+`cross` and on a `condition`), Sort, Limit and Repartition. Expressions bind against the child schema when a node is
 built, as in the JAX package; an expression the port cannot evaluate
 raises there (NotPorted or UnsupportedExpr) instead of planning a host
 fallback.
@@ -15,7 +16,8 @@ from ..expr import aggregates as agg
 from ..expr.expressions import Expression
 
 __all__ = ["LogicalPlan", "InMemoryScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "SortOrder", "Sort", "Repartition"]
+           "Filter", "Aggregate", "Join", "SortOrder", "Sort", "Limit",
+           "Repartition"]
 
 
 class LogicalPlan:
@@ -112,6 +114,42 @@ class Aggregate(LogicalPlan):
         return self._schema
 
 
+class Join(LogicalPlan):
+    """Equi-join of left (the stream side) and right (the build side) on
+    `left_keys[i] == right_keys[i]`; semi/anti joins output the left
+    columns only, every other join the left then the right columns. A
+    non-equi `condition` binds over the combined schema."""
+
+    HOWS = ("inner", "left", "right", "full", "left_semi", "left_anti",
+            "cross")
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], how: str = "inner",
+                 condition: Optional[Expression] = None):
+        if how not in self.HOWS:
+            raise ValueError(f"unknown join type {how!r}")
+        self.left, self.right = left, right
+        self.children = [left, right]
+        self.how = how
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.bound_left_keys = [k.bind(left.schema) for k in self.left_keys]
+        self.bound_right_keys = [k.bind(right.schema)
+                                 for k in self.right_keys]
+        lf = list(left.schema.fields)
+        rf = list(right.schema.fields)
+        self.condition = condition
+        self.bound_condition = (condition.bind(Schema(lf + rf))
+                                if condition is not None else None)
+        self._schema = Schema(lf if how in ("left_semi", "left_anti")
+                              else lf + rf)
+
+    @property
+    def schema(self):
+        return self._schema
+
+
 class SortOrder:
     def __init__(self, expr: Expression, ascending: bool = True,
                  nulls_first: Optional[bool] = None):
@@ -136,6 +174,17 @@ class Sort(LogicalPlan):
         self.bound_orders = [SortOrder(o.expr.bind(child.schema),
                                        o.ascending, o.nulls_first)
                              for o in self.orders]
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+
+class Limit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, n: int):
+        self.child = child
+        self.children = [child]
+        self.n = n
 
     @property
     def schema(self):

@@ -1,10 +1,14 @@
 """Logical optimizations: filter pushdown and column pruning.
 
 The ported subset of the JAX package's optimizer, over the node types
-the port has. `push_filters` sinks a Filter below a pass-through Project;
-`prune` flows the required columns top-down and shrinks scans, and
-attaches a Parquet scan's row-group pruning conjuncts from the Filter
-directly above it.
+the port has. `push_filters` sinks a Filter below a pass-through Project
+and into the matching side of a Join (inner: both sides; left, semi and
+anti: the left; right: the right), adding one-sided weakenings of the
+conjuncts it cannot move (`extract_within`); `prune` flows the required
+columns top-down through Project, Filter, Aggregate, Sort, Limit and
+Join, shrinks scans, and attaches a Parquet scan's row-group pruning
+conjuncts from the Filter directly above it. The JAX package's other
+passes (join reorder, the distinct-aggregate rewrite) are not ported.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from ..expr.expressions import BoundRef, ColumnRef, Expression
 from . import logical as L
 
 __all__ = ["optimize", "refs_of", "push_filters", "prune",
-           "extract_conjuncts"]
+           "extract_conjuncts", "extract_within"]
 
 
 def refs_of(e: Expression) -> Optional[Set[str]]:
@@ -94,6 +98,25 @@ def prune(plan: L.LogicalPlan,
             r = _refs_of_all([o.expr for o in plan.orders])
             creq = None if r is None else (required | r)
         return L.Sort(prune(plan.child, creq), plan.orders)
+    if isinstance(plan, L.Limit):
+        return L.Limit(prune(plan.child, required), plan.n)
+    if isinstance(plan, L.Join):
+        lnames = set(plan.left.schema.names)
+        rnames = set(plan.right.schema.names)
+        lkr = _refs_of_all(plan.left_keys)
+        rkr = _refs_of_all(plan.right_keys)
+        ckr = (_refs_of_all([plan.condition])
+               if plan.condition is not None else set())
+        lreq = rreq = None
+        if (required is not None and lkr is not None and rkr is not None
+                and ckr is not None and not (lnames & rnames)):
+            lreq = ({n for n in required if n in lnames} | lkr
+                    | (ckr & lnames))
+            rreq = ({n for n in required if n in rnames} | rkr
+                    | (ckr & rnames))
+        return L.Join(prune(plan.left, lreq), prune(plan.right, rreq),
+                      plan.left_keys, plan.right_keys, plan.how,
+                      condition=plan.condition)
     if isinstance(plan, L.Repartition):
         return L.Repartition(prune(plan.child, None), plan.num_partitions,
                              plan.keys)
@@ -110,6 +133,11 @@ def _rebuild(plan: L.LogicalPlan, kids) -> L.LogicalPlan:
         return L.Aggregate(kids[0], plan.keys, plan.aggs)
     if isinstance(plan, L.Sort):
         return L.Sort(kids[0], plan.orders)
+    if isinstance(plan, L.Limit):
+        return L.Limit(kids[0], plan.n)
+    if isinstance(plan, L.Join):
+        return L.Join(kids[0], kids[1], plan.left_keys, plan.right_keys,
+                      plan.how, condition=plan.condition)
     if isinstance(plan, L.Repartition):
         return L.Repartition(kids[0], plan.num_partitions, plan.keys)
     return plan
@@ -146,8 +174,50 @@ def _passthrough_names(project: L.Project) -> Set[str]:
     return {e.name for e in project.exprs if isinstance(e, ColumnRef)}
 
 
+def _split_conjuncts(cond: Expression):
+    from ..expr.expressions import And
+    if isinstance(cond, And):
+        return (_split_conjuncts(cond.children[0])
+                + _split_conjuncts(cond.children[1]))
+    return [cond]
+
+
+def _and_all(preds):
+    from ..expr.expressions import And
+    out = preds[0]
+    for p in preds[1:]:
+        out = And(out, p)
+    return out
+
+
+def extract_within(cond: Expression, names: Set[str]):
+    """A weaker predicate implied by `cond` that references only `names`,
+    or None (Spark's extractPredicatesWithinOutputSet): And keeps either
+    side, Or needs both."""
+    from ..expr.expressions import And, Or
+    if isinstance(cond, And):
+        a = extract_within(cond.children[0], names)
+        b = extract_within(cond.children[1], names)
+        if a is not None and b is not None:
+            return And(a, b)
+        return a if a is not None else b
+    if isinstance(cond, Or):
+        a = extract_within(cond.children[0], names)
+        b = extract_within(cond.children[1], names)
+        if a is not None and b is not None:
+            return Or(a, b)
+        return None
+    refs = refs_of(cond)
+    if refs is not None and refs <= names:
+        return cond
+    return None
+
+
 def push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Sink Filters below pass-through Projects."""
+    """Sink Filters below pass-through Projects and into Join sides:
+    whole one-sided conjuncts move (and leave the filter above); derived
+    OR-extracted predicates are added below while the original filter
+    stays."""
     kids = [push_filters(c) for c in plan.children]
     plan = _rebuild(plan, kids)
     if not isinstance(plan, L.Filter):
@@ -160,7 +230,53 @@ def push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
         return L.Project(
             push_filters(L.Filter(child.child, plan.condition)),
             child.exprs)
+    if isinstance(child, L.Join):
+        return _push_into_join(plan, child)
     return plan
+
+
+def _push_into_join(plan: L.Filter, join: L.Join) -> L.LogicalPlan:
+    lnames = set(join.left.schema.names)
+    rnames = set(join.right.schema.names)
+    # a name on both sides is ambiguous above the join: a conjunct that
+    # touches one stays above
+    shared = lnames & rnames
+    lonly, ronly = lnames - shared, rnames - shared
+    left_ok = join.how in ("inner", "left", "left_semi", "left_anti")
+    right_ok = join.how in ("inner", "right")
+    lparts, rparts, rest = [], [], []
+    for c in _split_conjuncts(plan.condition):
+        r = refs_of(c)
+        if r is not None and r & shared:
+            rest.append(c)
+        elif r is not None and r <= lnames and left_ok:
+            lparts.append(c)
+        elif r is not None and r <= rnames and right_ok:
+            rparts.append(c)
+        else:
+            rest.append(c)
+    # one-sided weakenings of the conjuncts that stay
+    for c in rest:
+        if refs_of(c) is not None and refs_of(c) & shared:
+            continue
+        if left_ok:
+            d = extract_within(c, lonly)
+            if d is not None and refs_of(d) != refs_of(c):
+                lparts.append(d)
+        if right_ok:
+            d = extract_within(c, ronly)
+            if d is not None and refs_of(d) != refs_of(c):
+                rparts.append(d)
+    if not lparts and not rparts:
+        return plan
+    new_left, new_right = join.left, join.right
+    if lparts:
+        new_left = push_filters(L.Filter(new_left, _and_all(lparts)))
+    if rparts:
+        new_right = push_filters(L.Filter(new_right, _and_all(rparts)))
+    out = L.Join(new_left, new_right, join.left_keys, join.right_keys,
+                 join.how, condition=join.condition)
+    return L.Filter(out, _and_all(rest)) if rest else out
 
 
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:

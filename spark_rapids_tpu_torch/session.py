@@ -1,29 +1,37 @@
 """Session and DataFrame: the entry points of the port.
 
 The same surface as the JAX package's `TpuSession` for the ported slice:
-`create_dataframe`, `read.parquet`, and `filter`, `select`, `agg`,
-`group_by(...).agg`, `sort`, `repartition`, `to_arrow` and `collect` on
-a DataFrame. A session runs on
+`create_dataframe`, `read.parquet`, and `filter`, `select`,
+`with_column`, `agg`, `group_by(...).agg`, `join` (equi-keys by name),
+`sort`, `limit`, `repartition`, `to_arrow` and `collect` on a
+DataFrame. A session runs on
 one torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from .columnar.table import Schema
 from .config import TpuConf
+from .errors import NotPorted
 from .exec.base import ExecContext
 from .exec.nodes import collect_to_arrow
 from .expr.aggregates import AggExpr
-from .expr.expressions import Alias, Expression
+from .expr.expressions import (Alias, BoundRef, Coalesce, Expression,
+                               col)
 from .functions import _to_expr
 from .plan import logical as L
 from .plan.planner import Planner
 
 __all__ = ["TpuSession", "DataFrame", "GroupedData"]
+
+# a unique tag per join for the hidden names of colliding right-side
+# columns, so the hidden keys of different joins in one chain differ
+_JOIN_TAGS = itertools.count(1)
 
 
 def _resolve_device(device) -> torch.device:
@@ -100,13 +108,112 @@ class DataFrame:
         self._session = session
         self._plan = plan
 
+    @property
+    def columns(self) -> List[str]:
+        return list(self._plan.schema.names)
+
     def select(self, *exprs) -> "DataFrame":
         return DataFrame(self._session,
                          L.Project(self._plan, [_to_expr(e) for e in exprs]))
 
+    def with_column(self, name: str, e) -> "DataFrame":
+        es = [col(n) for n in self.columns if n != name]
+        es.append(_to_expr(e).alias(name))
+        return self.select(*es)
+
+    withColumn = with_column
+
     def filter(self, cond) -> "DataFrame":
         return DataFrame(self._session,
                          L.Filter(self._plan, _to_expr(cond)))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Equi-join on column names (`on`), pyspark's column layout: the
+        `on` columns once (a right join takes them from the right side, a
+        full join coalesces both), then the left's other columns, then the
+        right's. An `on` expression, a `condition` and a cross join raise
+        NotPorted."""
+        if isinstance(on, Expression) or condition is not None:
+            raise NotPorted("join conditions (non-equi or expression "
+                            "`on`; the nested-loop join)")
+        if how == "cross":
+            raise NotPorted("cross joins")
+        on = [on] if isinstance(on, str) else list(on or ())
+        if not on or not all(isinstance(c, str) for c in on):
+            raise ValueError("join needs `on`: one or more column names")
+        lk = [col(c) for c in on]
+        rk = [col(c) for c in on]
+        if how in ("left_semi", "left_anti"):
+            return DataFrame(self._session,
+                             L.Join(self._plan, other._plan, lk, rk, how))
+        lnames_list = list(self._plan.schema.names)
+        rnames_list = list(other._plan.schema.names)
+        if (len(set(lnames_list)) < len(lnames_list)
+                or len(set(rnames_list)) < len(rnames_list)):
+            # a side already has duplicate names (a previous join's
+            # output): a projection by name would merge them
+            return self._join_positional(other, on, how, lk, rk)
+        # rename the colliding right-side columns before the join, so the
+        # joined schema's names are unique and the projection above it
+        # stays by name (column pruning and filter pushdown see through)
+        lnames = set(lnames_list)
+        tag = next(_JOIN_TAGS)
+        rename = {f.name: f"__join_r{tag}_{f.name}"
+                  for f in other._plan.schema.fields if f.name in lnames}
+        rplan = other._plan
+        if rename:
+            rplan = L.Project(rplan, [
+                col(f.name).alias(rename[f.name]) if f.name in rename
+                else col(f.name) for f in other._plan.schema.fields])
+        rk = [col(rename.get(c, c)) for c in on]
+        jplan = L.Join(self._plan, rplan, lk, rk, how)
+        on_set = set(on)
+        exprs = []
+        for name in on:
+            rn = rename.get(name, name)
+            if how == "right":
+                exprs.append(col(rn).alias(name))
+            elif how == "full":
+                exprs.append(Coalesce(col(name), col(rn)).alias(name))
+            else:
+                exprs.append(col(name))
+        for f in self._plan.schema.fields:
+            if f.name not in on_set:
+                exprs.append(col(f.name))
+        for f in other._plan.schema.fields:
+            if f.name in on_set:
+                continue
+            rn = rename.get(f.name, f.name)
+            exprs.append(col(rn).alias(f.name) if rn != f.name
+                         else col(f.name))
+        return DataFrame(self._session, L.Project(jplan, exprs))
+
+    def _join_positional(self, other: "DataFrame", on, how, lk, rk):
+        """The post-join projection by position (BoundRef): exact for
+        inputs with duplicate names, at the cost of name-based pruning
+        above this join."""
+        jplan = L.Join(self._plan, other._plan, lk, rk, how)
+        nl = len(self._plan.schema.fields)
+        on_set = set(on)
+        exprs = []
+        jschema = jplan.schema
+        for name in on:
+            li = self._plan.schema.index_of(name)
+            ri = nl + other._plan.schema.index_of(name)
+            lref = BoundRef(li, jschema[li].dtype, name)
+            rref = BoundRef(ri, jschema[ri].dtype, name)
+            if how == "right":
+                exprs.append(rref)
+            elif how == "full":
+                exprs.append(Coalesce(lref, rref).alias(name))
+            else:
+                exprs.append(lref)
+        for i, f in enumerate(jschema.fields):
+            if f.name in on_set:
+                continue
+            exprs.append(BoundRef(i, f.dtype, f.name))
+        return DataFrame(self._session, L.Project(jplan, exprs))
 
     def group_by(self, *keys) -> GroupedData:
         return GroupedData(self, [_to_expr(k) for k in keys])
@@ -123,6 +230,9 @@ class DataFrame:
 
     orderBy = sort
 
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self._session, L.Limit(self._plan, n))
+
     def repartition(self, n: int, *keys) -> "DataFrame":
         ks = [_to_expr(k) for k in keys] or None
         return DataFrame(self._session, L.Repartition(self._plan, n, ks))
@@ -138,15 +248,23 @@ class DataFrame:
         root, ctx = self.physical_plan()
         out = collect_to_arrow(root, ctx)
         self._last_metrics = ctx.metrics
+        self._last_plan = root
         return out
+
+    def last_plan(self):
+        """The physical plan root of this DataFrame's most recent action:
+        its nodes' `_op_id`s key `last_metrics()`."""
+        return getattr(self, "_last_plan", None)
 
     def last_metrics(self) -> Dict[str, Dict[str, float]]:
         """Per-operator metrics of this DataFrame's most recent action:
         host seconds per layer (scanTime, decodeTime, hashPassTime,
-        sortPassTime, mergeTime, mapTime, sliceTime, reduceTime, sortTime,
-        collectTime) and counts (mapBatches, skippedRowGroups,
-        inputBatches, hashPassBatches, sortPassBatches, mergePasses,
-        numBucketRecursions)."""
+        sortPassTime, mergeTime, mapTime, sliceTime, reduceTime, buildTime,
+        probeTime, expandTime, sortTime, limitTime, collectTime) and
+        counts (mapBatches, skippedRowGroups, inputBatches,
+        hashPassBatches, sortPassBatches, mergePasses, numBucketRecursions,
+        a join's streamBatches, directProbeBatches, sortedProbeBatches,
+        countProbeBatches, fkOutputBatches, expandOutputBatches)."""
         return getattr(self, "_last_metrics", {})
 
     def collect(self) -> List[tuple]:

@@ -1,9 +1,13 @@
-"""TPC-H lineitem generator, Q6 and Q1, and their numpy references.
+"""TPC-H generators for lineitem, orders and customer, Q6, Q1 and Q3, and
+their numpy references.
 
 The port's own copy of the JAX package's `workloads/tpch.py` pieces that
-Q6 and Q1 need. `gen_lineitem(sf, seed)` draws the same numbers in the same
-order, so it builds a table equal, column for column, to the first eight
-columns of the JAX generator's.
+these queries need. Each generator draws the same numbers in the same
+order as the JAX one: `gen_lineitem(sf, seed)` builds a table equal,
+column for column, to the first eight columns of the JAX generator's;
+`gen_orders` and `gen_customer` equal the JAX generators' base tables
+(`full=False`; the extra columns of `full=True` wait for Q5, Q10 and
+Q12).
 """
 from __future__ import annotations
 
@@ -15,11 +19,17 @@ import pyarrow as pa
 from .. import functions as F
 from ..expr.expressions import col, lit
 
-__all__ = ["LINEITEM_ROWS_PER_SF", "dec_from_unscaled", "day",
-           "gen_lineitem", "q6", "q6_numpy_baseline", "Q6_COLUMNS", "q1",
-           "q1_numpy_baseline", "Q1_COLUMNS"]
+__all__ = ["LINEITEM_ROWS_PER_SF", "ORDERS_ROWS_PER_SF",
+           "CUSTOMER_ROWS_PER_SF", "SEGMENTS", "dec_from_unscaled", "day",
+           "gen_lineitem", "gen_orders", "gen_customer", "q6",
+           "q6_numpy_baseline", "Q6_COLUMNS", "q1", "q1_numpy_baseline",
+           "Q1_COLUMNS", "q3", "q3_numpy_baseline"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
+ORDERS_ROWS_PER_SF = 1_500_000
+CUSTOMER_ROWS_PER_SF = 150_000
+#: the market segments (TPC-H clause 4.2.2.13); BUILDING is code 1
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"]
 
 #: the lineitem columns Q6 reads
 Q6_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
@@ -127,3 +137,72 @@ def q1_numpy_baseline(ship, rf, ls, qty, price, disc, tax):
     out["sum_charge"] = np.bincount(g, charge.astype(np.float64), 6)
     out["count"] = np.bincount(g, minlength=6)
     return out
+
+
+def gen_orders(sf: float = 0.1, seed: int = 1) -> pa.Table:
+    n = int(ORDERS_ROWS_PER_SF * sf)
+    rng = np.random.default_rng(seed)
+    okey = np.arange(n, dtype=np.int64)
+    ckey = rng.integers(0, max(n // 10, 1), n).astype(np.int64)
+    odate = rng.integers(8036, 10591, n).astype(np.int32)
+    rng.integers(0, 5, n)    # the JAX generator's unused draw, kept in step
+    total = rng.integers(100_000, 50_000_000, n).astype(np.int64)
+    return pa.table({
+        "o_orderkey": pa.array(okey),
+        "o_custkey": pa.array(ckey),
+        "o_orderdate": pa.array(odate, pa.int32()),
+        "o_totalprice": dec_from_unscaled(total, 15, 2),
+        "o_shippriority": pa.array(rng.integers(0, 2, n).astype(np.int32),
+                                   pa.int32()),
+    })
+
+
+def gen_customer(sf: float = 0.1, seed: int = 2) -> pa.Table:
+    n = int(CUSTOMER_ROWS_PER_SF * sf)
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "c_custkey": pa.array(np.arange(n, dtype=np.int64)),
+        "c_mktsegment": pa.array(np.array(SEGMENTS)[rng.integers(0, 5, n)]),
+    })
+
+
+def q3(customer, orders, lineitem):
+    """TPC-H Q3 shape: shipping priority (join, join, grouped sum, sort,
+    top 10)."""
+    from ..plan.logical import Sort, SortOrder
+    from ..session import DataFrame
+    d = decimal.Decimal
+    rev = col("l_extendedprice") * (lit(d("1")) - col("l_discount"))
+    df = (customer.filter(col("c_mktsegment") == lit("BUILDING"))
+          .join(orders.with_column("c_custkey", col("o_custkey")),
+                on=["c_custkey"], how="inner")
+          .filter(col("o_orderdate") < 9204)
+          .with_column("l_orderkey", col("o_orderkey"))
+          .join(lineitem, on=["l_orderkey"], how="inner")
+          .filter(col("l_shipdate") > 9204)
+          .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+          .agg(F.sum(rev).alias("revenue")))
+    sorted_df = DataFrame(df._session, Sort(df._plan, [
+        SortOrder(col("revenue"), ascending=False),
+        SortOrder(col("o_orderdate"), ascending=True)]))
+    return sorted_df.limit(10)
+
+
+def q3_numpy_baseline(c_key, c_seg, o_okey, o_ckey, o_date, o_prio,
+                      l_okey, l_ship, l_price, l_disc):
+    """Vectorized single-core Q3 reference: semi-joins by np.isin, a
+    grouped sum over order keys; the top 10 by revenue, ties by order
+    key. c_seg is the SEGMENTS code (BUILDING == 1)."""
+    cust = c_key[c_seg == 1]
+    om = (o_date < 9204) & np.isin(o_ckey, cust)
+    okeys = o_okey[om]
+    lm = (l_ship > 9204) & np.isin(l_okey, okeys)
+    lk = l_okey[lm]
+    rev = l_price[lm] * (100 - l_disc[lm])
+    order = np.argsort(lk, kind="stable")
+    lk_s, rev_s = lk[order], rev[order]
+    starts = np.flatnonzero(np.r_[True, lk_s[1:] != lk_s[:-1]])
+    sums = np.add.reduceat(rev_s, starts) if lk_s.size else np.array([])
+    keys = lk_s[starts] if lk_s.size else np.array([], np.int64)
+    top = np.argsort(-sums, kind="stable")[:10]
+    return keys[top], sums[top]

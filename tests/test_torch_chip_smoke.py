@@ -224,3 +224,146 @@ def test_shipdate_reference_and_check(small_lineitem):
     ("void cub::DeviceSelectSweepKernel<>", "other")])
 def test_q1_kernel_groups(name, group):
     assert chip_smoke.q1_group_of(name) == group
+
+
+# ----------------------------------------------------------------------
+# Q3's exact reference, its tie rule and plan checks, on the CPU
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def q3_small():
+    tables = chip_smoke.q3_tables(0.002)
+    return tables, chip_smoke.q3_reference(*tables)
+
+
+def _python_q3(customer, orders, lineitem):
+    """Q3 before its limit in Python ints, row by row."""
+    from collections import defaultdict
+    building = {k for k, s in zip(customer.column(0).to_pylist(),
+                                  customer.column(1).to_pylist())
+                if s == "BUILDING"}
+    omap = {}
+    for ok, ck, od, sp in zip(*(orders.column(c).to_pylist() for c in (
+            "o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"))):
+        if ck in building and od < 9204:
+            omap[ok] = (od, sp)
+    rev = defaultdict(int)
+    for lk, sd, p, d in zip(*(lineitem.column(c).to_pylist() for c in (
+            "l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"))):
+        if lk in omap and sd > 9204:
+            rev[lk] += int(p.scaleb(2)) * (100 - int(d.scaleb(2)))
+    rows = [(k, *omap[k], v) for k, v in rev.items()]
+    return sorted(rows, key=lambda r: (-r[3], r[1], r[0]))
+
+
+def test_q3_reference_equals_python(q3_small):
+    tables, expect = q3_small
+    assert chip_smoke._ref_rows(expect) == _python_q3(*tables)
+    assert len(expect[0]) > chip_smoke.Q3_LIMIT
+
+
+def _q3_port(tables, conf, limit=True):
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.workloads import tpch
+    s = pt.TpuSession(conf, device="cpu")
+    q = chip_smoke.q3_query(tpch, s, tables, limit)
+    return q, q.to_arrow()
+
+
+def test_check_q3_accepts_the_port_and_rejects_faults(q3_small):
+    import pyarrow as pa
+    tables, expect = q3_small
+    q, full = _q3_port(tables, {}, limit=False)
+    chip_smoke.check_q3_full(full, expect, "port")
+    _, top = _q3_port(tables, {})
+    chip_smoke.check_q3_top(top, expect, "port")
+    with pytest.raises(AssertionError, match="order"):
+        chip_smoke.check_q3_top(top.take(pa.array([1, 0] + list(
+            range(2, top.num_rows)))), expect, "reordered")
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke.check_q3_full(full.slice(1), expect, "a row short")
+    bad = top.to_pylist()
+    bad[9]["l_orderkey"] += 1
+    with pytest.raises(AssertionError, match="not in the reference"):
+        chip_smoke.check_q3_top(pa.Table.from_pylist(bad, top.schema),
+                                expect, "a wrong key")
+
+
+def test_check_q3_top_allows_ties_at_the_last_row():
+    import decimal
+
+    import numpy as np
+    import pyarrow as pa
+    # rows 9-11 tie on (revenue, o_orderdate): any of them may be 10th
+    keys = np.arange(12)
+    rev = np.array([90, 80, 70, 60, 50, 40, 30, 20, 10, 5, 5, 5, 1][:12])
+    date = np.array([1] * 12)
+    expect = (keys, date, np.zeros(12, np.int64), rev)
+
+    def table(order):
+        return pa.table({
+            "l_orderkey": pa.array(keys[order]),
+            "o_orderdate": pa.array(date[order].astype(np.int32)),
+            "o_shippriority": pa.array(np.zeros(len(order), np.int32)),
+            "revenue": pa.array([decimal.Decimal(int(v)).scaleb(-4)
+                                 for v in rev[order]],
+                                pa.decimal128(28, 4))})
+    chip_smoke.check_q3_top(table(list(range(9)) + [11]), expect, "tie")
+    chip_smoke.check_q3_full(table([0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9, 10]),
+                             expect, "tied rows in another order")
+    with pytest.raises(AssertionError, match="keys"):
+        chip_smoke.check_q3_top(table(list(range(8)) + [9, 10]), expect,
+                                "a skipped row")
+
+
+def test_q3_plan_shapes(q3_small):
+    tables, _ = q3_small
+    q, _ = _q3_port(tables, {})
+    root = q.last_plan()
+    assert chip_smoke.check_q3_plan(root, shuffled=False)[
+        "broadcast_exchanges"] == 2
+    with pytest.raises(AssertionError, match="shuffled"):
+        chip_smoke.check_q3_plan(root, shuffled=True)
+    q, _ = _q3_port(tables, {
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1})
+    shape = chip_smoke.check_q3_plan(q.last_plan(), shuffled=True)
+    assert [j["per_partition"] for j in shape["joins"]] == [True, True]
+
+
+def test_q3_phases_rehearse_on_the_cpu(q3_small, capsys):
+    """Phases 11-13 at a small scale factor, the shuffled phase forced by
+    a threshold of -1: every check passes and the partition kernel never
+    launches."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    tables, expect = q3_small
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 1024,
+                       "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                       -1}, device="cpu")
+    launches = chip_smoke.q3_phases(s, tables, expect)
+    assert set(launches) == {"q3_shuffled", "q3_shuffled_no_limit",
+                             "q3_broadcast"}
+    assert all(v == {"all": 0, "vector": 0, "scalar": 0}
+               for v in launches.values())
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    phases = {d["phase"]: d for d in lines}
+    assert set(phases) == {"q3_shuffled", "q3_broadcast", "q3_profiled"}
+    paths = phases["q3_shuffled"]["runs"][0]["join_paths"]
+    assert len(paths) == 2
+    for p in paths.values():
+        assert p["streamBatches"] == p["directProbeBatches"] > 0
+        assert p["expandOutputBatches"] + p["fkOutputBatches"] > 0
+    assert phases["q3_broadcast"]["plan"]["broadcast_exchanges"] == 2
+    assert phases["q3_profiled"]["host_syncs_per_batch"] > 0
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void at::native::(anonymous namespace)::searchsorted_cuda_kernel"
+     "<long, long>", "searchsorted"),
+    ("void at::native::_scatter_gather_elementwise_kernel<128, 8>",
+     "scatter_index_add"),
+    ("void cub::DeviceRadixSortOnesweepKernel<>", "sort"),
+    ("Memcpy HtoD (Pinned -> Device)", "h2d")])
+def test_q3_kernel_groups(name, group):
+    assert chip_smoke.q1_group_of(name, chip_smoke.Q3_GROUPS) == group

@@ -6,6 +6,7 @@ null) bind against one schema in both packages and evaluate on the same
 numpy inputs, nulls included. The port's data and validity must equal
 the JAX package's element for element. Tolerance: exact.
 """
+import datetime
 import decimal
 import types
 
@@ -165,10 +166,18 @@ def test_decimal_overflow_gives_null():
     lambda E: E.col("l_extendedprice") * E.col("l_quantity")
     > E.lit(D("1")),
     lambda E: E.col("l_orderkey") + E.lit(D("1.5")),          # dec(20,0)
-    lambda E: E.lit("a") == E.col("l_shipdate"),
+    # a timestamp literal (string literals are ported since the Q3 slice)
+    lambda E: E.lit(datetime.datetime(1998, 1, 1)) == E.col("l_shipdate"),
     lambda E: E.Cast(E.Cast(E.col("l_discount"), E.FLOAT64), E.INT32),
     lambda E: E.Cast(E.col("l_shipdate"), pdt.BOOL),
 ])
 def test_unported_expressions_raise(build):
     with pytest.raises(NotPorted):
         build(PORT).bind(PSchema.from_arrow(SCHEMA))
+
+
+def test_string_against_non_string_compare_is_refused_like_jax():
+    with pytest.raises(jx.UnsupportedExpr):
+        (jx.lit("a") == jx.col("l_shipdate")).bind(JSchema.from_arrow(SCHEMA))
+    with pytest.raises(px.UnsupportedExpr, match="string/non-string"):
+        (px.lit("a") == px.col("l_shipdate")).bind(PSchema.from_arrow(SCHEMA))

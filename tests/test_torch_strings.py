@@ -1,8 +1,11 @@
 """String columns in the PyTorch port against the JAX package.
 
 String (and binary) columns go through Arrow decode and upload, back to
-Arrow, the row gather, the compaction, the concatenation and murmur3 in
-both packages on the same seeded inputs: empty strings, nulls, multi-byte
+Arrow, the row gather, the compaction, the concatenation, murmur3, the
+literal equality (`ops/strings.py` `equals_literal`), the general compare
+(`compare`) and the string comparisons of the expression layer (`==`,
+`!=`, `<`, `<=`, `>`, `>=` and `<=>`, against a literal and between
+columns) in both packages on the same seeded inputs: empty strings, nulls, multi-byte
 UTF-8, and strings past 64 bytes (where the JAX package's hash folds the
 last word instead of the tail, docs/compatibility.md:59). Every output
 must equal the JAX package's (Arrow tables equal; hashes bit for bit).
@@ -221,3 +224,116 @@ def test_string_repartition_matches_jax():
     got = pt.TpuSession(conf, device="cpu").create_dataframe(
         at).repartition(5, "k", "s").to_arrow()
     assert got.equals(want)
+
+
+# ----------------------------------------------------------------------
+# compares: ops/strings.py and the expression layer
+# ----------------------------------------------------------------------
+LITERALS = ["BUILDING", "BUILDING\x00", "", "a", "abcd", "abcde", "日本語",
+            "x" * 64, "ÿþýü"]
+CMP_WORDS = WORDS + ["BUILDING", "BUILDING\x00", "BUILDIN", "BUILDINGS",
+                     "building", "a\x00", "abcd\x00"]
+
+
+def _cmp_strings(n, seed):
+    rng = np.random.default_rng(seed)
+    return pa.array([CMP_WORDS[i]
+                     for i in rng.integers(0, len(CMP_WORDS), n)],
+                    pa.string())
+
+
+@pytest.mark.parametrize("literal", LITERALS)
+def test_equals_literal_matches_jax(literal):
+    from spark_rapids_tpu.ops import strings as jstr
+    from spark_rapids_tpu_torch.ops import strings as pstr
+    arr = _cmp_strings(300, 5)
+    raw = literal.encode()
+    got = pstr.equals_literal(_pcv(arr), raw).numpy()
+    exp = np.asarray(jstr.equals_literal(_jcv(arr), raw))[:len(arr)]
+    np.testing.assert_array_equal(got, exp)
+    # the kernel reads bytes only: a null row is its empty bytes
+    want = np.array([(v or "") == literal for v in arr.to_pylist()])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_trailing_zero_byte_is_not_equal():
+    """Unlike the chunk keys of a sort, the equality checks the length:
+    "BUILDING\\x00" is not "BUILDING"."""
+    from spark_rapids_tpu_torch.ops import strings as pstr
+    arr = pa.array(["BUILDING", "BUILDING\x00", "BUILDING\x00\x00",
+                    "BUILDIN"])
+    assert pstr.equals_literal(_pcv(arr), b"BUILDING").tolist() == \
+        [True, False, False, False]
+    assert pstr.equals_literal(_pcv(arr), b"BUILDING\x00").tolist() == \
+        [False, True, False, False]
+    assert pstr.compare(_pcv(arr), _pcv(pa.array(["BUILDING"] * 4))) \
+        .tolist() == [0, 1, 1, -1]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compare_matches_jax(seed):
+    from spark_rapids_tpu.ops import strings as jstr
+    from spark_rapids_tpu_torch.ops import strings as pstr
+    a, b = _cmp_strings(257, seed), _cmp_strings(257, seed + 10)
+    got = pstr.compare(_pcv(a), _pcv(b)).numpy()
+    exp = np.asarray(jstr.compare(_jcv(a), _jcv(b)))[:len(a)]
+    np.testing.assert_array_equal(got, exp)
+    want = [(x.encode() > y.encode()) - (x.encode() < y.encode())
+            if x is not None and y is not None else None
+            for x, y in zip(a.to_pylist(), b.to_pylist())]
+    assert [w for w, v in zip(got.tolist(), want) if v is not None] == \
+        [v for v in want if v is not None]
+
+
+def test_compare_of_empty_columns():
+    from spark_rapids_tpu_torch.ops import strings as pstr
+    e = pa.array([""] * 3)
+    assert pstr.compare(_pcv(e), _pcv(pa.array(["", "a", ""]))).tolist() \
+        == [0, -1, 0]
+    assert pstr.compare(_pcv(pa.array(["b", "", "a"])), _pcv(e)).tolist() \
+        == [1, 0, 1]
+
+
+def _compare_exprs(E, c, lit):
+    """Every string comparison against three literals and between two
+    columns, in the expression module E of one package."""
+    out = []
+    for v in ("BUILDING", "abcd", ""):
+        out += [(c("w") == lit(v)).alias(f"eq_{v}"),
+                (lit(v) == c("w")).alias(f"req_{v}"),
+                (c("w") != lit(v)).alias(f"ne_{v}"),
+                (c("w") < lit(v)).alias(f"lt_{v}"),
+                (c("w") <= lit(v)).alias(f"le_{v}"),
+                (c("w") > lit(v)).alias(f"gt_{v}"),
+                (c("w") >= lit(v)).alias(f"ge_{v}"),
+                E.EqNullSafe(c("w"), lit(v)).alias(f"ns_{v}")]
+    out += [(c("w") == c("u")).alias("eq_cols"),
+            (c("w") < c("u")).alias("lt_cols"),
+            E.EqNullSafe(c("w"), c("u")).alias("ns_cols")]
+    return out
+
+
+@pytest.mark.parametrize("null_frac", [None, 0.3])
+def test_string_comparisons_match_jax(null_frac):
+    from spark_rapids_tpu.expr.expressions import col as jcol, lit as jlit
+    from spark_rapids_tpu_torch.expr.expressions import col as pcol
+    from spark_rapids_tpu_torch.expr.expressions import lit as plit
+    rng = np.random.default_rng(8)
+    w = _cmp_strings(400, 8).to_pylist()
+    u = _cmp_strings(400, 9).to_pylist()
+    if null_frac:
+        w = [None if rng.random() < null_frac else x for x in w]
+        u = [None if rng.random() < null_frac else x for x in u]
+    t = pa.table({"w": pa.array(w, pa.string()),
+                  "u": pa.array(u, pa.string())})
+    from spark_rapids_tpu.expr import expressions as jexpr
+    from spark_rapids_tpu_torch.expr import expressions as pexpr
+    got = pt.TpuSession(device="cpu").create_dataframe(t).select(
+        *_compare_exprs(pexpr, pcol, plit)).to_arrow()
+    exp = st.TpuSession().create_dataframe(t).select(
+        *_compare_exprs(jexpr, jcol, jlit)).to_arrow()
+    assert got.equals(exp)
+    assert got.column("eq_BUILDING").to_pylist() == [
+        None if x is None else x == "BUILDING" for x in w]
+    assert got.column("ns_cols").to_pylist() == [
+        x == y for x, y in zip(w, u)]
