@@ -48,7 +48,19 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      broadcast (two `BroadcastExchangeExec`);
  13. Q3 under torch.profiler: device busy share, device time by group
      (searchsorted, scatter, sort, gather, elementwise, H2D, D2H),
-     launches and host syncs per input batch.
+     launches and host syncs per input batch;
+ 14. the earlier tables freed, `tpch.gen_all(10)` (seed 7): rows and
+     generation seconds per table, then the exact numpy reference of
+     each of Q4, Q5, Q7, Q10, Q12, Q18 (at the spec's 300) and Q19,
+     timed (int64 unscaled decimals with an overflow guard, the
+     generators' 0..n-1 keys as indexes, each layout asserted);
+ 15-21. each of those queries (`workloads/tpch_queries.py`) over
+     `create_dataframe` of the eight tables at the default conf, twice,
+     each a fresh plan: the plan shape (broadcast and per-partition
+     joins, exchanges, aggregate modes), wall time, layers, each join's
+     build paths, host syncs, and 0 partition-kernel launches (every
+     exchange key is int64, a string or a key tuple);
+ 22. Q5, the longest join chain, under torch.profiler.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
@@ -56,7 +68,8 @@ averages), row for row; the per-date sums and counts numpy's; each Q3
 result `q3_reference` (numpy int64 revenue per order): the unlimited
 result row for row but for the order of rows tied on (revenue,
 o_orderdate), the top 10 on those keys with ties allowed at the 10th
-row. The
+row; each of the seven later queries its reference row for row (Q5,
+sorted by revenue alone, as a set with revenue not increasing). The
 partition kernel's launches are counted on every path that runs it,
 each path with the counts set to 0 just before it and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -67,6 +80,7 @@ CUDA is not available.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import re
@@ -1303,6 +1317,420 @@ def q3_phases(session, tables, expect, profile=True) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# TPC-H Q4, Q5, Q7, Q10, Q12, Q18 and Q19 over gen_all's eight tables
+# ----------------------------------------------------------------------
+TPCH_QUERIES = (4, 5, 7, 10, 12, 18, 19)
+#: Q18's quantity threshold (the spec's)
+TPCH_Q18_QTY = 300
+TPCH_SEED = 7     # gen_all's default seed
+#: each query's result columns
+TPCH_COLUMNS = {
+    4: ("o_orderpriority", "order_count"),
+    5: ("n_name", "revenue"),
+    7: ("supp_nation", "cust_nation", "l_year", "revenue"),
+    10: ("c_custkey", "c_name", "c_acctbal", "c_phone", "n_name",
+         "c_address", "revenue"),
+    12: ("l_shipmode", "high_line_count", "low_line_count"),
+    18: ("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+         "o_totalprice", "sum_qty"),
+    19: ("revenue",)}
+
+
+def _col(at, name):
+    return at.column(name).to_numpy()
+
+
+def _arange_keys(at, name) -> int:
+    """The generators' key layout: `name` is 0..n-1 in row order, so a
+    join on it is an index. Returns n."""
+    import numpy as np
+    keys = _col(at, name)
+    if not np.array_equal(keys, np.arange(len(keys))):
+        raise AssertionError(f"{name} is not 0..n-1: a reference that "
+                             f"indexes by it would be wrong")
+    return len(keys)
+
+
+def _in_range(keys, n, what):
+    if len(keys) and (int(keys.min()) < 0 or int(keys.max()) >= n):
+        raise AssertionError(f"{what} out of 0..{n - 1}")
+
+
+def _isin(at, name, values):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    return pc.is_in(at.column(name), value_set=pa.array(values)).to_numpy(
+        zero_copy_only=False)
+
+
+def _strs(at, name, idx) -> list:
+    import pyarrow as pa
+    return at.column(name).take(pa.array(idx, pa.int64())).to_pylist()
+
+
+def _group_sum(codes, vals, n):
+    """Exact int64 sums of vals per code in 0..n-1 (np.add.at), refused
+    where an int64 could overflow."""
+    import numpy as np
+    if len(vals) and int(np.abs(vals).max()) * len(vals) >= 2**63:
+        raise AssertionError("reference sum would overflow int64")
+    out = np.zeros(n, np.int64)
+    np.add.at(out, codes, vals)
+    return out
+
+
+def _revenue(li, m):
+    """l_extendedprice * (1 - l_discount) of the rows m, unscaled at
+    scale 4."""
+    return unscaled(li, "l_extendedprice")[m] * \
+        (100 - unscaled(li, "l_discount")[m])
+
+
+def _cust_nation_of_orders(t):
+    """c_nationkey of each order's customer (o_orderkey and c_custkey are
+    0..n-1; every o_custkey names a customer)."""
+    o, c = t["orders"], t["customer"]
+    nc = _arange_keys(c, "c_custkey")
+    ock = _col(o, "o_custkey")
+    _in_range(ock, nc, "o_custkey")
+    return _col(c, "c_nationkey")[ock]
+
+
+def _lineitem_orders(t):
+    """(l_orderkey with 0 where it names no order, the rows whose key
+    names one): the generator draws l_orderkey below lineitem rows / 4,
+    a little above the orders' count, and an inner join drops the rest."""
+    import numpy as np
+    no = _arange_keys(t["orders"], "o_orderkey")
+    lok = _col(t["lineitem"], "l_orderkey")
+    ok = (lok >= 0) & (lok < no)
+    return np.where(ok, lok, 0), ok
+
+
+def q4_reference(t, d0="1993-07-01", d1="1993-10-01") -> list:
+    import numpy as np
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    o, li = t["orders"], t["lineitem"]
+    lok, ok = _lineitem_orders(t)
+    late = np.zeros(o.num_rows, bool)
+    late[lok[ok & (_col(li, "l_commitdate")
+                   < _col(li, "l_receiptdate"))]] = True
+    d = _col(o, "o_orderdate")
+    m = (d >= day(d0)) & (d < day(d1)) & late
+    codes, vocab = _codes(o.column("o_orderpriority"))
+    cnt = np.bincount(codes[m], minlength=len(vocab))
+    return sorted((vocab[i], int(n)) for i, n in enumerate(cnt) if n)
+
+
+def q5_reference(t, region="ASIA", d0="1994-01-01",
+                 d1="1995-01-01") -> list:
+    """Rows (n_name, revenue) by revenue descending (ties by name: the
+    query leaves their order open)."""
+    import numpy as np
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    o, li, s, nat, reg = (t[k] for k in ("orders", "lineitem", "supplier",
+                                          "nation", "region"))
+    lok, ok = _lineitem_orders(t)
+    ns = _arange_keys(s, "s_suppkey")
+    nn = _arange_keys(nat, "n_nationkey")
+    _arange_keys(reg, "r_regionkey")
+    o_cnk = _cust_nation_of_orders(t)
+    d = _col(o, "o_orderdate")
+    om = (d >= day(d0)) & (d < day(d1))
+    lsk = _col(li, "l_suppkey")
+    _in_range(lsk, ns, "l_suppkey")
+    cnk = o_cnk[lok]
+    r_names = reg.column("r_name").to_pylist()
+    in_region = np.array([r_names[r] == region
+                          for r in _col(nat, "n_regionkey")])
+    m = ok & om[lok] & (_col(s, "s_nationkey")[lsk] == cnk)
+    _in_range(cnk[m], nn, "c_nationkey")
+    m &= in_region[cnk]
+    nk = cnk[m]
+    sums = _group_sum(nk, _revenue(li, m), nn)
+    names = nat.column("n_name").to_pylist()
+    rows = [(names[k], int(sums[k])) for k in np.unique(nk)]
+    return sorted(rows, key=lambda r: (-r[1], r[0]))
+
+
+def q7_reference(t, n1="FRANCE", n2="GERMANY") -> list:
+    import numpy as np
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    li, s, nat = t["lineitem"], t["supplier"], t["nation"]
+    lok, ok = _lineitem_orders(t)
+    ns = _arange_keys(s, "s_suppkey")
+    nn = _arange_keys(nat, "n_nationkey")
+    names = nat.column("n_name").to_pylist()
+    f, g = names.index(n1), names.index(n2)
+    lsk = _col(li, "l_suppkey")
+    _in_range(lsk, ns, "l_suppkey")
+    snk = _col(s, "s_nationkey")[lsk]
+    cnk = _cust_nation_of_orders(t)[lok]
+    sd = _col(li, "l_shipdate")
+    m = (ok & (sd >= day("1995-01-01")) & (sd <= day("1996-12-31"))
+         & (((snk == f) & (cnk == g)) | ((snk == g) & (cnk == f))))
+    year = np.where(sd[m] <= day("1995-12-31"), 1995, 1996)
+    key = (snk[m] * nn + cnk[m]) * 2 + (year - 1995)
+    sums = _group_sum(key, _revenue(li, m), nn * nn * 2)
+    rows = [(names[k // 2 // nn], names[k // 2 % nn], 1995 + k % 2,
+             int(sums[k])) for k in np.unique(key)]
+    return sorted(rows)
+
+
+def q10_reference(t, d0="1993-10-01", d1="1994-01-01") -> list:
+    import numpy as np
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    c, o, li, nat = t["customer"], t["orders"], t["lineitem"], t["nation"]
+    lok, ok = _lineitem_orders(t)
+    nc = _arange_keys(c, "c_custkey")
+    nn = _arange_keys(nat, "n_nationkey")
+    d = _col(o, "o_orderdate")
+    om = (d >= day(d0)) & (d < day(d1))
+    m = ok & om[lok] & pc.equal(li.column("l_returnflag"), "R").to_numpy(
+        zero_copy_only=False)
+    ock = _col(o, "o_custkey")
+    _in_range(ock, nc, "o_custkey")
+    ck = ock[lok[m]]
+    sums = _group_sum(ck, _revenue(li, m), nc)
+    keys = np.unique(ck)
+    top = keys[np.lexsort((keys, -sums[keys]))][:20]
+    cnk = _col(c, "c_nationkey")[top]
+    _in_range(cnk, nn, "c_nationkey")
+    cols = [top.tolist(), _strs(c, "c_name", top),
+            unscaled(c, "c_acctbal")[top].tolist(),
+            _strs(c, "c_phone", top), _strs(nat, "n_name", cnk),
+            _strs(c, "c_address", top), sums[top].tolist()]
+    return [tuple(r) for r in zip(*cols)]
+
+
+def q12_reference(t, m1="MAIL", m2="SHIP", d0="1994-01-01",
+                  d1="1995-01-01") -> list:
+    import numpy as np
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    o, li = t["orders"], t["lineitem"]
+    lok, ok = _lineitem_orders(t)
+    cd, rd = _col(li, "l_commitdate"), _col(li, "l_receiptdate")
+    m = (ok & _isin(li, "l_shipmode", [m1, m2]) & (cd < rd)
+         & (_col(li, "l_shipdate") < cd) & (rd >= day(d0)) & (rd < day(d1)))
+    high = _isin(o, "o_orderpriority", ["1-URGENT", "2-HIGH"])[lok[m]]
+    codes, vocab = _codes(li.column("l_shipmode"))
+    codes = codes[m]
+    hi = np.bincount(codes[high], minlength=len(vocab))
+    lo = np.bincount(codes[~high], minlength=len(vocab))
+    return sorted((vocab[i], int(hi[i]), int(lo[i]))
+                  for i in range(len(vocab)) if hi[i] + lo[i])
+
+
+def q18_reference(t, qty=TPCH_Q18_QTY, limit=100) -> list:
+    """The orders whose lines sum past qty, by o_totalprice descending,
+    o_orderdate, o_orderkey; the first `limit` (None: all)."""
+    import numpy as np
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    lok, ok = _lineitem_orders(t)
+    nc = _arange_keys(c, "c_custkey")
+    # the sums over every l_orderkey; the semi join keeps the orders'
+    sums = _group_sum(lok[ok], unscaled(li, "l_quantity")[ok], o.num_rows)
+    big = np.flatnonzero(sums > qty * 100)
+    ock = _col(o, "o_custkey")[big]
+    _in_range(ock, nc, "o_custkey")
+    price = unscaled(o, "o_totalprice")[big]
+    date = _col(o, "o_orderdate")[big].astype(np.int64)
+    top = np.lexsort((big, date, -price))[:limit]
+    cols = [_strs(c, "c_name", ock[top]), ock[top].tolist(),
+            big[top].tolist(), date[top].tolist(), price[top].tolist(),
+            sums[big[top]].tolist()]
+    return [tuple(r) for r in zip(*cols)]
+
+
+Q19_BRANCHES = (("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"),
+                 1, 11, 5),
+                ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"),
+                 10, 20, 10),
+                ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"),
+                 20, 30, 15))
+
+
+def q19_reference(t) -> list:
+    import numpy as np
+    import pyarrow.compute as pc
+    li, p = t["lineitem"], t["part"]
+    npart = _arange_keys(p, "p_partkey")
+    m = _isin(li, "l_shipmode", ["AIR", "REG AIR"]) & pc.equal(
+        li.column("l_shipinstruct"), "DELIVER IN PERSON").to_numpy(
+            zero_copy_only=False)
+    pk = _col(li, "l_partkey")[m]
+    _in_range(pk, npart, "l_partkey")
+    q = unscaled(li, "l_quantity")[m]
+    size = _col(p, "p_size")[pk]
+    hit = np.zeros(len(pk), bool)
+    for brand, containers, qlo, qhi, szhi in Q19_BRANCHES:
+        part_ok = pc.equal(p.column("p_brand"), brand).to_numpy(
+            zero_copy_only=False) & _isin(p, "p_container", list(containers))
+        hit |= (part_ok[pk] & (q >= qlo * 100) & (q <= qhi * 100)
+                & (size >= 1) & (size <= szhi))
+    rows = np.flatnonzero(m)[hit]
+    rev = _revenue(li, rows)
+    if len(rev) and int(np.abs(rev).max()) * len(rev) >= 2**63:
+        raise AssertionError("Q19 reference would overflow int64")
+    return [(int(rev.sum()) if len(rev) else None,)]
+
+
+TPCH_REFERENCES = {4: q4_reference, 5: q5_reference, 7: q7_reference,
+                   10: q10_reference, 12: q12_reference,
+                   18: q18_reference, 19: q19_reference}
+
+
+def tpch_reference(n, tables, qty=TPCH_Q18_QTY) -> list:
+    """Query n's exact result rows (Q18 at `qty`), each decimal as its
+    unscaled int."""
+    if n == 18:
+        return q18_reference(tables, qty)
+    return TPCH_REFERENCES[n](tables)
+
+
+def tpch_rows(at) -> list:
+    """An Arrow result as row tuples, each decimal as its unscaled int at
+    its column's scale."""
+    import pyarrow as pa
+    scales = {f.name: f.type.scale for f in at.schema
+              if pa.types.is_decimal(f.type)}
+    rows = []
+    for r in at.to_pylist():
+        row = []
+        for k, v in r.items():
+            if k in scales and v is not None:
+                u = v.scaleb(scales[k])
+                if u != u.to_integral_value():
+                    raise AssertionError(f"{k} = {v} not at its scale")
+                v = int(u)
+            row.append(v)
+        rows.append(tuple(row))
+    return rows
+
+
+def check_tpch(n, at, expect, what: str):
+    """Q5 (sorted by revenue alone) as a set with revenue not increasing
+    down the rows; every other query row for row, in order."""
+    if tuple(at.column_names) != TPCH_COLUMNS[n]:
+        raise AssertionError(f"Q{n} over {what}: columns {at.column_names}")
+    rows = tpch_rows(at)
+    if n == 5:
+        revs = [r[1] for r in rows]
+        if revs != sorted(revs, reverse=True):
+            raise AssertionError(f"Q5 over {what}: revenue increases")
+        rows = sorted(rows, key=lambda r: (-r[1], r[0]))
+    if rows != expect:
+        raise AssertionError(f"Q{n} over {what}: {len(rows)} rows differ "
+                             f"from the reference's {len(expect)}")
+
+
+def tpch_query(n, session, tables, qty=TPCH_Q18_QTY):
+    """Query n (Q18 at `qty`), built afresh over create_dataframe of the
+    tables."""
+    from spark_rapids_tpu_torch.workloads import tpch_queries as Q
+    dfs = {k: session.create_dataframe(v) for k, v in tables.items()}
+    return getattr(Q, f"q{n}")(dfs, **({"qty": qty} if n == 18 else {}))
+
+
+def tpch_plan_shape(root) -> dict:
+    """Joins by topology and kind, exchanges and aggregate modes."""
+    nodes = plan_nodes(root)
+    kinds = collections.Counter(type(x).__name__ for x in nodes)
+    joins = [j for j in nodes if type(j).__name__ == "HashJoinExec"]
+    return {"broadcast_joins": sum(not j.per_partition for j in joins),
+            "per_partition_joins": sum(j.per_partition for j in joins),
+            "join_kinds": [j.how for j in joins],
+            "shuffle_exchanges": kinds["ShuffleExchangeExec"],
+            "broadcast_exchanges": kinds["BroadcastExchangeExec"],
+            "aggregates": [getattr(x, "mode", "ungrouped") for x in nodes
+                           if type(x).__name__.endswith("AggExec")
+                           or type(x).__name__ == "HashAggregateExec"]}
+
+
+def tpch_phases(session, tables, expects, runs=2) -> dict:
+    """One phase per query (each run a fresh plan; the partition kernel's
+    launches counted from 0), then Q5 under torch.profiler. Returns the
+    partition kernel's launches per path."""
+    from spark_rapids_tpu_torch.exec.batch import DeviceBatch
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+
+    dev = session.device
+    per = session.conf.batch_size_rows
+    batches = sum(-(-t.num_rows // per) for t in tables.values())
+    launches = {}
+    for n in TPCH_QUERIES:
+        out_runs = []
+        for _ in range(runs):
+            with BatchDevices(DeviceBatch) as devs:
+                q = tpch_query(n, session, tables)
+                pk.launches = pk.vector_launches = pk.scalar_launches = 0
+                out, wall, layers, syncs = timed_query(q, dev)
+                got = {"all": pk.launches, "vector": pk.vector_launches,
+                       "scalar": pk.scalar_launches}
+            check_tpch(n, out, expects[n], "default conf")
+            check_devices(devs, dev)
+            if got["all"]:
+                raise AssertionError(f"Q{n}: partition kernel launched "
+                                     f"{got}; no exchange key is int32")
+            nodes = per_node_metrics(q)
+            out_runs.append({
+                "wall_s": wall, "rows": out.num_rows,
+                "layers_s": {k: layers[k] for k in Q3_LAYERS
+                             if k in layers},
+                "join_paths": {k: {p: v.get(p, 0) for p in JOIN_PATHS}
+                               for k, v in nodes.items()
+                               if k.startswith("HashJoinExec")},
+                "host_syncs": syncs, "partition_kernel_launches": got,
+                "batch_tensors_by_device": dict(devs.seen)})
+        launches[f"q{n}"] = got
+        emit({"phase": f"tpch_q{n}", "plan": tpch_plan_shape(q.last_plan()),
+              "input_batches": batches, "runs": out_runs})
+    out, prof = profiled_query(tpch_query(5, session, tables), dev,
+                               batches, Q3_GROUPS)
+    check_tpch(5, out, expects[5], "default conf (profiled)")
+    emit({"phase": "tpch_q5_profiled", **prof})
+    return launches
+
+
+def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
+    """(gen_all's tables, reference rows per query), printing each table's
+    rows and generation seconds and each reference's seconds. The tables
+    are gen_all's, made one generator call at a time to time each."""
+    from spark_rapids_tpu_torch.workloads import tpch
+    makers = {
+        "lineitem": lambda: tpch.gen_lineitem(sf, seed, full=True),
+        "orders": lambda: tpch.gen_orders(sf, seed, full=True),
+        "customer": lambda: tpch.gen_customer(sf, seed, full=True),
+        "part": lambda: tpch.gen_part(sf),
+        "supplier": lambda: tpch.gen_supplier(sf),
+        "partsupp": lambda: tpch.gen_partsupp(sf),
+        "nation": tpch.gen_nation,
+        "region": tpch.gen_region,
+    }
+    tables, gen_s = {}, {}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        tables[name] = make()
+        gen_s[name] = time.perf_counter() - t0
+    ref_s, expects = {}, {}
+    for n in TPCH_QUERIES:
+        t0 = time.perf_counter()
+        if n == 18:     # every order over the threshold, then the limit
+            q18_all = q18_reference(tables, qty, limit=None)
+            expects[n] = q18_all[:100]
+        else:
+            expects[n] = tpch_reference(n, tables, qty)
+        ref_s[f"q{n}"] = time.perf_counter() - t0
+    emit({"phase": "tpch_data", "sf": sf, "seed": seed,
+          "rows": {k: v.num_rows for k, v in tables.items()},
+          "gen_s": gen_s, "reference_s": ref_s,
+          "result_rows": {f"q{n}": len(e) for n, e in expects.items()},
+          "q18_qty": qty, "q18_orders_over_qty": len(q18_all)})
+    return tables, expects
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1405,6 +1833,11 @@ def main() -> int:
           "top": [[int(x) for x in t] for t in zip(*(
               a[:Q3_LIMIT] for a in q3_expect))]})
     by_path.update(q3_phases(session, tables, q3_expect))
+    # the earlier phases' tables go before the eight of gen_all
+    del lineitem, tables
+    gc.collect()
+    tpch_tables, tpch_expects = tpch_data(SF)
+    by_path.update(tpch_phases(session, tpch_tables, tpch_expects))
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

@@ -9,9 +9,11 @@ imports nothing of the JAX engine and never imports JAX.
 
 Ported so far: TPC-H Q6's path (in-memory and Parquet scans, filter,
 projection, the exact decimal sum), TPC-H Q1's (string columns, exact
-decimal128 arithmetic, the grouped hash aggregate, the sort), and the
-hash exchange behind `DataFrame.repartition` and grouped aggregation.
-Anything else raises `NotPorted`.
+decimal128 arithmetic, the grouped hash aggregate, the sort), Q3's (the
+hash join, broadcast or shuffled, and the limit), Q4, Q5, Q7, Q10, Q12,
+Q18 and Q19 (IF, CASE WHEN, IN, decimal128 comparison), and the hash
+exchange behind `DataFrame.repartition`, grouped aggregation and
+shuffled joins. Anything else raises `NotPorted`.
 
     import spark_rapids_tpu_torch as st
     s = st.TpuSession()              # CUDA; TpuSession(device="cpu") on CPU

@@ -5,12 +5,12 @@ The port's copy of the JAX package's expression layer, cut to the slice:
 column references (string columns included), literals, aliases, decimal
 arithmetic (+, -, *; above precision 18 on the exact limb kernels of
 `ops/decimal128.py`), comparisons (strings too: a literal `=`/`!=` by
-length and 4-byte chunks, any other by `ops/strings.py` `compare`),
-null-safe equality, coalesce, Kleene AND/OR/NOT and the numeric casts.
+length and 4-byte chunks, any other by `ops/strings.py` `compare`;
+decimal128 by `dec_cmp_scaled`), null-safe equality, coalesce, IF,
+CASE WHEN and IN, Kleene AND/OR/NOT and the numeric casts.
 `bind(schema)` resolves names and types exactly as the JAX package
 does; `emit(ctx)` evaluates the bound tree eagerly and returns a CV. A
-comparison or cast of a decimal above precision 18 raises NotPorted at
-bind time.
+cast of a decimal above precision 18 raises NotPorted at bind time.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ __all__ = [
     "Expression", "UnsupportedExpr", "EmitCtx", "ColumnRef", "BoundRef",
     "Literal", "Alias", "Add", "Subtract", "Multiply", "Eq", "Ne", "Lt",
     "Le", "Gt", "Ge", "EqNullSafe", "And", "Or", "Not", "Cast",
-    "Coalesce", "lit", "col",
+    "Coalesce", "If", "CaseWhen", "In", "lit", "col",
 ]
 
 
@@ -117,6 +117,9 @@ class Expression:
 
     def __hash__(self):
         return id(self)
+
+    def isin(self, *values):
+        return In(self, [_wrap(v) for v in values])
 
     def between(self, lo, hi):
         return And(Ge(self, _wrap(lo)), Le(self, _wrap(hi)))
@@ -463,7 +466,6 @@ class _Comparison(_BinaryOp):
             raise UnsupportedExpr("string/non-string compare")
         if not _is_str(lt_) and lt_ != rt:
             self.left, self.right, _ = _coerce_pair(self.left, self.right)
-        _reject_d128(self.left.dtype, self.right.dtype)
         self.dtype = dt.BOOL
 
     def emit(self, ctx):
@@ -488,6 +490,11 @@ class _Comparison(_BinaryOp):
             return CV(type(self).cmp_op(c), l.validity & r.validity)
         if isinstance(self.left.dtype, dt.DecimalType):
             lt_, rt = self.left.dtype, self.right.dtype
+            if lt_.is_decimal128 or rt.is_decimal128:
+                from ..ops.decimal128 import dec_cmp_scaled
+                c = dec_cmp_scaled(_as_dec128(l, lt_).data, lt_.scale,
+                                   _as_dec128(r, rt).data, rt.scale)
+                return CV(type(self).cmp_op(c), l.validity & r.validity)
             s = max(lt_.scale, rt.scale)
             l = _dec_scale_shift(l, s - lt_.scale)
             r = _dec_scale_shift(r, s - rt.scale)
@@ -534,6 +541,10 @@ class EqNullSafe(_Comparison):
     """<=>: null <=> null is true; never null."""
     symbol = "<=>"
     kernel = staticmethod(ew.eq_null_safe)
+
+    def _resolve_type(self):
+        super()._resolve_type()
+        _reject_d128(self.left.dtype, self.right.dtype)
 
     def emit(self, ctx):
         if not _is_str(self.left.dtype):
@@ -661,3 +672,72 @@ class Coalesce(Expression):
 
     def __repr__(self):
         return "coalesce(" + ", ".join(map(repr, self.children)) + ")"
+
+
+class If(Expression):
+    """IF(pred, t, f): a null predicate takes f. Both branches cast to the
+    output type, the type of the branch that is not NULL."""
+
+    def __init__(self, pred: Expression, t: Expression, f: Expression):
+        self.pred, self.t, self.f = pred, t, f
+        self.children = [pred, t, f]
+
+    def bind(self, schema):
+        p, t, f = (c.bind(schema) for c in self.children)
+        out = t.dtype if not isinstance(t.dtype, dt.NullType) else f.dtype
+        if t.dtype != out:
+            t = Cast.bound(t, out)
+        if f.dtype != out:
+            f = Cast.bound(f, out)
+        b = If(p, t, f)
+        b.dtype = out
+        return b
+
+    def emit(self, ctx):
+        p, t, f = (c.emit(ctx) for c in self.children)
+        take_t = p.validity & p.data.to(torch.bool)
+        return _select_cv(take_t, t, f,
+                          torch.where(take_t, t.validity, f.validity))
+
+    def __repr__(self):
+        return f"if({self.pred}, {self.t}, {self.f})"
+
+
+class CaseWhen(Expression):
+    """CASE WHEN p1 THEN v1 ... [ELSE d] END, built as nested If at bind;
+    no ELSE gives null."""
+
+    def __init__(self, branches, default: Optional[Expression] = None):
+        self.branches = branches
+        self.default = default
+        self.children = ([e for p, v in branches for e in (p, v)]
+                         + ([default] if default else []))
+
+    def bind(self, schema):
+        expr: Expression = self.default or Literal(None)
+        for p, v in reversed(self.branches):
+            expr = If(p, v, expr)
+        return expr.bind(schema)
+
+    def __repr__(self):
+        return "CASE WHEN ..."
+
+
+class In(Expression):
+    """child IN (v1, ...), built as an OR of equalities at bind, so a
+    string value takes the literal-equality path."""
+
+    def __init__(self, child: Expression, values: List[Expression]):
+        self.child = child
+        self.values = values
+        self.children = [child] + values
+
+    def bind(self, schema):
+        expr: Optional[Expression] = None
+        for v in self.values:
+            e = Eq(self.child, v)
+            expr = e if expr is None else Or(expr, e)
+        return (expr or Literal(False)).bind(schema)
+
+    def __repr__(self):
+        return f"{self.child} IN (...)"

@@ -3,9 +3,9 @@ ported subset of pyspark.sql.functions."""
 from __future__ import annotations
 
 from .expr import aggregates as _agg
-from .expr.expressions import Expression, col, lit
+from .expr.expressions import CaseWhen, Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "avg", "mean"]
+__all__ = ["col", "lit", "sum", "count", "avg", "mean", "when"]
 
 
 def sum(e):  # noqa: A001 - match pyspark naming
@@ -31,3 +31,25 @@ def _to_expr(e) -> Expression:
     if isinstance(e, str):
         return col(e)
     return lit(e)
+
+
+class _WhenBuilder:
+    """`when(c, v).when(...).otherwise(d)`; an unfinished chain serves as
+    the CASE WHEN without ELSE (null)."""
+
+    def __init__(self, branches):
+        self._branches = branches
+
+    def when(self, cond, value):
+        return _WhenBuilder(self._branches + [(_to_expr(cond),
+                                               _to_expr(value))])
+
+    def otherwise(self, value):
+        return CaseWhen(self._branches, _to_expr(value))
+
+    def __getattr__(self, item):
+        return getattr(CaseWhen(self._branches, None), item)
+
+
+def when(cond, value):
+    return _WhenBuilder([(_to_expr(cond), _to_expr(value))])

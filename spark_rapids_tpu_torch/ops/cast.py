@@ -30,6 +30,11 @@ def cast_cv(cv: CV, from_t: dt.DataType, to_t: dt.DataType) -> CV:
         return cv
     x, valid = cv.data, cv.validity
     if isinstance(from_t, dt.NullType):
+        if to_t.is_variable_width:
+            return CV(torch.zeros(0, dtype=torch.uint8, device=x.device),
+                      torch.zeros_like(valid),
+                      torch.zeros(cv.capacity + 1, dtype=torch.int32,
+                                  device=x.device))
         return CV(torch.zeros(dt.alloc_shape(to_t, cv.capacity),
                               dtype=dt.torch_dtype(to_t), device=x.device),
                   torch.zeros_like(valid))

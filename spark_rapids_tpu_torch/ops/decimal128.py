@@ -11,13 +11,15 @@ the JAX package's `ops/decimal128.py`:
                no product leaves int64) -> 256-bit magnitude
   rescale    : multiply by 10^k, or shift-subtract long division by 10^k
                with HALF_UP rounding
+  compare    : sign + unsigned limbs; across scales the smaller scale's
+               magnitude is multiplied up into 256 bits (no overflow)
   sum limbs  : per-limb int64 sums + a final carry recombination
 
 Overflow is Spark non-ANSI: the caller nulls the row. Every shift below
 is arithmetic (torch's `>>` on int64), and every mask keeps a value
 inside [0, 2^32). A constant limb may be a Python int, and a product
-with a zero constant limb is skipped. (`dec_div`, `dec_cmp_scaled` and
-the decimal128 casts wait.)
+with a zero constant limb is skipped. (`dec_div` and the decimal128
+casts wait.)
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 __all__ = ["split_i64_limbs", "split_d128_limbs", "combine_limb_sums",
            "fits_precision", "dec_from_i64", "to_limbs", "from_limbs",
            "dec_add", "dec_sub", "dec_rescale", "dec_mul_scaled",
-           "POW10_128"]
+           "dec_cmp", "dec_cmp_scaled", "POW10_128"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -275,6 +277,32 @@ def dec_mul_scaled(a2, b2, down_shift: int, precision: int):
     ovf = ((sum(prod[4:]) + carry) > 0) \
         | ~fits_precision_mag(prod[:4], precision)
     return _signed(prod[:4], na ^ nb), ovf
+
+
+def dec_cmp(a2, b2):
+    """Signed three-way compare (-1/0/1, int32) of two [n, 2] decimals of
+    one scale. Two's-complement values of one sign order like their raw
+    unsigned limbs, so nothing is subtracted and nothing wraps."""
+    a, b = to_limbs(a2), to_limbs(b2)
+    na, nb = _is_neg(a), _is_neg(b)
+    res = torch.where(na != nb, torch.where(na, -1, 1), _cmp_raw(a, b))
+    return res.to(torch.int32)
+
+
+def dec_cmp_scaled(a2, sa: int, b2, sb: int):
+    """Three-way compare (-1/0/1, int32) of decimals of scales sa and sb:
+    the side of the smaller scale is multiplied by 10^|sa - sb| into 256
+    bits (a magnitude below 2^127 times 10^38 stays below 2^254, so
+    nothing overflows), then sign and 8-limb magnitude decide."""
+    ma, na = _abs(to_limbs(a2))
+    mb, nb = _abs(to_limbs(b2))
+    wa, ca = _mul_raw_columns(ma, list(POW10_128[max(sb - sa, 0)]), 8)
+    wb, cb = _mul_raw_columns(mb, list(POW10_128[max(sa - sb, 0)]), 8)
+    mag = _cmp_raw(wa + [ca], wb + [cb])
+    both_zero = ((sum(wa) + ca) == 0) & ((sum(wb) + cb) == 0)
+    res = torch.where(na & ~nb, -1, torch.where(
+        nb & ~na, 1, torch.where(na & nb, -mag, mag)))
+    return torch.where(both_zero, 0, res).to(torch.int32)
 
 
 def combine_limb_sums(sums, precision: int):

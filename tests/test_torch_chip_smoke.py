@@ -367,3 +367,154 @@ def test_q3_phases_rehearse_on_the_cpu(q3_small, capsys):
     ("Memcpy HtoD (Pinned -> Device)", "h2d")])
 def test_q3_kernel_groups(name, group):
     assert chip_smoke.q1_group_of(name, chip_smoke.Q3_GROUPS) == group
+
+
+# ----------------------------------------------------------------------
+# TPC-H Q4, Q5, Q7, Q10, Q12, Q18 and Q19: the exact numpy references
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def tpch_small():
+    from spark_rapids_tpu_torch.workloads import tpch
+    return tpch.gen_all(0.01, seed=11)
+
+
+#: Q18 at the spec's 300 (41 rows at sf 0.01, seed 11) and at 150 (the
+#: limit of 100 cuts)
+TPCH_CASES = [(4, 300), (5, 300), (7, 300), (10, 300), (12, 300),
+              (18, 300), (18, 150), (19, 300)]
+
+
+def _port_rows(n, tables, qty, conf=None):
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession(dict(conf or {}), device="cpu")
+    return chip_smoke.tpch_query(n, s, tables, qty).to_arrow()
+
+
+@pytest.mark.parametrize("n,qty", TPCH_CASES)
+def test_tpch_reference_equals_the_port(tpch_small, n, qty):
+    """Each reference equals the port's result on the CPU, exactly (the
+    default plan: broadcast joins at this size)."""
+    expect = chip_smoke.tpch_reference(n, tpch_small, qty)
+    assert expect
+    chip_smoke.check_tpch(n, _port_rows(n, tpch_small, qty), expect, "cpu")
+
+
+@pytest.mark.parametrize("n,qty", TPCH_CASES)
+def test_tpch_reference_equals_the_pandas_oracle(tpch_small, n, qty):
+    """Each reference against the JAX package's pandas oracle: money
+    within its rtol (1e-6; the oracle sums float64), the rest exact."""
+    from spark_rapids_tpu.workloads.tpch_oracle import ORACLES, to_pandas
+    import numpy as np
+    kw = {"qty": qty} if n == 18 else {}
+    exp = ORACLES[n](to_pandas(tpch_small), **kw).reset_index(drop=True)
+    if n == 5:
+        exp = exp.sort_values(["revenue", "n_name"],
+                              ascending=[False, True]).reset_index(drop=True)
+    ref = chip_smoke.tpch_reference(n, tpch_small, qty)
+    assert list(exp.columns) == list(chip_smoke.TPCH_COLUMNS[n])
+    assert len(ref) == len(exp) > 0
+    scale = {"revenue": 4, "c_acctbal": 2, "o_totalprice": 2, "sum_qty": 2}
+    for i, c in enumerate(exp.columns):
+        got = [r[i] for r in ref]
+        if c in scale:
+            np.testing.assert_allclose(
+                np.array(got, float) / 10**scale[c],
+                exp[c].astype(float), rtol=1e-6, atol=1e-6)
+        else:
+            assert got == exp[c].tolist(), c
+
+
+def test_check_tpch_rejects_faults(tpch_small):
+    import pyarrow as pa
+    got = _port_rows(10, tpch_small, 300)
+    expect = chip_smoke.tpch_reference(10, tpch_small)
+    chip_smoke.check_tpch(10, got, expect, "cpu")
+    with pytest.raises(AssertionError, match="rows differ"):
+        chip_smoke.check_tpch(10, got.slice(0, 19), expect, "cpu")
+    swapped = pa.concat_tables([got.slice(1, 1), got.slice(0, 1),
+                                got.slice(2)])
+    with pytest.raises(AssertionError, match="rows differ"):
+        chip_smoke.check_tpch(10, swapped, expect, "cpu")
+    with pytest.raises(AssertionError, match="columns"):
+        chip_smoke.check_tpch(10, got.rename_columns(
+            ["k"] + got.column_names[1:]), expect, "cpu")
+    q5 = _port_rows(5, tpch_small, 300)
+    ref5 = chip_smoke.tpch_reference(5, tpch_small)
+    with pytest.raises(AssertionError, match="revenue increases"):
+        chip_smoke.check_tpch(5, q5.take([1, 0, 2, 3, 4]), ref5, "cpu")
+
+
+def test_tpch_rows_give_unscaled_decimals():
+    import decimal
+    import pyarrow as pa
+    at = pa.table({"a": pa.array([decimal.Decimal("1.25"), None],
+                                 pa.decimal128(12, 2)),
+                   "b": pa.array(["x", "y"])})
+    assert chip_smoke.tpch_rows(at) == [(125, "x"), (None, "y")]
+
+
+def test_reference_guards():
+    import numpy as np
+    import pyarrow as pa
+    with pytest.raises(AssertionError, match="overflow"):
+        chip_smoke._group_sum(np.zeros(4, np.int64),
+                              np.full(4, 2**62, np.int64), 1)
+    with pytest.raises(AssertionError, match="not 0..n-1"):
+        chip_smoke._arange_keys(pa.table({"k": [0, 2, 1]}), "k")
+    lok, ok = chip_smoke._lineitem_orders({
+        "orders": pa.table({"o_orderkey": [0, 1, 2]}),
+        "lineitem": pa.table({"l_orderkey": [2, 3, 0]})})
+    assert lok.tolist() == [2, 0, 0] and ok.tolist() == [True, False, True]
+
+
+def test_tpch_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """The SF10 phases at sf 0.01 on the shuffled plan: every query
+    equals its reference, every batch is on the session's device, the
+    partition kernel never launches, and the phase lines carry the plan
+    shape, layers and join paths."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    expects = {n: chip_smoke.tpch_reference(n, tpch_small)
+               for n in chip_smoke.TPCH_QUERIES}
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096,
+                       "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                       -1}, device="cpu")
+    launches = chip_smoke.tpch_phases(s, tpch_small, expects, runs=1)
+    assert set(launches) == {f"q{n}" for n in chip_smoke.TPCH_QUERIES}
+    assert all(v == {"all": 0, "vector": 0, "scalar": 0}
+               for v in launches.values())
+    phases = {d["phase"]: d for d in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    assert set(phases) == {f"tpch_q{n}" for n in chip_smoke.TPCH_QUERIES} \
+        | {"tpch_q5_profiled"}
+    plans = {n: phases[f"tpch_q{n}"]["plan"] for n in chip_smoke.TPCH_QUERIES}
+    assert plans[4]["join_kinds"] == ["left_semi"]
+    assert plans[5]["per_partition_joins"] == 5
+    assert plans[18]["aggregates"] == ["final", "partial"] * 2
+    assert plans[19]["aggregates"] == ["ungrouped"]
+    run = phases["tpch_q5"]["runs"][0]
+    assert len(run["join_paths"]) == 5 and run["layers_s"]["scanTime"] > 0
+    assert phases["tpch_q5_profiled"]["host_syncs_per_batch"] > 0
+
+
+def test_tpch_data_prints_rows_and_seconds(capsys):
+    """tpch_data's tables, timed one generator at a time, are gen_all's."""
+    import json
+
+    from spark_rapids_tpu_torch.workloads import tpch
+    tables, expects = chip_smoke.tpch_data(0.002, seed=3, qty=150)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "tpch_data"
+    exp = tpch.gen_all(0.002, seed=3)
+    assert list(tables) == list(exp)
+    assert all(tables[k].equals(exp[k]) for k in exp)
+    assert line["rows"] == {k: v.num_rows for k, v in tables.items()}
+    assert set(line["gen_s"]) == set(tables)
+    assert set(expects) == set(chip_smoke.TPCH_QUERIES)
+    assert line["result_rows"] == {f"q{n}": len(e)
+                                   for n, e in expects.items()}
+    assert line["q18_orders_over_qty"] == len(
+        chip_smoke.q18_reference(tables, 150, limit=None)) >= \
+        line["result_rows"]["q18"] > 0

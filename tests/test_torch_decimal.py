@@ -6,6 +6,8 @@ packages: decimal(17,4) (Q6's product) summing into decimal(27,4) on the
 with a total past precision 27 (null), and over empty input (null).
 Count and count(*) ride along. Tolerance: exact.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pyarrow as pa
@@ -337,3 +339,148 @@ def test_sum_and_avg_over_q1_types_match_jax():
     assert got.equals(exp)
     assert got.schema.field("sum_charge").type == pa.decimal128(34, 6)
     assert got.schema.field("ap").type == pa.decimal128(18, 6)
+
+
+# ----------------------------------------------------------------------
+# decimal128 comparison (the Q18 slice): dec_cmp, dec_cmp_scaled and the
+# six comparison operators at mixed scales
+# ----------------------------------------------------------------------
+def _as_words(vals):
+    u = [v & (2**128 - 1) for v in vals]
+    lo = [(x & (2**64 - 1)) - (2**64 if x & (1 << 63) else 0) for x in u]
+    hi = [(x >> 64) - (2**64 if x >> 127 else 0) for x in u]
+    return np.stack([np.array(lo, np.int64), np.array(hi, np.int64)], 1)
+
+
+P38 = 10**38 - 1
+#: (a, b) pairs of unscaled values on the boundaries
+CMP_EDGES = [(P38, P38), (P38, -P38), (-P38, P38), (-P38, -P38),
+             (P38, P38 - 1), (-P38, -P38 + 1), (0, 0), (0, -0), (1, -1),
+             (-1, 1), (0, P38), (-P38, 0), (100, 1), (1, 100), (-100, -1),
+             (2**127 - 1, 2**127 - 1), (-2**127, 2**127 - 1),
+             (10**37, 10**36), (5, 50), (-5, -50), (12345, 1234500)]
+
+
+def _cmp_cases(rng, n=1500):
+    a = _words(rng, n, 126)
+    b = _words(rng, n, 126)
+    b[::3] = a[::3]                  # equal raw words
+    b[1::7] = -a[1::7]               # opposite signs (as raw words)
+    ea, eb = zip(*CMP_EDGES)
+    return (np.concatenate([_as_words(ea), a]),
+            np.concatenate([_as_words(eb), b]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dec_cmp_matches_jax(seed):
+    a, b = _cmp_cases(np.random.default_rng(seed))
+    got = pd128.dec_cmp(torch.from_numpy(a), torch.from_numpy(b))
+    exp = jd128.dec_cmp(jnp.asarray(a), jnp.asarray(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
+@pytest.mark.parametrize("sa,sb", [(0, 0), (2, 0), (0, 2), (2, 2), (4, 2),
+                                   (6, 10), (0, 38), (38, 0), (37, 1),
+                                   (10, 38), (19, 19)])
+def test_dec_cmp_scaled_matches_jax_at_the_boundaries(sa, sb):
+    """±(10^38 - 1) and the int128 extremes, values equal after
+    rescaling (1.00 against 1), zero against zero, opposite signs, and a
+    scale difference of 38 (the 256-bit product's largest)."""
+    rng = np.random.default_rng(sa * 41 + sb)
+    a, b = _cmp_cases(rng)
+    # values equal after rescaling: b = a * 10^(sb - sa) where it fits
+    d = abs(sa - sb)
+    m = min(10**15, 10**(38 - d) - 1)       # x * 10^d stays in range
+    xs = [int(x) for x in rng.integers(-m, m + 1, 200)] + [m, -m, 0]
+    scaled = [(x, x * 10**d) if sb >= sa else (x * 10**d, x) for x in xs]
+    ea, eb = zip(*scaled)
+    a = np.concatenate([a, _as_words(ea)])
+    b = np.concatenate([b, _as_words(eb)])
+    got = pd128.dec_cmp_scaled(torch.from_numpy(a), sa,
+                               torch.from_numpy(b), sb)
+    exp = jd128.dec_cmp_scaled(jnp.asarray(a), sa, jnp.asarray(b), sb)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+    # and against exact rationals, wherever both sides are in range
+    for i, (x, y) in enumerate(zip(_ints(a), _ints(b))):
+        lhs, rhs = x * 10**max(sb - sa, 0), y * 10**max(sa - sb, 0)
+        assert int(got[i]) == (lhs > rhs) - (lhs < rhs), (x, y)
+    n_eq = len(scaled)
+    assert (got[-n_eq:] == 0).all()
+
+
+def _ints(words):
+    out = []
+    for lo, hi in words.tolist():
+        v = (hi << 64) | (lo & (2**64 - 1))
+        out.append(v)
+    return out
+
+
+CMP_SCHEMA = pa.schema([("big", pa.decimal128(38, 10)),
+                        ("sum", pa.decimal128(22, 2)),
+                        ("qty", pa.decimal128(12, 2)),
+                        ("k", pa.int32())])
+
+
+def _cmp_table(n=1200, seed=0):
+    rng = np.random.default_rng(seed)
+    big = [D_(int(x) * 10**int(e)).scaleb(-10) for x, e in zip(
+        rng.integers(-10**18, 10**18, n), rng.integers(0, 20, n))]
+    big[:4] = [D_(f"{v}e-10") for v in (P38, -P38, 0, 300 * 10**10)]
+    s = [D_(int(x)).scaleb(-2) for x in rng.integers(25_000, 35_000, n)]
+    s[:4] = [D_(v).scaleb(-2) for v in (30000, 30001, 29999, -30000)]
+    qty = [D_(int(x)).scaleb(-2) for x in rng.integers(-10**6, 10**6, n)]
+    valid = rng.random(n) > 0.1
+    cols = {"big": big, "sum": s, "qty": qty,
+            "k": [int(x) for x in rng.integers(-400, 400, n)]}
+    return pa.table({c: pa.array([v if ok or i < 4 else None
+                                  for i, (v, ok) in enumerate(zip(vals,
+                                                                  valid))],
+                                 CMP_SCHEMA.field(c).type)
+                     for c, vals in cols.items()})
+
+
+CMP_EXPRS = {
+    "q18_sum_gt_300": lambda E: E.col("sum") > E.lit(D_(300)),
+    "d128_vs_d64_col": lambda E: E.col("big") <= E.col("qty"),
+    "d128_vs_d128": lambda E: E.col("big") >= E.col("sum"),
+    "d128_vs_int": lambda E: E.col("sum") < E.col("k"),
+    "d128_eq_literal": lambda E: E.col("sum") == E.lit(D_("300.00")),
+    "d128_ne_literal": lambda E: E.col("big") != E.lit(D_("300")),
+    "product_vs_literal": lambda E: E.col("qty") * E.col("qty")
+    > E.lit(D_("25000000")),
+    "literal_on_the_left": lambda E: E.lit(D_("299.995")) < E.col("sum"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CMP_EXPRS))
+def test_decimal128_comparisons_match_jax(name):
+    got, exp = _eval_both(CMP_EXPRS[name], _cmp_table())
+    assert got.schema == exp.schema
+    assert got.equals(exp)
+    vals = got.column("r").to_pylist()
+    assert True in vals and False in vals and None in vals
+
+
+def test_q18_threshold_rows():
+    """sum_qty > 300 at scale 2 against scale 0: 300.00 is not over."""
+    got, _ = _eval_both(CMP_EXPRS["q18_sum_gt_300"], _cmp_table())
+    assert got.column("r").to_pylist()[:4] == [False, True, False, False]
+
+
+@pytest.mark.parametrize("build", [
+    lambda E: E.Cast(E.col("big"), E.Dec(30, 2)),
+    lambda E: E.Cast(E.col("qty") * E.col("qty"), E.INT64),
+    lambda E: E.EqNullSafe(E.col("sum"), E.col("big")),
+])
+def test_decimal128_casts_and_null_safe_equality_still_raise(build):
+    """Above precision 18 only + - * and the six comparisons are
+    ported."""
+    from spark_rapids_tpu_torch import NotPorted
+    from spark_rapids_tpu_torch.columnar import dtypes as pdt
+    ns = types.SimpleNamespace(col=px.col, Cast=px.Cast,
+                               Dec=pdt.DecimalType, INT64=pdt.INT64,
+                               EqNullSafe=px.EqNullSafe)
+    with pytest.raises(NotPorted):
+        build(ns).bind(PSchema.from_arrow(CMP_SCHEMA))

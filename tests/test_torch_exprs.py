@@ -162,9 +162,9 @@ def test_decimal_overflow_gives_null():
 
 
 @pytest.mark.parametrize("build", [
-    # a comparison at precision 25 (the product itself is ported)
-    lambda E: E.col("l_extendedprice") * E.col("l_quantity")
-    > E.lit(D("1")),
+    # a cast at precision 25 (the product and its comparisons are ported)
+    lambda E: E.Cast(E.col("l_extendedprice") * E.col("l_quantity"),
+                     E.Dec(30, 4)),
     lambda E: E.col("l_orderkey") + E.lit(D("1.5")),          # dec(20,0)
     # a timestamp literal (string literals are ported since the Q3 slice)
     lambda E: E.lit(datetime.datetime(1998, 1, 1)) == E.col("l_shipdate"),
