@@ -51,16 +51,23 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      launches and host syncs per input batch;
  14. the earlier tables freed, `tpch.gen_all(10)` (seed 7): rows and
      generation seconds per table, then the exact numpy reference of
-     each of Q4, Q5, Q7, Q10, Q12, Q18 (at the spec's 300) and Q19,
-     timed (int64 unscaled decimals with an overflow guard, the
-     generators' 0..n-1 keys as indexes, each layout asserted);
- 15-21. each of those queries (`workloads/tpch_queries.py`) over
+     each of Q2, Q4, Q5, Q7, Q8, Q9, Q10, Q12, Q13, Q14, Q17, Q18 (at
+     the spec's 300), Q19 and Q20, timed (int64 unscaled decimals with
+     an overflow guard, the generators' 0..n-1 keys as indexes, each
+     layout asserted; the double results of Q8, Q9, Q14 and Q17 summed
+     in float64 from the same unscaled integers; Q13 with the JAX
+     package's LIKE; Q17's lines within 1e-9 of their threshold
+     counted);
+ 15-28. each of those queries (`workloads/tpch_queries.py`) over
      `create_dataframe` of the eight tables at the default conf, twice,
      each a fresh plan: the plan shape (broadcast and per-partition
      joins, exchanges, aggregate modes), wall time, layers, each join's
-     build paths, host syncs, and 0 partition-kernel launches (every
-     exchange key is int64, a string or a key tuple);
- 22. Q5, the longest join chain, under torch.profiler.
+     build paths, host syncs, peak device memory, and the partition
+     kernel's launches, which must be more than 0, all of the vector
+     variant, where the plan exchanges on one int32 key (Q8's year can)
+     and 0 elsewhere (int64, string and tuple keys);
+ 29. Q5, the longest join chain, and Q13 (LIKE over o_comment, a left
+     join, two aggregates) under torch.profiler.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
@@ -68,8 +75,9 @@ averages), row for row; the per-date sums and counts numpy's; each Q3
 result `q3_reference` (numpy int64 revenue per order): the unlimited
 result row for row but for the order of rows tied on (revenue,
 o_orderdate), the top 10 on those keys with ties allowed at the 10th
-row; each of the seven later queries its reference row for row (Q5,
-sorted by revenue alone, as a set with revenue not increasing). The
+row; each of the fourteen later queries its reference row for row (Q5,
+sorted by revenue alone, as a set with revenue not increasing), keys,
+decimals and counts exact, a double within a relative 1e-9. The
 partition kernel's launches are counted on every path that runs it,
 each path with the counts set to 0 just before it and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -1318,9 +1326,9 @@ def q3_phases(session, tables, expect, profile=True) -> dict:
 
 
 # ----------------------------------------------------------------------
-# TPC-H Q4, Q5, Q7, Q10, Q12, Q18 and Q19 over gen_all's eight tables
+# The TPC-H queries of workloads/tpch_queries.py over gen_all's tables
 # ----------------------------------------------------------------------
-TPCH_QUERIES = (4, 5, 7, 10, 12, 18, 19)
+TPCH_QUERIES = (2, 4, 5, 7, 8, 9, 10, 12, 13, 14, 17, 18, 19, 20)
 #: Q18's quantity threshold (the spec's)
 TPCH_Q18_QTY = 300
 TPCH_SEED = 7     # gen_all's default seed
@@ -1334,7 +1342,21 @@ TPCH_COLUMNS = {
     12: ("l_shipmode", "high_line_count", "low_line_count"),
     18: ("c_name", "c_custkey", "o_orderkey", "o_orderdate",
          "o_totalprice", "sum_qty"),
-    19: ("revenue",)}
+    19: ("revenue",),
+    2: ("s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+        "s_address", "s_phone", "s_comment"),
+    8: ("o_year", "mkt_share"),
+    9: ("n_name", "o_year", "sum_profit"),
+    13: ("c_count", "custdist"),
+    14: ("promo_revenue",),
+    17: ("avg_yearly",),
+    20: ("s_name", "s_address")}
+#: the double columns of each query; the reference sums the same doubles
+#: (each from the same unscaled integers) in another order, so these
+#: agree within TPCH_RTOL; every other column is exact
+TPCH_FLOAT_COLUMNS = {8: ("mkt_share",), 9: ("sum_profit",),
+                      14: ("promo_revenue",), 17: ("avg_yearly",)}
+TPCH_RTOL = 1e-9
 
 
 def _col(at, name):
@@ -1577,9 +1599,264 @@ def q19_reference(t) -> list:
     return [(int(rev.sum()) if len(rev) else None,)]
 
 
-TPCH_REFERENCES = {4: q4_reference, 5: q5_reference, 7: q7_reference,
+def _bools(chunked):
+    return chunked.to_numpy(zero_copy_only=False).astype(bool)
+
+
+def _order_years(dates):
+    """`tpch_queries._order_year`'s CASE WHEN over int32 days."""
+    import numpy as np
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    bins = [day(f"{y}-12-31") for y in range(1992, 1998)]
+    return np.searchsorted(bins, dates, side="left") + 1992
+
+
+def _as_double(unscaled_vals, scale):
+    """A decimal's cast to double: the unscaled int64 over 10^scale, the
+    engine's bits for a value that is not negative (the queries' are
+    not)."""
+    import numpy as np
+    return unscaled_vals.astype(np.float64) / (10.0 ** scale)
+
+
+def _partsupp_rows(t, pk, sk):
+    """(partsupp row of each (pk, sk) pair, whether one exists): partsupp
+    holds four rows a part in part order, so the candidates are rows
+    4 pk .. 4 pk + 3; a pair found twice is refused."""
+    import numpy as np
+    ps = t["partsupp"]
+    npart = _arange_keys(t["part"], "p_partkey")
+    if not np.array_equal(_col(ps, "ps_partkey"),
+                          np.repeat(np.arange(npart), 4)):
+        raise AssertionError("partsupp is not four rows a part in order")
+    psk = _col(ps, "ps_suppkey")
+    row = np.zeros(len(pk), np.int64)
+    hits = np.zeros(len(pk), np.int64)
+    for i in range(4):
+        cand = pk * 4 + i
+        m = psk[cand] == sk
+        row = np.where(m, cand, row)
+        hits += m
+    if len(hits) and int(hits.max()) > 1:
+        raise AssertionError("a (ps_partkey, ps_suppkey) pair repeats")
+    return row, hits == 1
+
+
+def _nations_in_region(t, region):
+    import numpy as np
+    nat, reg = t["nation"], t["region"]
+    _arange_keys(nat, "n_nationkey")
+    _arange_keys(reg, "r_regionkey")
+    names = reg.column("r_name").to_pylist()
+    return np.array([names[r] == region for r in _col(nat, "n_regionkey")])
+
+
+def q2_reference(t, size=15, type_suffix="BRASS", region="EUROPE",
+                 limit=100) -> list:
+    """The suppliers of each qualifying part whose supply cost is the
+    part's least among the region's suppliers; by s_acctbal descending,
+    n_name, s_name, p_partkey."""
+    import numpy as np
+    import pyarrow.compute as pc
+    p, s, ps, nat = t["part"], t["supplier"], t["partsupp"], t["nation"]
+    npart = _arange_keys(p, "p_partkey")
+    ns = _arange_keys(s, "s_suppkey")
+    in_region = _nations_in_region(t, region)
+    snk = _col(s, "s_nationkey")
+    _in_range(snk, len(in_region), "s_nationkey")
+    psk, pspk = _col(ps, "ps_suppkey"), _col(ps, "ps_partkey")
+    _in_range(psk, ns, "ps_suppkey")
+    _in_range(pspk, npart, "ps_partkey")
+    eu = in_region[snk][psk]
+    cost = unscaled(ps, "ps_supplycost")
+    least = np.full(npart, np.iinfo(np.int64).max)
+    np.minimum.at(least, pspk[eu], cost[eu])
+    part_ok = (_col(p, "p_size") == size) & _bools(
+        pc.ends_with(p.column("p_type"), type_suffix))
+    rows = np.flatnonzero(eu & part_ok[pspk] & (cost == least[pspk]))
+    sk, pk = psk[rows], pspk[rows]
+    names = nat.column("n_name").to_pylist()
+    cols = [unscaled(s, "s_acctbal")[sk].tolist(), _strs(s, "s_name", sk),
+            [names[k] for k in snk[sk]], pk.tolist(),
+            _strs(p, "p_mfgr", pk), _strs(s, "s_address", sk),
+            _strs(s, "s_phone", sk), _strs(s, "s_comment", sk)]
+    out = sorted(zip(*cols), key=lambda r: (-r[0], r[2], r[1], r[3]))
+    return out[:limit]
+
+
+def q8_reference(t, nation="BRAZIL", region="AMERICA",
+                 ptype="ECONOMY ANODIZED STEEL") -> list:
+    """(o_year, the nation's share of the region's volume), each volume
+    the double of the unscaled revenue."""
+    import numpy as np
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    li, o, p, s, nat = (t[k] for k in ("lineitem", "orders", "part",
+                                        "supplier", "nation"))
+    lok, ok = _lineitem_orders(t)
+    npart = _arange_keys(p, "p_partkey")
+    ns = _arange_keys(s, "s_suppkey")
+    lpk, lsk = _col(li, "l_partkey"), _col(li, "l_suppkey")
+    _in_range(lpk, npart, "l_partkey")
+    _in_range(lsk, ns, "l_suppkey")
+    d = _col(o, "o_orderdate")[lok]
+    cnk = _cust_nation_of_orders(t)[lok]
+    m = (ok & _bools(pc.equal(p.column("p_type"), ptype))[lpk]
+         & (d >= day("1995-01-01")) & (d <= day("1996-12-31"))
+         & _nations_in_region(t, region)[cnk])
+    year = np.where(d[m] <= day("1995-12-31"), 1995, 1996)
+    vol = _as_double(_revenue(li, m), 4)
+    target = nat.column("n_name").to_pylist().index(nation)
+    nat_vol = np.where(_col(s, "s_nationkey")[lsk[m]] == target, vol, 0.0)
+    rows = []
+    for y in (1995, 1996):
+        sel = year == y
+        if sel.any():
+            rows.append((y, float(nat_vol[sel].sum() / vol[sel].sum())))
+    return rows
+
+
+def q9_reference(t, word="green") -> list:
+    """(n_name, o_year, the sum of revenue less supply cost x quantity),
+    by n_name, o_year descending; each term the double of its unscaled
+    integer."""
+    import numpy as np
+    import pyarrow.compute as pc
+    li, o, p, s, ps, nat = (t[k] for k in ("lineitem", "orders", "part",
+                                            "supplier", "partsupp",
+                                            "nation"))
+    lok, ok = _lineitem_orders(t)
+    npart = _arange_keys(p, "p_partkey")
+    ns = _arange_keys(s, "s_suppkey")
+    nn = _arange_keys(nat, "n_nationkey")
+    lpk, lsk = _col(li, "l_partkey"), _col(li, "l_suppkey")
+    _in_range(lpk, npart, "l_partkey")
+    _in_range(lsk, ns, "l_suppkey")
+    m = np.flatnonzero(ok & _bools(pc.match_substring(p.column("p_name"),
+                                                      word))[lpk])
+    row, hit = _partsupp_rows(t, lpk[m], lsk[m])
+    idx, row = m[hit], row[hit]
+    cost = unscaled(ps, "ps_supplycost")[row]
+    qty = unscaled(li, "l_quantity")[idx]
+    if len(cost) and int(cost.max()) * int(qty.max()) >= 2**63:
+        raise AssertionError("Q9 reference product would overflow int64")
+    amount = _as_double(_revenue(li, idx), 4) - _as_double(cost * qty, 4)
+    year = _order_years(_col(o, "o_orderdate")[lok[idx]])
+    key = _col(s, "s_nationkey")[lsk[idx]] * 7 + (year - 1992)
+    _in_range(key, nn * 7, "Q9 group")
+    sums = np.bincount(key, weights=amount, minlength=nn * 7)
+    names = nat.column("n_name").to_pylist()
+    rows = [(names[k // 7], 1992 + k % 7, float(sums[k]))
+            for k in np.unique(key)]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
+def q13_reference(t, w1="special", w2="requests") -> list:
+    """(c_count, custdist) by custdist, c_count descending. The orders
+    dropped are those `o_comment LIKE '%w1%w2%'` matches as the JAX
+    package's LIKE does: each middle run contained anywhere, in either
+    order."""
+    import numpy as np
+    import pyarrow.compute as pc
+    o, c = t["orders"], t["customer"]
+    nc = _arange_keys(c, "c_custkey")
+    com = o.column("o_comment")
+    like = (_bools(pc.greater_equal(pc.binary_length(com),
+                                    len(w1) + len(w2)))
+            & _bools(pc.match_substring(com, w1))
+            & _bools(pc.match_substring(com, w2)))
+    ock = _col(o, "o_custkey")
+    _in_range(ock, nc, "o_custkey")
+    dist = np.bincount(np.bincount(ock[~like], minlength=nc))
+    rows = [(int(k), int(dist[k])) for k in np.flatnonzero(dist)]
+    return sorted(rows, key=lambda r: (-r[1], -r[0]))
+
+
+def q14_reference(t, d0="1995-09-01", d1="1995-10-01") -> list:
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    li, p = t["lineitem"], t["part"]
+    npart = _arange_keys(p, "p_partkey")
+    sd = _col(li, "l_shipdate")
+    m = (sd >= day(d0)) & (sd < day(d1))
+    pk = _col(li, "l_partkey")[m]
+    _in_range(pk, npart, "l_partkey")
+    rev = _as_double(_revenue(li, m), 4)
+    promo = _bools(pc.starts_with(p.column("p_type"), "PROMO"))[pk]
+    return [(float(100.0 * rev[promo].sum() / rev.sum()),)]
+
+
+def q17_reference(t, brand="Brand#23", container="MED BOX",
+                  notes=None) -> list:
+    """The yearly average of the prices of the part's lines under a fifth
+    of the part's average quantity. Quantities are whole numbers, so
+    their double sums are exact and the thresholds (one division, one
+    product) are the engine's to the bit; `notes`, where given, gets the
+    part's line count and how many lie within 1e-9 of their threshold."""
+    import numpy as np
+    import pyarrow.compute as pc
+    li, p = t["lineitem"], t["part"]
+    npart = _arange_keys(p, "p_partkey")
+    lpk = _col(li, "l_partkey")
+    _in_range(lpk, npart, "l_partkey")
+    qu = unscaled(li, "l_quantity")
+    if len(qu) and (np.any(qu % 100) or int(qu.max()) * len(qu) >= 2**53):
+        raise AssertionError("Q17 quantities are not small whole numbers")
+    qty = _as_double(qu, 2)
+    cnt = np.bincount(lpk, minlength=npart)
+    thr = np.bincount(lpk, weights=qty, minlength=npart) \
+        / np.maximum(cnt, 1) * 0.2
+    part_ok = (_bools(pc.equal(p.column("p_brand"), brand))
+               & _bools(pc.equal(p.column("p_container"), container)))
+    m = part_ok[lpk]
+    t_row = thr[lpk]
+    if notes is not None:
+        notes["q17_lines"] = int(m.sum())
+        notes["q17_near_ties"] = int(
+            (m & (np.abs(qty - t_row) <= 1e-9 * np.abs(t_row))).sum())
+    sel = m & (qty < t_row)
+    total = _as_double(unscaled(li, "l_extendedprice")[sel], 2).sum()
+    return [(float(total / 7.0),)]
+
+
+def q20_reference(t, word="forest", nation="CANADA", d0="1994-01-01",
+                  d1="1995-01-01") -> list:
+    """(s_name, s_address) of the nation's suppliers with a part whose
+    name starts with `word` and whose available quantity exceeds half
+    the quantity shipped in the year (whole numbers: exact)."""
+    import numpy as np
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    li, p, s, ps, nat = (t[k] for k in ("lineitem", "part", "supplier",
+                                        "partsupp", "nation"))
+    npart = _arange_keys(p, "p_partkey")
+    ns = _arange_keys(s, "s_suppkey")
+    lpk, lsk = _col(li, "l_partkey"), _col(li, "l_suppkey")
+    _in_range(lpk, npart, "l_partkey")
+    _in_range(lsk, ns, "l_suppkey")
+    sd = _col(li, "l_shipdate")
+    m = np.flatnonzero((sd >= day(d0)) & (sd < day(d1)))
+    row, hit = _partsupp_rows(t, lpk[m], lsk[m])
+    shipped = _group_sum(row[hit], unscaled(li, "l_quantity")[m[hit]],
+                         ps.num_rows)
+    has = np.bincount(row[hit], minlength=ps.num_rows) > 0
+    psk = _col(ps, "ps_suppkey")
+    qual = (has & _bools(pc.starts_with(p.column("p_name"), word))[
+        _col(ps, "ps_partkey")]
+        & (2 * 100 * _col(ps, "ps_availqty").astype(np.int64) > shipped))
+    supp_ok = np.zeros(ns, bool)
+    supp_ok[psk[qual]] = True
+    target = nat.column("n_name").to_pylist().index(nation)
+    sel = np.flatnonzero(supp_ok & (_col(s, "s_nationkey") == target))
+    return sorted(zip(_strs(s, "s_name", sel), _strs(s, "s_address", sel)))
+
+
+TPCH_REFERENCES = {2: q2_reference, 4: q4_reference, 5: q5_reference,
+                   7: q7_reference, 8: q8_reference, 9: q9_reference,
                    10: q10_reference, 12: q12_reference,
-                   18: q18_reference, 19: q19_reference}
+                   13: q13_reference, 14: q14_reference,
+                   17: q17_reference, 18: q18_reference,
+                   19: q19_reference, 20: q20_reference}
 
 
 def tpch_reference(n, tables, qty=TPCH_Q18_QTY) -> list:
@@ -1610,9 +1887,28 @@ def tpch_rows(at) -> list:
     return rows
 
 
+def _rows_agree(rows, expect, floats) -> bool:
+    """Row for row: the columns at `floats` within TPCH_RTOL of the
+    reference's, every other column equal."""
+    import math
+    if len(rows) != len(expect):
+        return False
+    for r, e in zip(rows, expect):
+        if len(r) != len(e):
+            return False
+        for i, (a, b) in enumerate(zip(r, e)):
+            if i in floats and a is not None and b is not None:
+                if not math.isclose(a, b, rel_tol=TPCH_RTOL, abs_tol=0.0):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
 def check_tpch(n, at, expect, what: str):
     """Q5 (sorted by revenue alone) as a set with revenue not increasing
-    down the rows; every other query row for row, in order."""
+    down the rows; every other query row for row, in order; a double
+    column within TPCH_RTOL."""
     if tuple(at.column_names) != TPCH_COLUMNS[n]:
         raise AssertionError(f"Q{n} over {what}: columns {at.column_names}")
     rows = tpch_rows(at)
@@ -1621,7 +1917,9 @@ def check_tpch(n, at, expect, what: str):
         if revs != sorted(revs, reverse=True):
             raise AssertionError(f"Q5 over {what}: revenue increases")
         rows = sorted(rows, key=lambda r: (-r[1], r[0]))
-    if rows != expect:
+    floats = {TPCH_COLUMNS[n].index(c)
+              for c in TPCH_FLOAT_COLUMNS.get(n, ())}
+    if not _rows_agree(rows, expect, floats):
         raise AssertionError(f"Q{n} over {what}: {len(rows)} rows differ "
                              f"from the reference's {len(expect)}")
 
@@ -1649,10 +1947,42 @@ def tpch_plan_shape(root) -> dict:
                            or type(x).__name__ == "HashAggregateExec"]}
 
 
+def int32_exchanges(root) -> int:
+    """The shuffle exchanges of a plan on one int32 or date key: the ones
+    that run the partition kernel."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    return sum(1 for x in plan_nodes(root)
+               if type(x).__name__ == "ShuffleExchangeExec" and x.keys
+               and len(x.keys) == 1
+               and isinstance(x.keys[0].dtype, (dt.IntegerType,
+                                                dt.DateType)))
+
+
+def check_partition_launches(n, root, got, device):
+    """On the card, the partition kernel ran where the plan has an
+    exchange on one int32/date key, every launch the vector variant; it
+    ran nowhere else (and never off the card, where the exchange takes
+    its plain version)."""
+    if int32_exchanges(root) and device.type == "cuda":
+        if not got["all"] or got["vector"] != got["all"]:
+            raise AssertionError(f"Q{n}: an exchange on an int32 key, "
+                                 f"partition kernel launches {got}")
+    elif got["all"]:
+        raise AssertionError(f"Q{n}: partition kernel launched {got}; no "
+                             f"exchange key is int32")
+
+
+#: Q13's device groups: the profile names torch's cummax (row_of_unit)
+#: and the byte gathers (1-byte elements) apart from the rest
+Q13_GROUPS = (("cummax", r"cummax|with_indices"),
+              ("byte_gather", r"[Ii]ndex.*OpaqueType<1>"),) + Q3_GROUPS
+
+
 def tpch_phases(session, tables, expects, runs=2) -> dict:
     """One phase per query (each run a fresh plan; the partition kernel's
-    launches counted from 0), then Q5 under torch.profiler. Returns the
-    partition kernel's launches per path."""
+    launches counted from 0 and held to the plan's int32 exchanges), then
+    Q5 and Q13 under torch.profiler. Returns the partition kernel's
+    launches per path."""
     from spark_rapids_tpu_torch.exec.batch import DeviceBatch
     from spark_rapids_tpu_torch.ops import partition_kernels as pk
 
@@ -1665,15 +1995,14 @@ def tpch_phases(session, tables, expects, runs=2) -> dict:
         for _ in range(runs):
             with BatchDevices(DeviceBatch) as devs:
                 q = tpch_query(n, session, tables)
+                torch_peak_reset(dev)
                 pk.launches = pk.vector_launches = pk.scalar_launches = 0
                 out, wall, layers, syncs = timed_query(q, dev)
                 got = {"all": pk.launches, "vector": pk.vector_launches,
                        "scalar": pk.scalar_launches}
             check_tpch(n, out, expects[n], "default conf")
             check_devices(devs, dev)
-            if got["all"]:
-                raise AssertionError(f"Q{n}: partition kernel launched "
-                                     f"{got}; no exchange key is int32")
+            check_partition_launches(n, q.last_plan(), got, dev)
             nodes = per_node_metrics(q)
             out_runs.append({
                 "wall_s": wall, "rows": out.num_rows,
@@ -1683,15 +2012,34 @@ def tpch_phases(session, tables, expects, runs=2) -> dict:
                                for k, v in nodes.items()
                                if k.startswith("HashJoinExec")},
                 "host_syncs": syncs, "partition_kernel_launches": got,
+                "peak_device_bytes": torch_peak(dev),
                 "batch_tensors_by_device": dict(devs.seen)})
         launches[f"q{n}"] = got
         emit({"phase": f"tpch_q{n}", "plan": tpch_plan_shape(q.last_plan()),
+              "int32_exchanges": int32_exchanges(q.last_plan()),
               "input_batches": batches, "runs": out_runs})
-    out, prof = profiled_query(tpch_query(5, session, tables), dev,
-                               batches, Q3_GROUPS)
-    check_tpch(5, out, expects[5], "default conf (profiled)")
-    emit({"phase": "tpch_q5_profiled", **prof})
+    for n, groups in ((5, Q3_GROUPS), (13, Q13_GROUPS)):
+        torch_peak_reset(dev)
+        out, prof = profiled_query(tpch_query(n, session, tables), dev,
+                                   batches, groups)
+        check_tpch(n, out, expects[n], "default conf (profiled)")
+        emit({"phase": f"tpch_q{n}_profiled",
+              "peak_device_bytes": torch_peak(dev), **prof})
     return launches
+
+
+def torch_peak_reset(device):
+    if device.type == "cuda":
+        import torch
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def torch_peak(device):
+    """Peak device bytes since the last reset (None off the card)."""
+    if device.type != "cuda":
+        return None
+    import torch
+    return torch.cuda.max_memory_allocated(device)
 
 
 def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
@@ -1714,12 +2062,14 @@ def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
         t0 = time.perf_counter()
         tables[name] = make()
         gen_s[name] = time.perf_counter() - t0
-    ref_s, expects = {}, {}
+    ref_s, expects, notes = {}, {}, {}
     for n in TPCH_QUERIES:
         t0 = time.perf_counter()
         if n == 18:     # every order over the threshold, then the limit
             q18_all = q18_reference(tables, qty, limit=None)
             expects[n] = q18_all[:100]
+        elif n == 17:
+            expects[n] = q17_reference(tables, notes=notes)
         else:
             expects[n] = tpch_reference(n, tables, qty)
         ref_s[f"q{n}"] = time.perf_counter() - t0
@@ -1727,7 +2077,7 @@ def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
           "rows": {k: v.num_rows for k, v in tables.items()},
           "gen_s": gen_s, "reference_s": ref_s,
           "result_rows": {f"q{n}": len(e) for n, e in expects.items()},
-          "q18_qty": qty, "q18_orders_over_qty": len(q18_all)})
+          "q18_qty": qty, "q18_orders_over_qty": len(q18_all), **notes})
     return tables, expects
 
 

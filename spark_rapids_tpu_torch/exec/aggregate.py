@@ -32,7 +32,8 @@ import torch
 from ..columnar import dtypes as dt
 from ..columnar.table import Field, Schema
 from ..config import AGG_MAX_MERGE_ROWS, AGG_STRING_HASH_KEYS
-from ..expr.aggregates import AggExpr, Count, seg_any, seg_sum
+from ..expr.aggregates import (AggExpr, Count, ident, seg_any,
+                                seg_min_max, seg_sum)
 from ..expr.expressions import (Alias, BoundRef, EmitCtx, Expression,
                                 UnsupportedExpr)
 from ..ops import sortkeys as sk
@@ -83,7 +84,18 @@ def _seg_reduce(reducer: str, arr, live, seg_ids, num_segments):
                        seg_ids, num_segments)
     if reducer == "or":
         return seg_any(live & arr.bool(), seg_ids, num_segments)
+    if reducer in ("min", "max"):
+        for_min = reducer == "min"
+        return seg_min_max(torch.where(live, arr, ident(arr.dtype, for_min)),
+                           seg_ids, num_segments, for_min)
     raise ValueError(reducer)
+
+
+def _state_width(a: AggExpr) -> int:
+    """The number of state columns of an aggregate."""
+    if "custom" in a.state_reducers:
+        return a.num_state_cols()
+    return len(a.state_reducers)
 
 
 def _pack_pair(hi, lo):
@@ -400,10 +412,16 @@ class HashAggregateExec(TpuExec):
             self._sort_and_segment(key_cvs, mask, nchunks)
         out, i = [], 0
         for a in self.aggs:
-            for r in a.state_reducers:
-                out.append(_seg_reduce(r, flat_states[i][perm], live,
-                                       seg_ids, cap))
-                i += 1
+            width = _state_width(a)
+            if "custom" in a.state_reducers:
+                out.extend(a.g_merge_custom(
+                    [flat_states[i + j][perm] for j in range(width)], live,
+                    seg_ids, cap))
+            else:
+                for j, r in enumerate(a.state_reducers):
+                    out.append(_seg_reduce(r, flat_states[i + j][perm],
+                                           live, seg_ids, cap))
+            i += width
         return key_out, out, seg_live
 
     def _merge_partials(self, ctx: ExecContext, parts) -> Partial:
@@ -440,7 +458,7 @@ class HashAggregateExec(TpuExec):
     def _finalize(self, ks, st, sl):
         outs, i = list(ks), 0
         for a in self.aggs:
-            k = len(a.state_reducers)
+            k = _state_width(a)
             v, ok = a.finalize(tuple(st[i:i + k]))
             i += k
             outs.append(CV(v, ok & sl))

@@ -2,15 +2,18 @@
 tensors.
 
 The port's copy of the JAX package's expression layer, cut to the slice:
-column references (string columns included), literals, aliases, decimal
-arithmetic (+, -, *; above precision 18 on the exact limb kernels of
-`ops/decimal128.py`), comparisons (strings too: a literal `=`/`!=` by
-length and 4-byte chunks, any other by `ops/strings.py` `compare`;
-decimal128 by `dec_cmp_scaled`), null-safe equality, coalesce, IF,
-CASE WHEN and IN, Kleene AND/OR/NOT and the numeric casts.
-`bind(schema)` resolves names and types exactly as the JAX package
-does; `emit(ctx)` evaluates the bound tree eagerly and returns a CV. A
-cast of a decimal above precision 18 raises NotPorted at bind time.
+column references (string columns included), literals, aliases,
+arithmetic (+, -, *, / and %; decimals above precision 18 on the exact
+limb kernels of `ops/decimal128.py`, a decimal `/` by `dec_div`),
+comparisons (strings too: a literal `=`/`!=` by length and 4-byte
+chunks, any other by `ops/strings.py` `compare`; decimal128 by
+`dec_cmp_scaled`; a NULL literal on either side gives an all-null
+result, and `<=>` the other side's null flag), null-safe equality,
+coalesce, IF, CASE WHEN and IN, Kleene AND/OR/NOT and the numeric casts
+(decimal128 on either side included). The string functions live in
+`string_exprs.py`. `bind(schema)` resolves names and types exactly as
+the JAX package does; `emit(ctx)` evaluates the bound tree eagerly and
+returns a CV. A cast named by a type string raises NotPorted.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from ..ops.kernel_utils import CV
 
 __all__ = [
     "Expression", "UnsupportedExpr", "EmitCtx", "ColumnRef", "BoundRef",
-    "Literal", "Alias", "Add", "Subtract", "Multiply", "Eq", "Ne", "Lt",
+    "Literal", "Alias", "Add", "Subtract", "Multiply", "Divide",
+    "Remainder", "Eq", "Ne", "Lt",
     "Le", "Gt", "Ge", "EqNullSafe", "And", "Or", "Not", "Cast",
     "Coalesce", "If", "CaseWhen", "In", "lit", "col",
 ]
@@ -88,6 +92,15 @@ class Expression:
     def __rmul__(self, o):
         return Multiply(_wrap(o), self)
 
+    def __truediv__(self, o):
+        return Divide(self, _wrap(o))
+
+    def __rtruediv__(self, o):
+        return Divide(_wrap(o), self)
+
+    def __mod__(self, o):
+        return Remainder(self, _wrap(o))
+
     def __eq__(self, o):  # type: ignore[override]
         return Eq(self, _wrap(o))
 
@@ -123,6 +136,27 @@ class Expression:
 
     def between(self, lo, hi):
         return And(Ge(self, _wrap(lo)), Le(self, _wrap(hi)))
+
+    # the string surface (imported late: string_exprs imports this module)
+    def contains(self, pattern):
+        from .string_exprs import Contains
+        return Contains(self, _wrap(pattern))
+
+    def startswith(self, pattern):
+        from .string_exprs import StartsWith
+        return StartsWith(self, _wrap(pattern))
+
+    def endswith(self, pattern):
+        from .string_exprs import EndsWith
+        return EndsWith(self, _wrap(pattern))
+
+    def like(self, pattern: str):
+        from .string_exprs import Like
+        return Like(self, pattern)
+
+    def substr(self, start, length=None):
+        from .string_exprs import Substring
+        return Substring(self, start, length)
 
 
 def _wrap(v) -> Expression:
@@ -277,7 +311,7 @@ class Alias(Expression):
 # ----------------------------------------------------------------------
 # Implicit cast insertion (Spark's binary-op type coercion)
 # ----------------------------------------------------------------------
-def _coerce_pair(l: Expression, r: Expression):
+def _coerce_pair(l: Expression, r: Expression, for_division=False):
     lt_, rt = l.dtype, r.dtype
     if isinstance(lt_, dt.NullType):
         l = Cast.bound(l, rt)
@@ -287,6 +321,13 @@ def _coerce_pair(l: Expression, r: Expression):
         rt = lt_
     if isinstance(lt_, dt.DecimalType) or isinstance(rt, dt.DecimalType):
         return _coerce_decimal(l, r)
+    if for_division:
+        # Spark `/` over non-decimals divides doubles
+        if not lt_.is_floating:
+            l = Cast.bound(l, dt.FLOAT64)
+        if not rt.is_floating:
+            r = Cast.bound(r, dt.FLOAT64)
+        lt_, rt = l.dtype, r.dtype
     if lt_ == rt:
         return l, r, lt_
     out = dt.promote(lt_, rt)
@@ -307,8 +348,6 @@ def _coerce_decimal(l, r):
             # Spark: Byte->dec(3,0) Short->dec(5,0) Int->dec(10,0)
             # Long->dec(20,0)
             p = {1: 3, 2: 5, 4: 10, 8: 20}[e.dtype.np_dtype.itemsize]
-            if p > dt.DecimalType.MAX_INT64_PRECISION:
-                raise NotPorted(f"cast {e.dtype} -> decimal({p},0)")
             return Cast.bound(e, dt.DecimalType(p, 0))
         raise UnsupportedExpr(f"decimal with {e.dtype}")
     if l.dtype.is_floating or r.dtype.is_floating:
@@ -452,6 +491,69 @@ class Multiply(_BinaryOp):
         return ew.mul(l, r)
 
 
+class Divide(_BinaryOp):
+    """Spark `/`: doubles for non-decimal sides; decimals by an exact
+    128-bit long division with HALF_UP rounding at Spark's result type.
+    A divisor of 0 (or -0.0) gives null."""
+    symbol = "/"
+
+    def _resolve_type(self):
+        self.left, self.right, out = _coerce_pair(self.left, self.right,
+                                                  for_division=True)
+        if out is None:
+            p1, s1 = self.left.dtype.precision, self.left.dtype.scale
+            p2, s2 = self.right.dtype.precision, self.right.dtype.scale
+            s = max(6, s1 + p2 + 1)
+            self.dtype = dt.DecimalType(
+                *_adjust_precision_scale(p1 - s1 + s2 + s, s))
+        else:
+            self.dtype = out
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        if not isinstance(self.dtype, dt.DecimalType):
+            return ew.divide(l, r)
+        from ..ops import decimal128 as d128
+        lt_, rt = self.left.dtype, self.right.dtype
+        res, ovf, divzero = d128.dec_div(
+            _as_dec128(l, lt_).data, _as_dec128(r, rt).data,
+            self.dtype.scale - lt_.scale + rt.scale, self.dtype.precision,
+            num_digits=lt_.precision)
+        valid = l.validity & r.validity & ~ovf & ~divzero
+        if self.dtype.is_decimal128:
+            return CV(res, valid)
+        v64, fits = d128.dec_to_i64(res)
+        return CV(v64, valid & fits)
+
+
+class Remainder(_BinaryOp):
+    """Spark `%`: the sign follows the dividend (Java); a divisor of 0
+    gives null. Decimals above precision 18 are refused, as in the JAX
+    package."""
+    symbol = "%"
+
+    def _resolve_type(self):
+        self.left, self.right, out = _coerce_pair(self.left, self.right)
+        if out is None:
+            lt_, rt = self.left.dtype, self.right.dtype
+            if lt_.is_decimal128 or rt.is_decimal128:
+                raise UnsupportedExpr("remainder over decimal precision "
+                                      "> 18 not yet implemented")
+            self.dtype = dt.DecimalType(min(18, max(lt_.precision,
+                                                    rt.precision)),
+                                        max(lt_.scale, rt.scale))
+        else:
+            self.dtype = out
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        if isinstance(self.dtype, dt.DecimalType):
+            s = self.dtype.scale
+            l = _dec_scale_shift(l, s - self.left.dtype.scale)
+            r = _dec_scale_shift(r, s - self.right.dtype.scale)
+        return ew.remainder(l, r)
+
+
 def _is_str(t) -> bool:
     return isinstance(t, (dt.StringType, dt.BinaryType))
 
@@ -462,14 +564,35 @@ class _Comparison(_BinaryOp):
 
     def _resolve_type(self):
         lt_, rt = self.left.dtype, self.right.dtype
+        self.dtype = dt.BOOL
+        if isinstance(lt_, dt.NullType) or isinstance(rt, dt.NullType):
+            return      # answered by _null_side, whatever the other type
         if _is_str(lt_) != _is_str(rt):
             raise UnsupportedExpr("string/non-string compare")
         if not _is_str(lt_) and lt_ != rt:
             self.left, self.right, _ = _coerce_pair(self.left, self.right)
-        self.dtype = dt.BOOL
+
+    def _null_side(self, ctx) -> Optional[CV]:
+        """A comparison with a NULL literal: all null, and `<=>` true
+        where the other side is null. None when neither side is NULL."""
+        sides = (self.left, self.right)
+        if not any(isinstance(c.dtype, dt.NullType) for c in sides):
+            return None
+        if type(self) is not EqNullSafe:
+            none = torch.zeros(ctx.capacity, dtype=torch.bool,
+                               device=ctx.device)
+            return CV(none, none.clone())
+        out = torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device)
+        for c in sides:
+            if not isinstance(c.dtype, dt.NullType):
+                out = out & ~c.emit(ctx).validity
+        return CV(out, torch.ones_like(out))
 
     def emit(self, ctx):
         from ..ops import strings as ops_str
+        null = self._null_side(ctx)
+        if null is not None:
+            return null
         if _is_str(self.left.dtype) and type(self) in (Eq, Ne):
             # literal string equality: length + 4-byte chunks, not the
             # byte-domain walk of compare()
@@ -544,9 +667,14 @@ class EqNullSafe(_Comparison):
 
     def _resolve_type(self):
         super()._resolve_type()
-        _reject_d128(self.left.dtype, self.right.dtype)
+        if not any(isinstance(c.dtype, dt.NullType)
+                   for c in (self.left, self.right)):
+            _reject_d128(self.left.dtype, self.right.dtype)
 
     def emit(self, ctx):
+        null = self._null_side(ctx)
+        if null is not None:
+            return null
         if not _is_str(self.left.dtype):
             return super().emit(ctx)
         from ..ops import strings as ops_str
@@ -595,7 +723,9 @@ class Not(Expression):
 
 
 class Cast(Expression):
-    """Spark CAST, numeric subset (ops/cast.py)."""
+    """Spark CAST, the numeric subset (ops/cast.py): null to any type,
+    boolean to numeric, and numeric to numeric, decimal128 on either
+    side included."""
 
     def __init__(self, child: Expression, to: dt.DataType):
         if isinstance(to, str):
@@ -615,13 +745,9 @@ class Cast(Expression):
         from_t, to = b.child.dtype, self.to
         ok = (from_t == to or isinstance(from_t, dt.NullType)
               or (isinstance(from_t, dt.BooleanType) and to.is_numeric)
-              or (from_t.is_numeric and to.is_numeric
-                  and not (from_t.is_floating
-                           and (to.is_integral
-                                or isinstance(to, dt.DecimalType)))))
+              or (from_t.is_numeric and to.is_numeric))
         if not ok:
             raise NotPorted(f"cast {from_t} -> {self.to}")
-        _reject_d128(from_t, self.to)
         return b
 
     def emit(self, ctx):

@@ -3,9 +3,12 @@ ported subset of pyspark.sql.functions."""
 from __future__ import annotations
 
 from .expr import aggregates as _agg
-from .expr.expressions import CaseWhen, Expression, col, lit
+from .expr import string_exprs as _se
+from .expr.expressions import CaseWhen, Expression, Literal, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "avg", "mean", "when"]
+__all__ = ["col", "lit", "sum", "count", "min", "max", "avg", "mean",
+           "when", "substring", "contains", "startswith", "endswith",
+           "like"]
 
 
 def sum(e):  # noqa: A001 - match pyspark naming
@@ -16,6 +19,14 @@ def count(e):
     if isinstance(e, str) and e == "*":
         return _agg.CountStar()
     return _agg.Count(_to_expr(e))
+
+
+def min(e):  # noqa: A001
+    return _agg.Min(_to_expr(e))
+
+
+def max(e):  # noqa: A001
+    return _agg.Max(_to_expr(e))
 
 
 def avg(e):
@@ -53,3 +64,28 @@ class _WhenBuilder:
 
 def when(cond, value):
     return _WhenBuilder([(_to_expr(cond), _to_expr(value))])
+
+
+def substring(e, start, length=None):
+    return _se.Substring(_to_expr(e), start, length)
+
+
+def _to_pattern(p):
+    # a pattern argument is a literal, not a column name
+    return Literal(p) if isinstance(p, (str, bytes)) else _to_expr(p)
+
+
+def contains(e, pattern):
+    return _se.Contains(_to_expr(e), _to_pattern(pattern))
+
+
+def startswith(e, pattern):
+    return _se.StartsWith(_to_expr(e), _to_pattern(pattern))
+
+
+def endswith(e, pattern):
+    return _se.EndsWith(_to_expr(e), _to_pattern(pattern))
+
+
+def like(e, pattern: str):
+    return _se.Like(_to_expr(e), pattern)

@@ -1,11 +1,22 @@
-"""CAST with Spark (non-ANSI) semantics: the ported subset.
+"""CAST with Spark (non-ANSI) semantics: the numeric subset.
 
-Covers the casts the slice's type coercion inserts and their near
-kin: null -> any, numeric widening and integral narrowing (wraps),
-boolean -> numeric, integral -> decimal64, decimal64 rescale (HALF_UP,
-overflow -> null) and decimal64 -> integral/floating. Every other cast
-(floating -> integral or decimal, to boolean, temporal, string, and any
-decimal128 side) raises NotPorted.
+Covers null -> any, boolean -> numeric, and every numeric -> numeric
+cast, as the JAX package's `ops/cast.py` computes them:
+  - integral narrowing wraps (Java); floating -> integral saturates at
+    the target's range, NaN -> 0 (Scala `Double.toInt`);
+  - to a decimal, HALF_UP rounding; a value past the precision -> null;
+  - decimal -> integral truncates toward zero, null out of range;
+  - decimal128 (an int64 [n, 2] of words) on either side goes through
+    the limb kernels of `ops/decimal128.py`;
+  - decimal -> double is the unscaled value (decimal128: hi 2^64 +
+    unsigned lo, the JAX formula) divided by 10^scale, the quotient the
+    JAX package's source writes, bit for bit its eager result, on the
+    CPU and the card alike (XLA may compile that division into a product
+    with the reciprocal, one unit in the last place away). The formula
+    rounds the unsigned low word near 2^64 for a negative decimal128, so
+    such a value loses up to 2^11 units of its unscaled value, as in the
+    reference (ROADMAP C).
+Every other cast (to boolean, temporal, string) raises NotPorted.
 """
 from __future__ import annotations
 
@@ -38,10 +49,6 @@ def cast_cv(cv: CV, from_t: dt.DataType, to_t: dt.DataType) -> CV:
         return CV(torch.zeros(dt.alloc_shape(to_t, cv.capacity),
                               dtype=dt.torch_dtype(to_t), device=x.device),
                   torch.zeros_like(valid))
-    for t in (from_t, to_t):
-        if isinstance(t, dt.DecimalType) and t.is_decimal128:
-            raise NotPorted(f"cast {from_t} -> {to_t}")
-
     if isinstance(from_t, dt.BooleanType):
         if isinstance(to_t, dt.DecimalType):
             return CV(x.to(torch.int64) * (10 ** to_t.scale), valid)
@@ -49,10 +56,13 @@ def cast_cv(cv: CV, from_t: dt.DataType, to_t: dt.DataType) -> CV:
             return CV(x.to(dt.torch_dtype(to_t)), valid)
     elif isinstance(from_t, dt.DecimalType):
         s = from_t.scale
+        if from_t.is_decimal128 or (isinstance(to_t, dt.DecimalType)
+                                    and to_t.is_decimal128):
+            return _cast_decimal128(cv, from_t, to_t)
         if isinstance(to_t, dt.DecimalType):
             return _rescale_decimal(x, valid, s, to_t)
         if to_t.is_floating:
-            return CV((x.to(torch.float64) / (10.0 ** s)).to(
+            return CV(_over_pow10(x.to(torch.float64), s).to(
                 dt.torch_dtype(to_t)), valid)
         if to_t.is_integral:
             p = 10 ** s
@@ -63,14 +73,87 @@ def cast_cv(cv: CV, from_t: dt.DataType, to_t: dt.DataType) -> CV:
             ok = (q >= lo) & (q <= hi)
             return CV(q.to(dt.torch_dtype(to_t)), valid & ok)
     elif isinstance(to_t, dt.DecimalType):
+        if to_t.is_decimal128 and from_t.is_integral:
+            from .decimal128 import dec_from_i64, dec_rescale
+            out, ovf = dec_rescale(dec_from_i64(x.to(torch.int64)), 0,
+                                   to_t.scale, to_t.precision)
+            return CV(out, valid & ~ovf)
+        if to_t.is_decimal128 and from_t.is_floating:
+            return _float_to_decimal128(x, valid, to_t)
         if from_t.is_integral:
             x64 = x.to(torch.int64)
             ok = torch.abs(x64) < 10 ** (to_t.precision - to_t.scale)
             return CV(x64 * (10 ** to_t.scale), valid & ok)
-    elif from_t.is_numeric and to_t.is_numeric and not (
-            from_t.is_floating and to_t.is_integral):
+        if from_t.is_floating:
+            scaled = _scaled_half_up(x, to_t.scale)
+            ok = (torch.abs(scaled) < 10 ** to_t.precision) & ~torch.isnan(x)
+            return CV(scaled.to(torch.int64), valid & ok)
+    elif from_t.is_floating and to_t.is_integral:
+        lo, hi = _INT_RANGE[type(to_t)]
+        xf = torch.nan_to_num(x, nan=0.0).clamp(float(lo), float(hi))
+        return CV(xf.to(dt.torch_dtype(to_t)), valid)
+    elif from_t.is_numeric and to_t.is_numeric:
         # widening, and integral narrowing that wraps like Java
         return CV(x.to(dt.torch_dtype(to_t)), valid)
+    raise NotPorted(f"cast {from_t} -> {to_t}")
+
+
+def _over_pow10(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """x / 10^scale, correctly rounded on every device: the divisor is a
+    tensor on x's device, since CUDA torch turns a division by a Python
+    number into a product with its reciprocal."""
+    return x / torch.full((), 10.0 ** scale, dtype=x.dtype, device=x.device)
+
+
+def _scaled_half_up(x, scale: int):
+    """x * 10^scale in float64, rounded half away from zero."""
+    xf = x.to(torch.float64) * (10.0 ** scale)
+    return torch.where(xf >= 0, torch.floor(xf + 0.5), torch.ceil(xf - 0.5))
+
+
+def _float_to_decimal128(x, valid, to_t: dt.DecimalType) -> CV:
+    """float -> decimal(p > 18): scale, round HALF_UP, then split the
+    (at most 53 significant bits) magnitude into 32-bit limbs exactly."""
+    from .decimal128 import _neg_raw, from_limbs
+    scaled = _scaled_half_up(x, to_t.scale)
+    ok = (torch.abs(scaled) < 10.0 ** to_t.precision) & ~torch.isnan(x)
+    rem = torch.abs(torch.where(ok, scaled, 0.0))
+    limbs = []
+    for _ in range(4):
+        limbs.append(torch.remainder(rem, 2.0 ** 32).to(torch.int64))
+        rem = torch.floor(rem / (2.0 ** 32))
+    out = torch.where((scaled < 0).unsqueeze(-1),
+                      from_limbs(_neg_raw(limbs)), from_limbs(limbs))
+    return CV(out, valid & ok)
+
+
+def _cast_decimal128(cv: CV, from_t: dt.DecimalType,
+                     to_t: dt.DataType) -> CV:
+    """The casts where either side is a decimal128."""
+    from .decimal128 import dec_from_i64, dec_rescale, dec_to_i64
+    x, valid = cv.data, cv.validity
+    wide = x if from_t.is_decimal128 else dec_from_i64(x)
+    if isinstance(to_t, dt.DecimalType):
+        out, ovf = dec_rescale(wide, from_t.scale, to_t.scale,
+                               to_t.precision)
+        if to_t.is_decimal128:
+            return CV(out, valid & ~ovf)
+        v64, fits = dec_to_i64(out)
+        return CV(v64, valid & ~ovf & fits)
+    if to_t.is_floating:
+        lo, hi = wide[:, 0], wide[:, 1]
+        ulo = torch.where(lo < 0, lo.to(torch.float64) + 2.0 ** 64,
+                          lo.to(torch.float64))
+        f = _over_pow10(hi.to(torch.float64) * (2.0 ** 64) + ulo,
+                        from_t.scale)
+        return CV(f.to(dt.torch_dtype(to_t)), valid)
+    if to_t.is_integral:
+        # truncation toward zero, as from a decimal64
+        out, ovf = dec_rescale(wide, from_t.scale, 0, 38, half_up=False)
+        v64, fits = dec_to_i64(out)
+        lo_b, hi_b = _INT_RANGE[type(to_t)]
+        ok = (v64 >= lo_b) & (v64 <= hi_b) & fits & ~ovf
+        return CV(v64.to(dt.torch_dtype(to_t)), valid & ok)
     raise NotPorted(f"cast {from_t} -> {to_t}")
 
 

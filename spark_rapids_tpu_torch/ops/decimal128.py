@@ -1,5 +1,4 @@
-"""Exact decimal128 arithmetic on 32-bit limbs: the subset the Q1 slice
-reaches.
+"""Exact decimal128 arithmetic on 32-bit limbs.
 
 A decimal128 column is an int64 [n, 2] tensor: the (lo, hi) words of the
 little-endian two's-complement int128. The arithmetic works on FOUR
@@ -11,6 +10,9 @@ the JAX package's `ops/decimal128.py`:
                no product leaves int64) -> 256-bit magnitude
   rescale    : multiply by 10^k, or shift-subtract long division by 10^k
                with HALF_UP rounding
+  div        : sign and magnitude; the numerator times 10^shift in 256
+               bits, shift-subtract long division over the bits its
+               digits can fill, HALF_UP rounding as Spark's
   compare    : sign + unsigned limbs; across scales the smaller scale's
                magnitude is multiplied up into 256 bits (no overflow)
   sum limbs  : per-limb int64 sums + a final carry recombination
@@ -18,8 +20,7 @@ the JAX package's `ops/decimal128.py`:
 Overflow is Spark non-ANSI: the caller nulls the row. Every shift below
 is arithmetic (torch's `>>` on int64), and every mask keeps a value
 inside [0, 2^32). A constant limb may be a Python int, and a product
-with a zero constant limb is skipped. (`dec_div` and the decimal128
-casts wait.)
+with a zero constant limb is skipped.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import torch
 __all__ = ["split_i64_limbs", "split_d128_limbs", "combine_limb_sums",
            "fits_precision", "dec_from_i64", "to_limbs", "from_limbs",
            "dec_add", "dec_sub", "dec_rescale", "dec_mul_scaled",
-           "dec_cmp", "dec_cmp_scaled", "POW10_128"]
+           "dec_cmp", "dec_cmp_scaled", "dec_div", "dec_to_i64",
+           "POW10_128"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -279,6 +281,25 @@ def dec_mul_scaled(a2, b2, down_shift: int, precision: int):
     return _signed(prod[:4], na ^ nb), ovf
 
 
+def dec_div(a2, b2, scale_shift: int, precision: int,
+            num_digits: int = 38):
+    """Spark decimal divide: (a * 10^scale_shift) / b with HALF_UP
+    rounding. The numerator is formed in 256 bits; the long division
+    runs over the bits that `num_digits` (the dividend's precision) plus
+    the shift can fill (about 3.33 bits a digit), as the JAX package
+    bounds it. Returns (result [n, 2], overflow, divide by zero)."""
+    ma, na = _abs(to_limbs(a2))
+    mb, nb = _abs(to_limbs(b2))
+    divzero = sum(mb) == 0
+    den = [torch.where(divzero, int(i == 0), x) for i, x in enumerate(mb)]
+    num, _ = _mul_raw_columns(ma, list(POW10_128[scale_shift]), 8)
+    nbits = min(256, int((num_digits + scale_shift) * 3.33) + 2)
+    quo, rem = _long_div(num, den, nbits)
+    quo = _round_half_up(quo, rem, den)
+    ovf = (sum(quo[4:]) > 0) | ~fits_precision_mag(quo[:4], precision)
+    return _signed(quo[:4], na ^ nb), ovf, divzero
+
+
 def dec_cmp(a2, b2):
     """Signed three-way compare (-1/0/1, int32) of two [n, 2] decimals of
     one scale. Two's-complement values of one sign order like their raw
@@ -336,3 +357,10 @@ def combine_limb_sums(sums, precision: int):
 def dec_from_i64(x: torch.Tensor) -> torch.Tensor:
     """int64 unscaled -> [n, 2] words (sign-extended)."""
     return torch.stack([x, torch.where(x < 0, -1, 0).to(x.dtype)], dim=-1)
+
+
+def dec_to_i64(a2: torch.Tensor):
+    """[n, 2] words -> (int64 low word, whether the value fits 64 bits)."""
+    lo, hi = a2[..., 0], a2[..., 1]
+    fits = ((hi == 0) & (lo >= 0)) | ((hi == -1) & (lo < 0))
+    return lo.contiguous(), fits

@@ -3,6 +3,7 @@
 The ported subset of the JAX package's `ops/elementwise.py`:
   - null propagation: the result is null if any input is null (except
     Kleene and/or)
+  - divide / remainder by zero (-0.0 too) -> null (non-ANSI Spark)
   - integral overflow wraps (Java semantics; torch integers wrap likewise)
   - float NaN: NaN == NaN is true and NaN orders above every value
 """
@@ -12,7 +13,7 @@ import torch
 
 from .kernel_utils import CV, and_validity
 
-__all__ = ["add", "sub", "mul", "eq", "ne", "lt", "le", "gt", "ge",
+__all__ = ["add", "sub", "mul", "divide", "remainder", "eq", "ne", "lt", "le", "gt", "ge",
            "eq_null_safe", "logical_and", "logical_or", "logical_not"]
 
 
@@ -26,6 +27,32 @@ def sub(a: CV, b: CV) -> CV:
 
 def mul(a: CV, b: CV) -> CV:
     return CV(a.data * b.data, and_validity(a, b))
+
+
+def divide(a: CV, b: CV) -> CV:
+    """Spark `/` of two floating columns (the expression casts every
+    other pair to double or divides decimals exactly)."""
+    zero = b.data == 0
+    safe = torch.where(zero, torch.ones_like(b.data), b.data)
+    return CV(a.data / safe, and_validity(a, b) & ~zero)
+
+
+def remainder(a: CV, b: CV) -> CV:
+    """Spark `%`: the sign follows the dividend (Java); a float's
+    remainder is a - trunc(a / b) * b, as the JAX package computes it.
+    x % -1 is 0 without dividing (the minimum integer over -1 would
+    trap)."""
+    zero = b.data == 0
+    if a.data.is_floating_point():
+        safe = torch.where(zero, torch.ones_like(b.data), b.data)
+        r = a.data - torch.trunc(a.data / safe) * safe
+    else:
+        # over 1 instead of 0 or -1: the remainder is 0 either way
+        safe = torch.where(zero | (b.data == -1), torch.ones_like(b.data),
+                           b.data)
+        r = a.data - torch.div(a.data, safe, rounding_mode="trunc") * safe
+    return CV(torch.where(zero, torch.zeros_like(r), r),
+              and_validity(a, b) & ~zero)
 
 
 def _nan_safe_eq(x, y):

@@ -1,14 +1,24 @@
 """String kernels over Arrow-layout (offsets + bytes) columns: the
-compares.
+compares, the literal finders and substring.
 
-The port's copy of the JAX package's `ops/strings.py` pieces the Q3
-slice needs: the byte -> row map, byte lengths, the literal equality
+The port's copy of the JAX package's `ops/strings.py` pieces the TPC-H
+queries need: the byte -> row map, byte lengths, the literal equality
 (length check, then big-endian 4-byte chunks, the chunk keys of
-`ops/sortkeys.py`) and the general byte-lexicographic compare, which
-walks the left column's byte domain and takes each row's first
-differing byte with a `scatter_reduce_("amin")` (the JAX `segment_min`).
-The other string expressions (case maps, substring, LIKE, ...) wait for
-the slices that need them.
+`ops/sortkeys.py`), the general byte-lexicographic compare, which walks
+the left column's byte domain and takes each row's first differing byte
+with a `scatter_reduce_("amin")` (the JAX `segment_min`), the literal
+finders behind CONTAINS / STARTSWITH / ENDSWITH / LIKE, and substring.
+
+The finders work in the byte domain as the JAX `_find_literal` does: a
+bool per byte position, "the pattern starts here, inside its row",
+reduced per row by a `scatter_reduce_("amax")` (the JAX
+`segment_max`). Where the JAX package gathers data[pos + j] once per
+pattern byte, the port compares the shifted view data[j:] (a match
+never reads past its row's end, so the view never runs out), and a
+prefix or suffix test reads only the bytes at each row's start or end.
+Byte `wildcard` of a pattern (LIKE's `_`) matches any byte; an empty
+pattern matches every row. The case maps, trim, pad and the other
+string functions wait for the slices that need them.
 """
 from __future__ import annotations
 
@@ -16,7 +26,8 @@ import torch
 
 from .kernel_utils import CV
 
-__all__ = ["byte_row_map", "str_len_bytes", "equals_literal", "compare"]
+__all__ = ["byte_row_map", "str_len_bytes", "equals_literal", "compare",
+           "contains", "startswith", "endswith", "substring"]
 
 _NO_DIFF = 1 << 30
 
@@ -81,3 +92,97 @@ def compare(a: CV, b: CV) -> torch.Tensor:
     out = torch.where(has_diff, torch.sign(av - bv).to(torch.int64),
                       torch.sign(la - lb))
     return out.to(torch.int8)
+
+
+def _all_rows(cv: CV) -> torch.Tensor:
+    return torch.ones(cv.offsets.shape[0] - 1, dtype=torch.bool,
+                      device=cv.offsets.device)
+
+
+def _find_literal(cv: CV, pattern: bytes, wildcard=None):
+    """bool per byte position: `pattern` matches starting here, inside
+    the row. Returns (match, row, rel, lens): each position's row, its
+    offset in the row, and the rows' byte lengths (int64)."""
+    dcap = cv.data.shape[0]
+    row = byte_row_map(cv.offsets, dcap)
+    pos = torch.arange(dcap, dtype=torch.int64, device=row.device)
+    rel = pos - cv.offsets[row].to(torch.int64)
+    lens = str_len_bytes(cv).to(torch.int64)
+    ok = (rel >= 0) & (rel + len(pattern) <= lens[row])
+    for j, pb in enumerate(pattern):
+        if pb != wildcard:
+            # a match ends inside its row, so position pos + j < dcap
+            ok[:max(dcap - j, 0)] &= cv.data[j:] == pb
+    return ok, row, rel, lens
+
+
+def contains(cv: CV, pattern: bytes, wildcard=None,
+             skip_prefix: int = 0, skip_suffix: int = 0) -> torch.Tensor:
+    """bool per row: `pattern` occurs within [skip_prefix, len -
+    skip_suffix) of the row (LIKE's bounds: the bytes its prefix and
+    suffix runs consumed)."""
+    n = cv.offsets.shape[0] - 1
+    if not pattern:
+        return _all_rows(cv)
+    if n == 0 or cv.data.shape[0] == 0:
+        return torch.zeros(n, dtype=torch.bool, device=cv.offsets.device)
+    ok, row, rel, lens = _find_literal(cv, pattern, wildcard)
+    if skip_prefix:
+        ok &= rel >= skip_prefix
+    if skip_suffix:
+        ok &= rel + len(pattern) <= lens[row] - skip_suffix
+    hit = torch.zeros(n, dtype=torch.int32, device=ok.device)
+    return hit.scatter_reduce_(0, row, ok.to(torch.int32), "amax") > 0
+
+
+def _match_at(cv: CV, starts: torch.Tensor, pattern: bytes, wildcard):
+    """bool per row: `pattern` equals the row's bytes from `starts` on
+    (the caller checks that they lie inside the row)."""
+    ok = _all_rows(cv)
+    last = cv.data.shape[0] - 1
+    for j, pb in enumerate(pattern):
+        if pb != wildcard:
+            ok &= cv.data[(starts + j).clamp(0, max(last, 0))] == pb
+    return ok
+
+
+def startswith(cv: CV, pattern: bytes, wildcard=None) -> torch.Tensor:
+    if not pattern:
+        return _all_rows(cv)
+    fits = str_len_bytes(cv) >= len(pattern)
+    if cv.data.shape[0] == 0:
+        return fits
+    return fits & _match_at(cv, cv.offsets[:-1].to(torch.int64), pattern,
+                            wildcard)
+
+
+def endswith(cv: CV, pattern: bytes, wildcard=None) -> torch.Tensor:
+    if not pattern:
+        return _all_rows(cv)
+    fits = str_len_bytes(cv) >= len(pattern)
+    if cv.data.shape[0] == 0:
+        return fits
+    return fits & _match_at(cv, cv.offsets[1:].to(torch.int64)
+                            - len(pattern), pattern, wildcard)
+
+
+def substring(cv: CV, start: int, length=None) -> CV:
+    """Spark substring over bytes: a 1-based start, a negative start
+    counting from the end, start 0 as 1, and a length of None for the
+    rest of the row. The output's rows are the clipped byte ranges (the
+    JAX `rebuild_strings` layout, built by `gather_bytes`); its byte
+    buffer keeps the input's length, zero past the last row."""
+    from .gather import gather_bytes
+    lens = str_len_bytes(cv)
+    if start > 0:
+        s = torch.clamp(lens, max=start - 1)
+    elif start == 0:
+        s = torch.zeros_like(lens)
+    else:
+        s = torch.clamp(lens + start, min=0)
+    ln = lens - s
+    if length is not None:
+        ln = ln.clamp(max=max(length, 0))
+    off, data = gather_bytes(cv.data, cv.offsets[:-1] + s, ln,
+                             cv.data.shape[0])
+    return CV(data, cv.validity, off)

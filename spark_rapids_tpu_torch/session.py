@@ -230,6 +230,14 @@ class DataFrame:
 
     orderBy = sort
 
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: an aggregate keyed on every column, with no
+        aggregate functions."""
+        ks = [col(n) for n in self.columns]
+        return DataFrame(self._session, L.Aggregate(self._plan, ks, []))
+
+    dropDuplicates = distinct
+
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, L.Limit(self._plan, n))
 

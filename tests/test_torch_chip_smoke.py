@@ -488,7 +488,7 @@ def test_tpch_phases_rehearse_on_the_cpu(tpch_small, capsys):
         json.loads(x) for x in capsys.readouterr().out.splitlines()
         if x.startswith("{"))}
     assert set(phases) == {f"tpch_q{n}" for n in chip_smoke.TPCH_QUERIES} \
-        | {"tpch_q5_profiled"}
+        | {"tpch_q5_profiled", "tpch_q13_profiled"}
     plans = {n: phases[f"tpch_q{n}"]["plan"] for n in chip_smoke.TPCH_QUERIES}
     assert plans[4]["join_kinds"] == ["left_semi"]
     assert plans[5]["per_partition_joins"] == 5
@@ -497,6 +497,12 @@ def test_tpch_phases_rehearse_on_the_cpu(tpch_small, capsys):
     run = phases["tpch_q5"]["runs"][0]
     assert len(run["join_paths"]) == 5 and run["layers_s"]["scanTime"] > 0
     assert phases["tpch_q5_profiled"]["host_syncs_per_batch"] > 0
+    # Q8's year is an int32 key of a partial -> final aggregate here
+    assert plans[13]["aggregates"] == ["final", "partial"] * 2
+    assert phases["tpch_q8"]["int32_exchanges"] == 1
+    assert "cummax" in chip_smoke.q1_group_of(
+        "void at::native::tensor_kernel_scan_innermost_dim_with_indices",
+        chip_smoke.Q13_GROUPS)
 
 
 def test_tpch_data_prints_rows_and_seconds(capsys):
@@ -518,3 +524,54 @@ def test_tpch_data_prints_rows_and_seconds(capsys):
     assert line["q18_orders_over_qty"] == len(
         chip_smoke.q18_reference(tables, 150, limit=None)) >= \
         line["result_rows"]["q18"] > 0
+
+
+def test_partition_launches_follow_the_plan(tpch_small):
+    """A plan with an exchange on one int32 key must launch the kernel
+    on the card, every launch the vector variant; any other plan must
+    not launch it; off the card nothing launches."""
+    import torch
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096,
+                       "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                       -1}, device="cpu")
+    q8 = chip_smoke.tpch_query(8, s, tpch_small)
+    q8.to_arrow()
+    q9 = chip_smoke.tpch_query(9, s, tpch_small)
+    q9.to_arrow()
+    assert chip_smoke.int32_exchanges(q8.last_plan()) == 1
+    assert chip_smoke.int32_exchanges(q9.last_plan()) == 0
+    none = {"all": 0, "vector": 0, "scalar": 0}
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    chip_smoke.check_partition_launches(8, q8.last_plan(), none, cpu)
+    chip_smoke.check_partition_launches(
+        8, q8.last_plan(), {"all": 3, "vector": 3, "scalar": 0}, cuda)
+    for got in (none, {"all": 3, "vector": 2, "scalar": 1}):
+        with pytest.raises(AssertionError, match="int32 key"):
+            chip_smoke.check_partition_launches(8, q8.last_plan(), got,
+                                                cuda)
+    with pytest.raises(AssertionError, match="no exchange key"):
+        chip_smoke.check_partition_launches(
+            9, q9.last_plan(), {"all": 1, "vector": 1, "scalar": 0}, cuda)
+
+
+def test_check_tpch_holds_doubles_to_the_relative_tolerance():
+    import pyarrow as pa
+    at = pa.table({"o_year": pa.array([1995, 1996], pa.int32()),
+                   "mkt_share": [0.25, 0.5]})
+    chip_smoke.check_tpch(8, at, [(1995, 0.25 * (1 + 5e-10)), (1996, 0.5)],
+                          "cpu")
+    with pytest.raises(AssertionError, match="rows differ"):
+        chip_smoke.check_tpch(8, at, [(1995, 0.25 * (1 + 5e-9)),
+                                      (1996, 0.5)], "cpu")
+    with pytest.raises(AssertionError, match="rows differ"):
+        chip_smoke.check_tpch(8, at, [(1994, 0.25), (1996, 0.5)], "cpu")
+
+
+def test_q17_reference_notes_its_near_ties(tpch_small):
+    notes = {}
+    assert chip_smoke.q17_reference(tpch_small, notes=notes) == \
+        chip_smoke.q17_reference(tpch_small)
+    assert notes["q17_lines"] > 0 and 0 <= notes["q17_near_ties"] \
+        <= notes["q17_lines"]

@@ -470,17 +470,18 @@ def test_q18_threshold_rows():
 
 
 @pytest.mark.parametrize("build", [
-    lambda E: E.Cast(E.col("big"), E.Dec(30, 2)),
-    lambda E: E.Cast(E.col("qty") * E.col("qty"), E.INT64),
+    lambda E: E.Cast(E.col("big"), "decimal(30,2)"),
+    lambda E: E.Cast(E.col("qty") * E.col("qty"), E.BOOL),
     lambda E: E.EqNullSafe(E.col("sum"), E.col("big")),
 ])
 def test_decimal128_casts_and_null_safe_equality_still_raise(build):
-    """Above precision 18 only + - * and the six comparisons are
-    ported."""
+    """Above precision 18, + - * /, the six comparisons and every
+    numeric cast are ported (`test_torch_divide_cast.py`); a cast named
+    by a type string, a cast to boolean and <=> are not."""
     from spark_rapids_tpu_torch import NotPorted
     from spark_rapids_tpu_torch.columnar import dtypes as pdt
     ns = types.SimpleNamespace(col=px.col, Cast=px.Cast,
                                Dec=pdt.DecimalType, INT64=pdt.INT64,
-                               EqNullSafe=px.EqNullSafe)
+                               BOOL=pdt.BOOL, EqNullSafe=px.EqNullSafe)
     with pytest.raises(NotPorted):
         build(ns).bind(PSchema.from_arrow(CMP_SCHEMA))

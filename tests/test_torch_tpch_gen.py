@@ -90,5 +90,7 @@ def test_vocabularies_and_row_counts_equal_jax():
 def test_queries_registry_holds_the_ported_queries():
     from spark_rapids_tpu_torch.workloads import tpch_queries
     reg = ptpch.queries()
-    assert sorted(reg) == [1, 3, 4, 5, 6, 7, 10, 12, 18, 19]
-    assert tpch_queries.PORTED == (4, 5, 7, 10, 12, 18, 19)
+    assert sorted(reg) == [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 13, 14, 17,
+                           18, 19, 20]
+    assert tpch_queries.PORTED == (2, 4, 5, 7, 8, 9, 10, 12, 13, 14, 17,
+                                   18, 19, 20)
