@@ -49,25 +49,36 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
  13. Q3 under torch.profiler: device busy share, device time by group
      (searchsorted, scatter, sort, gather, elementwise, H2D, D2H),
      launches and host syncs per input batch;
- 14. the earlier tables freed, `tpch.gen_all(10)` (seed 7): rows and
+ 14. a grouped double sum (`seg_sum`) of one fixed 2M-row input over
+     100,000 segments, five times: the results must be bit-equal (and
+     `index_add_`, the atomic sum it replaces, beside it for contrast);
+ 15. the earlier tables freed, `tpch.gen_all(10)` (seed 7): rows and
      generation seconds per table, then the exact numpy reference of
-     each of Q2, Q4, Q5, Q7, Q8, Q9, Q10, Q12, Q13, Q14, Q17, Q18 (at
-     the spec's 300), Q19 and Q20, timed (int64 unscaled decimals with
-     an overflow guard, the generators' 0..n-1 keys as indexes, each
-     layout asserted; the double results of Q8, Q9, Q14 and Q17 summed
-     in float64 from the same unscaled integers; Q13 with the JAX
-     package's LIKE; Q17's lines within 1e-9 of their threshold
-     counted);
- 15-28. each of those queries (`workloads/tpch_queries.py`) over
+     each of Q2, Q4, Q5, Q7-Q22 (Q18 at the spec's 300), timed (int64
+     unscaled decimals with an overflow guard, the generators' 0..n-1
+     keys as indexes, each layout asserted; the double results of Q8,
+     Q9, Q11, Q14, Q15 and Q17 summed in float64 from the same unscaled
+     integers; Q13 and Q16 with the JAX package's LIKE; the rows within
+     1e-9 of a double threshold counted for Q11, Q17 and Q22, and Q15's
+     second-best revenue beside its best);
+ 16-34. each of those queries (`workloads/tpch_queries.py`) over
      `create_dataframe` of the eight tables at the default conf, twice,
      each a fresh plan: the plan shape (broadcast and per-partition
      joins, exchanges, aggregate modes), wall time, layers, each join's
      build paths, host syncs, peak device memory, and the partition
      kernel's launches, which must be more than 0, all of the vector
      variant, where the plan exchanges on one int32 key (Q8's year can)
-     and 0 elsewhere (int64, string and tuple keys);
- 29. Q5, the longest join chain, and Q13 (LIKE over o_comment, a left
-     join, two aggregates) under torch.profiler.
+     and 0 elsewhere (int64, string and tuple keys); the two runs of
+     each query with a double sum (Q8, Q9, Q11, Q14, Q15, Q17, Q22) must
+     be bit-equal;
+ 35. Q5, the longest join chain, and Q13 (LIKE over o_comment, a left
+     join, two aggregates) under torch.profiler;
+ 36. a conditional hash join, orders (15M rows) with customer on the key
+     and `o_totalprice > c_acctbal * 10`, checked against numpy;
+ 37. a nested-loop join, customer (1.5M rows) with nation (25) on
+     `condition=c_nationkey == n_nationkey` alone (37.5M pairs in
+     chunks of about 2^20), whose rows must equal the equi-join's and
+     numpy's.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
@@ -75,9 +86,10 @@ averages), row for row; the per-date sums and counts numpy's; each Q3
 result `q3_reference` (numpy int64 revenue per order): the unlimited
 result row for row but for the order of rows tied on (revenue,
 o_orderdate), the top 10 on those keys with ties allowed at the 10th
-row; each of the fourteen later queries its reference row for row (Q5,
+row; each of the nineteen later queries its reference row for row (Q5,
 sorted by revenue alone, as a set with revenue not increasing), keys,
-decimals and counts exact, a double within a relative 1e-9. The
+decimals and counts exact, a double within a relative 1e-9; the
+conditional and nested-loop joins numpy's rows exactly. The
 partition kernel's launches are counted on every path that runs it,
 each path with the counts set to 0 just before it and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -1328,7 +1340,8 @@ def q3_phases(session, tables, expect, profile=True) -> dict:
 # ----------------------------------------------------------------------
 # The TPC-H queries of workloads/tpch_queries.py over gen_all's tables
 # ----------------------------------------------------------------------
-TPCH_QUERIES = (2, 4, 5, 7, 8, 9, 10, 12, 13, 14, 17, 18, 19, 20)
+TPCH_QUERIES = (2, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+                19, 20, 21, 22)
 #: Q18's quantity threshold (the spec's)
 TPCH_Q18_QTY = 300
 TPCH_SEED = 7     # gen_all's default seed
@@ -1350,12 +1363,21 @@ TPCH_COLUMNS = {
     13: ("c_count", "custdist"),
     14: ("promo_revenue",),
     17: ("avg_yearly",),
-    20: ("s_name", "s_address")}
+    20: ("s_name", "s_address"),
+    11: ("ps_partkey", "part_value"),
+    15: ("s_suppkey", "s_name", "s_address", "s_phone", "total_revenue"),
+    16: ("p_brand", "p_type", "p_size", "supplier_cnt"),
+    21: ("s_name", "numwait"),
+    22: ("cntrycode", "numcust", "totacctbal")}
 #: the double columns of each query; the reference sums the same doubles
 #: (each from the same unscaled integers) in another order, so these
 #: agree within TPCH_RTOL; every other column is exact
 TPCH_FLOAT_COLUMNS = {8: ("mkt_share",), 9: ("sum_profit",),
-                      14: ("promo_revenue",), 17: ("avg_yearly",)}
+                      11: ("part_value",), 14: ("promo_revenue",),
+                      15: ("total_revenue",), 17: ("avg_yearly",)}
+#: the queries whose result holds or depends on a double sum: their two
+#: runs on the card must be bit-equal
+TPCH_DOUBLE_QUERIES = (8, 9, 11, 14, 15, 17, 22)
 TPCH_RTOL = 1e-9
 
 
@@ -1757,14 +1779,9 @@ def q13_reference(t, w1="special", w2="requests") -> list:
     package's LIKE does: each middle run contained anywhere, in either
     order."""
     import numpy as np
-    import pyarrow.compute as pc
     o, c = t["orders"], t["customer"]
     nc = _arange_keys(c, "c_custkey")
-    com = o.column("o_comment")
-    like = (_bools(pc.greater_equal(pc.binary_length(com),
-                                    len(w1) + len(w2)))
-            & _bools(pc.match_substring(com, w1))
-            & _bools(pc.match_substring(com, w2)))
+    like = _like_two_runs(o.column("o_comment"), w1, w2)
     ock = _col(o, "o_custkey")
     _in_range(ock, nc, "o_custkey")
     dist = np.bincount(np.bincount(ock[~like], minlength=nc))
@@ -1851,20 +1868,220 @@ def q20_reference(t, word="forest", nation="CANADA", d0="1994-01-01",
     return sorted(zip(_strs(s, "s_name", sel), _strs(s, "s_address", sel)))
 
 
+def _near(x, thr):
+    """Rows within a relative 1e-9 of their threshold: where a reference
+    that sums the same doubles in another order could decide
+    otherwise."""
+    import numpy as np
+    return int((np.abs(x - thr) <= 1e-9 * np.abs(thr)).sum())
+
+
+def _like_two_runs(chunked, w1, w2):
+    """`LIKE '%w1%w2%'` as the JAX package's LIKE answers it: each middle
+    run contained anywhere, in either order, in a string long enough for
+    both (docs/compatibility.md)."""
+    import pyarrow.compute as pc
+    return (_bools(pc.greater_equal(pc.binary_length(chunked),
+                                    len(w1) + len(w2)))
+            & _bools(pc.match_substring(chunked, w1))
+            & _bools(pc.match_substring(chunked, w2)))
+
+
+def q11_reference(t, nation="GERMANY", fraction=0.0001,
+                  notes=None) -> list:
+    """(ps_partkey, part_value) of the nation's parts whose stock value
+    exceeds `fraction` of the nation's total, by part_value descending,
+    ps_partkey; each value the double of its unscaled integer (whole
+    cents times a quantity: exact). `notes` gets the parts within 1e-9
+    of the threshold."""
+    import numpy as np
+    ps, s, nat = t["partsupp"], t["supplier"], t["nation"]
+    ns = _arange_keys(s, "s_suppkey")
+    psk, pspk = _col(ps, "ps_suppkey"), _col(ps, "ps_partkey")
+    _in_range(psk, ns, "ps_suppkey")
+    target = nat.column("n_name").to_pylist().index(nation)
+    m = _col(s, "s_nationkey")[psk] == target
+    unsc = unscaled(ps, "ps_supplycost")[m] * \
+        _col(ps, "ps_availqty")[m].astype(np.int64)
+    if len(unsc) and int(unsc.max()) >= 2**53:
+        raise AssertionError("Q11 values are not exact doubles")
+    value = _as_double(unsc, 2)
+    parts, inv = np.unique(pspk[m], return_inverse=True)
+    part_value = np.bincount(inv, weights=value, minlength=len(parts))
+    thr = value.sum() * fraction
+    if notes is not None:
+        notes["q11_parts"] = len(parts)
+        notes["q11_near_ties"] = _near(part_value, thr)
+    sel = part_value > thr
+    rows = list(zip(parts[sel].tolist(), part_value[sel].tolist()))
+    return sorted(rows, key=lambda r: (-r[1], r[0]))
+
+
+def q15_reference(t, d0="1996-01-01", d1="1996-04-01", notes=None) -> list:
+    """The supplier(s) of the largest revenue in the quarter: (s_suppkey,
+    s_name, s_address, s_phone, total_revenue), each line's revenue the
+    double of its unscaled integer. `notes` gets the best and the
+    second-best revenue, so a near tie shows."""
+    import numpy as np
+    from spark_rapids_tpu_torch.workloads.tpch import day
+    li, s = t["lineitem"], t["supplier"]
+    ns = _arange_keys(s, "s_suppkey")
+    lsk = _col(li, "l_suppkey")
+    _in_range(lsk, ns, "l_suppkey")
+    sd = _col(li, "l_shipdate")
+    m = (sd >= day(d0)) & (sd < day(d1))
+    rev = np.bincount(lsk[m], weights=_as_double(_revenue(li, m), 4),
+                      minlength=ns)
+    has = np.bincount(lsk[m], minlength=ns) > 0
+    live = np.where(has, rev, -np.inf)
+    best = live.max()
+    if notes is not None:
+        top2 = np.sort(live)[-2:]
+        notes["q15_best"] = float(top2[-1])
+        notes["q15_second"] = float(top2[0])
+        notes["q15_rel_gap"] = float((top2[-1] - top2[0]) / top2[-1])
+    sk = np.flatnonzero(has & (rev == best))
+    return list(zip(sk.tolist(), _strs(s, "s_name", sk),
+                    _strs(s, "s_address", sk), _strs(s, "s_phone", sk),
+                    rev[sk].tolist()))
+
+
+def q16_reference(t, brand="Brand#45", tprefix="MEDIUM POLISHED",
+                  sizes=(49, 14, 23, 45, 19, 3, 36, 9)) -> list:
+    """(p_brand, p_type, p_size, the distinct suppliers) of the parts
+    that pass, over the suppliers without complaints; by supplier_cnt
+    descending, then brand, type and size."""
+    import numpy as np
+    import pyarrow.compute as pc
+    p, s, ps = t["part"], t["supplier"], t["partsupp"]
+    npart = _arange_keys(p, "p_partkey")
+    ns = _arange_keys(s, "s_suppkey")
+    psk, pspk = _col(ps, "ps_suppkey"), _col(ps, "ps_partkey")
+    _in_range(psk, ns, "ps_suppkey")
+    _in_range(pspk, npart, "ps_partkey")
+    bad = _like_two_runs(s.column("s_comment"), "Customer", "Complaints")
+    size = _col(p, "p_size")
+    part_ok = (~_bools(pc.equal(p.column("p_brand"), brand))
+               & ~_bools(pc.starts_with(p.column("p_type"), tprefix))
+               & np.isin(size, sizes))
+    m = part_ok[pspk] & ~bad[psk]
+    codes = []
+    for name in ("p_brand", "p_type"):
+        enc = p.column(name).combine_chunks().dictionary_encode()
+        codes.append((enc.indices.to_numpy().astype(np.int64),
+                      enc.dictionary.to_pylist()))
+    nb, nt = len(codes[0][1]), len(codes[1][1])
+    smax = int(size.max()) + 1
+    group = (codes[0][0] * nt + codes[1][0]) * smax + size.astype(np.int64)
+    pairs = np.unique(group[pspk[m]] * ns + psk[m])
+    g, cnt = np.unique(pairs // ns, return_counts=True)
+    if len(g) and int(g.max()) >= nb * nt * smax:
+        raise AssertionError("Q16 group codes overflow")
+    rows = [(codes[0][1][k // smax // nt], codes[1][1][k // smax % nt],
+             int(k % smax), int(c)) for k, c in zip(g.tolist(), cnt)]
+    return sorted(rows, key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+
+def _distinct_per_order(ok, sk, ns, n_orders):
+    """The distinct suppliers of each order key in 0..n_orders-1: one
+    sort of the (order, supplier) pairs."""
+    import numpy as np
+    pairs = np.sort(ok * ns + sk)
+    first = np.ones(len(pairs), bool)
+    first[1:] = pairs[1:] != pairs[:-1]
+    return np.bincount(pairs[first] // ns, minlength=n_orders)
+
+
+def q21_reference(t, nation="SAUDI ARABIA", limit=100) -> list:
+    """(s_name, numwait): the nation's suppliers' late lines on orders
+    with status F, another supplier on the order and no other late
+    supplier; by numwait descending, s_name."""
+    import numpy as np
+    import pyarrow.compute as pc
+    li, o, s, nat = t["lineitem"], t["orders"], t["supplier"], t["nation"]
+    ns = _arange_keys(s, "s_suppkey")
+    lok, ok = _lineitem_orders(t)
+    no = o.num_rows
+    lsk = _col(li, "l_suppkey")
+    _in_range(lsk, ns, "l_suppkey")
+    late = _col(li, "l_receiptdate") > _col(li, "l_commitdate")
+    n_supp = _distinct_per_order(lok[ok], lsk[ok], ns, no)
+    n_late = _distinct_per_order(lok[ok & late], lsk[ok & late], ns, no)
+    target = nat.column("n_name").to_pylist().index(nation)
+    f = _bools(pc.equal(o.column("o_orderstatus"), "F"))
+    m = (ok & late & f[lok] & (n_supp[lok] > 1) & (n_late[lok] == 1)
+         & (_col(s, "s_nationkey")[lsk] == target))
+    sk, cnt = np.unique(lsk[m], return_counts=True)
+    rows = list(zip(_strs(s, "s_name", sk), cnt.tolist()))
+    return sorted(rows, key=lambda r: (-r[1], r[0]))[:limit]
+
+
+def q22_reference(t, codes=("13", "31", "23", "29", "30", "18", "17"),
+                  notes=None) -> list:
+    """(cntrycode, numcust, totacctbal unscaled) of the customers with a
+    listed phone code, no order and a balance above the average positive
+    balance of such codes (a double, the reference's sum in another
+    order: `notes` gets the customers within 1e-9 of it)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    c, o = t["customer"], t["orders"]
+    nc = _arange_keys(c, "c_custkey")
+    cc = pc.utf8_slice_codeunits(c.column("c_phone"), 0, 2)
+    m = _bools(pc.is_in(cc, value_set=pa.array(codes)))
+    bal = unscaled(c, "c_acctbal")
+    dbal = _as_double(bal, 2)
+    pos = m & (bal > 0)
+    avg = dbal[pos].sum() / pos.sum()
+    ock = _col(o, "o_custkey")
+    _in_range(ock, nc, "o_custkey")
+    has_order = np.bincount(ock, minlength=nc) > 0
+    sel = m & ~has_order
+    if notes is not None:
+        notes["q22_near_ties"] = _near(dbal[sel], avg)
+    sel &= dbal > avg
+    code = np.array(cc.to_pylist(), dtype=object)
+    rows = []
+    for k in sorted(set(code[sel].tolist())):
+        g = sel & (code == k)
+        rows.append((k, int(g.sum()), int(_group_sum(
+            np.zeros(int(g.sum()), np.int64), bal[g], 1)[0])))
+    return rows
+
+
 TPCH_REFERENCES = {2: q2_reference, 4: q4_reference, 5: q5_reference,
                    7: q7_reference, 8: q8_reference, 9: q9_reference,
                    10: q10_reference, 12: q12_reference,
                    13: q13_reference, 14: q14_reference,
                    17: q17_reference, 18: q18_reference,
-                   19: q19_reference, 20: q20_reference}
+                   19: q19_reference, 20: q20_reference,
+                   11: q11_reference, 15: q15_reference,
+                   16: q16_reference, 21: q21_reference,
+                   22: q22_reference}
 
 
-def tpch_reference(n, tables, qty=TPCH_Q18_QTY) -> list:
-    """Query n's exact result rows (Q18 at `qty`), each decimal as its
-    unscaled int."""
+def tpch_kw(n, tables, qty=TPCH_Q18_QTY) -> dict:
+    """Query n's parameters where the spec scales them: Q18's quantity
+    (`qty`) and Q11's fraction, 0.0001 / SF (the scale factor from the
+    part rows). `q11`'s own default, 0.0001, is the spec's at SF1: at
+    SF10 no part passes it."""
+    from spark_rapids_tpu_torch.workloads.tpch import PART_ROWS_PER_SF
     if n == 18:
-        return q18_reference(tables, qty)
-    return TPCH_REFERENCES[n](tables)
+        return {"qty": qty}
+    if n == 11:
+        return {"fraction": 0.0001 * PART_ROWS_PER_SF
+                / tables["part"].num_rows}
+    return {}
+
+
+def tpch_reference(n, tables, qty=TPCH_Q18_QTY, notes=None) -> list:
+    """Query n's exact result rows at `tpch_kw`'s parameters, each
+    decimal as its unscaled int; `notes`, where given, gets what the
+    reference notes (near ties)."""
+    kw = tpch_kw(n, tables, qty)
+    if notes is not None and n in (11, 15, 17, 22):
+        kw["notes"] = notes
+    return TPCH_REFERENCES[n](tables, **kw)
 
 
 def tpch_rows(at) -> list:
@@ -1925,11 +2142,11 @@ def check_tpch(n, at, expect, what: str):
 
 
 def tpch_query(n, session, tables, qty=TPCH_Q18_QTY):
-    """Query n (Q18 at `qty`), built afresh over create_dataframe of the
-    tables."""
+    """Query n at `tpch_kw`'s parameters, built afresh over
+    create_dataframe of the tables."""
     from spark_rapids_tpu_torch.workloads import tpch_queries as Q
     dfs = {k: session.create_dataframe(v) for k, v in tables.items()}
-    return getattr(Q, f"q{n}")(dfs, **({"qty": qty} if n == 18 else {}))
+    return getattr(Q, f"q{n}")(dfs, **tpch_kw(n, tables, qty))
 
 
 def tpch_plan_shape(root) -> dict:
@@ -1963,13 +2180,14 @@ def check_partition_launches(n, root, got, device):
     exchange on one int32/date key, every launch the vector variant; it
     ran nowhere else (and never off the card, where the exchange takes
     its plain version)."""
+    what = f"Q{n}" if isinstance(n, int) else n
     if int32_exchanges(root) and device.type == "cuda":
         if not got["all"] or got["vector"] != got["all"]:
-            raise AssertionError(f"Q{n}: an exchange on an int32 key, "
+            raise AssertionError(f"{what}: an exchange on an int32 key, "
                                  f"partition kernel launches {got}")
     elif got["all"]:
-        raise AssertionError(f"Q{n}: partition kernel launched {got}; no "
-                             f"exchange key is int32")
+        raise AssertionError(f"{what}: partition kernel launched {got}; "
+                             f"no exchange key is int32")
 
 
 #: Q13's device groups: the profile names torch's cummax (row_of_unit)
@@ -1978,47 +2196,86 @@ Q13_GROUPS = (("cummax", r"cummax|with_indices"),
               ("byte_gather", r"[Ii]ndex.*OpaqueType<1>"),) + Q3_GROUPS
 
 
-def tpch_phases(session, tables, expects, runs=2) -> dict:
-    """One phase per query (each run a fresh plan; the partition kernel's
-    launches counted from 0 and held to the plan's int32 exchanges), then
-    Q5 and Q13 under torch.profiler. Returns the partition kernel's
-    launches per path."""
+def same_bits(a, b) -> bool:
+    """Two Arrow results equal column for column, a double column bit
+    for bit (its nulls in the same rows)."""
+    import numpy as np
+    import pyarrow as pa
+    if a.schema != b.schema or a.num_rows != b.num_rows:
+        return False
+    for name in a.column_names:
+        x, y = a.column(name), b.column(name)
+        if pa.types.is_floating(x.type):
+            if not (x.is_null().equals(y.is_null()) and np.array_equal(
+                    x.to_numpy(zero_copy_only=False).view(np.int64),
+                    y.to_numpy(zero_copy_only=False).view(np.int64))):
+                return False
+        elif not x.equals(y):
+            return False
+    return True
+
+
+def run_counted(q, device, what):
+    """(result, the run's numbers) of a fresh DataFrame through
+    `to_arrow`: every batch tensor on the session's device, the
+    partition kernel's launches counted from 0 and held to the plan
+    (`what` names the path), the layers, host syncs, peak device memory
+    and the per-operator metrics."""
     from spark_rapids_tpu_torch.exec.batch import DeviceBatch
     from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    with BatchDevices(DeviceBatch) as devs:
+        torch_peak_reset(device)
+        pk.launches = pk.vector_launches = pk.scalar_launches = 0
+        out, wall, layers, syncs = timed_query(q, device)
+        got = {"all": pk.launches, "vector": pk.vector_launches,
+               "scalar": pk.scalar_launches}
+    check_devices(devs, device)
+    check_partition_launches(what, q.last_plan(), got, device)
+    return out, {
+        "wall_s": wall, "rows": out.num_rows, "layers_s": layers,
+        "host_syncs": syncs, "partition_kernel_launches": got,
+        "peak_device_bytes": torch_peak(device),
+        "batch_tensors_by_device": dict(devs.seen),
+        "nodes": per_node_metrics(q)}
 
+
+def tpch_phases(session, tables, expects, runs=2,
+                queries=TPCH_QUERIES) -> dict:
+    """One phase per query (each run a fresh plan; the partition kernel's
+    launches counted from 0 and held to the plan's int32 exchanges; the
+    runs of a query with a double sum bit-equal), then Q5 and Q13 under
+    torch.profiler. Returns the partition kernel's launches per path."""
     dev = session.device
     per = session.conf.batch_size_rows
     batches = sum(-(-t.num_rows // per) for t in tables.values())
     launches = {}
-    for n in TPCH_QUERIES:
-        out_runs = []
+    for n in queries:
+        out_runs, outs = [], []
         for _ in range(runs):
-            with BatchDevices(DeviceBatch) as devs:
-                q = tpch_query(n, session, tables)
-                torch_peak_reset(dev)
-                pk.launches = pk.vector_launches = pk.scalar_launches = 0
-                out, wall, layers, syncs = timed_query(q, dev)
-                got = {"all": pk.launches, "vector": pk.vector_launches,
-                       "scalar": pk.scalar_launches}
+            q = tpch_query(n, session, tables)
+            out, info = run_counted(q, dev, n)
             check_tpch(n, out, expects[n], "default conf")
-            check_devices(devs, dev)
-            check_partition_launches(n, q.last_plan(), got, dev)
-            nodes = per_node_metrics(q)
-            out_runs.append({
-                "wall_s": wall, "rows": out.num_rows,
-                "layers_s": {k: layers[k] for k in Q3_LAYERS
-                             if k in layers},
-                "join_paths": {k: {p: v.get(p, 0) for p in JOIN_PATHS}
-                               for k, v in nodes.items()
-                               if k.startswith("HashJoinExec")},
-                "host_syncs": syncs, "partition_kernel_launches": got,
-                "peak_device_bytes": torch_peak(dev),
-                "batch_tensors_by_device": dict(devs.seen)})
-        launches[f"q{n}"] = got
+            outs.append(out)
+            layers, nodes = info["layers_s"], info.pop("nodes")
+            info["layers_s"] = {k: layers[k] for k in Q3_LAYERS
+                                if k in layers}
+            info["join_paths"] = {k: {p: v.get(p, 0) for p in JOIN_PATHS}
+                                  for k, v in nodes.items()
+                                  if k.startswith("HashJoinExec")}
+            out_runs.append(info)
+        launches[f"q{n}"] = info["partition_kernel_launches"]
+        bit_equal = None
+        if n in TPCH_DOUBLE_QUERIES and runs > 1:
+            bit_equal = all(same_bits(outs[0], o) for o in outs[1:])
+            if not bit_equal:
+                raise AssertionError(f"Q{n}: the runs' doubles differ")
         emit({"phase": f"tpch_q{n}", "plan": tpch_plan_shape(q.last_plan()),
               "int32_exchanges": int32_exchanges(q.last_plan()),
-              "input_batches": batches, "runs": out_runs})
+              "input_batches": batches, "runs_bit_equal": bit_equal,
+              "runs": out_runs})
     for n, groups in ((5, Q3_GROUPS), (13, Q13_GROUPS)):
+        if n not in queries:
+            continue
         torch_peak_reset(dev)
         out, prof = profiled_query(tpch_query(n, session, tables), dev,
                                    batches, groups)
@@ -2026,6 +2283,135 @@ def tpch_phases(session, tables, expects, runs=2) -> dict:
         emit({"phase": f"tpch_q{n}_profiled",
               "peak_device_bytes": torch_peak(dev), **prof})
     return launches
+
+
+def _join_run(q, device, what):
+    """`run_counted`, with the joins' metrics and the plan's nodes."""
+    out, info = run_counted(q, device, what)
+    info["joins"] = {k: v for k, v in info.pop("nodes").items()
+                     if "JoinExec" in k}
+    info["plan"] = [type(x).__name__ for x in plan_nodes(q.last_plan())]
+    return out, info
+
+
+def _sorted_by(at, *names):
+    return at.sort_by([(n, "ascending") for n in names])
+
+
+def join_condition_phases(session, tables) -> dict:
+    """Two joins with a condition over gen_all's tables, each checked
+    against numpy: orders (15M rows at SF10) with customer on the key
+    and `o_totalprice > c_acctbal * 10` (a conditional hash join), and
+    customer (1.5M) with nation (25) on `condition=c_nationkey ==
+    n_nationkey` alone (the nested-loop join, whose rows must equal the
+    equi-join's). Returns the partition kernel's launches per path."""
+    import numpy as np
+    from spark_rapids_tpu_torch.expr.expressions import col, lit
+    dev = session.device
+    o, c, nat = tables["orders"], tables["customer"], tables["nation"]
+    nc = _arange_keys(c, "c_custkey")
+    no = _arange_keys(o, "o_orderkey")
+    nn = _arange_keys(nat, "n_nationkey")
+    ock = _col(o, "o_custkey")
+    _in_range(ock, nc, "o_custkey")
+    acct, price = unscaled(c, "c_acctbal"), unscaled(o, "o_totalprice")
+    launches = {}
+
+    orders = session.create_dataframe(
+        o.select(["o_orderkey", "o_custkey", "o_totalprice"]))
+    cust = session.create_dataframe(c.select(["c_custkey", "c_acctbal"]))
+    q = orders.join(cust, on=(col("o_custkey") == col("c_custkey"))
+                    & (col("o_totalprice") > col("c_acctbal") * lit(10)))
+    out, info = _join_run(q, dev, "the conditional hash join")
+    want = np.flatnonzero(price > acct[ock] * 10)
+    got = _sorted_by(out, "o_orderkey")
+    gk = _col(got, "o_orderkey")
+    if not (np.array_equal(gk, want)
+            and np.array_equal(_col(got, "c_custkey"), ock[want])
+            and np.array_equal(unscaled(got, "c_acctbal"), acct[ock[want]])
+            and np.array_equal(unscaled(got, "o_totalprice"),
+                               price[want])):
+        raise AssertionError(f"the conditional hash join: {len(gk)} rows "
+                             f"differ from numpy's {len(want)}")
+    joins = [x for x in plan_nodes(q.last_plan())
+             if type(x).__name__ == "HashJoinExec"]
+    if len(joins) != 1 or joins[0].condition is None:
+        raise AssertionError("the conditional hash join's plan")
+    launches["join_condition"] = info["partition_kernel_launches"]
+    emit({"phase": "join_condition", "stream_rows": no, "build_rows": nc,
+          "per_partition": joins[0].per_partition, **info})
+
+    csel = session.create_dataframe(
+        c.select(["c_custkey", "c_nationkey", "c_acctbal"]))
+    nsel = session.create_dataframe(nat.select(["n_nationkey", "n_name"]))
+    q = csel.join(nsel, condition=col("c_nationkey") == col("n_nationkey"))
+    out, info = _join_run(q, dev, "the nested-loop join")
+    nlj = [x for x in plan_nodes(q.last_plan())
+           if type(x).__name__ == "NestedLoopJoinExec"]
+    if len(nlj) != 1:
+        raise AssertionError("the nested-loop join's plan")
+    chunks = q.last_metrics()[nlj[0]._op_id]["nestedLoopChunks"]
+    eq, eq_info = _join_run(
+        csel.join(nsel, on=col("c_nationkey") == col("n_nationkey")), dev,
+        "the equi-join")
+    got = _sorted_by(out, "c_custkey")
+    cnk = _col(c, "c_nationkey")
+    _in_range(cnk, nn, "c_nationkey")
+    names = np.array(nat.column("n_name").to_pylist(), object)
+    if not (got.equals(_sorted_by(eq, "c_custkey"))
+            and np.array_equal(_col(got, "c_custkey"), np.arange(nc))
+            and np.array_equal(_col(got, "n_nationkey"), cnk)
+            and got.column("n_name").to_pylist() == names[cnk].tolist()):
+        raise AssertionError("the nested-loop join differs from the "
+                             "equi-join or numpy")
+    launches["nested_loop"] = info["partition_kernel_launches"]
+    emit({"phase": "nested_loop_join", "stream_rows": nc,
+          "build_rows": nn, "pairs": nc * nn, "chunks": chunks, **info,
+          "equi_join_wall_s": eq_info["wall_s"]})
+    return launches
+
+
+def double_sum_repeat(device, rows=2_000_000, segments=100_000, repeats=5,
+                      seed=17) -> dict:
+    """A grouped double sum (`seg_sum`, the aggregates' accumulator) of
+    one fixed input, `repeats` times: every result must be bit-equal.
+    `index_add_`, the atomic sum it replaces on the card, runs beside it
+    for contrast (its distinct results counted), and the CPU's row-order
+    sum gives the largest relative difference."""
+    import numpy as np
+    import torch
+    from spark_rapids_tpu_torch.expr.aggregates import seg_sum
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal(rows) * 1e6
+    ih = rng.integers(0, segments, rows)
+    x = torch.from_numpy(xh).to(device)
+    ids = torch.from_numpy(ih).to(device)
+
+    def atomic():
+        return torch.zeros(segments, dtype=torch.float64,
+                           device=device).index_add_(0, ids, x)
+    outs = [seg_sum(x, ids, segments) for _ in range(repeats)]
+    atomics = [atomic() for _ in range(repeats)]
+    bits = {o.view(torch.int64).cpu().numpy().tobytes() for o in outs}
+    if len(bits) != 1:
+        raise AssertionError(f"a double group sum gave {len(bits)} "
+                             f"different results in {repeats} runs")
+    cpu = seg_sum(x.cpu(), ids.cpu(), segments).numpy()
+    got = outs[0].cpu().numpy()
+    info = {
+        "phase": "double_group_sum_repeat", "rows": rows,
+        "segments": segments, "repeats": repeats, "bit_equal": True,
+        "index_add_distinct_results": len(
+            {o.view(torch.int64).cpu().numpy().tobytes() for o in atomics}),
+        "max_rel_diff_vs_cpu": float(np.max(
+            np.abs(got - cpu) / np.maximum(np.abs(cpu), 1e-300))),
+        "bit_equal_to_cpu": bool(np.array_equal(got.view(np.int64),
+                                                cpu.view(np.int64)))}
+    if device.type == "cuda":
+        info["ms"] = cuda_ms(lambda: seg_sum(x, ids, segments))
+        info["index_add_ms"] = cuda_ms(atomic)
+    emit(info)
+    return info
 
 
 def torch_peak_reset(device):
@@ -2068,16 +2454,15 @@ def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
         if n == 18:     # every order over the threshold, then the limit
             q18_all = q18_reference(tables, qty, limit=None)
             expects[n] = q18_all[:100]
-        elif n == 17:
-            expects[n] = q17_reference(tables, notes=notes)
         else:
-            expects[n] = tpch_reference(n, tables, qty)
+            expects[n] = tpch_reference(n, tables, qty, notes)
         ref_s[f"q{n}"] = time.perf_counter() - t0
     emit({"phase": "tpch_data", "sf": sf, "seed": seed,
           "rows": {k: v.num_rows for k, v in tables.items()},
           "gen_s": gen_s, "reference_s": ref_s,
           "result_rows": {f"q{n}": len(e) for n, e in expects.items()},
-          "q18_qty": qty, "q18_orders_over_qty": len(q18_all), **notes})
+          "q18_qty": qty, "q18_orders_over_qty": len(q18_all),
+          "q11_fraction": tpch_kw(11, tables)["fraction"], **notes})
     return tables, expects
 
 
@@ -2098,7 +2483,8 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0],
+          "numpy": __import__("numpy").__version__})
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
@@ -2186,8 +2572,10 @@ def main() -> int:
     # the earlier phases' tables go before the eight of gen_all
     del lineitem, tables
     gc.collect()
+    double_sum_repeat(session.device)
     tpch_tables, tpch_expects = tpch_data(SF)
     by_path.update(tpch_phases(session, tpch_tables, tpch_expects))
+    by_path.update(join_condition_phases(session, tpch_tables))
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

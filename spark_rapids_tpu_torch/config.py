@@ -12,7 +12,8 @@ from typing import Any, Callable, Dict, Optional
 __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "PARQUET_READER_TYPE", "PARQUET_COALESCING_TARGET",
            "MESH_DEVICES", "SHUFFLE_PARTITIONS", "AGG_STRING_HASH_KEYS",
-           "AGG_MAX_MERGE_ROWS", "BROADCAST_THRESHOLD", "JOIN_BUILD_BUDGET"]
+           "AGG_MAX_MERGE_ROWS", "BROADCAST_THRESHOLD", "JOIN_BUILD_BUDGET",
+           "DISTINCT_AGG_REWRITE"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -84,6 +85,14 @@ BROADCAST_THRESHOLD = _conf(
     "hash join (build collected once, no exchange); larger builds "
     "shuffle both sides on the join keys and join per partition. -1 "
     "disables broadcast.", int)
+DISTINCT_AGG_REWRITE = _conf(
+    "sql.optimizer.distinctAggRewrite.enabled", True,
+    "Rewrite count(DISTINCT x) into a two-level hash aggregation (the "
+    "single-distinct-child case of Catalyst's "
+    "RewriteDistinctAggregates): an inner DISTINCT group-by over "
+    "(keys..., x) then an outer Count. Both levels run the bucketed "
+    "hash-aggregate pass (incl. hash-once string keying) instead of "
+    "CollectAggExec's full multi-chunk lexsort.", bool)
 
 
 class TpuConf:

@@ -1,4 +1,5 @@
-"""Hash join: inner, left, right, full, left_semi and left_anti equi-joins.
+"""Hash join: inner, left, right, full, left_semi, left_anti and cross
+joins, with an optional non-equi condition; and the nested-loop join.
 
 The port of the JAX package's `exec/join.py` `HashJoinExec` (`:64`). The
 left child is the stream side, the right child the build side. The build
@@ -34,12 +35,23 @@ Right and full joins mark matched build rows across stream batches and
 end with one batch of the unmatched build rows, the left side null.
 
 Null keys never match; NaN matches NaN. A per-partition join (both
-children hash exchanges on the keys) joins each partition alone. Not
-ported: a join `condition` (JAX `_probe_cond` `:923`), cross joins
-(`:976`) and `NestedLoopJoinExec` (`:1006`), which `DataFrame.join` and
-the planner refuse with NotPorted; and the out-of-core sub-partitioned
-join (`:599-790`): a build over `sql.join.buildSideBudgetBytes` raises
-NotPorted here.
+children hash exchanges on the keys) joins each partition alone.
+
+A join with a `condition` (JAX `_probe_cond`, `:923`) takes the direct
+build never: its sorted or count build gives every equal-key pair, both
+sides gather at the pairs, and the condition, bound over the combined
+schema, runs on them. Only the passing pairs count as matches: they are
+the output's rows (its mask), they mark the stream rows that a semi,
+anti, left or full join keeps or null-extends, and the build rows that
+a right or full join does not emit again. A cross join (JAX
+`_execute_cross`, `:976`) pairs every live stream row with every live
+build row, stream-major. `NestedLoopJoinExec` (JAX `:1006`) runs a
+condition with no equi keys: the build is collected once, and each
+stream batch crosses it in chunks of about `_CHUNK_TARGET` pairs, each
+judged as in the conditional hash join.
+
+Not ported: the out-of-core sub-partitioned join (`:599-790`): a build
+over `sql.join.buildSideBudgetBytes` raises NotPorted here.
 """
 from __future__ import annotations
 
@@ -51,17 +63,19 @@ from ..columnar import dtypes as dt
 from ..columnar.table import Schema
 from ..config import JOIN_BUILD_BUDGET
 from ..errors import NotPorted
+from ..expr.aggregates import seg_any
 from ..expr.expressions import EmitCtx, Expression
 from ..ops import sortkeys as sk
 from ..ops.concat import concat_cvs, concat_masks
 from ..ops.gather import gather_cols, gather_groups, row_of_unit
 from ..ops.kernel_utils import CV
+from ..utils import transfer
 from ..utils.transfer import fetch_int, fetch_ints
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, maybe_compact
 from .nodes import make_table
 
-__all__ = ["HashJoinExec"]
+__all__ = ["HashJoinExec", "NestedLoopJoinExec"]
 
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
@@ -81,6 +95,13 @@ def _null_cvs(fields, n: int, device) -> List[CV]:
                                       dtype=dt.torch_dtype(f.dtype),
                                       device=device), valid))
     return out
+
+
+def _live_rows(mask: torch.Tensor) -> torch.Tensor:
+    """The int64 positions of a mask's live rows, in order (one host
+    read)."""
+    transfer.note_sync()
+    return torch.nonzero(mask).squeeze(1)
 
 
 def _single_key(kcv: CV, dtype: dt.DataType) -> Optional[torch.Tensor]:
@@ -110,18 +131,21 @@ class HashJoinExec(TpuExec):
     def __init__(self, left: TpuExec, right: TpuExec,
                  bound_left_keys: Sequence[Expression],
                  bound_right_keys: Sequence[Expression], how: str,
-                 schema: Schema, per_partition: bool = False):
-        """how: one of inner, left, right, full, left_semi, left_anti.
-        per_partition: both children are hash exchanges on the join
-        keys, so partition p of the stream joins partition p of the
+                 schema: Schema, per_partition: bool = False,
+                 condition: Optional[Expression] = None):
+        """how: one of inner, left, right, full, left_semi, left_anti,
+        cross. per_partition: both children are hash exchanges on the
+        join keys, so partition p of the stream joins partition p of the
         build; else the build is every partition of the right child (a
         BroadcastExchangeExec) and the stream every partition of the
-        left."""
+        left. condition: a predicate bound over the left then the right
+        columns, which a pair must pass to match."""
         super().__init__([left, right], schema)
         self.lkeys = list(bound_left_keys)
         self.rkeys = list(bound_right_keys)
         self.how = how
         self.per_partition = per_partition
+        self.condition = condition
 
     def num_partitions(self, ctx):
         if self.per_partition:
@@ -140,6 +164,9 @@ class HashJoinExec(TpuExec):
 
     # ------------------------------------------------------------------
     def execute_partition(self, ctx: ExecContext, pid: int):
+        if self.how == "cross":
+            yield from self._execute_cross(ctx)
+            return
         left, right = self.children
         build_pids = ([pid] if self.per_partition
                       else range(right.num_partitions(ctx)))
@@ -170,8 +197,8 @@ class HashJoinExec(TpuExec):
                      for k in self.rkeys]
             build = _Build(bcvs, bmask, bkeys)
             fast = self._fast_path_ok()
-            if fast and self.how in ("inner", "left", "left_semi",
-                                     "left_anti"):
+            if fast and self.condition is None and self.how in (
+                    "inner", "left", "left_semi", "left_anti"):
                 build.direct = self._try_build_direct(build)
             if fast and build.direct is None:
                 build.sorted = self._build_sorted(build)
@@ -181,20 +208,32 @@ class HashJoinExec(TpuExec):
         for batch in stream_batches:
             ctx.add_metric(op, "streamBatches", 1)
             batch = maybe_compact(batch, left.schema, factor=8)
-            out = self._probe_batch(ctx, batch, build, fast)
-            if out is not None:
-                ctx.add_metric(op, "numOutputBatches", 1)
-                yield out
+            if self.condition is not None:
+                outs = self._probe_cond(ctx, batch, build, fast)
+            else:
+                outs = [self._probe_batch(ctx, batch, build, fast)]
+            for out in outs:
+                if out is not None:
+                    ctx.add_metric(op, "numOutputBatches", 1)
+                    yield out
         if build.matched is not None:
-            unmatched = bmask & ~build.matched
-            if fetch_int(unmatched.sum()) > 0:
-                n = build.rows
-                out_cvs = _null_cvs(left.schema.fields, n, dev)
-                out_cvs += [CV(cv.data, cv.validity & unmatched, cv.offsets)
-                            for cv in bcvs]
-                ctx.add_metric(op, "numOutputBatches", 1)
-                yield DeviceBatch(make_table(self.schema, out_cvs, n), n,
-                                  unmatched)
+            out = self._unmatched_build(ctx, bcvs, bmask & ~build.matched)
+            if out is not None:
+                yield out
+
+    def _unmatched_build(self, ctx, bcvs, unmatched):
+        """The build rows no pair matched, the left side null (right and
+        full joins), or None when there are none: one host read."""
+        if fetch_int(unmatched.sum()) == 0:
+            return None
+        n = int(unmatched.shape[0])
+        out_cvs = _null_cvs(self.children[0].schema.fields, n,
+                            unmatched.device)
+        out_cvs += [CV(cv.data, cv.validity & unmatched, cv.offsets)
+                    for cv in bcvs]
+        ctx.add_metric(self._op_id, "numOutputBatches", 1)
+        return DeviceBatch(make_table(self.schema, out_cvs, n), n,
+                           unmatched)
 
     @staticmethod
     def _concat_batches(batches, schema: Schema, device):
@@ -255,9 +294,9 @@ class HashJoinExec(TpuExec):
         perm = sk.lexsort([(~valid).to(torch.uint8), pinned])
         return pinned[perm].contiguous(), perm, valid.sum()
 
-    def _sorted_probe(self, build: _Build, skcv: CV, smask):
+    def _sorted_probe(self, build: _Build, skcv: CV, smask, mark: bool):
         """(cnt, offsets, first match's sorted position, touched sorted
-        build positions or None)."""
+        build positions, or None unless `mark`)."""
         sorted_key, _, n_valid = build.sorted
         key = _single_key(skcv, self.lkeys[0].dtype).contiguous()
         joinable = smask & skcv.validity
@@ -266,7 +305,7 @@ class HashJoinExec(TpuExec):
                            n_valid)
         cnt = torch.where(joinable, hi - lo, 0)
         touched = None
-        if build.matched is not None:
+        if mark:
             # matched sorted positions: +1 / -1 at each range's ends,
             # then a running sum
             cap_b = build.rows
@@ -374,23 +413,8 @@ class HashJoinExec(TpuExec):
                 if build.sorted is None:
                     ctx.add_metric(op, "promotedToSorted", 1)
                     build.sorted = self._build_sorted(build)
-            if fast:
-                ctx.add_metric(op, "sortedProbeBatches", 1)
-                cnt, offsets, bstart, touched = self._sorted_probe(
-                    build, skeys[0], smask)
-                perm = build.sorted[1]
-                if touched is not None:
-                    upd = torch.zeros_like(build.matched)
-                    upd[perm] = touched & (torch.arange(
-                        build.rows, device=perm.device) < build.sorted[2])
-                    build.matched |= upd
-            else:
-                ctx.add_metric(op, "countProbeBatches", 1)
-                cnt, offsets, bstart, perm, matched_b = self._count(
-                    build, skeys, smask,
-                    self._key_nchunks(build, skeys, smask))
-                if build.matched is not None:
-                    build.matched |= matched_b
+            cnt, offsets, bstart, perm = self._candidates(
+                ctx, build, skeys, smask, fast)
             if how in ("left_semi", "left_anti"):
                 return self._semi(batch, cnt)
             if stats is None:
@@ -403,6 +427,137 @@ class HashJoinExec(TpuExec):
             return self._fk_output(ctx, batch, build, rg, cnt, stats)
         return self._expand(ctx, batch, build, cnt, offsets, bstart, perm,
                             stats)
+
+    def _candidates(self, ctx, build: _Build, skeys, smask, fast: bool):
+        """(cnt, offsets, first match's position, perm) of every
+        equal-key pair, on the sorted build (`fast`) or the count build.
+        Without a condition a right or full join marks its matched build
+        rows here; with one, only the pairs that pass mark them."""
+        op = self._op_id
+        mark = build.matched is not None and self.condition is None
+        if fast:
+            ctx.add_metric(op, "sortedProbeBatches", 1)
+            cnt, offsets, bstart, touched = self._sorted_probe(
+                build, skeys[0], smask, mark)
+            perm = build.sorted[1]
+            if mark:
+                upd = torch.zeros_like(build.matched)
+                upd[perm] = touched & (torch.arange(
+                    build.rows, device=perm.device) < build.sorted[2])
+                build.matched |= upd
+            return cnt, offsets, bstart, perm
+        ctx.add_metric(op, "countProbeBatches", 1)
+        cnt, offsets, bstart, perm, matched_b = self._count(
+            build, skeys, smask, self._key_nchunks(build, skeys, smask))
+        if mark:
+            build.matched |= matched_b
+        return cnt, offsets, bstart, perm
+
+    def _passes(self, cols, n: int, device) -> torch.Tensor:
+        """The condition over gathered (left ++ right) pair columns: true
+        where it holds and is not null."""
+        ccv = self.condition.emit(EmitCtx(cols, n, device))
+        return ccv.validity & ccv.data.bool()
+
+    def _probe_cond(self, ctx: ExecContext, batch: DeviceBatch,
+                    build: _Build, fast: bool) -> List[DeviceBatch]:
+        """One stream batch of a conditional join (JAX `_probe_cond`):
+        every equal-key pair gathered, the condition judged on it, and
+        the match state of both sides taken from the passing pairs
+        only."""
+        op = self._op_id
+        scvs, smask = batch.cvs(), batch.row_mask
+        cap_s = int(smask.shape[0])
+        if cap_s == 0:
+            return []
+        dev = smask.device
+        with ctx.timer(op, "probeTime"):
+            skeys = [k.emit(EmitCtx(scvs, cap_s, dev)) for k in self.lkeys]
+            cnt, offsets, bstart, perm = self._candidates(
+                ctx, build, skeys, smask, fast)
+            n_pairs = fetch_int(cnt.sum())
+        outs = []
+        seg_matched = torch.zeros(cap_s, dtype=torch.bool, device=dev)
+        if n_pairs > 0:
+            with ctx.timer(op, "expandTime"):
+                t = torch.arange(n_pairs, dtype=torch.int64, device=dev)
+                i = row_of_unit(offsets, cap_s, n_pairs).clamp(0, cap_s - 1)
+                comb = (bstart[i] + t - offsets[i]).clamp(
+                    0, perm.shape[0] - 1)
+                rg = perm[comb].clamp(0, build.rows - 1)
+                lcols, rcols = gather_groups([(scvs, i, None),
+                                              (build.cvs, rg, None)])
+                pass_ = self._passes(lcols + rcols, n_pairs, dev)
+                seg_matched = seg_any(pass_, i, cap_s)
+                if build.matched is not None:
+                    build.matched |= seg_any(pass_, rg, build.rows)
+            if self.how not in ("left_semi", "left_anti"):
+                ctx.add_metric(op, "expandOutputBatches", 1)
+                ctx.add_metric(op, "numOutputRows", n_pairs)
+                outs.append(DeviceBatch(make_table(
+                    self.schema, lcols + rcols, n_pairs), n_pairs, pass_))
+        outs.append(self._stream_rest(batch, seg_matched))
+        return outs
+
+    def _stream_rest(self, batch: DeviceBatch, seg_matched):
+        """After a conditional join's pairs: a semi or anti join's stream
+        rows, a left or full join's stream rows with no passing pair
+        (the right side null), else None."""
+        smask = batch.row_mask
+        if self.how == "left_semi":
+            return DeviceBatch(batch.table, batch.num_rows,
+                               smask & seg_matched)
+        if self.how == "left_anti":
+            return DeviceBatch(batch.table, batch.num_rows,
+                               smask & ~seg_matched)
+        if self.how in ("left", "full"):
+            out_cvs = list(batch.cvs()) + _null_cvs(
+                self.children[1].schema.fields, int(smask.shape[0]),
+                smask.device)
+            return DeviceBatch(make_table(self.schema, out_cvs,
+                                          batch.num_rows),
+                               batch.num_rows, smask & ~seg_matched)
+        return None
+
+    def _collect_build(self, ctx: ExecContext):
+        """(columns, mask, live row positions) of the right child's every
+        partition as one table."""
+        right = self.children[1]
+        bbatches = [b for bpid in range(right.num_partitions(ctx))
+                    for b in right.execute_partition(ctx, bpid)]
+        bcvs, bmask = self._concat_batches(bbatches, right.schema,
+                                           ctx.device)
+        return bcvs, bmask, _live_rows(bmask)
+
+    def _stream_all(self, ctx: ExecContext):
+        left = self.children[0]
+        for lpid in range(left.num_partitions(ctx)):
+            for batch in left.execute_partition(ctx, lpid):
+                ctx.add_metric(self._op_id, "streamBatches", 1)
+                yield batch
+
+    def _execute_cross(self, ctx: ExecContext):
+        """Every live stream row with every live build row (JAX
+        `_execute_cross`): n_s * n_b rows a stream batch, stream-major."""
+        op = self._op_id
+        with ctx.timer(op, "buildTime"):
+            bcvs, _, bidx = self._collect_build(ctx)
+        n_b = int(bidx.shape[0])
+        for batch in self._stream_all(ctx):
+            with ctx.timer(op, "expandTime"):
+                sidx = _live_rows(batch.row_mask)
+                n_out = int(sidx.shape[0]) * n_b
+                if n_out == 0:
+                    continue
+                t = torch.arange(n_out, dtype=torch.int64,
+                                 device=batch.device)
+                lcols, rcols = gather_groups([
+                    (batch.cvs(), sidx[t // n_b], None),
+                    (bcvs, bidx[t % n_b], None)])
+                tbl = make_table(self.schema, lcols + rcols, n_out)
+            ctx.add_metric(op, "numOutputRows", n_out)
+            ctx.add_metric(op, "numOutputBatches", 1)
+            yield DeviceBatch(tbl, n_out, device=batch.device)
 
     def _semi(self, batch, cnt):
         keep = cnt > 0 if self.how == "left_semi" else cnt == 0
@@ -472,3 +627,60 @@ class HashJoinExec(TpuExec):
             tbl = make_table(self.schema, scols + bcols, n_out)
         ctx.add_metric(op, "numOutputRows", n_out)
         return DeviceBatch(tbl, n_out, device=dev)
+
+
+class NestedLoopJoinExec(HashJoinExec):
+    """Broadcast nested-loop join: no equi keys, any condition (JAX
+    `exec/join.py:1006`). The build side is collected once; each stream
+    batch crosses it in chunks of stream rows x every build row, about
+    `_CHUNK_TARGET` pairs each; the condition judges the gathered pairs,
+    and the outer, semi and anti semantics come from the passing pairs
+    as in the conditional hash join."""
+
+    _CHUNK_TARGET = 1 << 20
+
+    def __init__(self, left: TpuExec, right: TpuExec, how: str,
+                 schema: Schema, condition: Expression):
+        super().__init__(left, right, [], [], how, schema,
+                         condition=condition)
+
+    def num_partitions(self, ctx):
+        return 1
+
+    def execute_partition(self, ctx: ExecContext, pid: int):
+        op, how = self._op_id, self.how
+        with ctx.timer(op, "buildTime"):
+            bcvs, bmask, bidx = self._collect_build(ctx)
+        n_b, cap_b = int(bidx.shape[0]), int(bmask.shape[0])
+        matched_b = torch.zeros(cap_b, dtype=torch.bool, device=ctx.device)
+        chunk = max(1, self._CHUNK_TARGET // max(n_b, 1))
+        for batch in self._stream_all(ctx):
+            scvs, smask = batch.cvs(), batch.row_mask
+            cap_s, dev = int(smask.shape[0]), smask.device
+            with ctx.timer(op, "probeTime"):
+                sidx = _live_rows(smask)
+            n_s = int(sidx.shape[0]) if n_b else 0
+            seg_matched = torch.zeros(cap_s, dtype=torch.bool, device=dev)
+            for s0 in range(0, n_s, chunk):
+                n_out = min(chunk, n_s - s0) * n_b
+                with ctx.timer(op, "probeTime"):
+                    t = torch.arange(n_out, dtype=torch.int64, device=dev)
+                    li, ri = sidx[s0 + t // n_b], bidx[t % n_b]
+                    lcols, rcols = gather_groups([(scvs, li, None),
+                                                  (bcvs, ri, None)])
+                    pass_ = self._passes(lcols + rcols, n_out, dev)
+                    seg_matched |= seg_any(pass_, li, cap_s)
+                    if how in ("right", "full"):
+                        matched_b |= seg_any(pass_, ri, cap_b)
+                ctx.add_metric(op, "nestedLoopChunks", 1)
+                if how not in ("left_semi", "left_anti"):
+                    ctx.add_metric(op, "numOutputBatches", 1)
+                    yield DeviceBatch(make_table(self.schema, lcols + rcols,
+                                                 n_out), n_out, pass_)
+            out = self._stream_rest(batch, seg_matched)
+            if out is not None:
+                yield out
+        if how in ("right", "full"):
+            out = self._unmatched_build(ctx, bcvs, bmask & ~matched_b)
+            if out is not None:
+                yield out

@@ -1,7 +1,9 @@
 """Aggregate functions: the update / merge / finalize protocol, ungrouped
 and grouped.
 
-Ported subset: Sum, Count, CountStar, Avg, Min and Max. Ungrouped states
+Ported subset: Sum, Count, CountStar, Avg, Min, Max and CountDistinct
+(which runs only through the optimizer's two-level rewrite,
+`plan/optimizer.py` `rewrite_distinct_aggs`). Ungrouped states
 are tuples of 0-d tensors; grouped states (`g_update`) are tuples of
 [num_segments] tensors, one per entry of `state_reducers`, which names
 how the grouped merge combines each ("sum", "or", "min" or "max"), and
@@ -26,8 +28,11 @@ decimal(34,6)) accumulates EXACTLY: each value splits into 32-bit limbs
 (two for a decimal64 input, four for a decimal128 one; the top limb
 signed), each limb sums in int64, and finalize recombines the limb sums
 with carries; a total beyond the result precision is null (Spark
-non-ANSI). Every grouped accumulator is an integer (limbs, counts, the
-avg's sum), so `index_add_` sums are exact on any device.
+non-ANSI). Every such accumulator is an integer (limbs, counts, the
+avg's sum), so `index_add_` sums are exact on any device. A double
+accumulator (a sum or avg of doubles) depends on the order of its
+additions: `seg_sum` adds each segment's rows in a fixed order on the
+card, so a grouped double sum repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -40,14 +45,21 @@ from ..ops.kernel_utils import CV
 from .expressions import Expression, UnsupportedExpr
 
 __all__ = ["AggExpr", "Sum", "Count", "CountStar", "Avg", "Min", "Max",
-           "seg_sum", "seg_any", "seg_min_max", "float_key"]
+           "CountDistinct", "seg_sum", "seg_any", "seg_min_max", "float_key"]
 
 
 def seg_sum(x: torch.Tensor, seg_ids: torch.Tensor,
             num_segments: int) -> torch.Tensor:
-    """jax.ops.segment_sum: per-segment sums of x."""
+    """jax.ops.segment_sum: per-segment sums of x. An integer sum is
+    exact in any order (`index_add_`). A floating `index_add_` on CUDA
+    adds by atomics, in an order that changes from run to run, so there
+    a floating sum goes through `index_put_(accumulate=True)`, which
+    sorts the ids stably and adds each segment's rows in that fixed
+    order. On the CPU `index_add_` adds in row order already."""
     out = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
+    if x.is_floating_point() and x.device.type == "cuda":
+        return out.index_put_((seg_ids.long(),), x, accumulate=True)
     return out.index_add_(0, seg_ids, x)
 
 
@@ -418,3 +430,21 @@ class Min(_MinMax):
 
 class Max(_MinMax):
     for_min = False
+
+
+class CountDistinct(AggExpr):
+    """count(DISTINCT x), an INT64 that skips nulls. The JAX package
+    answers it on the sort path (`CollectAggExec`); the port runs it
+    only as the optimizer's two-level rewrite (an inner DISTINCT
+    aggregate over the keys and x, an outer Count), and the planner
+    refuses any shape that rewrite leaves alone."""
+
+    is_collect = True
+
+    def _resolve_type(self):
+        if isinstance(self.child.dtype, dt.NestedType):
+            raise UnsupportedExpr("count distinct over nested input")
+        self.dtype = dt.INT64
+
+    def __repr__(self):
+        return f"count(DISTINCT {self.child})"

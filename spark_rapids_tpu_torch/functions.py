@@ -6,7 +6,8 @@ from .expr import aggregates as _agg
 from .expr import string_exprs as _se
 from .expr.expressions import CaseWhen, Expression, Literal, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "min", "max", "avg", "mean",
+__all__ = ["col", "lit", "sum", "count", "countDistinct",
+           "count_distinct", "min", "max", "avg", "mean",
            "when", "substring", "contains", "startswith", "endswith",
            "like"]
 
@@ -19,6 +20,13 @@ def count(e):
     if isinstance(e, str) and e == "*":
         return _agg.CountStar()
     return _agg.Count(_to_expr(e))
+
+
+def countDistinct(e):
+    return _agg.CountDistinct(_to_expr(e))
+
+
+count_distinct = countDistinct
 
 
 def min(e):  # noqa: A001

@@ -7,18 +7,20 @@ anti: the left; right: the right), adding one-sided weakenings of the
 conjuncts it cannot move (`extract_within`); `prune` flows the required
 columns top-down through Project, Filter, Aggregate, Sort, Limit and
 Join, shrinks scans, and attaches a Parquet scan's row-group pruning
-conjuncts from the Filter directly above it. The JAX package's other
-passes (join reorder, the distinct-aggregate rewrite) are not ported.
+conjuncts from the Filter directly above it; `rewrite_distinct_aggs`
+turns count(DISTINCT x) into two hash aggregates (on by
+`sql.optimizer.distinctAggRewrite.enabled`). The JAX package's join
+reorder is not ported.
 """
 from __future__ import annotations
 
 from typing import Optional, Set
 
-from ..expr.expressions import BoundRef, ColumnRef, Expression
+from ..expr.expressions import Alias, BoundRef, ColumnRef, Expression
 from . import logical as L
 
 __all__ = ["optimize", "refs_of", "push_filters", "prune",
-           "extract_conjuncts", "extract_within"]
+           "extract_conjuncts", "extract_within", "rewrite_distinct_aggs"]
 
 
 def refs_of(e: Expression) -> Optional[Set[str]]:
@@ -279,5 +281,42 @@ def _push_into_join(plan: L.Filter, join: L.Join) -> L.LogicalPlan:
     return L.Filter(out, _and_all(rest)) if rest else out
 
 
-def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
-    return prune(push_filters(plan), None)
+def rewrite_distinct_aggs(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """count(DISTINCT x) -> two-level hash aggregation (the
+    single-distinct-child case of Catalyst's RewriteDistinctAggregates):
+    an inner DISTINCT Aggregate over (keys..., x) deduplicates, an outer
+    Count over the deduped value finishes. Count skips nulls, so the
+    inner null-x group drops out of the outer Count exactly as
+    count(DISTINCT) skips it. Several distinct children, a distinct
+    beside another aggregate, or duplicate key names stay as they are
+    (the planner refuses them: `CollectAggExec` is not ported)."""
+    from ..expr.aggregates import Count, CountDistinct
+
+    def rewrite(node):
+        node = _rebuild(node, [rewrite(c) for c in node.children])
+        if not (isinstance(node, L.Aggregate) and node.aggs
+                and all(type(a) is CountDistinct for _, a in node.aggs)):
+            return node
+        if len({repr(a.child) for _, a in node.aggs}) != 1:
+            return node
+        key_names = [k.name for k in node.keys]
+        val = "__cd_val"
+        if len(set(key_names)) != len(key_names) or val in key_names:
+            return node
+        x = node.aggs[0][1].child
+        inner = L.Aggregate(node.children[0],
+                            node.keys + [Alias(x, val)], [])
+        return L.Aggregate(inner, [ColumnRef(nm) for nm in key_names],
+                           [(nm, Count(ColumnRef(val)))
+                            for nm, _ in node.aggs])
+
+    return rewrite(plan)
+
+
+def optimize(plan: L.LogicalPlan, conf=None) -> L.LogicalPlan:
+    plan = push_filters(plan)
+    if conf is not None:
+        from ..config import DISTINCT_AGG_REWRITE
+        if conf.get(DISTINCT_AGG_REWRITE):
+            plan = rewrite_distinct_aggs(plan)
+    return prune(plan, None)

@@ -22,10 +22,13 @@ rows, the port does not emulate them:
     JAX `exec/broadcast.py:99-165`): the build runs before the probe;
   - stage fusion (`sql.exec.stageFusion.enabled`): each operator runs
     its own ops.
-The bloom-filter prefilter of a shuffled join is off by default in JAX
-and not ported. A mesh exchange, a join condition or a cross join, and
-any node without a rule raise NotPorted; nothing falls back to another
-engine.
+A cross join without a condition is a broadcast hash join whatever the
+threshold (`how="cross"`); a condition with no equi keys is a
+`NestedLoopJoinExec`; any other condition rides the hash join. The
+bloom-filter prefilter of a shuffled join is off by default in JAX and
+not ported. A mesh exchange, a count(DISTINCT) that the optimizer's
+rewrite leaves alone (JAX `CollectAggExec`), and any node without a rule
+raise NotPorted; nothing falls back to another engine.
 """
 from __future__ import annotations
 
@@ -38,11 +41,11 @@ from ..exec import nodes as x
 from ..exec.aggregate import HashAggregateExec, UngroupedAggExec
 from ..exec.base import ExecContext, TpuExec
 from ..exec.broadcast import BroadcastExchangeExec
-from ..exec.join import HashJoinExec
+from ..exec.join import HashJoinExec, NestedLoopJoinExec
 from ..exec.coalesce import CoalesceBatchesExec
 from ..exec.exchange import ShuffleExchangeExec
 from ..exec.sort import SortExec
-from ..expr.expressions import BoundRef
+from ..expr.expressions import BoundRef, UnsupportedExpr
 from . import logical as L
 from .optimizer import optimize
 
@@ -99,6 +102,11 @@ def _agg(node, conv, conf):
     child = conv(node.child)
     names = [n for n, _ in node.bound_aggs]
     aggs = [a for _, a in node.bound_aggs]
+    if any(getattr(a, "is_collect", False) for a in aggs):
+        raise NotPorted(
+            "CollectAggExec (count(DISTINCT) beside another aggregate, "
+            "over several distinct children, or with "
+            "sql.optimizer.distinctAggRewrite.enabled off)")
     if not node.keys:
         return UngroupedAggExec(child, names, aggs, node.schema)
     key_names = [k.name for k in node.keys]
@@ -179,17 +187,26 @@ def _estimate_bytes(node: L.LogicalPlan):
 
 @_rule(L.Join)
 def _join(node, conv, conf):
-    if node.how == "cross" or node.condition is not None:
-        raise NotPorted("cross and conditional joins (NestedLoopJoinExec, "
-                        "the condition path)")
     left, right = conv(node.left), conv(node.right)
     if conf.get(MESH_DEVICES) > 1:
         raise NotPorted("mesh exchange (MeshExchangeExec)")
     thr = conf.get(BROADCAST_THRESHOLD)
     est = _estimate_bytes(node.right)
     broadcast_ok = thr >= 0 and est is not None and est <= thr
-    equi = all(lk.dtype == rk.dtype for lk, rk in
-               zip(node.bound_left_keys, node.bound_right_keys))
+    equi = (node.how != "cross" and bool(node.bound_left_keys)
+            and all(lk.dtype == rk.dtype for lk, rk in
+                    zip(node.bound_left_keys, node.bound_right_keys)))
+    cond = node.bound_condition
+    if not equi and cond is not None:
+        if node.bound_left_keys:
+            # unusable equi keys: refusing beats joining on the residual
+            # condition alone
+            raise UnsupportedExpr(
+                "equi-join keys have mismatched types "
+                f"{[(lk.dtype, rk.dtype) for lk, rk in zip(node.bound_left_keys, node.bound_right_keys)]}; "
+                "cast both sides to a common type")
+        how = "inner" if node.how == "cross" else node.how
+        return NestedLoopJoinExec(left, right, how, node.schema, cond)
     nparts = conf.get(SHUFFLE_PARTITIONS)
     if equi and not broadcast_ok and est is not None and nparts > 1:
         # a big build: hash-exchange both sides on the join keys, so
@@ -200,10 +217,10 @@ def _join(node, conv, conf):
                                   right.schema)
         return HashJoinExec(lex, rex, node.bound_left_keys,
                             node.bound_right_keys, node.how, node.schema,
-                            per_partition=True)
+                            per_partition=True, condition=cond)
     return HashJoinExec(left, BroadcastExchangeExec(right, right.schema),
                         node.bound_left_keys, node.bound_right_keys,
-                        node.how, node.schema)
+                        node.how, node.schema, condition=cond)
 
 
 @_rule(L.Repartition)
@@ -220,7 +237,7 @@ class Planner:
         self.conf = conf
 
     def plan(self, root: L.LogicalPlan) -> TpuExec:
-        return self._convert(optimize(root))
+        return self._convert(optimize(root, self.conf))
 
     def _convert(self, node: L.LogicalPlan) -> TpuExec:
         rule = _RULES.get(type(node))

@@ -2,8 +2,8 @@
 
 The same surface as the JAX package's `TpuSession` for the ported slice:
 `create_dataframe`, `read.parquet`, and `filter`, `select`,
-`with_column`, `agg`, `group_by(...).agg`, `join` (equi-keys by name),
-`sort`, `limit`, `repartition`, `to_arrow` and `collect` on a
+`with_column`, `agg`, `group_by(...).agg`, `join` (equi-keys by name,
+an expression `on`, a non-equi `condition`, cross), `sort`, `limit`, `repartition`, `to_arrow` and `collect` on a
 DataFrame. A session runs on
 one torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device.
@@ -17,7 +17,6 @@ import torch
 
 from .columnar.table import Schema
 from .config import TpuConf
-from .errors import NotPorted
 from .exec.base import ExecContext
 from .exec.nodes import collect_to_arrow
 from .expr.aggregates import AggExpr
@@ -41,6 +40,55 @@ def _resolve_device(device) -> torch.device:
             "TpuSession runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def _split_join_condition(expr, lschema, rschema):
+    """A join-on expression as (left keys, right keys, residual): each
+    top-level AND conjunct `left_expr == right_expr` becomes an equi key
+    pair, everything else stays in the residual condition (JAX
+    `session.py` `_split_join_condition`)."""
+    from .expr.expressions import And, ColumnRef, Eq
+
+    lnames, rnames = set(lschema.names), set(rschema.names)
+
+    def refs(e):
+        out, stack = set(), [e]
+        while stack:
+            x_ = stack.pop()
+            if isinstance(x_, ColumnRef):
+                out.add(x_.name)
+            stack.extend(c for c in getattr(x_, "children", [])
+                         if c is not None)
+        return out
+
+    def side(e):
+        r = refs(e)
+        if r and r <= lnames and not (r & rnames):
+            return "left"
+        if r and r <= rnames and not (r & lnames):
+            return "right"
+        return None
+
+    def conjuncts(e):
+        if isinstance(e, And):
+            return conjuncts(e.children[0]) + conjuncts(e.children[1])
+        return [e]
+
+    lkeys, rkeys, residual = [], [], None
+    for c in conjuncts(expr):
+        if isinstance(c, Eq):
+            a, b = c.children
+            sa, sb = side(a), side(b)
+            if sa == "left" and sb == "right":
+                lkeys.append(a)
+                rkeys.append(b)
+                continue
+            if sa == "right" and sb == "left":
+                lkeys.append(b)
+                rkeys.append(a)
+                continue
+        residual = c if residual is None else (residual & c)
+    return lkeys, rkeys, residual
 
 
 class TpuSession:
@@ -129,21 +177,37 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
-        """Equi-join on column names (`on`), pyspark's column layout: the
-        `on` columns once (a right join takes them from the right side, a
-        full join coalesces both), then the left's other columns, then the
-        right's. An `on` expression, a `condition` and a cross join raise
-        NotPorted."""
-        if isinstance(on, Expression) or condition is not None:
-            raise NotPorted("join conditions (non-equi or expression "
-                            "`on`; the nested-loop join)")
-        if how == "cross":
-            raise NotPorted("cross joins")
-        on = [on] if isinstance(on, str) else list(on or ())
-        if not on or not all(isinstance(c, str) for c in on):
-            raise ValueError("join needs `on`: one or more column names")
+        """Join on equi-key column names (`on`) plus an optional non-equi
+        `condition` over the combined schema (an ambiguous name resolves
+        to the left side), pyspark's column layout: the `on` columns
+        once (a right join takes them from the right side, a full join
+        coalesces both), then the left's other columns, then the
+        right's. An expression `on` splits into equi keys and a residual
+        condition; with no equi keys the condition runs a nested-loop
+        join; `how="cross"` with no `on` pairs every row of each side."""
+        if isinstance(on, str):
+            on = [on]
+        if on is None:
+            on = []
+        if isinstance(on, Expression):
+            lk_x, rk_x, extra = _split_join_condition(
+                on, self._plan.schema, other._plan.schema)
+            if condition is not None:
+                extra = condition if extra is None else (extra & condition)
+            return self._join_positional(other, [], how, lk_x, rk_x,
+                                         condition=extra)
+        if not (isinstance(on, (list, tuple))
+                and all(isinstance(c, str) for c in on)):
+            raise TypeError("join `on` must be column name(s) or an "
+                            "expression")
         lk = [col(c) for c in on]
         rk = [col(c) for c in on]
+        if not on and condition is None and how != "cross":
+            raise ValueError("join needs `on` keys or a `condition`")
+        if condition is not None or not on:
+            # a condition binds by position over the combined schema
+            return self._join_positional(other, list(on), how, lk, rk,
+                                         condition=condition)
         if how in ("left_semi", "left_anti"):
             return DataFrame(self._session,
                              L.Join(self._plan, other._plan, lk, rk, how))
@@ -189,11 +253,15 @@ class DataFrame:
                          else col(f.name))
         return DataFrame(self._session, L.Project(jplan, exprs))
 
-    def _join_positional(self, other: "DataFrame", on, how, lk, rk):
+    def _join_positional(self, other: "DataFrame", on, how, lk, rk,
+                         condition=None):
         """The post-join projection by position (BoundRef): exact for
         inputs with duplicate names, at the cost of name-based pruning
         above this join."""
-        jplan = L.Join(self._plan, other._plan, lk, rk, how)
+        jplan = L.Join(self._plan, other._plan, lk, rk, how,
+                       condition=condition)
+        if how in ("left_semi", "left_anti"):
+            return DataFrame(self._session, jplan)
         nl = len(self._plan.schema.fields)
         on_set = set(on)
         exprs = []

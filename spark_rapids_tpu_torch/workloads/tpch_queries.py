@@ -1,14 +1,13 @@
-"""TPC-H queries 2, 4, 5, 7-10, 12-14 and 17-20 over the port's DataFrame
-API.
+"""TPC-H queries 2, 4, 5 and 7-22 over the port's DataFrame API.
 
 The port's own copy of the JAX package's `workloads/tpch_queries.py`,
-with its signatures and defaults, holding the queries whose operators
-the port carries (`PORTED`). Every function takes a dict of DataFrames
+with its signatures and defaults (`PORTED`). Every function takes a dict of DataFrames
 keyed by table name (`create_dataframe` over `tpch.gen_all`) and returns
 a DataFrame. Shapes follow the official TPC-H v3 query set; correlated
 subqueries are decomposed into aggregate and join form (EXISTS and IN
 become left-semi joins, a correlated aggregate a grouped aggregate
-joined back). Dates are int32 days since the epoch; date literals come
+joined back, a scalar subquery a cross join against its one-row
+aggregate, count(DISTINCT) the optimizer's two-level aggregate). Dates are int32 days since the epoch; date literals come
 from `tpch.day`. Ratios cast to double first, as in the JAX package.
 """
 from __future__ import annotations
@@ -20,14 +19,15 @@ from ..columnar import dtypes as dt
 from ..expr.expressions import col, lit
 from .tpch import day
 
-__all__ = ["PORTED", "q2", "q4", "q5", "q7", "q8", "q9", "q10", "q12",
-           "q13", "q14", "q17", "q18", "q19", "q20"]
+__all__ = ["PORTED", "q2", "q4", "q5", "q7", "q8", "q9", "q10", "q11",
+           "q12", "q13", "q14", "q15", "q16", "q17", "q18", "q19", "q20",
+           "q21", "q22"]
 
 D = decimal.Decimal
 
-#: the queries of this module (the others of 2-22 wait on unported
-#: operators: ROADMAP A.5)
-PORTED = (2, 4, 5, 7, 8, 9, 10, 12, 13, 14, 17, 18, 19, 20)
+#: the queries of this module (1, 3 and 6 are in `tpch.py`)
+PORTED = (2, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+          21, 22)
 
 
 def _sort(df, *orders):
@@ -252,6 +252,28 @@ def q10(t, d0: str = "1993-10-01", d1: str = "1994-01-01"):
     return _sort(df, ("revenue", False), ("c_custkey", True)).limit(20)
 
 
+def q11(t, nation: str = "GERMANY", fraction: float = 0.0001):
+    """Important stock identification: the scalar subquery as a cross
+    join against the one-row total."""
+    de_ps = (t["partsupp"]
+             .join(_rename(t["supplier"], ps_suppkey="s_suppkey")
+                   .select(col("ps_suppkey"), col("s_nationkey")),
+                   on=["ps_suppkey"])
+             .join(_rename(t["nation"], s_nationkey="n_nationkey"),
+                   on=["s_nationkey"])
+             .filter(col("n_name") == lit(nation))
+             .with_column("value", (col("ps_supplycost")
+                                    * col("ps_availqty"))
+                          .cast(dt.FLOAT64)))
+    per_part = (de_ps.group_by("ps_partkey")
+                .agg(F.sum(col("value")).alias("part_value")))
+    total = de_ps.agg(F.sum(col("value")).alias("total_value"))
+    df = (per_part.join(total, how="cross")
+          .filter(col("part_value") > col("total_value") * lit(fraction))
+          .select(col("ps_partkey"), col("part_value")))
+    return _sort(df, ("part_value", False), ("ps_partkey", True))
+
+
 def q12(t, m1: str = "MAIL", m2: str = "SHIP", d0: str = "1994-01-01",
         d1: str = "1995-01-01"):
     """Shipping modes and order priority: IN and CASE WHEN."""
@@ -304,6 +326,48 @@ def q14(t, d0: str = "1995-09-01", d1: str = "1995-10-01"):
           .select((lit(100.0) * col("p") / col("r"))
                   .alias("promo_revenue")))
     return df
+
+
+def q15(t, d0: str = "1996-01-01", d1: str = "1996-04-01"):
+    """Top supplier: the revenue view and its scalar max as a cross
+    join. The view is evaluated twice, so its double sums must repeat
+    bit for bit for the equality to keep the top row."""
+    revenue = (t["lineitem"]
+               .filter((col("l_shipdate") >= day(d0))
+                       & (col("l_shipdate") < day(d1)))
+               .with_column("r", _rev().cast(dt.FLOAT64))
+               .group_by("l_suppkey")
+               .agg(F.sum(col("r")).alias("total_revenue")))
+    mx = revenue.agg(F.max(col("total_revenue")).alias("max_revenue"))
+    df = (revenue.join(mx, how="cross")
+          .filter(col("total_revenue") == col("max_revenue"))
+          .join(_rename(t["supplier"], l_suppkey="s_suppkey"),
+                on=["l_suppkey"])
+          .select(col("l_suppkey").alias("s_suppkey"), col("s_name"),
+                  col("s_address"), col("s_phone"),
+                  col("total_revenue")))
+    return _sort(df, ("s_suppkey", True))
+
+
+def q16(t, brand: str = "Brand#45", tprefix: str = "MEDIUM POLISHED",
+        sizes=(49, 14, 23, 45, 19, 3, 36, 9)):
+    """Parts/supplier relationship: NOT IN as a left-anti join, then a
+    count(DISTINCT) per (brand, type, size)."""
+    bad_supp = (t["supplier"]
+                .filter(F.like(col("s_comment"),
+                               "%Customer%Complaints%"))
+                .select(col("s_suppkey").alias("ps_suppkey")))
+    df = (t["partsupp"]
+          .join(bad_supp, on=["ps_suppkey"], how="left_anti")
+          .join(_rename(t["part"], ps_partkey="p_partkey"),
+                on=["ps_partkey"])
+          .filter((col("p_brand") != lit(brand))
+                  & ~F.startswith(col("p_type"), tprefix)
+                  & col("p_size").isin(*sizes))
+          .group_by("p_brand", "p_type", "p_size")
+          .agg(F.countDistinct(col("ps_suppkey")).alias("supplier_cnt")))
+    return _sort(df, ("supplier_cnt", False), ("p_brand", True),
+                 ("p_type", True), ("p_size", True))
 
 
 def q17(t, brand: str = "Brand#23", container: str = "MED BOX"):
@@ -406,3 +470,55 @@ def q20(t, word: str = "forest", nation: str = "CANADA",
           .filter(col("n_name") == lit(nation))
           .select(col("s_name"), col("s_address")))
     return _sort(df, ("s_name", True))
+
+
+def q21(t, nation: str = "SAUDI ARABIA"):
+    """Suppliers who kept orders waiting: the EXISTS / NOT EXISTS pair as
+    per-order distinct-supplier counts."""
+    li = t["lineitem"].select(col("l_orderkey"), col("l_suppkey"),
+                              col("l_commitdate"), col("l_receiptdate"))
+    late = li.filter(col("l_receiptdate") > col("l_commitdate"))
+    per_order = (li.group_by("l_orderkey")
+                 .agg(F.countDistinct(col("l_suppkey")).alias("n_supp")))
+    late_per_order = (late.group_by("l_orderkey")
+                      .agg(F.countDistinct(col("l_suppkey"))
+                           .alias("n_late")))
+    df = (late
+          .join(_rename(t["orders"], l_orderkey="o_orderkey")
+                .select(col("l_orderkey"), col("o_orderstatus")),
+                on=["l_orderkey"])
+          .filter(col("o_orderstatus") == lit("F"))
+          .join(per_order, on=["l_orderkey"])
+          .join(late_per_order, on=["l_orderkey"])
+          # another supplier on the order, and no other late one
+          .filter((col("n_supp") > 1) & (col("n_late") == 1))
+          .join(_rename(t["supplier"], l_suppkey="s_suppkey"),
+                on=["l_suppkey"])
+          .join(_rename(t["nation"], s_nationkey="n_nationkey"),
+                on=["s_nationkey"])
+          .filter(col("n_name") == lit(nation))
+          .group_by("s_name")
+          .agg(F.count("*").alias("numwait")))
+    return _sort(df, ("numwait", False), ("s_name", True)).limit(100)
+
+
+def q22(t, codes=("13", "31", "23", "29", "30", "18", "17")):
+    """Global sales opportunity: a left-anti join and the scalar average
+    as a cross join."""
+    cc = F.substring(col("c_phone"), 1, 2)
+    cust = (t["customer"]
+            .with_column("cntrycode", cc)
+            .filter(col("cntrycode").isin(*codes)))
+    avg_bal = (cust.filter(col("c_acctbal") > lit(D("0.00")))
+               .agg(F.avg(col("c_acctbal").cast(dt.FLOAT64))
+                    .alias("avg_bal")))
+    df = (cust
+          .with_column("o_custkey", col("c_custkey"))
+          .join(t["orders"].select(col("o_custkey")).distinct(),
+                on=["o_custkey"], how="left_anti")
+          .join(avg_bal, how="cross")
+          .filter(col("c_acctbal").cast(dt.FLOAT64) > col("avg_bal"))
+          .group_by("cntrycode")
+          .agg(F.count("*").alias("numcust"),
+               F.sum(col("c_acctbal")).alias("totacctbal")))
+    return _sort(df, ("cntrycode", True))

@@ -575,3 +575,61 @@ def test_q17_reference_notes_its_near_ties(tpch_small):
         chip_smoke.q17_reference(tpch_small)
     assert notes["q17_lines"] > 0 and 0 <= notes["q17_near_ties"] \
         <= notes["q17_lines"]
+
+
+def test_join_condition_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """The SF10 conditional-join phases at sf 0.01: the conditional hash
+    join (orders with customer, per partition here) and the nested-loop
+    join (customer with nation) equal numpy, the nested-loop join also
+    the equi-join, and neither launches the partition kernel."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096,
+                       "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                       -1}, device="cpu")
+    launches = chip_smoke.join_condition_phases(s, tpch_small)
+    none = {"all": 0, "vector": 0, "scalar": 0}
+    assert launches == {"join_condition": none, "nested_loop": none}
+    phases = {d["phase"]: d for d in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    cond, nlj = phases["join_condition"], phases["nested_loop_join"]
+    assert cond["per_partition"] and 0 < cond["rows"] < cond["stream_rows"]
+    assert nlj["rows"] == nlj["stream_rows"] == 1500
+    assert nlj["pairs"] == 1500 * 25
+    # 1,048,576 // 25 stream rows a chunk: one chunk a 4096-row batch
+    assert nlj["chunks"] == 1
+    assert "NestedLoopJoinExec" in nlj["plan"]
+
+
+def test_double_sum_and_bit_equal_runs_rehearse_on_the_cpu(tpch_small,
+                                                           capsys):
+    """The repeat of a fixed double group sum, and two runs of each
+    double-valued query of the new five held bit for bit."""
+    import json
+
+    import pyarrow as pa
+    import torch
+
+    import spark_rapids_tpu_torch as pt
+    info = chip_smoke.double_sum_repeat(torch.device("cpu"), rows=20_000,
+                                        segments=1_000, repeats=3)
+    assert info["bit_equal"] and info["bit_equal_to_cpu"]
+    assert info["max_rel_diff_vs_cpu"] == 0.0
+    queries = (11, 15, 22)
+    expects = {n: chip_smoke.tpch_reference(n, tpch_small) for n in queries}
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    capsys.readouterr()
+    chip_smoke.tpch_phases(s, tpch_small, expects, runs=2, queries=queries)
+    phases = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+              if x.startswith("{")]
+    assert [p["phase"] for p in phases] == [f"tpch_q{n}" for n in queries]
+    assert all(p["runs_bit_equal"] is True and len(p["runs"]) == 2
+               for p in phases)
+    a = pa.table({"x": pa.array([1.0, None, 0.1 + 0.2])})
+    assert chip_smoke.same_bits(a, a)
+    assert not chip_smoke.same_bits(a, pa.table({"x": [1.0, None, 0.3]}))
+    assert not chip_smoke.same_bits(a, pa.table({"x": [1.0, 2.0,
+                                                       0.1 + 0.2]}))

@@ -10,8 +10,8 @@ all and mixed null keys on both sides. The port's per-join metrics show
 which path ran. Also: an empty build and an empty stream, the int64
 maximum key next to null build keys, the broadcast and the per-partition
 (shuffled) topologies, the joined column names, and the NotPorted
-refusals (a condition, a cross join, a build over
-`sql.join.buildSideBudgetBytes`). Each result must equal the JAX
+refusals (a count(DISTINCT) outside the optimizer's rewrite, a mesh
+exchange, a build over `sql.join.buildSideBudgetBytes`). Each result must equal the JAX
 package's Arrow table, row for row once both are sorted by every column
 (the row order of a join output is not defined). Tolerance: exact.
 """
@@ -270,12 +270,15 @@ def test_refusals_raise_not_ported():
     stream, build = _tables("direct", "none")
     s = pt.TpuSession(device="cpu")
     left, right = s.create_dataframe(stream), s.create_dataframe(build)
-    with pytest.raises(NotPorted):
-        left.join(right, on=["k"], condition=col("a") > col("b"))
-    with pytest.raises(NotPorted):
-        left.join(right, on=col("k") == col("b"))
-    with pytest.raises(NotPorted):
-        left.join(right, how="cross")
+    import spark_rapids_tpu_torch.functions as F
+    # a distinct beside another aggregate: the JAX package's sort path
+    with pytest.raises(NotPorted, match="CollectAggExec"):
+        left.group_by("a").agg(F.countDistinct("k"),
+                               F.count("*")).to_arrow()
+    mesh = pt.TpuSession({"spark.rapids.tpu.mesh.devices": 4}, device="cpu")
+    with pytest.raises(NotPorted, match="mesh exchange"):
+        mesh.create_dataframe(stream).join(
+            mesh.create_dataframe(build), on=["k"]).to_arrow()
     tiny = pt.TpuSession({"spark.rapids.tpu.sql.join.buildSideBudgetBytes":
                           100}, device="cpu")
     with pytest.raises(NotPorted, match="buildSideBudgetBytes"):

@@ -153,8 +153,9 @@ def _shape(plan, filter_refs):
 
 
 def check_optimized_shape(n, tables, **kw):
-    """The port's optimizer leaves the plan the JAX optimizer does with
-    join reordering off: the same nodes, each filter in the same place."""
+    """The port's optimizer, under its session's conf, leaves the plan
+    the JAX optimizer does with join reordering off: the same nodes, each
+    filter in the same place (a count(DISTINCT) rewritten on both)."""
     from spark_rapids_tpu.plan.optimizer import optimize as joptimize
     from spark_rapids_tpu.plan.optimizer import refs_of as jrefs
     from spark_rapids_tpu_torch.plan.optimizer import optimize as poptimize
@@ -164,7 +165,7 @@ def check_optimized_shape(n, tables, **kw):
                                   for k, v in tables.items()}, **kw)._plan
     jplan = getattr(jq, f"q{n}")({k: js.create_dataframe(v)
                                   for k, v in tables.items()}, **kw)._plan
-    pshape = _shape(poptimize(pplan), prefs)
+    pshape = _shape(poptimize(pplan, ps.conf), prefs)
     assert pshape == _shape(joptimize(jplan, js.conf), jrefs)
     return pshape
 
