@@ -79,10 +79,25 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      `condition=c_nationkey == n_nationkey` alone (37.5M pairs in
      chunks of about 2^20), whose rows must equal the equi-join's and
      numpy's.
+ 38. the device Parquet decode: gen_all's lineitem (its 15 columns) as
+     16 files in Spark's layout (INT64/INT32 decimals, snappy, v1 pages,
+     dictionary, 1,048,576-row row groups); Q6 and Q1 over them twice
+     each, fresh plans, with device decode on (the card's default) and
+     off, each result exact; per run the wall, the scan's layers
+     (decodeTime, scanTime, uploadSecs, decompressBusySecs,
+     prefetchWaitSecs), the device-decoded chunks and every fallback
+     count, the staging pool's hits and misses, peak device memory, and
+     with the decode on, a chunk decoded on the card in every file and
+     every chunk read either decoded there or counted under a fallback
+     reason that the files' footers bear out; Q6 under torch.profiler
+     with the decode on (busy share, `cummax`'s share, the largest
+     device groups, launches per row group); then two of the files read
+     whole, every column, through both paths, equal as Arrow tables.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
-averages), row for row; the per-date sums and counts numpy's; each Q3
+averages), row for row (over the Spark-layout files too, decode on and
+off); the per-date sums and counts numpy's; each Q3
 result `q3_reference` (numpy int64 revenue per order): the unlimited
 result row for row but for the order of rows tied on (revenue,
 o_orderdate), the top 10 on those keys with ties allowed at the 10th
@@ -2414,6 +2429,311 @@ def double_sum_repeat(device, rows=2_000_000, segments=100_000, repeats=5,
     return info
 
 
+# ----------------------------------------------------------------------
+# Device Parquet decode over files in Spark's layout
+# ----------------------------------------------------------------------
+DECODE_KEY = "spark.rapids.tpu.sql.format.parquet.deviceDecode.enabled"
+#: Spark's non-legacy Parquet layout: decimals of precision up to 18 as
+#: INT32 / INT64, snappy, v1 data pages, dictionary encoding, row groups
+#: of one batch
+SPARK_LAYOUT = {"store_decimal_as_integer": True, "compression": "snappy",
+                "data_page_version": "1.0", "use_dictionary": True,
+                "row_group_size": BATCH_ROWS}
+SPARK_FILES = 16
+DECODE_LAYERS = ("decodeTime", "scanTime", "uploadSecs",
+                 "decompressBusySecs", "prefetchWaitSecs")
+DECODE_COUNTS = ("deviceDecodedChunks", "deviceDecodeFallback.type",
+                 "deviceDecodeFallback.codec",
+                 "deviceDecodeFallback.encoding",
+                 "deviceDecodeFallback.nested",
+                 "deviceDecodeFallback.pages", "deviceDecodeBytes",
+                 "uploadedBytes", "decompressedBytes", "stagingPoolHits",
+                 "stagingPoolMisses", "stagingPoolHeldBytes",
+                 "numOutputBatches", "skippedRowGroups")
+#: the decode's device groups: cummax (row_of_unit) and cumsum apart
+PARQUET_GROUPS = (("cummax", r"cummax|with_indices"),
+                  ("cumsum", r"cumsum|[Ss]can"),
+                  ("byte_gather", r"[Ii]ndex.*OpaqueType<1>")) + Q1_GROUPS
+#: the rules by which the JAX package (io/parquet_device.py _classify)
+#: deems a chunk eligible, restated here to count what the scan must do
+_ELIGIBLE_CODECS = {"UNCOMPRESSED", "SNAPPY"}
+_ELIGIBLE_PHYSICAL = {"INT32", "INT64", "FLOAT", "DOUBLE", "BYTE_ARRAY"}
+_ELIGIBLE_ENCODINGS = {"PLAIN", "RLE", "PLAIN_DICTIONARY",
+                       "RLE_DICTIONARY", "BIT_PACKED"}
+
+
+def write_spark_files(lineitem, d, files=SPARK_FILES) -> list:
+    """`lineitem` as `files` Parquet files in SPARK_LAYOUT, written on
+    eight threads (Arrow's writer releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.parquet as pq
+    per = -(-lineitem.num_rows // files)
+    paths = [os.path.join(d, f"part-{i:02d}.parquet") for i in range(files)]
+
+    def write(i):
+        pq.write_table(lineitem.slice(i * per, per), paths[i],
+                       **SPARK_LAYOUT)
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, range(files)))
+    return paths
+
+
+def chunk_census(paths, columns, filters=None) -> collections.Counter:
+    """Column chunks a scan of `columns` must handle, by the reference's
+    eligibility: "eligible", or the fallback category (codec / type /
+    encoding / nested) of its footer; row groups the filters prune are
+    left out."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.exec.nodes import prune_row_groups
+    out = collections.Counter()
+    for p in paths:
+        pf = pq.ParquetFile(p)
+        md = pf.metadata
+        kept = (prune_row_groups(pf, filters) if filters
+                else range(md.num_row_groups))
+        for rg in kept:
+            g = md.row_group(rg)
+            by_name = {g.column(i).path_in_schema: g.column(i)
+                       for i in range(md.num_columns)}
+            for name in columns:
+                c = by_name[name]
+                if "." in name:
+                    out["nested"] += 1
+                elif c.compression not in _ELIGIBLE_CODECS:
+                    out["codec"] += 1
+                elif c.physical_type not in _ELIGIBLE_PHYSICAL:
+                    out["type"] += 1
+                elif set(c.encodings) - _ELIGIBLE_ENCODINGS:
+                    out["encoding"] += 1
+                else:
+                    out["eligible"] += 1
+            out["row_groups"] += 1
+    return out
+
+
+class DecodeProbe:
+    """Counts, per file and per column, the column chunks the scan
+    decoded on the device, and sums the prefetch thread's host seconds
+    in each step of a chunk: `plan` (read, page headers, decompression),
+    `decode` (run parse, upload, dispatch of the device ops) and `close`
+    (the wait for the upload, then the leases' return). It wraps
+    io/parquet_device's chunk_device_plan, decode_chunk_device and
+    DeviceChunk.close."""
+
+    def __init__(self):
+        import threading
+
+        from spark_rapids_tpu_torch.io import parquet_device
+        self.mod = parquet_device
+        self.orig = (parquet_device.chunk_device_plan,
+                     parquet_device.decode_chunk_device,
+                     parquet_device.DeviceChunk.close)
+        self.by_file = collections.Counter()
+        self.by_column = collections.Counter()
+        self.seconds = collections.Counter()
+        self.lock = threading.Lock()
+
+    def _timed(self, step, fn, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            with self.lock:
+                self.seconds[step] += time.perf_counter() - t0
+
+    def __enter__(self):
+        plan, decode, close = self.orig
+        probe = self
+
+        def planned(pf, path, *a, **k):
+            c = probe._timed("plan", plan, pf, path, *a, **k)
+            if c is not None:
+                c.probe_file = os.path.basename(path)
+            return c
+
+        def decoded(c, *a, **k):
+            got = probe._timed("decode", decode, c, *a, **k)
+            if got is not None:
+                with probe.lock:
+                    probe.by_file[c.probe_file] += 1
+                    probe.by_column[c.name] += 1
+            return got
+
+        def closed(c, *a, **k):
+            return probe._timed("close", close, c, *a, **k)
+        self.mod.chunk_device_plan = planned
+        self.mod.decode_chunk_device = decoded
+        self.mod.DeviceChunk.close = closed
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.chunk_device_plan, self.mod.decode_chunk_device,
+         self.mod.DeviceChunk.close) = self.orig
+
+
+def scan_of(q):
+    """The ParquetScanExec of a plan that has one."""
+    from spark_rapids_tpu_torch.exec.nodes import ParquetScanExec
+    scans = [n for n in plan_nodes(q.last_plan())
+             if isinstance(n, ParquetScanExec)]
+    if len(scans) != 1:
+        raise AssertionError(f"{len(scans)} Parquet scans in the plan")
+    return scans[0]
+
+
+def check_decode_counts(q, paths, counts, by_file, what):
+    """With device decode on: every file decodes a chunk on the device,
+    and every chunk the scan read is decoded there or counted under a
+    fallback reason; the footer-level reasons equal the census."""
+    scan = scan_of(q)
+    census = chunk_census(paths, scan._cols(), scan.filters)
+    missing = [os.path.basename(p) for p in paths
+               if by_file.get(os.path.basename(p), 0) == 0]
+    if missing:
+        raise AssertionError(f"{what}: no chunk decoded on the device in "
+                             f"{missing}")
+    fb = {k.split(".")[1]: counts.get(k, 0) for k in DECODE_COUNTS
+          if k.startswith("deviceDecodeFallback.")}
+    decoded = counts.get("deviceDecodedChunks", 0)
+    total = sum(v for k, v in census.items() if k != "row_groups")
+    if decoded + sum(fb.values()) != total:
+        raise AssertionError(f"{what}: {decoded} chunks decoded and "
+                             f"{fb} counted, of {total} read")
+    if decoded != sum(by_file.values()):
+        raise AssertionError(f"{what}: deviceDecodedChunks {decoded}, "
+                             f"probe {sum(by_file.values())}")
+    for k in ("codec", "encoding", "nested"):
+        if fb[k] != census[k]:
+            raise AssertionError(f"{what}: {k} fallbacks {fb[k]}, the "
+                                 f"footers say {census[k]}")
+    if not (fb["type"] >= census["type"]
+            and decoded + fb["pages"] + fb["type"] - census["type"]
+            == census["eligible"]):
+        raise AssertionError(f"{what}: eligible chunks {census['eligible']}"
+                             f" but {decoded} decoded, {fb} counted")
+    return dict(census)
+
+
+def parquet_decode_phases(device, conf, lineitem, q6_expect, q1_expect,
+                          runs=2) -> dict:
+    """The device Parquet decode, over `lineitem` written as SPARK_FILES
+    files in SPARK_LAYOUT: Q6 and Q1 `runs` times each, fresh plans,
+    with device decode on (a CUDA session's default; set explicitly on
+    the CPU) and off, each result exact; the readings of every run;
+    Q6 under torch.profiler with the decode on; and two files read
+    whole, every column, through both paths, equal as Arrow tables.
+    Returns {"on": [...], "off": [...]} walls by query."""
+    import shutil
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_spark_")
+    try:
+        return _parquet_decode_phases(device, conf, lineitem, q6_expect,
+                                      q1_expect, runs, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _parquet_decode_phases(device, conf, lineitem, q6_expect, q1_expect,
+                           runs, d) -> dict:
+    import pyarrow.parquet as pq
+
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.exec.batch import DeviceBatch
+    from spark_rapids_tpu_torch.workloads import tpch
+
+    smi = nvidia_smi_line() if device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    paths = write_spark_files(lineitem, d)
+    write_s = time.perf_counter() - t0
+    census = chunk_census(paths, lineitem.column_names)
+    emit({"phase": "parquet_device_decode_files", "nvidia_smi": smi,
+          "rows": lineitem.num_rows, "columns": lineitem.num_columns,
+          "files": len(paths), "layout": SPARK_LAYOUT, "write_s": write_s,
+          "bytes": sum(os.path.getsize(p) for p in paths),
+          "chunks_by_footer": dict(census)})
+    on_conf = dict(conf)
+    if device.type == "cpu":
+        on_conf[DECODE_KEY] = True        # the CPU's rule: explicit only
+    sessions = {"on": pt.TpuSession(on_conf, device=device),
+                "off": pt.TpuSession(dict(conf, **{DECODE_KEY: False}),
+                                     device=device)}
+    queries = {"q6": (lambda df: tpch.q6(df),
+                      lambda out, what: check_revenue(out, q6_expect, what)),
+               "q1": (lambda df: sorted_q1(tpch, df),
+                      lambda out, what: check_q1(out, q1_expect, what))}
+    walls = {"on": {}, "off": {}}
+    for mode, sess in sessions.items():
+        for name, (make, check) in queries.items():
+            out_runs = []
+            for _ in range(runs):
+                q = make(sess.read.parquet(d))
+                what = f"{name} over Spark-layout Parquet, decode {mode}"
+                with DecodeProbe() as probe, \
+                        BatchDevices(DeviceBatch) as devs:
+                    torch_peak_reset(device)
+                    out, wall, layers, syncs = timed_query(q, device)
+                check(out, what)
+                check_devices(devs, device)
+                counts = {k: layers.get(k, 0) for k in DECODE_COUNTS}
+                info = {"wall_s": wall,
+                        "layers_s": {k: layers.get(k, 0.0)
+                                     for k in DECODE_LAYERS},
+                        "counts": counts, "host_syncs": syncs,
+                        "chunk_step_s": dict(probe.seconds),
+                        "peak_device_bytes": torch_peak(device),
+                        "decoded_chunks_by_file": [
+                            probe.by_file.get(os.path.basename(p), 0)
+                            for p in paths]}
+                if mode == "on":
+                    info["chunks_read"] = check_decode_counts(
+                        q, paths, counts, probe.by_file, what)
+                elif counts.get("deviceDecodedChunks", 0):
+                    raise AssertionError(f"{what}: chunks decoded on the "
+                                         f"device")
+                out_runs.append(info)
+            walls[mode][name] = [r["wall_s"] for r in out_runs]
+            emit({"phase": f"parquet_device_decode_{name}_{mode}",
+                  "nvidia_smi": smi, "files": len(paths),
+                  "columns": scan_of(q)._cols(), "runs": out_runs})
+
+    # ---- Q6 profiled, decode on --------------------------------------
+    q = tpch.q6(sessions["on"].read.parquet(d))
+    torch_peak_reset(device)
+    out, prof = profiled_query(q, device, census["row_groups"],
+                               PARQUET_GROUPS)
+    check_revenue(out, q6_expect, "Spark-layout Parquet (profiled)")
+    by_group = prof["device_us_by_group"]
+    emit({"phase": "parquet_device_decode_q6_profiled", "nvidia_smi": smi,
+          "peak_device_bytes": torch_peak(device),
+          "cummax_share_of_device_time":
+              by_group.get("cummax", 0) / max(sum(by_group.values()), 1),
+          **prof})
+
+    # ---- two whole files, every column: device decode == host --------
+    same = {}
+    for p in (paths[0], paths[-1]):
+        name = os.path.basename(p)
+        with DecodeProbe() as probe:
+            got = sessions["on"].read.parquet(p).to_arrow()
+        want = sessions["off"].read.parquet(p).to_arrow()
+        if probe.by_file.get(name, 0) == 0:
+            raise AssertionError(f"{name}: no chunk decoded on the device")
+        if not (got.equals(want) and got.num_rows
+                == pq.ParquetFile(p).metadata.num_rows):
+            raise AssertionError(f"{name}: the device decode differs from "
+                                 f"the host decode")
+        same[name] = {"rows": got.num_rows,
+                      "row_groups": pq.ParquetFile(p).metadata
+                      .num_row_groups,
+                      "device_decoded_chunks": probe.by_file[name],
+                      "device_decoded_by_column": dict(probe.by_column)}
+    emit({"phase": "parquet_device_decode_whole_files", "nvidia_smi": smi,
+          "columns": lineitem.num_columns, "equal": True, "files": same})
+    return walls
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -2576,6 +2896,18 @@ def main() -> int:
     tpch_tables, tpch_expects = tpch_data(SF)
     by_path.update(tpch_phases(session, tpch_tables, tpch_expects))
     by_path.update(join_condition_phases(session, tpch_tables))
+    li = tpch_tables["lineitem"]
+    t0 = time.perf_counter()
+    q6_expect = tpch.q6_numpy_baseline(
+        li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),
+        unscaled(li, "l_quantity"), unscaled(li, "l_extendedprice"))
+    q1_full_expect = q1_reference(li)
+    emit({"phase": "parquet_device_decode_data", "rows": li.num_rows,
+          "reference_s": time.perf_counter() - t0,
+          "q6_expected_unscaled": q6_expect})
+    parquet_decode_phases(session.device, {"spark.rapids.tpu.sql."
+                                           "batchSizeRows": BATCH_ROWS},
+                          li, q6_expect, q1_full_expect)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

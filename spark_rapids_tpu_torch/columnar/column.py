@@ -110,6 +110,9 @@ class Column:
 
         if isinstance(dtype, dt.DateType):
             data = np.asarray(arr.fill_null(0).cast(pa.int32()))
+        elif isinstance(dtype, dt.TimestampType):
+            data = np.asarray(arr.fill_null(0).cast(pa.timestamp("us"))
+                              .cast(pa.int64()))
         elif isinstance(dtype, dt.NullType):
             data = np.zeros(n, np.int8)
             validity = np.zeros(n, np.bool_)
@@ -168,4 +171,7 @@ class Column:
         if isinstance(dtype, dt.DateType):
             return pa.array(vals, type=pa.int32(), mask=mask).cast(
                 pa.date32())
+        if isinstance(dtype, dt.TimestampType):
+            return pa.array(vals, type=pa.timestamp("us"), mask=mask).cast(
+                dt.to_arrow(dtype))
         return pa.array(vals, type=dt.to_arrow(dtype), mask=mask)

@@ -12,9 +12,11 @@ ported slice needs. Device representations:
                         pair (decimal128)
   - NullType         -> int8, all null
   - StringType / BinaryType -> uint8 bytes plus int32 offsets [n + 1]
+  - TimestampType    -> int64 microseconds since the epoch (UTC); a scan
+                        and a collect move it, no expression takes it yet
 
-Timestamp and nested types exist so that schemas of real tables
-resolve; a column of one of them on the device raises NotPorted.
+Nested types exist so that schemas of real tables resolve; a column of
+one of them on the device raises NotPorted.
 """
 from __future__ import annotations
 

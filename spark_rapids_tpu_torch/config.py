@@ -13,7 +13,10 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "PARQUET_READER_TYPE", "PARQUET_COALESCING_TARGET",
            "MESH_DEVICES", "SHUFFLE_PARTITIONS", "AGG_STRING_HASH_KEYS",
            "AGG_MAX_MERGE_ROWS", "BROADCAST_THRESHOLD", "JOIN_BUILD_BUDGET",
-           "DISTINCT_AGG_REWRITE"]
+           "DISTINCT_AGG_REWRITE", "MULTITHREADED_READ_THREADS",
+           "PARQUET_DEVICE_DECODE", "PARQUET_DEVICE_SNAPPY",
+           "HOST_STAGING_POOL_BYTES", "HOST_MEMORY_LIMIT",
+           "FILECACHE_ENABLED", "FILECACHE_DIR", "FILECACHE_MAX_BYTES"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -51,6 +54,61 @@ PARQUET_COALESCING_TARGET = _conf(
     "sql.format.parquet.coalescing.targetBytes", 128 << 20,
     "COALESCING reader: files group until their on-disk size reaches "
     "this target; one output partition per group.", int)
+MULTITHREADED_READ_THREADS = _conf(
+    "sql.format.parquet.multiThreadedRead.numThreads", 4,
+    "Thread pool for the multithreaded Parquet reader (analog of "
+    "spark.rapids.sql.multiThreadedRead.numThreads): the decode-ahead "
+    "queue holds up to min(n, 4) batches, and snappy pages of the "
+    "device decode decompress on n threads.", int)
+PARQUET_DEVICE_DECODE = _conf(
+    "sql.format.parquet.deviceDecode.enabled", True,
+    "Decode eligible Parquet column chunks ON DEVICE (flat "
+    "INT32/INT64/FLOAT/DOUBLE/BYTE_ARRAY chunks; UNCOMPRESSED or "
+    "SNAPPY; PLAIN or dictionary encoded; v1 and v2 data pages): raw "
+    "bytes upload once, PLAIN lane assembly + RLE run expansion + "
+    "string offset extraction + def-level masking run as torch ops on "
+    "the device (GpuParquetScan.scala:3364 Table.readParquet analog). "
+    "Snappy pages decompress per-page on the multithreaded prefetch "
+    "pool, off the compute thread. Ineligible columns fall back to host "
+    "pyarrow per column (deviceDecodeFallback.* counters). On a CPU "
+    "session the path only fires when this conf is set explicitly: "
+    "host pyarrow decode and the 'device' ops share the same silicon "
+    "there, and pyarrow's native decoder wins.", bool)
+PARQUET_DEVICE_SNAPPY = _conf(
+    "sql.parquet.deviceSnappy", False,
+    "Decompress qualifying snappy pages ON DEVICE (the parsed "
+    "literal/copy element table: run-ownership map + log-depth pointer "
+    "doubling resolves every output byte to a literal source). Applies "
+    "to v1 PLAIN pages of non-nullable chunks; the host walks only the "
+    "tag bytes. Other pages keep the host prefetch-pool decompress.",
+    bool)
+HOST_STAGING_POOL_BYTES = _conf(
+    "memory.host.stagingPoolBytes", 256 * 1024 * 1024,
+    "Byte cap on the pinned staging pool: reusable pow2-bucketed host "
+    "buffers for raw-chunk reads, snappy decompression targets, and "
+    "H2D upload staging in the device Parquet scan (HostAlloc pinned "
+    "pool analog). Cached buffers draw from memory.host.limitBytes; "
+    "leases past the cap are transient (freed on release).", int)
+HOST_MEMORY_LIMIT = _conf(
+    "memory.host.limitBytes", 0,
+    "Global host-DRAM byte budget (HostAlloc.scala:36 analog). The "
+    "port's one consumer is the staging pool's cached buffers; a "
+    "reservation over budget leaves the lease transient. 0 = "
+    "unlimited.", int)
+FILECACHE_ENABLED = _conf(
+    "filecache.enabled", False,
+    "Cache scan input files on local disk, keyed by (path, mtime, "
+    "size) with LRU eviction; repeated scans of network-mounted inputs "
+    "skip the fetch (reference: spark.rapids.filecache.enabled, "
+    "GpuFileCache). Off by default: pure overhead for local inputs.",
+    bool)
+FILECACHE_DIR = _conf(
+    "filecache.dir", "/tmp/srtpu-filecache",
+    "Local directory for cached input files.", str)
+FILECACHE_MAX_BYTES = _conf(
+    "filecache.maxBytes", 16 << 30,
+    "Upper bound on cached bytes; least-recently-used entries evict "
+    "past it.", int)
 MESH_DEVICES = _conf(
     "mesh.devices", 0,
     "Devices in the SPMD mesh. The port has no mesh exchange: a plan "
@@ -103,6 +161,11 @@ class TpuConf:
 
     def get(self, entry: ConfEntry):
         return entry.get(self)
+
+    def is_set(self, entry: ConfEntry) -> bool:
+        """Whether the caller supplied this key (vs the registry
+        default), so a policy can defer to an explicit setting."""
+        return entry.key in self._settings
 
     @property
     def batch_size_rows(self) -> int:

@@ -7,6 +7,7 @@ scans upload there and every op works on tensors already there.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, Iterator, List
 
@@ -16,20 +17,31 @@ from ..columnar.table import Schema
 from ..config import TpuConf
 from .batch import DeviceBatch
 
-__all__ = ["TpuExec", "ExecContext", "collapse_fusable"]
+__all__ = ["TpuExec", "ExecContext", "OpMetrics", "collapse_fusable"]
 
 
 class ExecContext:
-    """Per-query execution context: conf snapshot, device, metrics."""
+    """Per-query execution context: conf snapshot, device, metrics. A
+    scan's prefetch thread adds metrics beside the calling thread, so
+    every update holds a lock."""
 
     def __init__(self, conf: TpuConf, device: torch.device):
         self.conf = conf
         self.device = device
         self.metrics: Dict[str, Dict[str, float]] = {}
+        self._lock = threading.Lock()
 
     def add_metric(self, op_id: str, name: str, value: float):
-        m = self.metrics.setdefault(op_id, {})
-        m[name] = m.get(name, 0) + value
+        with self._lock:
+            m = self.metrics.setdefault(op_id, {})
+            m[name] = m.get(name, 0) + value
+
+    def set_metric(self, op_id: str, name: str, value: float):
+        with self._lock:
+            self.metrics.setdefault(op_id, {})[name] = value
+
+    def metrics_for(self, op_id: str) -> "OpMetrics":
+        return OpMetrics(self, op_id)
 
     @contextlib.contextmanager
     def timer(self, op_id: str, name: str):
@@ -41,6 +53,24 @@ class ExecContext:
             yield
         finally:
             self.add_metric(op_id, name, time.perf_counter() - t0)
+
+
+class OpMetrics:
+    """One operator's metrics in an ExecContext (`add`, `set`, `timer`),
+    for code that records on an operator's behalf."""
+
+    def __init__(self, ctx: ExecContext, op_id: str):
+        self.ctx = ctx
+        self.op_id = op_id
+
+    def add(self, name: str, value: float):
+        self.ctx.add_metric(self.op_id, name, value)
+
+    def set(self, name: str, value: float):
+        self.ctx.set_metric(self.op_id, name, value)
+
+    def timer(self, name: str):
+        return self.ctx.timer(self.op_id, name)
 
 
 class TpuExec:

@@ -3,26 +3,35 @@
 Partitioning mirrors the JAX package exactly, since an exchange's output
 order depends on it: an in-memory scan has one partition per
 `batchSizeRows` slice; a Parquet scan one per file, or one per file group
-under the COALESCING reader. The Parquet scan decodes on the host with
-Arrow and moves each batch to the device in one copy. The MULTITHREADED
-reader's decode-ahead thread is not ported: its batches are decoded in
-order on the calling thread, which yields the same batches.
+under the COALESCING reader. The Parquet scan decodes eligible column
+chunks on the device (one batch per row group) or decodes on the host
+with Arrow and moves each batch to the device in one copy; a prefetch
+thread decodes ahead of the consumer on the device path and under the
+MULTITHREADED reader.
 """
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import Iterator, List, Optional, Sequence
 
 import torch
 
+from ..columnar import dtypes as dt
 from ..columnar.column import Column, buffer_names
 from ..columnar.table import Schema, Table
-from ..config import PARQUET_COALESCING_TARGET, PARQUET_READER_TYPE
+from ..config import (MULTITHREADED_READ_THREADS, PARQUET_COALESCING_TARGET,
+                      PARQUET_DEVICE_DECODE, PARQUET_DEVICE_SNAPPY,
+                      PARQUET_READER_TYPE)
 from ..expr.expressions import EmitCtx, Expression
+from ..io import parquet_device as pdev
+from ..io.file_cache import cached_local_path
+from ..memory.host import staging_pool
 from ..ops.kernel_utils import CV
 from ..utils import transfer
 from .base import ExecContext, TpuExec
-from .batch import DeviceBatch, to_host
+from .batch import DeviceBatch, _torch_dtype, to_host
 
 __all__ = ["InMemoryScanExec", "ParquetScanExec", "ProjectExec",
            "FilterExec", "LimitExec", "collect_to_arrow", "make_table",
@@ -112,9 +121,22 @@ def prune_row_groups(pf, filters) -> List[int]:
 
 
 class ParquetScanExec(TpuExec):
-    """Parquet reader on its host-decode path, with footer-stats
-    row-group pruning from pushed-down conjuncts and the AUTO /
-    COALESCING / MULTITHREADED / PERFILE reader partitioning."""
+    """Parquet reader: footer-stats row-group pruning from pushed-down
+    conjuncts, the AUTO / COALESCING / MULTITHREADED / PERFILE reader
+    partitioning, and two decode paths.
+
+    - Device decode (`sql.format.parquet.deviceDecode.enabled`, on by
+      default on CUDA; on a CPU session only when the conf is set
+      explicitly): per row group, eligible column chunks decode on the
+      device from one raw byte upload (`io/parquet_device.py`); the
+      other columns decode on the host and join them in one
+      DeviceBatch. The whole per-file loop runs on a prefetch thread.
+    - Host decode: Arrow decodes `batchSizeRows` slices, each moved to
+      the device in one copy; under the MULTITHREADED reader a prefetch
+      thread decodes ahead of the consumer.
+
+    The COALESCING reader always decodes on the host, as the JAX
+    package's does."""
 
     def __init__(self, paths: Sequence[str], schema: Schema,
                  columns: Optional[Sequence[str]] = None, filters=None):
@@ -173,11 +195,162 @@ class ParquetScanExec(TpuExec):
             return len(self._groups(ctx))
         return len(self.paths)
 
+    @staticmethod
+    def _open(path, ctx):
+        """(local path, ParquetFile), through the local file cache."""
+        import pyarrow.parquet as pq
+        lp = cached_local_path(path, ctx.conf)
+        try:
+            return lp, pq.ParquetFile(lp)
+        except FileNotFoundError:
+            # LRU eviction can unlink the cached copy between
+            # local_path() and open; the source path is always valid
+            return path, pq.ParquetFile(path)
+
+    def _device_decode_on(self, ctx) -> bool:
+        """On a CUDA session, the conf's value; on a CPU session only
+        when the conf is set explicitly (tests, parity runs): there
+        pyarrow's native decoder shares the silicon with the 'device'
+        ops and wins."""
+        if not ctx.conf.get(PARQUET_DEVICE_DECODE):
+            return False
+        if ctx.device.type == "cpu":
+            return ctx.conf.is_set(PARQUET_DEVICE_DECODE)
+        return True
+
+    def _device_decoded_batches(self, ctx, path, m):
+        """Device-decode path (GpuParquetScan.scala:3364 analog): one
+        DeviceBatch per row group, eligible column chunks decoded ON
+        DEVICE from one raw byte upload (staged through the pinned pool;
+        snappy pages decompress in parallel on the prefetch pool), the
+        other columns decoded on the host and merged into the same
+        batch. Returns None when the file's first row group has no
+        eligible chunk, or a kept row group is over 4 x batchSizeRows
+        (the caller uses the host path)."""
+        import pyarrow as pa
+        lp, pf = self._open(path, ctx)
+        cols = self._cols()
+        if pf.metadata.num_row_groups == 0:
+            return None
+        if not pdev.eligible_chunks(pf, 0, cols):
+            for _name, (cat, _detail) in pdev.fallback_reasons(
+                    pf, 0, cols).items():
+                m.add(f"deviceDecodeFallback.{cat}", 1)
+            return None
+        kept = (prune_row_groups(pf, self.filters) if self.filters
+                else list(range(pf.metadata.num_row_groups)))
+        # the decode unit is a whole row group: bound the device-memory
+        # spike against the host path's batchSizeRows slices. Checked
+        # BEFORE any metric: the host path records skippedRowGroups.
+        per = max(1, ctx.conf.batch_size_rows)
+        if any(pf.metadata.row_group(rg).num_rows > 4 * per
+               for rg in kept):
+            return None
+        m.add("skippedRowGroups", pf.metadata.num_row_groups - len(kept))
+        field_by_name = {f.name: f for f in self.schema.fields}
+        dev = ctx.device
+        pool = staging_pool(ctx.conf, pinned=dev.type == "cuda")
+        decomp = _decompress_pool(ctx)
+        dev_snappy = ctx.conf.get(PARQUET_DEVICE_SNAPPY)
+
+        def device_column(fld, rg, ci, nrows, chunks):
+            """The chunk decoded on the device as a Column, or None with
+            its fallback counted."""
+            if fld.dtype.np_dtype is None or (
+                    isinstance(fld.dtype, dt.DecimalType)
+                    and fld.dtype.is_decimal128):
+                # decimal128 needs the two-limb buffer the fixed-width
+                # decode does not produce
+                m.add("deviceDecodeFallback.type", 1)
+                return None
+            af = pf.schema_arrow.field(fld.name)
+            if pa.types.is_timestamp(af.type) and af.type.unit != "us":
+                m.add("deviceDecodeFallback.type", 1)  # host converts
+                return None
+            c = pdev.chunk_device_plan(pf, lp, rg, ci, fld.name,
+                                       af.nullable, pool=pool,
+                                       decomp_pool=decomp,
+                                       device_snappy=dev_snappy, metrics=m)
+            got = None
+            if c is not None:
+                try:
+                    got = pdev.decode_chunk_device(c, nrows, dev,
+                                                   metrics=m)
+                except BaseException:
+                    c.close()            # leases must not leak
+                    raise
+            if got is None:
+                if c is not None:
+                    c.close(sync=True)
+                m.add("deviceDecodeFallback.pages", 1)
+                return None
+            chunks.append(c)
+            m.add("deviceDecodeBytes", pf.metadata.row_group(rg)
+                  .column(ci).total_compressed_size)
+            if fld.dtype.is_variable_width:
+                data, valid, offsets = got
+                return Column(fld.dtype, nrows, data, valid, offsets)
+            vals, valid = got
+            want = _torch_dtype(fld.dtype.np_dtype)
+            if vals.dtype != want:
+                vals = vals.to(want)
+            return Column(fld.dtype, nrows, vals, valid)
+
+        def gen():
+            pool0 = dict(pool.metrics)
+            for rg in kept:
+                nrows = pf.metadata.row_group(rg).num_rows
+                if nrows == 0:
+                    continue
+                elig = pdev.eligible_chunks(pf, rg, cols)
+                for _name, (cat, _detail) in pdev.fallback_reasons(
+                        pf, rg, cols).items():
+                    m.add(f"deviceDecodeFallback.{cat}", 1)
+                dev_cols, chunks = {}, []
+                try:
+                    with m.timer("scanTime"):
+                        for name, ci in elig.items():
+                            got = device_column(field_by_name[name], rg,
+                                                ci, nrows, chunks)
+                            if got is not None:
+                                dev_cols[name] = got
+                    rest = [n for n in cols if n not in dev_cols]
+                    host_by_name = {}
+                    if rest:
+                        with m.timer("decodeTime"):
+                            at = pf.read_row_group(rg, columns=rest)
+                        with m.timer("scanTime"):
+                            host_by_name = dict(zip(
+                                at.schema.names,
+                                Table.from_arrow(at, dev).columns))
+                    tbl = Table(list(cols), [
+                        dev_cols[n] if n in dev_cols else host_by_name[n]
+                        for n in cols])
+                except BaseException:
+                    for c in chunks:
+                        c.close()        # leases must not leak
+                    raise
+                # staging buffers go back to the pool only after their
+                # copies to the device end (this thread waits, never the
+                # compute thread)
+                for c in chunks:
+                    c.close(sync=True)
+                m.add("numOutputRows", nrows)
+                m.add("numOutputBatches", 1)
+                m.add("deviceDecodedChunks", len(dev_cols))
+                yield DeviceBatch(tbl, num_rows=nrows, device=dev)
+            for k, v in pool.metrics.items():
+                delta = v - pool0.get(k, 0)
+                if k.endswith("HeldBytes"):
+                    m.set(k, v)
+                elif delta:
+                    m.add(k, delta)
+        return gen()
+
     def _decoded_batches(self, ctx, path):
         import pyarrow as pa
-        import pyarrow.parquet as pq
         per = max(1, ctx.conf.batch_size_rows)
-        pf = pq.ParquetFile(path)
+        _, pf = self._open(path, ctx)
         cols = self._cols()
         if self.filters:
             kept = prune_row_groups(pf, self.filters)
@@ -189,26 +362,41 @@ class ParquetScanExec(TpuExec):
                                  row_groups=kept)
         else:
             it = pf.iter_batches(batch_size=per, columns=cols)
-        for rb in it:
+        while True:
+            with ctx.timer(self._op_id, "decodeTime"):
+                rb = next(it, None)
+            if rb is None:
+                return
             yield pa.table(rb)
 
     def execute_partition(self, ctx, pid) -> Iterator[DeviceBatch]:
-        if self._reader_type(ctx) == "COALESCING":
+        reader_type = self._reader_type(ctx)
+        if reader_type == "COALESCING":
             yield from self._execute_coalescing(ctx, pid)
             return
-        it = self._decoded_batches(ctx, self.paths[pid])
-        while True:
-            with ctx.timer(self._op_id, "decodeTime"):
-                at = next(it, None)
-            if at is None:
+        m = ctx.metrics_for(self._op_id)
+        path = self.paths[pid]
+        depth = min(max(1, ctx.conf.get(MULTITHREADED_READ_THREADS)), 4)
+        if self._device_decode_on(ctx):
+            dev_iter = self._device_decoded_batches(ctx, path, m)
+            if dev_iter is not None:
+                # read + decompress + plan + decode dispatch run on a
+                # worker thread: the consumer only waits on the queue
+                # (prefetchWaitSecs)
+                yield from _prefetched(dev_iter, depth, ctx.device,
+                                       (m, "prefetchWaitSecs"))
                 return
+        host_iter = self._decoded_batches(ctx, path)
+        if reader_type == "MULTITHREADED":
+            host_iter = _prefetched(host_iter, depth, ctx.device,
+                                    (m, "prefetchWaitSecs"))
+        for at in host_iter:
             yield _upload(ctx, self._op_id, at)
 
     def _execute_coalescing(self, ctx, pid):
         """The group's files decode, concatenate on the host, and move to
         the device in `batchSizeRows` slices."""
         import pyarrow as pa
-        import pyarrow.parquet as pq
         group = self._groups(ctx)[pid]
         cols = self._cols()
         if not cols:
@@ -221,7 +409,7 @@ class ParquetScanExec(TpuExec):
         tables = []
         with ctx.timer(self._op_id, "decodeTime"):
             for p in group:
-                pf = pq.ParquetFile(p)
+                _, pf = self._open(p, ctx)
                 if self.filters:
                     kept = prune_row_groups(pf, self.filters)
                     ctx.add_metric(self._op_id, "skippedRowGroups",
@@ -240,6 +428,94 @@ class ParquetScanExec(TpuExec):
         for start in range(0, combined.num_rows, per):
             yield _upload(ctx, self._op_id, combined.slice(
                 start, min(per, combined.num_rows - start)))
+
+
+_DECOMP_POOL = None
+_DECOMP_LOCK = threading.Lock()
+
+
+def _decompress_pool(ctx):
+    """The process-wide thread pool for per-page snappy decompression
+    in the device scan (the MULTITHREADED pool, sized by the first
+    caller's `multiThreadedRead.numThreads`): pages of one chunk
+    decompress in parallel, called from the prefetch worker, never the
+    compute thread."""
+    global _DECOMP_POOL
+    n = max(1, ctx.conf.get(MULTITHREADED_READ_THREADS))
+    with _DECOMP_LOCK:
+        if _DECOMP_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+            _DECOMP_POOL = ThreadPoolExecutor(
+                max_workers=n, thread_name_prefix="srtpu-decomp")
+        return _DECOMP_POOL
+
+
+def _prefetched(it: Iterator, depth: int, device: torch.device,
+                wait_metrics=None):
+    """Run `it` on a worker thread with a bounded queue, so host decode
+    (and the device decode's dispatch) overlap the consumer's device
+    work. The worker enqueues on the consumer's current device and CUDA
+    stream, so the consumer's kernels queue behind the batch's own on
+    one stream and need no other wait. An abandoned consumer (e.g.
+    under a LIMIT) signals the worker through a stop event, drains the
+    queue so a blocked put returns, and joins the worker.
+    `wait_metrics=(OpMetrics, name)` adds the consumer's seconds blocked
+    on the queue."""
+    import queue
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+    err: List[BaseException] = []
+    stream = (torch.cuda.current_stream(device)
+              if device.type == "cuda" else None)
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def work():
+        try:
+            if stream is not None:
+                torch.cuda.set_device(stream.device)
+                torch.cuda.set_stream(stream)
+            for item in it:
+                if not put(item):
+                    return
+        except BaseException as e:  # propagate to the consumer
+            err.append(e)
+        finally:
+            put(done)
+
+    t = threading.Thread(target=work, daemon=True, name="srtpu-prefetch")
+    t.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            if wait_metrics is not None:
+                wait_metrics[0].add(wait_metrics[1],
+                                    time.perf_counter() - t0)
+            if item is done:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        while not q.empty():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        # the worker ends after the item it is making: wait for it, so
+        # no thread outlives its scan (one still inside torch or Arrow
+        # when the interpreter exits aborts the process)
+        t.join()
 
 
 # ----------------------------------------------------------------------

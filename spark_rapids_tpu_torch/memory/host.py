@@ -1,0 +1,216 @@
+"""Global host-memory budget and the pinned staging pool (the HostAlloc
+analog).
+
+The reference bounds executor host DRAM with one HostAlloc pool
+(HostAlloc.scala:36; limits RapidsConf.scala:337-353): pinned pool +
+non-pinned limit. The port keeps the JAX package's shape of it: ONE
+process-wide byte budget (`memory.host.limitBytes`) that host-resident
+consumers draw from, and ONE reusable pool of size-bucketed
+staging buffers for the device Parquet scan (raw chunk reads, snappy
+decompression targets, H2D upload sources).
+
+On a CUDA session the pool's buffers are page-locked
+(`torch.empty(..., pin_memory=True)`), so an upload from them is a true
+asynchronous DMA; on a CPU session they are plain host buffers. Each
+buffer is a uint8 tensor with a numpy view of the same bytes
+(`readinto` and the decompressor write through the view). Allocating
+pinned memory is expensive (`cudaHostAlloc`), so the pool keeps every
+buffer it made, up to `memory.host.stagingPoolBytes`, for the next
+chunk, row group, file and query.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import torch
+
+__all__ = ["HostMemoryManager", "host_manager", "PinnedStagingPool",
+           "StagingBuffer", "staging_pool"]
+
+
+class HostMemoryManager:
+    """One byte budget (0 = unlimited). Like the reference's
+    TrafficController, ONE outstanding reservation is always admitted so
+    a single oversized buffer cannot wedge the process. (The JAX
+    package's pressure hooks free host bytes for its spill store; the
+    port has no spill store yet, so a refused reservation is final.)"""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = int(budget_bytes)
+        self._reserved = 0
+        self._holders = 0
+        self._lock = threading.Lock()
+
+    @property
+    def reserved(self) -> int:
+        with self._lock:
+            return self._reserved
+
+    def try_reserve(self, nbytes: int) -> bool:
+        with self._lock:
+            if self.budget <= 0 \
+                    or self._reserved + nbytes <= self.budget \
+                    or self._holders == 0:
+                self._reserved += nbytes
+                self._holders += 1
+                return True
+            return False
+
+    def release(self, nbytes: int):
+        with self._lock:
+            self._reserved = max(0, self._reserved - nbytes)
+            self._holders = max(0, self._holders - 1)
+
+
+# ----------------------------------------------------------------------
+# Pinned staging pool
+# ----------------------------------------------------------------------
+_STAGING_FLOOR = 64 * 1024
+
+
+def _staging_bucket(nbytes: int) -> int:
+    """Pow2 size class, so one buffer serves every chunk of its class."""
+    c = _STAGING_FLOOR
+    while c < nbytes:
+        c <<= 1
+    return c
+
+
+class StagingBuffer:
+    """One leased staging buffer: a pow2-capacity uint8 tensor (`tensor`,
+    the H2D source) and its numpy view (`array`), plus the caller's
+    requested length. Return it with release() so the next chunk reuses
+    the allocation."""
+
+    __slots__ = ("tensor", "array", "nbytes", "_pool", "_cached")
+
+    def __init__(self, tensor: torch.Tensor, nbytes: int,
+                 pool: "PinnedStagingPool", cached: bool):
+        self.tensor = tensor          # torch.uint8[capacity]
+        self.array = tensor.numpy()   # the same bytes, as numpy
+        self.nbytes = int(nbytes)     # live prefix the caller asked for
+        self._pool = pool
+        self._cached = cached         # counted against the pool budget
+
+    @property
+    def capacity(self) -> int:
+        return int(self.tensor.shape[0])
+
+    def view(self) -> memoryview:
+        """Writable view of the live prefix (readinto target)."""
+        return memoryview(self.array)[:self.nbytes]
+
+    def release(self):
+        self._pool.release(self)
+
+
+class PinnedStagingPool:
+    """Reusable size-bucketed host staging buffers for raw-chunk uploads
+    (reference: HostAlloc.scala pinned pool / PinnedMemoryPool).
+
+    Leases are pow2-bucketed; a released buffer waits in its bucket for
+    the next lease of that size. Cached bytes count against the global
+    host budget; when the pool is full (or the budget refuses), extra
+    leases are served as transient buffers that simply drop on release.
+    `pinned` selects page-locked buffers (CUDA sessions)."""
+
+    def __init__(self, max_bytes: int,
+                 manager: Optional[HostMemoryManager] = None,
+                 pinned: bool = False):
+        self.max_bytes = int(max_bytes)
+        self.pinned = bool(pinned)
+        self._manager = manager
+        self._free: Dict[int, List[torch.Tensor]] = {}
+        self._held = 0                       # cached bytes (free + leased)
+        self._lock = threading.Lock()
+        self.metrics = {"stagingPoolHits": 0, "stagingPoolMisses": 0,
+                        "stagingPoolTransient": 0,
+                        "stagingPoolHeldBytes": 0}
+
+    def acquire(self, nbytes: int) -> StagingBuffer:
+        cap = _staging_bucket(max(int(nbytes), 1))
+        with self._lock:
+            lst = self._free.get(cap)
+            if lst:
+                self.metrics["stagingPoolHits"] += 1
+                return StagingBuffer(lst.pop(), nbytes, self, True)
+            grow = self._held + cap <= self.max_bytes
+            if grow:
+                self._held += cap
+                self.metrics["stagingPoolHeldBytes"] = self._held
+                self.metrics["stagingPoolMisses"] += 1
+            else:
+                self.metrics["stagingPoolTransient"] += 1
+        if grow and self._manager is not None \
+                and not self._manager.try_reserve(cap):
+            # the host budget refused: serve this lease transient
+            with self._lock:
+                self._held -= cap
+                self.metrics["stagingPoolHeldBytes"] = self._held
+            grow = False
+        buf = torch.empty(cap, dtype=torch.uint8, pin_memory=self.pinned)
+        return StagingBuffer(buf, nbytes, self, grow)
+
+    def release(self, buf: StagingBuffer):
+        if not buf._cached:
+            return                            # transient: let GC take it
+        with self._lock:
+            self._free.setdefault(buf.capacity, []).append(buf.tensor)
+
+    def clear(self) -> int:
+        """Drop all cached free buffers, releasing their host budget.
+        Returns bytes freed (pressure-hook shape)."""
+        with self._lock:
+            drops = [(cap, len(lst)) for cap, lst in self._free.items()]
+            freed = sum(cap * n for cap, n in drops)
+            self._free.clear()
+            self._held -= freed
+            self.metrics["stagingPoolHeldBytes"] = self._held
+        if self._manager is not None:
+            for cap, n in drops:              # one reservation per buffer
+                for _ in range(n):
+                    self._manager.release(cap)
+        return freed
+
+    @property
+    def held_bytes(self) -> int:
+        with self._lock:
+            return self._held
+
+
+_STAGING: Dict[bool, PinnedStagingPool] = {}
+_GLOBAL: Optional[HostMemoryManager] = None
+_LOCK = threading.Lock()
+
+
+def host_manager(conf=None) -> HostMemoryManager:
+    """The process-wide host budget, sized by the first configured
+    caller (a conf-less first caller leaves it unlimited until one
+    comes)."""
+    from ..config import HOST_MEMORY_LIMIT
+    global _GLOBAL
+    with _LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = HostMemoryManager(
+                conf.get(HOST_MEMORY_LIMIT) if conf is not None else 0)
+        elif conf is not None and _GLOBAL.budget == 0:
+            _GLOBAL.budget = conf.get(HOST_MEMORY_LIMIT)
+        return _GLOBAL
+
+
+def staging_pool(conf=None, pinned: bool = False) -> PinnedStagingPool:
+    """The process-wide staging pool of pinned (CUDA sessions) or plain
+    (CPU sessions) buffers, sized once by its first configured caller;
+    conf-less callers get the default cap."""
+    from ..config import HOST_STAGING_POOL_BYTES
+    pinned = bool(pinned)
+    pool = _STAGING.get(pinned)
+    if pool is None:
+        cap = (conf.get(HOST_STAGING_POOL_BYTES) if conf is not None
+               else HOST_STAGING_POOL_BYTES.default)
+        mgr = host_manager(conf)          # takes _LOCK itself: call first
+        with _LOCK:
+            pool = _STAGING.setdefault(
+                pinned, PinnedStagingPool(cap, mgr, pinned=pinned))
+    return pool
