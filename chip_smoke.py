@@ -38,12 +38,17 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      kernel), kernel launches and host syncs per input batch;
  11. TPC-H Q3 (`tpch.q3(customer, orders, lineitem)`) over
      `create_dataframe` of customer (1.5M rows), orders (15M) and the
-     lineitem table, twice, at the default conf: both joins shuffled (two
-     `HashJoinExec` per partition, each over two `ShuffleExchangeExec`,
-     no broadcast), with the layers, the build paths each join's stream
-     batches took, and 0 partition-kernel launches (every exchange key is
-     int64); then the same query without its limit, whose every row is
-     checked;
+     lineitem table, twice, at the default conf: both joins planned
+     shuffled (each `HashJoinExec` per partition over two adaptive
+     readers of its `ShuffleExchangeExec`s), but for a join the stage
+     driver demoted, which must be a broadcast join over a
+     `BroadcastExchangeExec` of its shuffled build, one per demotion
+     record; the written plan (`WRITTEN_CONF`: reorder, adaptive
+     execution, reuse and the async build off) printed beside it; with
+     the layers, the build paths each join's stream batches took, the
+     adaptive decisions and 0 partition-kernel launches (every exchange
+     key is int64); then the same query without its limit, whose every
+     row is checked;
  12. Q3 with `sql.autoBroadcastJoinThreshold` at 4 GiB: both joins
      broadcast (two `BroadcastExchangeExec`);
  13. Q3 under torch.profiler: device busy share, device time by group
@@ -62,24 +67,47 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      1e-9 of a double threshold counted for Q11, Q17 and Q22, and Q15's
      second-best revenue beside its best);
  16-34. each of those queries (`workloads/tpch_queries.py`) over
-     `create_dataframe` of the eight tables at the default conf, twice,
-     each a fresh plan: the plan shape (broadcast and per-partition
-     joins, exchanges, aggregate modes), wall time, layers, each join's
-     build paths, host syncs, peak device memory, and the partition
-     kernel's launches, which must be more than 0, all of the vector
-     variant, where the plan exchanges on one int32 key (Q8's year can)
-     and 0 elsewhere (int64, string and tuple keys); the two runs of
-     each query with a double sum (Q8, Q9, Q11, Q14, Q15, Q17, Q22) must
-     be bit-equal;
+     `create_dataframe` of the eight tables at the default conf (join
+     reorder, adaptive execution, exchange reuse, the async broadcast
+     build), each a fresh plan, twice (the second run plans with the
+     calibration the first recorded), the pinned-host cache released
+     first: the plan shape that ran (broadcast and per-partition joins,
+     exchanges, aggregate modes) beside the written plan's, whether the
+     join order differs from the written one, both runs' plan
+     signatures, and per run the adaptive decisions (partitions before
+     and after, coalesced away, skew splits, demotions with their build
+     bytes; the plan held to them: `check_plan_decisions`), the reuse
+     hits, `broadcastBuildOverlapMs`, the stage driver's seconds, the
+     plan's signature, wall time, layers, each join's build paths, host syncs, peak device memory,
+     peak host RSS, the pinned-host bytes cached after the run, and the
+     partition kernel's launches, which must be more than 0, all of the
+     vector variant, where the plan exchanges on one int32 key and 0
+     elsewhere (int64, string and tuple keys); the two runs of each query
+     with a double sum (Q8, Q9, Q11, Q14, Q15, Q17, Q22) must be
+     bit-equal when their signatures agree, and where calibration changed
+     the second run's plan a third run must repeat it and the second
+     run's bits;
  35. Q5, the longest join chain, and Q13 (LIKE over o_comment, a left
      join, two aggregates) under torch.profiler;
- 36. a conditional hash join, orders (15M rows) with customer on the key
+ 36. a skewed join: lineitem's l_orderkey, l_partkey and
+     l_extendedprice, l_partkey set to 1 on every even l_orderkey (about
+     30M rows on one key, one reduce partition several times the
+     median), inner-joined with part's p_partkey and p_retailprice (over
+     the broadcast threshold: shuffled, not demoted), then an ungrouped
+     count and sum of l_extendedprice, equal to numpy's; the stream
+     reader must report `aqeSkewSplits` > 0;
+ 37. a conditional hash join, orders (15M rows) with customer on the key
      and `o_totalprice > c_acctbal * 10`, checked against numpy;
- 37. a nested-loop join, customer (1.5M rows) with nation (25) on
+ 38. a nested-loop join, customer (1.5M rows) with nation (25) on
      `condition=c_nationkey == n_nationkey` alone (37.5M pairs in
      chunks of about 2^20), whose rows must equal the equi-join's and
-     numpy's.
- 38. the device Parquet decode: gen_all's lineitem (its 15 columns) as
+     numpy's;
+ 39-60. the written plans: all 22 queries over the same tables, once
+     each, with `WRITTEN_CONF` (the four features off: joins in the
+     written order, fixed partitions, no reuse, each build before its
+     probe), each checked against its exact reference (Q1, Q3 and Q6
+     too), with the same numbers per run;
+ 61. the device Parquet decode: gen_all's lineitem (its 15 columns) as
      16 files in Spark's layout (INT64/INT32 decimals, snappy, v1 pages,
      dictionary, 1,048,576-row row groups); Q6 and Q1 over them twice
      each, fresh plans, with device decode on (the card's default) and
@@ -935,6 +963,7 @@ def q1_phases(session, lineitem, parquet_dir, q1_expect,
         check_devices(devs, dev)
         batches = int(layers.get("inputBatches", 0))
         return {"wall_s": wall, "rows_per_s": rows / wall,
+                **adaptive_info(q),
                 "layers_s": layers, "input_batches": batches,
                 "host_syncs": syncs,
                 "host_syncs_per_batch": syncs / max(batches, 1),
@@ -1229,30 +1258,56 @@ def plan_nodes(root) -> list:
     return out
 
 
+def _input_name(node) -> str:
+    """A join input's class; an adaptive reader with its exchange's."""
+    name = type(node).__name__
+    if name == "AQEShuffleReadExec":
+        return f"{name}({type(node.children[0]).__name__})"
+    return name
+
+
 def q3_plan_shape(root) -> dict:
     """The join topology of a Q3 plan: each HashJoinExec's mode and its
     children's classes, and the count of broadcast exchanges."""
     joins = [{"per_partition": j.per_partition,
-              "children": [type(c).__name__ for c in j.children]}
+              "children": [_input_name(c) for c in j.children]}
              for j in plan_nodes(root) if type(j).__name__ == "HashJoinExec"]
     n_bcast = sum(type(x).__name__ == "BroadcastExchangeExec"
                   for x in plan_nodes(root))
     return {"joins": joins, "broadcast_exchanges": n_bcast}
 
 
-def check_q3_plan(root, shuffled: bool):
+#: a shuffled join's input: an exchange, behind an adaptive reader when
+#: the adaptive features are on
+SHUFFLED_INPUTS = ("ShuffleExchangeExec",
+                   "AQEShuffleReadExec(ShuffleExchangeExec)")
+
+
+def check_q3_plan(root, shuffled: bool, decisions=()):
+    """Q3's two joins broadcast, or planned shuffled: then each is per
+    partition over two exchanges of one kind, except the joins that the
+    stage driver demoted (`decisions`), each a broadcast join over a
+    BroadcastExchangeExec of its shuffled build."""
     shape = q3_plan_shape(root)
+    demoted = sum(d["rule"] == "demote_broadcast_join" for d in decisions)
     if shuffled:
-        want = {"joins": [{"per_partition": True,
-                           "children": ["ShuffleExchangeExec"] * 2}] * 2,
-                "broadcast_exchanges": 0}
+        joins = shape["joins"]
+        ok = (len(joins) == 2 and shape["broadcast_exchanges"] == demoted
+              and sum(not j["per_partition"] for j in joins) == demoted)
+        for j in joins:
+            kids = j["children"]
+            if j["per_partition"]:
+                ok = ok and kids[0] == kids[1] and kids[0] in SHUFFLED_INPUTS
+            else:
+                ok = ok and kids[1] == "BroadcastExchangeExec"
     else:
         want = {"joins": [{"per_partition": False,
                            "children": [None, "BroadcastExchangeExec"]}] * 2,
                 "broadcast_exchanges": 2}
         for j in shape["joins"]:
             j["children"][0] = None
-    if shape != want:
+        ok = shape == want
+    if not ok:
         raise AssertionError(f"Q3 plan {q3_plan_shape(root)}, expected "
                              f"{'shuffled' if shuffled else 'broadcast'} "
                              f"joins")
@@ -1271,6 +1326,201 @@ def per_node_metrics(q) -> dict:
         if m:
             out[f"{name}#{seen[name]}"] = m
     return out
+
+
+#: the four adaptive-planning features off (the JAX keys): the plans
+#: the port made before they were ported, each join in the order the
+#: DataFrame wrote it, fixed partitions, no reuse, the build first
+WRITTEN_CONF = {
+    "spark.rapids.tpu.sql.optimizer.joinReorder.enabled": False,
+    "spark.rapids.tpu.sql.adaptive.enabled": False,
+    "spark.rapids.tpu.sql.exec.exchange.reuse.enabled": False,
+    "spark.rapids.tpu.sql.exec.exchange.asyncBroadcast.enabled": False}
+
+
+def written_session(session):
+    """A session on the same device and conf with WRITTEN_CONF on top."""
+    from spark_rapids_tpu_torch import TpuSession
+    return TpuSession(dict(session.conf._settings, **WRITTEN_CONF),
+                      device=session.device)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class HostRss:
+    """The process's peak resident host memory over a block, sampled
+    every `interval` seconds by a thread (Linux /proc)."""
+
+    def __init__(self, interval=0.005):
+        import threading
+        self.interval = interval
+        self.start = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __enter__(self):
+        self.start = self.peak = _rss_bytes()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+
+def _gensym_free(e) -> str:
+    return re.sub(r"__join_r\d+_", "", repr(e))
+
+
+def plan_signature(root) -> str:
+    """A hash of the physical plan that ran: each node's class, a join's
+    kind, topology and keys, an aggregate's mode, an exchange's count, an
+    adaptive reader's role and task groups, a reused exchange's target.
+    Two runs with one signature ran one plan."""
+    import hashlib
+
+    def walk(n):
+        parts = [type(n).__name__]
+        for a in ("how", "per_partition", "mode", "n", "role"):
+            if hasattr(n, a):
+                parts.append(f"{a}={getattr(n, a)}")
+        for a in ("lkeys", "rkeys", "keys"):
+            if getattr(n, a, None):
+                parts.append(f"{a}={[_gensym_free(k) for k in getattr(n, a)]}")
+        plan = getattr(n, "plan", None)
+        if plan is not None and hasattr(plan, "groups"):
+            parts.append(f"groups={plan._groups}")
+        if hasattr(n, "target"):
+            parts.append("target=" + walk(n.target))
+        return "(" + " ".join(parts + [walk(c) for c in n.children]) + ")"
+    return hashlib.sha1(walk(root).encode()).hexdigest()[:16]
+
+
+def aqe_summary(decisions) -> dict:
+    """A run's adaptive decisions, summed: the re-planned stages, their
+    partitions before and after, those coalesced away, the skewed
+    partitions and their slices, and each demoted join's build bytes."""
+    reads = [d for d in decisions if d["rule"] == "shuffle_read"]
+    dem = [d for d in decisions if d["rule"] == "demote_broadcast_join"]
+    return {"stages": len(reads),
+            "partitions_before": sum(d["partitions_before"] for d in reads),
+            "partitions_after": sum(d["partitions_after"] for d in reads),
+            "coalesced_away": sum(d["coalesced_away"] for d in reads),
+            "skewed_partitions": sum(d["skewed_partitions"] for d in reads),
+            "skew_splits": sum(d["split_slices"] for d in reads),
+            "demotions": len(dem),
+            "demoted_build_bytes": [d["build_bytes"] for d in dem]}
+
+
+def check_plan_decisions(root, decisions, what) -> dict:
+    """The plan that ran against the decisions: each demoted join a
+    broadcast join over a BroadcastExchangeExec of the build's shuffle,
+    one per demotion record; each per-partition join over two adaptive
+    readers of one shared re-plan (or two exchanges, adaptive off); each
+    re-plan's decision record in the list, its task groups as many as it
+    says; the reused exchanges as many as the root's hit count. Returns
+    the summary."""
+    nodes = plan_nodes(root)
+    names = [type(x).__name__ for x in nodes]
+    joins = [x for x in nodes if type(x).__name__ == "HashJoinExec"]
+    demoted = [j for j in joins if getattr(j, "_aqe_demoted", None)]
+    summary = aqe_summary(decisions)
+    if len(demoted) != summary["demotions"]:
+        raise AssertionError(f"{what}: {len(demoted)} demoted joins, "
+                             f"{summary['demotions']} demotion records")
+    for j in demoted:
+        b = j.children[1]
+        if j.per_partition or type(b).__name__ != "BroadcastExchangeExec" \
+                or type(b.children[0]).__name__ not in (
+                    "ShuffleExchangeExec", "ReusedExchangeExec"):
+            raise AssertionError(f"{what}: a demoted join's plan")
+    for j in joins:
+        if not j.per_partition:
+            continue
+        kinds = [type(c).__name__ for c in j.children]
+        if kinds == ["AQEShuffleReadExec"] * 2:
+            if j.children[0].plan is not j.children[1].plan or \
+                    [c.role for c in j.children] != ["stream", "build"]:
+                raise AssertionError(f"{what}: a shuffled join's readers")
+        elif kinds != ["ShuffleExchangeExec"] * 2:
+            raise AssertionError(f"{what}: a shuffled join over {kinds}")
+    plans = {id(x.plan): x.plan for x in nodes
+             if type(x).__name__ == "AQEShuffleReadExec"}
+    recorded = [d for d in decisions if d["rule"] == "shuffle_read"]
+    if len(plans) != len(recorded) or any(
+            p.decision is None or p.decision not in recorded
+            or p.decision["partitions_after"] != len(p._groups)
+            for p in plans.values()):
+        raise AssertionError(f"{what}: the re-plans and their records")
+    hits = getattr(root, "exchange_reuse_hits", 0)
+    if names.count("ReusedExchangeExec") != hits:
+        raise AssertionError(f"{what}: {names.count('ReusedExchangeExec')}"
+                             f" reused exchanges, {hits} reuse hits")
+    return summary
+
+
+def join_leaves(plan) -> list:
+    """The leaf relations of a logical plan's joins, left to right, each
+    as its sorted column names."""
+    out = []
+
+    def walk(n):
+        if type(n).__name__ == "Join":
+            walk(n.children[0])
+            walk(n.children[1])
+        elif n.children:
+            for c in n.children:
+                walk(c)
+        else:
+            out.append(tuple(sorted(n.schema.names)))
+    walk(plan)
+    return out
+
+
+def join_order_differs(q) -> bool:
+    """Whether the session's optimizer orders q's joins other than the
+    DataFrame wrote them."""
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.plan.optimizer import optimize
+    conf = q._session.conf
+    written = TpuConf(dict(conf._settings, **WRITTEN_CONF))
+    return join_leaves(optimize(q._plan, conf)) != \
+        join_leaves(optimize(q._plan, written))
+
+
+def written_plan(q):
+    """q's plan with WRITTEN_CONF (planned, not run)."""
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.plan.planner import Planner
+    return Planner(TpuConf(dict(q._session.conf._settings,
+                                **WRITTEN_CONF))).plan(q._plan)
+
+
+def adaptive_info(q, root=None) -> dict:
+    """The adaptive side of a finished run: its decisions (checked
+    against the plan), the reuse hits, the async builds' overlap and the
+    stage driver's seconds."""
+    root = q.last_plan() if root is None else root
+    decisions = q.last_aqe_decisions()
+    mets = q.last_metrics()
+    return {"aqe": check_plan_decisions(root, decisions, "the plan"),
+            "reuse_hits": getattr(root, "exchange_reuse_hits", 0),
+            "broadcast_build_overlap_ms": sum(
+                m.get("broadcastBuildOverlapMs", 0) for m in mets.values()),
+            "broadcast_timeout_fallbacks": sum(
+                m.get("broadcastTimeoutFallbacks", 0)
+                for m in mets.values()),
+            "stage_driver_s": mets.get(root._op_id, {}).get(
+                "stageDriverTime", 0.0),
+            "plan_signature": plan_signature(root)}
 
 
 def q3_query(tpch, session, tables, limit=True):
@@ -1308,7 +1558,8 @@ def q3_phases(session, tables, expect, profile=True) -> dict:
                    "scalar": pk.scalar_launches}
         check(out, expect, what)
         check_devices(devs, dev)
-        shape = check_q3_plan(q.last_plan(), shuffled)
+        shape = check_q3_plan(q.last_plan(), shuffled,
+                              q.last_aqe_decisions())
         if got["all"]:
             raise AssertionError(f"Q3 over {what}: partition kernel "
                                  f"launched {got}; every key is int64")
@@ -1322,6 +1573,8 @@ def q3_phases(session, tables, expect, profile=True) -> dict:
                 "input_batches": batches, "host_syncs": syncs,
                 "host_syncs_per_batch": syncs / max(batches, 1),
                 "partition_kernel_launches": got, "plan": shape,
+                "written_plan": q3_plan_shape(written_plan(q)),
+                **adaptive_info(q),
                 "pinned_host_over_map_side": probe.host,
                 "batch_tensors_by_device": dict(devs.seen)}, got
 
@@ -2254,12 +2507,93 @@ def run_counted(q, device, what):
         "nodes": per_node_metrics(q)}
 
 
-def tpch_phases(session, tables, expects, runs=2,
-                queries=TPCH_QUERIES) -> dict:
+#: every query of the written-plan pass: Q1, Q3 and Q6 with the rest
+ALL_QUERIES = tuple(sorted((1, 3, 6) + TPCH_QUERIES))
+
+
+def query_of(n, session, tables):
+    """Query n over create_dataframe of gen_all's tables: Q1 sorted by its
+    keys, Q3 with its limit, Q6, or `tpch_query`."""
+    from spark_rapids_tpu_torch.workloads import tpch
+    if n == 1:
+        return sorted_q1(tpch, session.create_dataframe(tables["lineitem"]))
+    if n == 3:
+        return tpch.q3(*(session.create_dataframe(tables[k])
+                         for k in ("customer", "orders", "lineitem")))
+    if n == 6:
+        return tpch.q6(session.create_dataframe(tables["lineitem"]))
+    return tpch_query(n, session, tables)
+
+
+def check_query(n, out, expect, what):
+    if n == 1:
+        check_q1(out, expect, what)
+    elif n == 3:
+        check_q3_top(out, expect, what)
+    elif n == 6:
+        check_revenue(out, expect, what)
+    else:
+        check_tpch(n, out, expect, what)
+
+
+def query_run(n, session, tables, expects, label):
+    """One fresh run of query n, checked: (result, the run's numbers,
+    the DataFrame)."""
+    q = query_of(n, session, tables)
+    with HostRss() as rss:
+        out, info = run_counted(q, session.device, n)
+    check_query(n, out, expects[n], f"{label} conf")
+    nodes = info.pop("nodes")
+    layers = info["layers_s"]
+    info["layers_s"] = {k: layers[k] for k in Q3_LAYERS if k in layers}
+    info["join_paths"] = {k: {p: v.get(p, 0) for p in JOIN_PATHS}
+                          for k, v in nodes.items()
+                          if k.startswith("HashJoinExec")}
+    info.update(adaptive_info(q))
+    info["peak_host_rss_bytes"] = rss.peak
+    info["host_rss_before_bytes"] = rss.start
+    info["pinned_host_bytes"] = pinned_host_bytes()
+    return out, info, q
+
+
+def pinned_host_bytes():
+    """The bytes the CUDA pinned-host caching allocator holds (None off
+    the card): freed pinned buffers stay cached, and count in RSS."""
+    import torch
+    if not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.host_memory_stats().get("allocated_bytes.current")
+
+
+def release_pinned_cache(what):
+    """Return the pinned-host allocator's cached buffers to the system
+    between phases, printing the pinned bytes and RSS before and after
+    (a no-op off the card or where torch has no such call)."""
+    import torch
+    before, rss0 = pinned_host_bytes(), _rss_bytes()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if before is not None and empty is not None:
+        gc.collect()
+        empty()
+    emit({"phase": "pinned_host_cache", "before": what,
+          "pinned_bytes_before": before,
+          "pinned_bytes_after": pinned_host_bytes(),
+          "rss_bytes_before": rss0, "rss_bytes_after": _rss_bytes()})
+
+
+def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
+                label="tpch", profile=True) -> dict:
     """One phase per query (each run a fresh plan; the partition kernel's
     launches counted from 0 and held to the plan's int32 exchanges; the
-    runs of a query with a double sum bit-equal), then Q5 and Q13 under
-    torch.profiler. Returns the partition kernel's launches per path."""
+    plan held to its adaptive decisions), then, with `profile`, Q5 and
+    Q13 under torch.profiler. Each phase prints the plan that ran beside
+    the written one (WRITTEN_CONF), whether the join order differs from
+    the written one, and per run the decisions, reuse hits, the async
+    builds' overlap, the plan's signature, peak device memory and peak
+    host RSS. The runs of a query with a double sum must be bit-equal
+    when they ran one plan; where calibration changed the second run's
+    plan, a third run must repeat that plan and the second run's bits.
+    Returns the partition kernel's launches per path."""
     dev = session.device
     per = session.conf.batch_size_rows
     batches = sum(-(-t.num_rows // per) for t in tables.values())
@@ -2267,29 +2601,38 @@ def tpch_phases(session, tables, expects, runs=2,
     for n in queries:
         out_runs, outs = [], []
         for _ in range(runs):
-            q = tpch_query(n, session, tables)
-            out, info = run_counted(q, dev, n)
-            check_tpch(n, out, expects[n], "default conf")
+            out, info, q = query_run(n, session, tables, expects, label)
             outs.append(out)
-            layers, nodes = info["layers_s"], info.pop("nodes")
-            info["layers_s"] = {k: layers[k] for k in Q3_LAYERS
-                                if k in layers}
-            info["join_paths"] = {k: {p: v.get(p, 0) for p in JOIN_PATHS}
-                                  for k, v in nodes.items()
-                                  if k.startswith("HashJoinExec")}
             out_runs.append(info)
-        launches[f"q{n}"] = info["partition_kernel_launches"]
-        bit_equal = None
-        if n in TPCH_DOUBLE_QUERIES and runs > 1:
-            bit_equal = all(same_bits(outs[0], o) for o in outs[1:])
+        launches[f"{label}_q{n}" if label != "tpch" else f"q{n}"] = \
+            info["partition_kernel_launches"]
+        bit_equal = recheck = None
+        sigs = [r["plan_signature"] for r in out_runs]
+        if n in TPCH_DOUBLE_QUERIES and len(out_runs) > 1:
+            if sigs[0] == sigs[1]:
+                bit_equal = same_bits(outs[0], outs[1])
+            else:
+                # calibration changed the plan: run that plan again
+                out, info, q = query_run(n, session, tables, expects,
+                                          label)
+                if info["plan_signature"] != sigs[1]:
+                    raise AssertionError(f"Q{n}: the third run's plan "
+                                         f"differs from the second's")
+                out_runs.append(info)
+                recheck = True
+                bit_equal = same_bits(outs[1], out)
             if not bit_equal:
                 raise AssertionError(f"Q{n}: the runs' doubles differ")
-        emit({"phase": f"tpch_q{n}", "plan": tpch_plan_shape(q.last_plan()),
-              "int32_exchanges": int32_exchanges(q.last_plan()),
+        root = q.last_plan()
+        emit({"phase": f"{label}_q{n}", "plan": tpch_plan_shape(root),
+              "written_plan": tpch_plan_shape(written_plan(q)),
+              "join_order_differs": join_order_differs(q),
+              "plan_signatures": sigs,
+              "int32_exchanges": int32_exchanges(root),
               "input_batches": batches, "runs_bit_equal": bit_equal,
-              "runs": out_runs})
+              "third_run_after_calibration": recheck, "runs": out_runs})
     for n, groups in ((5, Q3_GROUPS), (13, Q13_GROUPS)):
-        if n not in queries:
+        if not profile or n not in queries:
             continue
         torch_peak_reset(dev)
         out, prof = profiled_query(tpch_query(n, session, tables), dev,
@@ -2298,6 +2641,68 @@ def tpch_phases(session, tables, expects, runs=2,
         emit({"phase": f"tpch_q{n}_profiled",
               "peak_device_bytes": torch_peak(dev), **prof})
     return launches
+
+
+#: the skewed join's hot key: every even l_orderkey's l_partkey
+SKEW_KEY = 1
+
+
+def skew_join_phase(session, tables) -> dict:
+    """A join the adaptive skew split must split: lineitem's l_orderkey,
+    l_partkey and l_extendedprice, l_partkey set to SKEW_KEY on every
+    even l_orderkey (about half the rows on one key, one reduce
+    partition several times the median), inner-joined with part's
+    p_partkey and p_retailprice on the key (a build over the broadcast
+    threshold: shuffled, not demoted), then an ungrouped count and sum
+    of l_extendedprice, which must equal numpy's. The stream reader must
+    report aqeSkewSplits > 0. Returns the partition kernel's
+    launches."""
+    import numpy as np
+    import pyarrow as pa
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.expr.expressions import col
+    li, part = tables["lineitem"], tables["part"]
+    okey = _col(li, "l_orderkey")
+    pkey = np.where(okey % 2 == 0, SKEW_KEY, _col(li, "l_partkey"))
+    stream = pa.table({"l_orderkey": li.column("l_orderkey"),
+                       "l_partkey": pa.array(pkey),
+                       "l_extendedprice": li.column("l_extendedprice")})
+    pkeys = _col(part, "p_partkey")
+    hit = np.isin(pkey, pkeys)
+    want_n = int(hit.sum())
+    want_sum = int(unscaled(li, "l_extendedprice")[hit].sum())
+    s = session.create_dataframe(stream)
+    b = session.create_dataframe(part.select(["p_partkey",
+                                              "p_retailprice"]))
+    q = s.join(b, on=col("l_partkey") == col("p_partkey")).agg(
+        F.count("l_orderkey").alias("n"),
+        F.sum("l_extendedprice").alias("revenue"))
+    with HostRss() as rss:
+        out, info = run_counted(q, session.device, "the skewed join")
+    got_n = out.column("n").to_pylist()[0]
+    got_sum = int(out.column("revenue").to_pylist()[0].scaleb(2))
+    if (got_n, got_sum) != (want_n, want_sum):
+        raise AssertionError(f"the skewed join: ({got_n}, {got_sum}), "
+                             f"numpy ({want_n}, {want_sum})")
+    info.update(adaptive_info(q))
+    nodes = info.pop("nodes")
+    splits = max((m.get("aqeSkewSplits", 0) for m in nodes.values()),
+                 default=0)
+    if not splits or info["aqe"]["skew_splits"] != splits:
+        raise AssertionError(f"the skewed join: aqeSkewSplits {splits}, "
+                             f"decisions {info['aqe']}")
+    if info["aqe"]["demotions"]:
+        raise AssertionError("the skewed join was demoted")
+    reads = [d for d in q.last_aqe_decisions()
+             if d["rule"] == "shuffle_read"]
+    emit({"phase": "skewed_join", "stream_rows": li.num_rows,
+          "hot_key_rows": int((pkey == SKEW_KEY).sum()),
+          "build_rows": part.num_rows, "rows": want_n,
+          "aqe_skew_splits": splits, "decisions": reads,
+          "exchanges": {k: v for k, v in nodes.items()
+                        if k.startswith("ShuffleExchangeExec")},
+          "peak_host_rss_bytes": rss.peak, **info})
+    return {"skewed_join": info["partition_kernel_launches"]}
 
 
 def _join_run(q, device, what):
@@ -2894,7 +3299,9 @@ def main() -> int:
     gc.collect()
     double_sum_repeat(session.device)
     tpch_tables, tpch_expects = tpch_data(SF)
+    release_pinned_cache("the adaptive pass")
     by_path.update(tpch_phases(session, tpch_tables, tpch_expects))
+    by_path.update(skew_join_phase(session, tpch_tables))
     by_path.update(join_condition_phases(session, tpch_tables))
     li = tpch_tables["lineitem"]
     t0 = time.perf_counter()
@@ -2902,9 +3309,18 @@ def main() -> int:
         li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),
         unscaled(li, "l_quantity"), unscaled(li, "l_extendedprice"))
     q1_full_expect = q1_reference(li)
-    emit({"phase": "parquet_device_decode_data", "rows": li.num_rows,
+    q3_full_expect = q3_reference(*(tpch_tables[k] for k in (
+        "customer", "orders", "lineitem")))
+    emit({"phase": "written_plans_data", "rows": li.num_rows,
           "reference_s": time.perf_counter() - t0,
           "q6_expected_unscaled": q6_expect})
+    release_pinned_cache("the written-plan pass")
+    by_path.update(tpch_phases(
+        written_session(session), tpch_tables,
+        {**tpch_expects, 1: q1_full_expect, 3: q3_full_expect,
+         6: q6_expect},
+        runs=1, queries=ALL_QUERIES, label="written", profile=False))
+    release_pinned_cache("the device Parquet decode")
     parquet_decode_phases(session.device, {"spark.rapids.tpu.sql."
                                            "batchSizeRows": BATCH_ROWS},
                           li, q6_expect, q1_full_expect)

@@ -16,7 +16,14 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "DISTINCT_AGG_REWRITE", "MULTITHREADED_READ_THREADS",
            "PARQUET_DEVICE_DECODE", "PARQUET_DEVICE_SNAPPY",
            "HOST_STAGING_POOL_BYTES", "HOST_MEMORY_LIMIT",
-           "FILECACHE_ENABLED", "FILECACHE_DIR", "FILECACHE_MAX_BYTES"]
+           "FILECACHE_ENABLED", "FILECACHE_DIR", "FILECACHE_MAX_BYTES",
+           "JOIN_REORDER_ENABLED", "JOIN_REORDER_DP_RELATIONS",
+           "ADAPTIVE_ENABLED", "ADAPTIVE_TARGET_BYTES",
+           "ADAPTIVE_SKEW_ENABLED", "ADAPTIVE_SKEW_FACTOR",
+           "ADAPTIVE_SKEW_MIN_BYTES", "ADAPTIVE_COALESCE_ENABLED",
+           "ADAPTIVE_DEMOTE_ENABLED", "ADAPTIVE_CALIBRATION",
+           "EXCHANGE_REUSE", "EXCHANGE_ASYNC_BROADCAST",
+           "EXCHANGE_BROADCAST_TIMEOUT"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -151,6 +158,82 @@ DISTINCT_AGG_REWRITE = _conf(
     "(keys..., x) then an outer Count. Both levels run the bucketed "
     "hash-aggregate pass (incl. hash-once string keying) instead of "
     "CollectAggExec's full multi-chunk lexsort.", bool)
+
+JOIN_REORDER_ENABLED = _conf(
+    "sql.optimizer.joinReorder.enabled", True,
+    "Cost-based join reordering (analog of Catalyst's "
+    "CostBasedJoinReorder): maximal chains of INNER equi-joins are "
+    "reordered into the left-deep order minimizing estimated "
+    "intermediate cardinalities, from bottom-up row/NDV estimates "
+    "(sampled scan statistics, Chao1 extrapolation). Outer, semi, "
+    "anti and cross joins and non-equi conditions are never reordered "
+    "across. The smaller estimated side of every join lands on the "
+    "build side.", bool)
+JOIN_REORDER_DP_RELATIONS = _conf(
+    "sql.optimizer.joinReorder.maxDpRelations", 8,
+    "Join chains with at most this many relations are ordered by exact "
+    "dynamic programming over left-deep orders (Selinger); larger "
+    "chains use a greedy min-intermediate-cardinality extension.", int)
+ADAPTIVE_ENABLED = _conf(
+    "sql.adaptive.enabled", True,
+    "Adaptive execution: every shuffle stage materializes before its "
+    "consumer runs, then its reduce partitions are re-planned "
+    "(coalesced, skew-split, or the join demoted to broadcast), and "
+    "observed cardinalities calibrate later plans.", bool)
+ADAPTIVE_TARGET_BYTES = _conf(
+    "sql.adaptive.advisoryPartitionSizeInBytes", 64 * 1024 * 1024,
+    "Advisory post-shuffle partition size: adjacent reduce partitions "
+    "smaller than this coalesce into one task.", int)
+ADAPTIVE_SKEW_FACTOR = _conf(
+    "sql.adaptive.skewJoin.skewedPartitionFactor", 5,
+    "A join stream partition is skewed when its bytes exceed this "
+    "factor times the median partition size (and the min threshold).",
+    int)
+ADAPTIVE_SKEW_MIN_BYTES = _conf(
+    "sql.adaptive.skewJoin.skewedPartitionThresholdInBytes",
+    256 * 1024 * 1024,
+    "Minimum bytes before a stream partition is considered skewed.", int)
+ADAPTIVE_COALESCE_ENABLED = _conf(
+    "sql.adaptive.coalescePartitions.enabled", True,
+    "Adaptive rule 1: merge small contiguous post-shuffle partitions "
+    "toward advisoryPartitionSizeInBytes. Off: one task per reduce "
+    "partition.", bool)
+ADAPTIVE_SKEW_ENABLED = _conf(
+    "sql.adaptive.skewJoin.enabled", True,
+    "Adaptive rule 2: split join stream partitions exceeding "
+    "skewedPartitionFactor x median (and the byte threshold) into "
+    "byte-balanced slices, each probing the full matching build "
+    "partition.", bool)
+ADAPTIVE_DEMOTE_ENABLED = _conf(
+    "sql.adaptive.joinDemotion.enabled", True,
+    "Adaptive rule 3: when a shuffled hash join's build side "
+    "materializes under autoBroadcastJoinThreshold, the join becomes a "
+    "broadcast hash join over the shuffled build and the stream side's "
+    "map phase never runs.", bool)
+ADAPTIVE_CALIBRATION = _conf(
+    "sql.adaptive.calibration.enabled", True,
+    "Feed observed output cardinalities back into plan/stats.py as a "
+    "process-wide calibration table keyed by structural plan "
+    "fingerprints, correcting the join reorder's row estimates for "
+    "later plans of the same subtrees.", bool)
+EXCHANGE_REUSE = _conf(
+    "sql.exec.exchange.reuse.enabled", True,
+    "Plan-level exchange deduplication (Spark's ReuseExchange rule): "
+    "structurally identical exchange subtrees become ReusedExchange "
+    "nodes sharing the first occurrence's materialization; hits are "
+    "exchangeReuseHits.", bool)
+EXCHANGE_ASYNC_BROADCAST = _conf(
+    "sql.exec.exchange.asyncBroadcast.enabled", True,
+    "Materialize a broadcast join's build side on a background thread "
+    "started when the join begins executing, so the build overlaps the "
+    "stream side's scan; the join waits for it, bounded by "
+    "broadcastTimeoutSecs.", bool)
+EXCHANGE_BROADCAST_TIMEOUT = _conf(
+    "sql.exec.exchange.broadcastTimeoutSecs", 300.0,
+    "Upper bound on the join's wait for an async broadcast build. On "
+    "timeout the join joins or re-runs the build on its own thread "
+    "(never two at once) and counts broadcastTimeoutFallbacks. 0 = "
+    "wait forever.", float)
 
 
 class TpuConf:

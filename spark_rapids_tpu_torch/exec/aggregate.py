@@ -183,6 +183,7 @@ class UngroupedAggExec(TpuExec):
         for a, s in zip(self.aggs, acc):
             v, ok = a.finalize(s)
             out.append(CV(v.reshape((1,) + tuple(v.shape)), ok.reshape(1)))
+        ctx.add_metric(self._op_id, "numOutputRows", 1)
         yield DeviceBatch(make_table(self.schema, out, 1), 1)
 
 

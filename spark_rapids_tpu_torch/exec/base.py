@@ -22,12 +22,16 @@ __all__ = ["TpuExec", "ExecContext", "OpMetrics", "collapse_fusable"]
 
 class ExecContext:
     """Per-query execution context: conf snapshot, device, metrics. A
-    scan's prefetch thread adds metrics beside the calling thread, so
-    every update holds a lock."""
+    scan's prefetch thread and a broadcast build's thread add metrics
+    beside the calling thread, so every update holds a lock. `planning`
+    marks the planner's probes (`num_partitions` at plan time), which
+    must not materialize an adaptive stage."""
 
-    def __init__(self, conf: TpuConf, device: torch.device):
+    def __init__(self, conf: TpuConf, device: torch.device,
+                 planning: bool = False):
         self.conf = conf
         self.device = device
+        self.planning = planning
         self.metrics: Dict[str, Dict[str, float]] = {}
         self._lock = threading.Lock()
 

@@ -12,9 +12,21 @@ copy, one batch per non-empty partition. This is the JAX package's data
 path with its shuffle files replaced by pieces held in this process's
 memory. A grouped aggregate's partial states (keys plus flat state
 columns) take the same path.
+
+The adaptive stage API (JAX `:292-319`): `stage_stats` materializes the
+map stage and returns the bytes of each reduce partition, and
+`read_slice` reads one byte-balanced slice of a reduce partition (whole
+pieces, as the JAX package reads whole serialized blocks; the slices of
+a partition cover it exactly once). The bytes are those of the host
+pieces this process holds, uncompressed; the JAX package counts its
+shuffle files' compressed serialized bytes (ROADMAP C.7), so a decision
+taken on them can differ between the packages on the same data, never
+the rows. The map phase runs once, under the exchange's lock, whichever
+thread (a broadcast build's included) asks first.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -40,8 +52,11 @@ class ShuffleExchangeExec(TpuExec):
         super().__init__([child], schema)
         self.n = num_partitions
         self.keys = list(bound_keys) if bound_keys else None
-        # per reduce partition: host pieces [(cols, rows)] in map order
+        # per reduce partition: host pieces [(cols, rows, bytes)] in map
+        # order, and the bytes of each reduce partition
         self._pieces: Optional[List[list]] = None
+        self._pstats: Optional[List[int]] = None
+        self._lock = threading.RLock()
 
     def num_partitions(self, ctx):
         return self.n
@@ -78,11 +93,15 @@ class ShuffleExchangeExec(TpuExec):
         return cols, next(host)
 
     def _ensure_shuffled(self, ctx: ExecContext):
-        if self._pieces is not None:
-            return
+        with self._lock:
+            if self._pieces is None:
+                self._run_map(ctx)
+
+    def _run_map(self, ctx: ExecContext):
         pieces: List[list] = [[] for _ in range(self.n)]
         child = self.children[0]
-        for mpid in range(child.num_partitions(ctx)):
+        nparts = child.num_partitions(ctx)
+        for mpid in range(nparts):
             for batch in child.execute_partition(ctx, mpid):
                 # ends in the D2H sync: absorbs the batch's device work
                 with ctx.timer(self._op_id, "mapTime"):
@@ -92,26 +111,68 @@ class ShuffleExchangeExec(TpuExec):
                     starts = np.concatenate([[0], np.cumsum(counts)])
                     for rp in np.flatnonzero(counts):
                         lo, hi = int(starts[rp]), int(starts[rp + 1])
-                        pieces[rp].append(([_slice(c, lo, hi)
-                                            for c in cols], hi - lo))
+                        sl = [_slice(c, lo, hi) for c in cols]
+                        pieces[rp].append((sl, hi - lo, _nbytes(sl)))
+        pstats = [sum(p[2] for p in subs) for subs in pieces]
+        m = ctx.metrics_for(self._op_id)
+        m.set("mapPartitionsExecuted", nparts)
+        m.set("shuffleBytesWritten", sum(pstats))
+        ordered = sorted(pstats)
+        m.set("shufflePartitionBytesMin", ordered[0])
+        m.set("shufflePartitionBytesMedian", ordered[len(ordered) // 2])
+        m.set("shufflePartitionBytesMax", ordered[-1])
+        self._pstats = pstats
         self._pieces = pieces
 
-    def execute_partition(self, ctx: ExecContext, pid: int):
+    # ---- adaptive stage API --------------------------------------------
+    def stage_stats(self, ctx: ExecContext) -> List[int]:
+        """Materialize the map stage; the bytes of each reduce partition
+        (the MapOutputStatistics analog)."""
         self._ensure_shuffled(ctx)
-        subs = self._pieces[pid]
-        total = sum(rows for _, rows in subs)
+        return self._pstats
+
+    def read_slice(self, ctx: ExecContext, rpid: int, chunk: int = 0,
+                   nchunks: int = 1) -> Optional[DeviceBatch]:
+        """Slice `chunk` of `nchunks` of reduce partition `rpid` as one
+        batch (None when it holds no rows): the pieces whose first byte
+        falls in the slice's byte range, so the slices of a partition
+        cover its pieces exactly once."""
+        self._ensure_shuffled(ctx)
+        subs = self._pieces[rpid]
+        if nchunks > 1:
+            total = self._pstats[rpid]
+            lo = total * chunk // nchunks
+            hi = total * (chunk + 1) // nchunks
+            sel, acc = [], 0
+            for p in subs:
+                if lo <= acc < hi:
+                    sel.append(p)
+                acc += p[2]
+            subs = sel
+        ctx.add_metric(self._op_id, "shuffleBytesRead",
+                       self._pstats[rpid] // max(nchunks, 1))
+        total = sum(rows for _, rows, _ in subs)
         if total == 0:
-            return
+            return None
         names = [buffer_names(f.dtype) for f in self.schema.fields]
         with ctx.timer(self._op_id, "reduceTime"):
             host = [a for j in range(len(names))
-                    for a in _concat([cols[j] for cols, _ in subs],
+                    for a in _concat([cols[j] for cols, _, _ in subs],
                                      names[j])]
             dev = iter(to_device(host, ctx.device))
         cols = [Column(f.dtype, total, *[next(dev) for _ in bs])
                 for f, bs in zip(self.schema.fields, names)]
-        yield DeviceBatch(Table(self.schema.names, cols), total,
-                          device=ctx.device)
+        return DeviceBatch(Table(self.schema.names, cols), total,
+                           device=ctx.device)
+
+    def execute_partition(self, ctx: ExecContext, pid: int):
+        batch = self.read_slice(ctx, pid)
+        if batch is not None:
+            yield batch
+
+
+def _nbytes(cols) -> int:
+    return sum(a.nbytes for c in cols for a in c.values())
 
 
 def _slice(col: dict, lo: int, hi: int) -> dict:

@@ -35,7 +35,17 @@ Right and full joins mark matched build rows across stream batches and
 end with one batch of the unmatched build rows, the left side null.
 
 Null keys never match; NaN matches NaN. A per-partition join (both
-children hash exchanges on the keys) joins each partition alone.
+children hash exchanges on the keys, or the adaptive readers of them)
+joins each partition alone; its partition count is its stream reader's,
+so a coalesced group joins as one partition and a skewed partition's
+slices each probe the whole build partition. The stage driver
+(`plan/aqe.py`) may demote a per-partition join: `per_partition` turns
+False and the children become the stream's pre-exchange subtree and a
+BroadcastExchangeExec over the shuffled build. A broadcast join starts
+its build on the build pool (`exec/broadcast.py`, JAX `:490-510`) and
+reads up to two stream batches while it runs, unless
+`sql.exec.exchange.asyncBroadcast.enabled` is off or the join itself
+runs on a build thread (a nested build runs inline).
 
 A join with a `condition` (JAX `_probe_cond`, `:923`) takes the direct
 build never: its sorted or count build gives every equal-key pair, both
@@ -55,13 +65,15 @@ over `sql.join.buildSideBudgetBytes` raises NotPorted here.
 """
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence
 
 import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.table import Schema
-from ..config import JOIN_BUILD_BUDGET
+from ..config import (EXCHANGE_ASYNC_BROADCAST, EXCHANGE_BROADCAST_TIMEOUT,
+                      JOIN_BUILD_BUDGET)
 from ..errors import NotPorted
 from ..expr.aggregates import seg_any
 from ..expr.expressions import EmitCtx, Expression
@@ -73,6 +85,7 @@ from ..utils import transfer
 from ..utils.transfer import fetch_int, fetch_ints
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, maybe_compact
+from .broadcast import BroadcastExchangeExec, on_build_pool
 from .nodes import make_table
 
 __all__ = ["HashJoinExec", "NestedLoopJoinExec"]
@@ -168,11 +181,32 @@ class HashJoinExec(TpuExec):
             yield from self._execute_cross(ctx)
             return
         left, right = self.children
-        build_pids = ([pid] if self.per_partition
-                      else range(right.num_partitions(ctx)))
-        with ctx.timer(self._op_id, "buildTime"):
-            bbatches = [b for bpid in build_pids
-                        for b in right.execute_partition(ctx, bpid)]
+        stream = (b for lpid in ([pid] if self.per_partition
+                                 else range(left.num_partitions(ctx)))
+                  for b in left.execute_partition(ctx, lpid))
+        if (not self.per_partition
+                and isinstance(right, BroadcastExchangeExec)
+                and ctx.conf.get(EXCHANGE_ASYNC_BROADCAST)
+                and not on_build_pool()):
+            # the build runs on a pool thread while this thread reads up
+            # to two stream batches ahead (JAX `join.py:490-510`)
+            right.submit_build(ctx)
+            ahead = []
+            while not right.build_done() and len(ahead) < 2:
+                b = next(stream, None)
+                if b is None:
+                    break
+                ahead.append(b)
+            with ctx.timer(self._op_id, "buildTime"):
+                bbatches = right.await_build(
+                    ctx, ctx.conf.get(EXCHANGE_BROADCAST_TIMEOUT))
+            stream = itertools.chain(ahead, stream)
+        else:
+            build_pids = ([pid] if self.per_partition
+                          else range(right.num_partitions(ctx)))
+            with ctx.timer(self._op_id, "buildTime"):
+                bbatches = [b for bpid in build_pids
+                            for b in right.execute_partition(ctx, bpid)]
         budget = ctx.conf.get(JOIN_BUILD_BUDGET)
         total = sum(b.nbytes for b in bbatches)
         if budget > 0 and total > budget:
@@ -180,9 +214,6 @@ class HashJoinExec(TpuExec):
                 f"a join build of {total} bytes, over "
                 f"sql.join.buildSideBudgetBytes ({budget}): the "
                 f"out-of-core sub-partitioned join")
-        stream = (b for lpid in ([pid] if self.per_partition
-                                 else range(left.num_partitions(ctx)))
-                  for b in left.execute_partition(ctx, lpid))
         yield from self._join_pass(ctx, bbatches, stream)
 
     def _join_pass(self, ctx: ExecContext, bbatches, stream_batches):

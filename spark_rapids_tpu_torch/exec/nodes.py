@@ -46,10 +46,13 @@ def make_table(schema: Schema, cvs: Sequence[CV], num_rows: int) -> Table:
 
 def _upload(ctx: ExecContext, op_id: str, at) -> DeviceBatch:
     """Host Arrow decode, then one copy to the device ("scanTime": host
-    seconds, the device copy only enqueued)."""
+    seconds, the device copy only enqueued). The rows, known on the host,
+    are `numOutputRows` (the calibration harvest reads it)."""
     with ctx.timer(op_id, "scanTime"):
-        return DeviceBatch(Table.from_arrow(at, ctx.device),
-                           num_rows=at.num_rows, device=ctx.device)
+        batch = DeviceBatch(Table.from_arrow(at, ctx.device),
+                            num_rows=at.num_rows, device=ctx.device)
+    ctx.add_metric(op_id, "numOutputRows", at.num_rows)
+    return batch
 
 
 # ----------------------------------------------------------------------

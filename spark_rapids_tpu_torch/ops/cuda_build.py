@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # loaded libraries, by kernel name: a shared library loads once per
 # process
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _tool(name: str) -> str:
@@ -88,11 +90,12 @@ def build(names: Sequence[str]) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+    with _LOAD_LOCK:   # an async broadcast build may be the first caller
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
     return lib
 
 

@@ -18,6 +18,7 @@ is noted at the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -38,6 +39,9 @@ _U64 = 2**64
 launches = 0
 vector_launches = 0
 scalar_launches = 0
+#: the counts are raised under a lock: an async broadcast build can
+#: exchange on its pool thread while the consumer exchanges on its own
+_COUNT_LOCK = threading.Lock()
 
 # ctypes launcher per variant, bound at first use
 _LAUNCHERS: dict = {}
@@ -139,9 +143,10 @@ def partition_ids_i32(vals: torch.Tensor, validity: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"partition_ids_i32 {kind} kernel launch failed: "
                            f"cudaError {rc}")
-    launches += 1
-    if kind == "vector":
-        vector_launches += 1
-    else:
-        scalar_launches += 1
+    with _COUNT_LOCK:
+        launches += 1
+        if kind == "vector":
+            vector_launches += 1
+        else:
+            scalar_launches += 1
     return out

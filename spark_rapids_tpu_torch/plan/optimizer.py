@@ -9,8 +9,10 @@ columns top-down through Project, Filter, Aggregate, Sort, Limit and
 Join, shrinks scans, and attaches a Parquet scan's row-group pruning
 conjuncts from the Filter directly above it; `rewrite_distinct_aggs`
 turns count(DISTINCT x) into two hash aggregates (on by
-`sql.optimizer.distinctAggRewrite.enabled`). The JAX package's join
-reorder is not ported.
+`sql.optimizer.distinctAggRewrite.enabled`); then `plan/cbo.py`
+`reorder_joins` reorders inner equi-join chains by cost (on by
+`sql.optimizer.joinReorder.enabled`). Without a conf, `optimize` runs
+neither.
 """
 from __future__ import annotations
 
@@ -316,7 +318,10 @@ def rewrite_distinct_aggs(plan: L.LogicalPlan) -> L.LogicalPlan:
 def optimize(plan: L.LogicalPlan, conf=None) -> L.LogicalPlan:
     plan = push_filters(plan)
     if conf is not None:
-        from ..config import DISTINCT_AGG_REWRITE
+        from ..config import DISTINCT_AGG_REWRITE, JOIN_REORDER_ENABLED
         if conf.get(DISTINCT_AGG_REWRITE):
             plan = rewrite_distinct_aggs(plan)
+        if conf.get(JOIN_REORDER_ENABLED):
+            from .cbo import reorder_joins
+            plan = reorder_joins(plan, conf)
     return prune(plan, None)

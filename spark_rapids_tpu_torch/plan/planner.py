@@ -11,17 +11,21 @@ shuffled hash join (both sides hash-exchanged on their keys, joined per
 partition); the estimate is the JAX planner's, from the scans' row
 counts and a fixed width per type, so the choice is the same.
 
-Where the JAX planner's defaults make a different plan with the same
-rows, the port does not emulate them:
-  - the AQE reader around a shuffled join's and an aggregate's exchanges
-    (`sql.adaptive.enabled`, JAX `planner.py:164`, `:425-431`), and so
-    its runtime demotion of a shuffled join to a broadcast one;
-  - join reordering (`sql.optimizer.joinReorder.enabled`, `plan/cbo.py`):
-    joins run in the order the DataFrame built them;
-  - the async broadcast build (`sql.exec.exchange.asyncBroadcast.enabled`,
-    JAX `exec/broadcast.py:99-165`): the build runs before the probe;
-  - stage fusion (`sql.exec.stageFusion.enabled`): each operator runs
-    its own ops.
+At the JAX package's defaults the plan is adaptive, as there
+(`sql.adaptive.enabled`): the exchange under a final aggregate and both
+exchanges of a shuffled join sit behind `AQEShuffleReadExec`s
+(`_aqe_wrap`), which the stage driver (`plan/aqe.py`) re-plans once each
+stage has run; splitting a skewed partition is allowed only under an
+inner, left, left semi or left anti join. Planning runs inside the
+calibration scope (`plan/stats.py`), so the optimizer's join reorder
+(`sql.optimizer.joinReorder.enabled`) reads observed cardinalities, and
+each converted node carries its logical fingerprints for the harvest
+after the run. The reuse pass (`plan/reuse.py`,
+`sql.exec.exchange.reuse.enabled`) runs last and leaves its hit count on
+the root as `exchange_reuse_hits`. Stage fusion
+(`sql.exec.stageFusion.enabled`) is not ported: each operator runs its
+own ops.
+
 A cross join without a condition is a broadcast hash join whatever the
 threshold (`how="cross"`); a condition with no equi keys is a
 `NestedLoopJoinExec`; any other condition rides the hash join. The
@@ -34,11 +38,16 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Type
 
-from ..config import (BATCH_SIZE_ROWS, BROADCAST_THRESHOLD, MESH_DEVICES,
-                      SHUFFLE_PARTITIONS, TpuConf)
+from ..config import (ADAPTIVE_CALIBRATION, ADAPTIVE_COALESCE_ENABLED,
+                      ADAPTIVE_ENABLED, ADAPTIVE_SKEW_ENABLED,
+                      ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_MIN_BYTES,
+                      ADAPTIVE_TARGET_BYTES, BATCH_SIZE_ROWS,
+                      BROADCAST_THRESHOLD, MESH_DEVICES, SHUFFLE_PARTITIONS,
+                      TpuConf)
 from ..errors import NotPorted
 from ..exec import nodes as x
 from ..exec.aggregate import HashAggregateExec, UngroupedAggExec
+from ..exec.aqe import AqeShufflePlan, AQEShuffleReadExec
 from ..exec.base import ExecContext, TpuExec
 from ..exec.broadcast import BroadcastExchangeExec
 from ..exec.join import HashJoinExec, NestedLoopJoinExec
@@ -48,6 +57,8 @@ from ..exec.sort import SortExec
 from ..expr.expressions import BoundRef, UnsupportedExpr
 from . import logical as L
 from .optimizer import optimize
+from .reuse import reuse_exchanges
+from .stats import attach_calibration_fps, calibration_scope
 
 __all__ = ["Planner"]
 
@@ -97,6 +108,28 @@ def _filter(node, conv, conf):
     return x.FilterExec(conv(node.child), node.bound)
 
 
+def _aqe_wrap(exchange, conf, allow_split=False, plan=None,
+              role="stream"):
+    """The exchange behind an adaptive reader when `sql.adaptive.enabled`
+    (JAX `planner.py:164-188`); a second exchange joins the first's
+    plan, so both sides of a join re-plan alike. Returns (node, plan)."""
+    if not conf.get(ADAPTIVE_ENABLED) or \
+            not isinstance(exchange, ShuffleExchangeExec):
+        return exchange, None
+    if plan is None:
+        plan = AqeShufflePlan([exchange],
+                              conf.get(ADAPTIVE_TARGET_BYTES),
+                              conf.get(ADAPTIVE_SKEW_FACTOR),
+                              conf.get(ADAPTIVE_SKEW_MIN_BYTES),
+                              allow_split
+                              and conf.get(ADAPTIVE_SKEW_ENABLED),
+                              allow_coalesce=conf.get(
+                                  ADAPTIVE_COALESCE_ENABLED))
+    else:
+        plan.exchanges.append(exchange)
+    return AQEShuffleReadExec(exchange, plan, role), plan
+
+
 @_rule(L.Aggregate)
 def _agg(node, conv, conf):
     child = conv(node.child)
@@ -113,7 +146,8 @@ def _agg(node, conv, conf):
     nparts = conf.get(SHUFFLE_PARTITIONS)
     if conf.get(MESH_DEVICES) > 1:
         raise NotPorted("mesh exchange (MeshExchangeExec)")
-    if child.num_partitions(ExecContext(conf, None)) > 1 and nparts > 1:
+    if child.num_partitions(ExecContext(conf, None, planning=True)) > 1 \
+            and nparts > 1:
         # partial per input partition (rows shrink to the group count),
         # exchange of the states on the keys, final merge per partition
         partial = HashAggregateExec(child, key_names, node.bound_keys,
@@ -123,6 +157,9 @@ def _agg(node, conv, conf):
                  for i, (k, f) in enumerate(
                      zip(node.bound_keys, partial.schema.fields))]
         exch = ShuffleExchangeExec(partial, nparts, pkeys, partial.schema)
+        # adaptive coalescing of small reduce partitions; splitting one
+        # would break its groups
+        exch, _ = _aqe_wrap(exch, conf, allow_split=False)
         return HashAggregateExec(exch, key_names, pkeys, names, aggs,
                                  node.schema, mode="final")
     return HashAggregateExec(child, key_names, node.bound_keys, names,
@@ -215,6 +252,13 @@ def _join(node, conv, conf):
                                   left.schema)
         rex = ShuffleExchangeExec(right, nparts, node.bound_right_keys,
                                   right.schema)
+        # a skewed stream partition may split only where each output row
+        # depends on one stream row and the whole build partition; a
+        # right or full join tracks the build's matches across it
+        allow_split = node.how in ("inner", "left", "left_semi",
+                                   "left_anti")
+        lex, plan = _aqe_wrap(lex, conf, allow_split=allow_split)
+        rex, _ = _aqe_wrap(rex, conf, plan=plan, role="build")
         return HashJoinExec(lex, rex, node.bound_left_keys,
                             node.bound_right_keys, node.how, node.schema,
                             per_partition=True, condition=cond)
@@ -237,10 +281,22 @@ class Planner:
         self.conf = conf
 
     def plan(self, root: L.LogicalPlan) -> TpuExec:
-        return self._convert(optimize(root, self.conf))
+        # calibration lookups (observed cardinalities of earlier runs)
+        # are live for the whole planning pass, join reorder included,
+        # and only there (JAX `planner.py:595-605`)
+        with calibration_scope(self.conf.get(ADAPTIVE_ENABLED)
+                               and self.conf.get(ADAPTIVE_CALIBRATION)):
+            root_exec = self._convert(optimize(root, self.conf))
+        # duplicate exchange subtrees collapse to ReusedExchange nodes
+        root_exec, hits = reuse_exchanges(root_exec, self.conf)
+        root_exec.exchange_reuse_hits = hits
+        return root_exec
 
     def _convert(self, node: L.LogicalPlan) -> TpuExec:
         rule = _RULES.get(type(node))
         if rule is None:
             raise NotPorted(f"plan node {node.node_name()}")
-        return rule(node, self._convert, self.conf)
+        out = rule(node, self._convert, self.conf)
+        # the harvest after the run keys observed rows by these
+        attach_calibration_fps(node, out)
+        return out

@@ -6,11 +6,15 @@ The same surface as the JAX package's `TpuSession` for the ported slice:
 an expression `on`, a non-equi `condition`, cross), `sort`, `limit`, `repartition`, `to_arrow` and `collect` on a
 DataFrame. A session runs on
 one torch device: CUDA unless the caller asks for another. Every action
-plans the logical tree afresh and executes it on that device.
+plans the logical tree afresh and executes it on that device: first the
+adaptive stage driver (`plan/aqe.py`), which materializes the shuffle
+stages and re-plans them, then the consumer; after it, the observed
+cardinalities go into the calibration table (`plan/stats.py`).
 """
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -24,7 +28,9 @@ from .expr.expressions import (Alias, BoundRef, Coalesce, Expression,
                                col)
 from .functions import _to_expr
 from .plan import logical as L
+from .plan.aqe import run_stage_driver
 from .plan.planner import Planner
+from .plan.stats import harvest_calibration
 
 __all__ = ["TpuSession", "DataFrame", "GroupedData"]
 
@@ -322,15 +328,39 @@ class DataFrame:
 
     def to_arrow(self):
         root, ctx = self.physical_plan()
-        out = collect_to_arrow(root, ctx)
-        self._last_metrics = ctx.metrics
+        # the stage driver: shuffle stages materialize and re-plan
+        # (coalesce, skew split, join demotion) before the consumer
+        # runs; a stage that fails fails the query
+        t0 = time.perf_counter()
+        decisions = run_stage_driver(root, ctx, self._session.conf)
+        ctx.set_metric(root._op_id, "stageDriverTime",
+                       time.perf_counter() - t0)
         self._last_plan = root
+        self._last_aqe_decisions = decisions
+        out = collect_to_arrow(root, ctx)
+        # the observed cardinalities close the adaptive loop; advisory,
+        # it never fails the query (JAX `session.py:1050-1069`)
+        try:
+            harvest_calibration(root, ctx)
+        except Exception:
+            pass
+        self._last_metrics = ctx.metrics
         return out
 
     def last_plan(self):
-        """The physical plan root of this DataFrame's most recent action:
-        its nodes' `_op_id`s key `last_metrics()`."""
+        """The physical plan root of this DataFrame's most recent action,
+        as it ran (a demoted join rewired): its nodes' `_op_id`s key
+        `last_metrics()`, and `exchange_reuse_hits` on it counts the
+        exchanges the reuse pass merged."""
         return getattr(self, "_last_plan", None)
+
+    def last_aqe_decisions(self) -> List[Dict]:
+        """The adaptive decisions of this DataFrame's most recent action:
+        one `shuffle_read` record per re-planned stage (partitions before
+        and after, coalesced away, skewed partitions and their slices)
+        and one `demote_broadcast_join` record per demoted join (its
+        build bytes and the threshold)."""
+        return getattr(self, "_last_aqe_decisions", [])
 
     def last_metrics(self) -> Dict[str, Dict[str, float]]:
         """Per-operator metrics of this DataFrame's most recent action:

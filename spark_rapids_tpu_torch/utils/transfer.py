@@ -6,10 +6,13 @@ live group counts). Each such read waits for the device. The port reads
 them here, and `syncs` counts them together with the other waits
 (`note_sync`: each D2H copy of `exec/batch.py` `to_host`, each
 `nonzero` of a compaction); it is a plain int that whoever measures sets
-to 0, so a run can report its host syncs per batch.
+to 0, so a run can report its host syncs per batch. It is raised under a
+lock: an async broadcast build syncs on its pool thread while the
+consumer syncs on its own.
 """
 from __future__ import annotations
 
+import threading
 from typing import Sequence, Tuple
 
 import torch
@@ -18,6 +21,7 @@ __all__ = ["fetch_int", "fetch_ints", "note_sync", "syncs"]
 
 #: host reads of device values since the count was last set to 0
 syncs = 0
+_LOCK = threading.Lock()
 
 
 def fetch_ints(values: Sequence[torch.Tensor]) -> Tuple[int, ...]:
@@ -35,7 +39,8 @@ def note_sync():
     """Count one host wait for the device made elsewhere (a D2H copy, a
     `nonzero`)."""
     global syncs
-    syncs += 1
+    with _LOCK:
+        syncs += 1
 
 
 def fetch_int(value: torch.Tensor) -> int:

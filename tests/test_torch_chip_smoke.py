@@ -161,8 +161,9 @@ def test_check_q1_accepts_the_port_and_rejects_faults(small_lineitem):
 
     import spark_rapids_tpu_torch as pt
     from spark_rapids_tpu_torch.workloads import tpch
-    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 1024},
-                      device="cpu")
+    # the written plan: the adaptive reader is off (its case below)
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 1024,
+                       **chip_smoke.WRITTEN_CONF}, device="cpu")
     q = chip_smoke.sorted_q1(tpch, s.create_dataframe(small_lineitem))
     assert chip_smoke.plan_chain(q)[:4] == [
         "SortExec", "HashAggregateExec[final]", "ShuffleExchangeExec",
@@ -178,6 +179,28 @@ def test_check_q1_accepts_the_port_and_rejects_faults(small_lineitem):
     with pytest.raises(AssertionError, match="group"):
         chip_smoke.check_q1(pa.Table.from_pylist(bad, out.schema), expect,
                             "off by one unit")
+
+
+def test_q1_adaptive_plan_coalesces_the_final_stage(small_lineitem):
+    """At the default conf the final aggregate reads its exchange through
+    an adaptive reader; the stage driver coalesces the small partial
+    states into one task, and the result is the reference's."""
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.workloads import tpch
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 1024},
+                      device="cpu")
+    q = chip_smoke.sorted_q1(tpch, s.create_dataframe(small_lineitem))
+    assert chip_smoke.plan_chain(q)[:5] == [
+        "SortExec", "HashAggregateExec[final]", "AQEShuffleReadExec",
+        "ShuffleExchangeExec", "HashAggregateExec[partial]"]
+    out = q.to_arrow()
+    chip_smoke.check_q1(out, chip_smoke.q1_reference(small_lineitem),
+                        "adaptive")
+    info = chip_smoke.adaptive_info(q)
+    assert info["aqe"]["stages"] == 1
+    assert info["aqe"]["partitions_before"] == 8
+    assert info["aqe"]["partitions_after"] == 1
+    assert info["aqe"]["coalesced_away"] == 7
 
 
 @pytest.mark.parametrize("num,den,want", [(7, 2, 4), (5, 2, 3), (4, 3, 1),
@@ -316,17 +339,48 @@ def test_check_q3_top_allows_ties_at_the_last_row():
 
 
 def test_q3_plan_shapes(q3_small):
+    # the written plans (the adaptive features off; their case below)
     tables, _ = q3_small
-    q, _ = _q3_port(tables, {})
+    q, _ = _q3_port(tables, dict(chip_smoke.WRITTEN_CONF))
     root = q.last_plan()
     assert chip_smoke.check_q3_plan(root, shuffled=False)[
         "broadcast_exchanges"] == 2
     with pytest.raises(AssertionError, match="shuffled"):
         chip_smoke.check_q3_plan(root, shuffled=True)
     q, _ = _q3_port(tables, {
-        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1})
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
+        **chip_smoke.WRITTEN_CONF})
     shape = chip_smoke.check_q3_plan(q.last_plan(), shuffled=True)
     assert [j["per_partition"] for j in shape["joins"]] == [True, True]
+    assert [j["children"] for j in shape["joins"]] == \
+        [["ShuffleExchangeExec"] * 2] * 2
+
+
+def test_q3_plan_shapes_adaptive(q3_small):
+    """At the default conf a shuffled join reads its exchanges through
+    adaptive readers; a join whose build materializes under the
+    threshold is demoted to a broadcast join over its shuffled build,
+    and check_q3_plan holds the plan to the decisions."""
+    tables, expect = q3_small
+    q, _ = _q3_port(tables, {
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1})
+    shape = chip_smoke.check_q3_plan(q.last_plan(), True,
+                                     q.last_aqe_decisions())
+    assert [j["children"] for j in shape["joins"]] == \
+        [["AQEShuffleReadExec(ShuffleExchangeExec)"] * 2] * 2
+    assert chip_smoke.adaptive_info(q)["aqe"]["demotions"] == 0
+    # a threshold under the orders' estimate but over their filtered
+    # rows: the inner join is demoted
+    q, got = _q3_port(tables, {
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 1 << 16})
+    chip_smoke.check_q3_top(got, expect, "demoted")
+    decisions = q.last_aqe_decisions()
+    shape = chip_smoke.check_q3_plan(q.last_plan(), True, decisions)
+    info = chip_smoke.adaptive_info(q)
+    assert info["aqe"]["demotions"] >= 1
+    assert shape["broadcast_exchanges"] == info["aqe"]["demotions"]
+    with pytest.raises(AssertionError, match="shuffled"):
+        chip_smoke.check_q3_plan(q.last_plan(), True, ())
 
 
 def test_q3_phases_rehearse_on_the_cpu(q3_small, capsys):
@@ -477,9 +531,10 @@ def test_tpch_phases_rehearse_on_the_cpu(tpch_small, capsys):
     import spark_rapids_tpu_torch as pt
     expects = {n: chip_smoke.tpch_reference(n, tpch_small)
                for n in chip_smoke.TPCH_QUERIES}
+    # the written plans (the adaptive features off; their case below)
     s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096,
                        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
-                       -1}, device="cpu")
+                       -1, **chip_smoke.WRITTEN_CONF}, device="cpu")
     launches = chip_smoke.tpch_phases(s, tpch_small, expects, runs=1)
     assert set(launches) == {f"q{n}" for n in chip_smoke.TPCH_QUERIES}
     assert all(v == {"all": 0, "vector": 0, "scalar": 0}
@@ -503,6 +558,74 @@ def test_tpch_phases_rehearse_on_the_cpu(tpch_small, capsys):
     assert "cummax" in chip_smoke.q1_group_of(
         "void at::native::tensor_kernel_scan_innermost_dim_with_indices",
         chip_smoke.Q13_GROUPS)
+
+
+def test_adaptive_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """The adaptive default at sf 0.01 with thresholds cut to the data:
+    every query equals its reference with its plan held to its
+    decisions, the double-valued queries' runs bit-equal; the skewed
+    join splits and equals numpy's count and sum; the written-plan pass
+    runs all 22 queries on the plans without the four features."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.workloads import tpch
+    li = tpch_small["lineitem"]
+    expects = {n: chip_smoke.tpch_reference(n, tpch_small)
+               for n in chip_smoke.TPCH_QUERIES}
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": 4096,
+            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 1 << 16,
+            "spark.rapids.tpu.sql.adaptive.advisoryPartitionSizeInBytes":
+            1 << 15}
+    s = pt.TpuSession(conf, device="cpu")
+    queries = (5, 8, 15, 17, 18)
+    chip_smoke.tpch_phases(s, tpch_small, expects, runs=2, queries=queries,
+                           profile=False)
+    sk = pt.TpuSession(dict(conf, **{
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 1 << 13,
+        "spark.rapids.tpu.sql.adaptive.skewJoin."
+        "skewedPartitionThresholdInBytes": 1 << 16}), device="cpu")
+    assert chip_smoke.skew_join_phase(sk, tpch_small) == {
+        "skewed_join": {"all": 0, "vector": 0, "scalar": 0}}
+    expects.update({
+        1: chip_smoke.q1_reference(li),
+        3: chip_smoke.q3_reference(*(tpch_small[k] for k in (
+            "customer", "orders", "lineitem"))),
+        6: tpch.q6_numpy_baseline(
+            li.column("l_shipdate").to_numpy(),
+            chip_smoke.unscaled(li, "l_discount"),
+            chip_smoke.unscaled(li, "l_quantity"),
+            chip_smoke.unscaled(li, "l_extendedprice"))})
+    launches = chip_smoke.tpch_phases(
+        chip_smoke.written_session(s), tpch_small, expects, runs=1,
+        queries=chip_smoke.ALL_QUERIES, label="written", profile=False)
+    assert set(launches) == {f"written_q{n}" for n in chip_smoke.ALL_QUERIES}
+    phases = {d["phase"]: d for d in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    for n in queries:
+        ph = phases[f"tpch_q{n}"]
+        runs = ph["runs"]
+        assert len(runs) in (2, 3)
+        assert ph["plan_signatures"] == [r["plan_signature"] for r in runs]
+        for r in runs:
+            assert r["peak_host_rss_bytes"] >= r["host_rss_before_bytes"] > 0
+            assert r["aqe"]["partitions_after"] <= \
+                r["aqe"]["partitions_before"]
+        if n in chip_smoke.TPCH_DOUBLE_QUERIES:
+            assert ph["runs_bit_equal"] is True
+    assert phases["tpch_q5"]["join_order_differs"] is True
+    assert phases["tpch_q15"]["runs"][0]["reuse_hits"] == 1
+    assert sum(phases[f"tpch_q{n}"]["runs"][0]["aqe"]["demotions"]
+               for n in queries) > 0
+    skew = phases["skewed_join"]
+    assert skew["aqe_skew_splits"] > 0 and skew["aqe"]["demotions"] == 0
+    for n in chip_smoke.ALL_QUERIES:
+        ph = phases[f"written_q{n}"]
+        assert ph["plan"] == ph["written_plan"]
+        assert ph["join_order_differs"] is False
+        run = ph["runs"][0]
+        assert run["aqe"]["stages"] == 0 and run["reuse_hits"] == 0
 
 
 def test_tpch_data_prints_rows_and_seconds(capsys):

@@ -11,6 +11,9 @@ over and the batch takes the sort-segmented path (its counter shows it);
 a small `sql.agg.maxMergeRows` splits the merge into hash buckets. The
 bucket hash (`hash_once_rows`) is held bit for bit against the JAX one.
 """
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pyarrow as pa
@@ -25,6 +28,9 @@ import spark_rapids_tpu_torch as pt
 import spark_rapids_tpu_torch.functions as PF
 from spark_rapids_tpu_torch.exec import aggregate as pagg_exec
 from spark_rapids_tpu_torch.ops import hash as phash
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 N = 6000
 COMPLETE = {"spark.rapids.tpu.sql.batchSizeRows": 1 << 20}
@@ -108,21 +114,31 @@ KEYS = {"int": ["i"], "long_nulls": ["l"], "date": ["d"],
 # the float murmur3, which waits for a later slice
 CASES = [(c, m) for c in sorted(KEYS) for m in ("complete", "partial")
          if (c, m) != ("float", "partial")]
+# partial -> exchange -> final behind the adaptive reader (the default)
+CASES += [(c, "adaptive") for c in ("int", "decimal", "string_and_int")]
 
 
 @pytest.mark.parametrize("case,mode", CASES)
 def test_grouped_agg_matches_jax(case, mode):
     keys = KEYS[case]
     at = _table(seed=len(case))
-    conf = COMPLETE if mode == "complete" else PARTIAL
+    conf = {"complete": COMPLETE,
+            "partial": dict(PARTIAL, **chip_smoke.WRITTEN_CONF),
+            "adaptive": PARTIAL}[mode]
     pdf, got, exp = _run_both(at, keys, conf)
     chain = _plan(pdf)
     if mode == "complete":
         assert chain[0] == "HashAggregateExec[complete]"
-    else:
+    elif mode == "partial":
         assert chain[:3] == ["HashAggregateExec[final]",
                              "ShuffleExchangeExec",
                              "HashAggregateExec[partial]"]
+    else:
+        assert chain[:4] == ["HashAggregateExec[final]",
+                             "AQEShuffleReadExec", "ShuffleExchangeExec",
+                             "HashAggregateExec[partial]"]
+        (d,) = pdf.last_aqe_decisions()
+        assert d["partitions_before"] == 8 and d["partitions_after"] == 1
     assert got.schema == exp.schema
     assert got.num_rows == exp.num_rows
     assert _sorted(got, keys).equals(_sorted(exp, keys))

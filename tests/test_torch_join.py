@@ -15,6 +15,9 @@ exchange, a build over `sql.join.buildSideBudgetBytes`). Each result must equal 
 package's Arrow table, row for row once both are sorted by every column
 (the row order of a join output is not defined). Tolerance: exact.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -25,6 +28,9 @@ from spark_rapids_tpu.expr.expressions import col as jcol
 import spark_rapids_tpu_torch as pt
 from spark_rapids_tpu_torch.errors import NotPorted
 from spark_rapids_tpu_torch.expr.expressions import col
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 HOWS = ("inner", "left", "right", "full", "left_semi", "left_anti")
 PATHS = ("direct", "promoted", "sorted", "count_multi", "count_string")
@@ -203,11 +209,13 @@ def test_int64_maximum_key_beside_null_build_keys(how, span):
                          + [("sorted", "inner"), ("count_multi", "left")])
 def test_per_partition_topology(path, how):
     """autoBroadcastJoinThreshold = -1: both sides hash-exchanged on the
-    keys, joined per partition; many stream batches each."""
+    keys, joined per partition; many stream batches each. The written
+    plan: the adaptive features off (their case below)."""
     stream, build = _tables(path, "mixed", n_s=700, n_b=300)
     conf = {"spark.rapids.tpu.sql.batchSizeRows": 128,
             "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
-            "spark.rapids.tpu.sql.shuffle.partitions": 4}
+            "spark.rapids.tpu.sql.shuffle.partitions": 4,
+            **chip_smoke.WRITTEN_CONF}
     pdf, _ = _run_both(stream, build, _on(path), how, conf)
     root = pdf.last_plan()
     stack = [root]
@@ -218,6 +226,36 @@ def test_per_partition_topology(path, how):
             assert [type(c).__name__ for c in node.children] == \
                 ["ShuffleExchangeExec"] * 2
         stack.extend(node.children)
+    assert _join_metrics(pdf)["streamBatches"] == 4
+
+
+@pytest.mark.parametrize("how", ["inner", "right", "left_anti"])
+def test_per_partition_topology_adaptive(how):
+    """The same joins at the default conf: each side read through an
+    adaptive reader of its exchange, one shared re-plan (stream and
+    build roles) that coalesces the four small partitions into one
+    task; the rows equal the JAX package's."""
+    stream, build = _tables("promoted", "mixed", n_s=700, n_b=300)
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": 128,
+            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
+            "spark.rapids.tpu.sql.shuffle.partitions": 4}
+    pdf, _ = _run_both(stream, build, ["k"], how, conf)
+    stack, joins = [pdf.last_plan()], []
+    while stack:
+        node = stack.pop()
+        if type(node).__name__ == "HashJoinExec":
+            joins.append(node)
+        stack.extend(node.children)
+    assert len(joins) == 1 and joins[0].per_partition
+    readers = joins[0].children
+    assert [type(c).__name__ for c in readers] == ["AQEShuffleReadExec"] * 2
+    assert [c.role for c in readers] == ["stream", "build"]
+    assert readers[0].plan is readers[1].plan
+    assert [type(c.children[0]).__name__ for c in readers] == \
+        ["ShuffleExchangeExec"] * 2
+    (d,) = pdf.last_aqe_decisions()
+    assert (d["partitions_before"], d["partitions_after"]) == (4, 1)
+    assert joins[0].num_partitions(None) == 1
     assert _join_metrics(pdf)["streamBatches"] == 4
 
 

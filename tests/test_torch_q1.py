@@ -84,18 +84,26 @@ def _check_q1(got, exp, lineitem):
 
 
 @pytest.mark.parametrize("batch_rows,mode", [(1 << 20, "complete"),
-                                             (4096, "partial")])
+                                             (4096, "partial"),
+                                             (4096, "adaptive")])
 def test_q1_create_dataframe(lineitem, batch_rows, mode):
-    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+    # "partial" is the written plan, the adaptive features off;
+    # "adaptive" the default, the final stage behind its reader
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            **(chip_smoke.WRITTEN_CONF if mode == "partial" else {})}
     pdf = ptpch.q1(pt.TpuSession(conf, device="cpu")
                    .create_dataframe(lineitem)).sort(*KEYS)
     chain = _plan(pdf)
     assert chain[0] == "SortExec"
     if mode == "complete":
         assert chain[1] == "HashAggregateExec[complete]"
-    else:
+    elif mode == "partial":
         assert chain[1:4] == ["HashAggregateExec[final]",
                               "ShuffleExchangeExec",
+                              "HashAggregateExec[partial]"]
+    else:
+        assert chain[1:5] == ["HashAggregateExec[final]",
+                              "AQEShuffleReadExec", "ShuffleExchangeExec",
                               "HashAggregateExec[partial]"]
     transfer.syncs = 0
     got = pdf.to_arrow()
@@ -107,6 +115,7 @@ def test_q1_create_dataframe(lineitem, batch_rows, mode):
 
 
 @pytest.mark.parametrize("reader,mode", [("MULTITHREADED", "partial"),
+                                         ("MULTITHREADED", "adaptive"),
                                          ("AUTO", "complete")])
 def test_q1_parquet(lineitem, tmp_path, reader, mode):
     per = -(-lineitem.num_rows // 5)
@@ -115,13 +124,19 @@ def test_q1_parquet(lineitem, tmp_path, reader, mode):
                        str(tmp_path / f"part-{i}.parquet"),
                        row_group_size=3000)
     conf = {"spark.rapids.tpu.sql.batchSizeRows": 4096,
-            "spark.rapids.tpu.sql.format.parquet.reader.type": reader}
+            "spark.rapids.tpu.sql.format.parquet.reader.type": reader,
+            **(chip_smoke.WRITTEN_CONF if mode == "partial" else {})}
     pdf = ptpch.q1(pt.TpuSession(conf, device="cpu")
                    .read.parquet(str(tmp_path))).sort(*KEYS)
     chain = _plan(pdf)
     if mode == "partial":
         assert chain[1:4] == ["HashAggregateExec[final]",
                               "ShuffleExchangeExec",
+                              "HashAggregateExec[partial]"]
+        assert chain[-1] == "ParquetScanExec"
+    elif mode == "adaptive":
+        assert chain[1:5] == ["HashAggregateExec[final]",
+                              "AQEShuffleReadExec", "ShuffleExchangeExec",
                               "HashAggregateExec[partial]"]
         assert chain[-1] == "ParquetScanExec"
     else:

@@ -15,6 +15,9 @@ exchange -> final topology (many partitions, string keys); a
 every launch the vector variant; the sort on string and decimal keys;
 the decimal128 limb kernels with a HALF_UP down-shift and overflow.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -27,6 +30,9 @@ from spark_rapids_tpu_torch.ops import partition_kernels as pk
 from spark_rapids_tpu_torch.plan.logical import SortOrder
 from spark_rapids_tpu_torch.expr.expressions import col
 from spark_rapids_tpu_torch.workloads import tpch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 SF = 0.01
 
@@ -43,8 +49,11 @@ def lineitem():
     return tpch.gen_lineitem(SF, seed=7)
 
 
-def _both(cuda, make, batch_rows=8192):
-    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+
+
+def _both(cuda, make, batch_rows=8192, extra=None):
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            **(extra or {})}
     gpu = make(pt.TpuSession(conf, device=cuda))
     cpu = make(pt.TpuSession(conf, device="cpu"))
     return gpu, cpu
@@ -74,15 +83,14 @@ def test_q1_on_card_equals_cpu(cuda, lineitem, batch_rows, mode):
     assert got.equals(cpu.to_arrow())
 
 
-@pytest.mark.cuda
-def test_groupby_shipdate_launches_the_partition_kernel(cuda, lineitem):
+def _check_shipdate_launches(cuda, lineitem, extra, reader):
     def grouped(s):
         return s.create_dataframe(lineitem).group_by("l_shipdate").agg(
             F.sum("l_quantity").alias("q"), F.count("*").alias("c"))
-    gpu, cpu = _both(cuda, grouped)
-    assert _plan(gpu)[:3] == ["HashAggregateExec[final]",
-                              "ShuffleExchangeExec",
-                              "HashAggregateExec[partial]"]
+    gpu, cpu = _both(cuda, grouped, extra=extra)
+    assert _plan(gpu)[:3 + len(reader)] == \
+        ["HashAggregateExec[final]"] + reader + [
+            "ShuffleExchangeExec", "HashAggregateExec[partial]"]
     before = (pk.launches, pk.vector_launches, pk.scalar_launches)
     got = gpu.to_arrow()
     moved = (pk.launches - before[0], pk.vector_launches - before[1],
@@ -94,6 +102,21 @@ def test_groupby_shipdate_launches_the_partition_kernel(cuda, lineitem):
     # a bare group_by has no defined order: compare sorted by the key
     keys = [("l_shipdate", "ascending")]
     assert got.sort_by(keys).equals(cpu.to_arrow().sort_by(keys))
+
+
+@pytest.mark.cuda
+def test_groupby_shipdate_launches_the_partition_kernel(cuda, lineitem):
+    """The written plan (the adaptive features off)."""
+    _check_shipdate_launches(cuda, lineitem, chip_smoke.WRITTEN_CONF, [])
+
+
+@pytest.mark.cuda
+def test_groupby_shipdate_launches_the_kernel_under_the_adaptive_reader(
+        cuda, lineitem):
+    """The default plan: the final stage reads the exchange through an
+    adaptive reader, and the map side still launches the kernel once a
+    batch."""
+    _check_shipdate_launches(cuda, lineitem, None, ["AQEShuffleReadExec"])
 
 
 @pytest.mark.cuda

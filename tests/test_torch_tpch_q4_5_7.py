@@ -153,14 +153,17 @@ def _shape(plan, filter_refs):
 
 
 def check_optimized_shape(n, tables, **kw):
-    """The port's optimizer, under its session's conf, leaves the plan
-    the JAX optimizer does with join reordering off: the same nodes, each
-    filter in the same place (a count(DISTINCT) rewritten on both)."""
+    """The port's optimizer, under its session's conf with join
+    reordering off, leaves the plan the JAX optimizer does under the same
+    conf: the same nodes, each filter in the same place (a
+    count(DISTINCT) rewritten on both). The reordered plans are compared
+    in `test_torch_join_reorder.py`."""
     from spark_rapids_tpu.plan.optimizer import optimize as joptimize
     from spark_rapids_tpu.plan.optimizer import refs_of as jrefs
     from spark_rapids_tpu_torch.plan.optimizer import optimize as poptimize
     from spark_rapids_tpu_torch.plan.optimizer import refs_of as prefs
-    ps, js = pt.TpuSession(device="cpu"), st.TpuSession(dict(NO_REORDER))
+    ps = pt.TpuSession(dict(NO_REORDER), device="cpu")
+    js = st.TpuSession(dict(NO_REORDER))
     pplan = getattr(pq, f"q{n}")({k: ps.create_dataframe(v)
                                   for k, v in tables.items()}, **kw)._plan
     jplan = getattr(jq, f"q{n}")({k: js.create_dataframe(v)
