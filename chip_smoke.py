@@ -120,7 +120,32 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      reason that the files' footers bear out; Q6 under torch.profiler
      with the decode on (busy share, `cummax`'s share, the largest
      device groups, launches per row group); then two of the files read
-     whole, every column, through both paths, equal as Arrow tables.
+     whole, every column, through both paths, equal as Arrow tables;
+ 62. the memory runtime, over the same tables, the pinned-host cache
+     released first: the sort of l_shipdate, l_orderkey, l_linenumber,
+     l_extendedprice and an appended l_comment (`with_comment`: gen_all
+     has none) by the first three at the default conf, which is over
+     `sql.sort.outOfCore.thresholdBytes` and so runs out of core
+     (`oocRangePartitions` > 0), checked against numpy (the keys in
+     order, the row count, the (l_orderkey, l_linenumber) pairs, the
+     unscaled l_extendedprice sum), beside the same sort in core (an OOM
+     there, outside any retry scope, is its reading);
+ 63. Q9, Q18 and Q21 under `CONSTRAINED_CONFS` (the specified 1 GiB
+     device budget, 64 MiB builds, 2^20 merge rows and a 512 MiB host
+     tier; then 128 MiB and 64 MiB, under which the batches spill), each
+     exact and equal to its default-conf result (Q9's double reported,
+     not held, bit for bit), with its spills, out-of-core counters, most
+     bytes parked, peak device memory and host RSS, the device
+     reservation back at its start and the spill directory empty; over
+     the runs one spills to host, one to disk, one sub-partitions a join;
+ 64. Q18 under a CUDA allocator cap below its uncapped peak
+     (`set_per_process_memory_fraction`), at shares of that peak in turn
+     until a run is exact with OOMs caught and splits taken in
+     `with_retry`, then that cap again; an escaped OOM names its site;
+ 65. the concurrent collect: Q5, Q18 and Q18's inner aggregate (lineitem
+     grouped by l_orderkey, a root of several partitions) with the
+     session's permits and with one, the same rows, the root's
+     `semaphoreWaitMs` and permits held at once.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
@@ -165,7 +190,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SM_SLOTS_PER_CLOCK = 4 * 32    # thread-instructions an SM issues a clock
 
 
+#: when the process started, for each phase line's `elapsed_s`
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - _START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -908,12 +941,12 @@ def profiled_query(q, device, batches: int, groups=Q1_GROUPS):
     """A query under torch.profiler: device busy time (kernels and copies
     only) and share of the wall time, device time by group (`groups`,
     Q1_GROUPS by default), device launches and host syncs per input
-    batch."""
+    batch. On the card only the device's activity is traced: the host
+    ops' tracing cost minutes of analysis on Q1 and read nothing here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
+    acts = [ProfilerActivity.CUDA if device.type == "cuda"
+            else ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
         out, wall, layers, syncs = timed_query(q, device)
     ka = [e for e in prof.key_averages()
@@ -2582,7 +2615,7 @@ def release_pinned_cache(what):
 
 
 def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
-                label="tpch", profile=True) -> dict:
+                label="tpch", profile=True, keep=None) -> dict:
     """One phase per query (each run a fresh plan; the partition kernel's
     launches counted from 0 and held to the plan's int32 exchanges; the
     plan held to its adaptive decisions), then, with `profile`, Q5 and
@@ -2593,7 +2626,8 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
     host RSS. The runs of a query with a double sum must be bit-equal
     when they ran one plan; where calibration changed the second run's
     plan, a third run must repeat that plan and the second run's bits.
-    Returns the partition kernel's launches per path."""
+    Returns the partition kernel's launches per path; `keep`, where
+    given, gets the first result of each of CONSTRAINED_QUERIES."""
     dev = session.device
     per = session.conf.batch_size_rows
     batches = sum(-(-t.num_rows // per) for t in tables.values())
@@ -2604,6 +2638,8 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
             out, info, q = query_run(n, session, tables, expects, label)
             outs.append(out)
             out_runs.append(info)
+        if keep is not None and n in CONSTRAINED_QUERIES:
+            keep[n] = outs[0]
         launches[f"{label}_q{n}" if label != "tpch" else f"q{n}"] = \
             info["partition_kernel_launches"]
         bit_equal = recheck = None
@@ -3139,6 +3175,512 @@ def _parquet_decode_phases(device, conf, lineitem, q6_expect, q1_expect,
     return walls
 
 
+# ----------------------------------------------------------------------
+# The memory runtime: out-of-core sort, constrained queries, a real CUDA
+# OOM split and retried, and the concurrent collect
+# ----------------------------------------------------------------------
+OOC_SORT_COLUMNS = ("l_shipdate", "l_orderkey", "l_linenumber",
+                    "l_extendedprice", "l_comment")
+OOC_SORT_KEYS = ("l_shipdate", "l_orderkey", "l_linenumber")
+CONSTRAINED_QUERIES = (9, 18, 21)
+#: phase 2: far more data than these budgets hold. "1gib" is the conf
+#: the slice was specified with; at SF10 the most the port parks at once
+#: (a join partition's piles, an aggregate's partials) stays under it,
+#: so "128mib" cuts the device budget and the host tier until both
+#: spill
+CONSTRAINED_BASE = {"spark.rapids.tpu.sql.join.buildSideBudgetBytes":
+                    64 << 20,
+                    "spark.rapids.tpu.sql.agg.maxMergeRows": 1 << 20}
+CONSTRAINED_CONFS = {
+    "1gib": dict(CONSTRAINED_BASE, **{
+        "spark.rapids.tpu.memory.tpu.poolBytes": 1 << 30,
+        "spark.rapids.tpu.memory.host.spillStorageSize": 512 << 20}),
+    "128mib": dict(CONSTRAINED_BASE, **{
+        "spark.rapids.tpu.memory.tpu.poolBytes": 128 << 20,
+        "spark.rapids.tpu.memory.host.spillStorageSize": 64 << 20})}
+#: the queries of each constrained conf: Q21, which takes its joins
+#: whole under 64 MiB builds, cycles its parked batches through host
+#: memory and disk many times over under 128 MiB, and is left out there
+#: to bound the run
+CONSTRAINED_RUNS = {"1gib": CONSTRAINED_QUERIES, "128mib": (9, 18)}
+MEMORY_COUNTERS = ("numSubPartitions", "numSubPartRecursions",
+                   "numBucketSplits", "numBucketRecursions",
+                   "oocRangePartitions")
+#: phase 3: the cap, as a share of a subject's peak device bytes over
+#: what was allocated before it, tried in turn (the highest first: the
+#: fewest OOMs, so the shortest run, that shows a split)
+OOM_SHARES = (0.9, 0.75, 0.6, 0.45)
+#: the lineitem rows phase 3's exchange maps (16 of SF10's batches)
+OOM_EXCHANGE_ROWS = 16 * BATCH_ROWS
+OOM_QUERY = 18
+CONCURRENCY_QUERIES = (5, 18)
+
+
+def card_line(device) -> str:
+    """nvidia-smi's name and power limit on the card, "cpu" off it."""
+    return nvidia_smi_line() if device.type == "cuda" else "cpu"
+
+
+def session_with(session, conf):
+    """A session on the same device with `conf` over the session's."""
+    from spark_rapids_tpu_torch import TpuSession
+    return TpuSession(dict(session.conf._settings, **conf),
+                      device=session.device)
+
+
+def memory_counters(q) -> dict:
+    out = dict.fromkeys(MEMORY_COUNTERS, 0)
+    for m in q.last_metrics().values():
+        for k in MEMORY_COUNTERS:
+            out[k] += m.get(k, 0)
+    return out
+
+
+def with_comment(lineitem, seed=TPCH_SEED, distinct=4096):
+    """lineitem with an l_comment column, which gen_all (as the JAX
+    package's generator) leaves out: per row one of `distinct` texts of
+    10 to 43 characters (the spec's length range, mean about 27), drawn
+    by a seeded index; the strings assemble in Arrow, not in Python."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.workloads.tpch import COLORS
+    rng = np.random.default_rng(seed)
+    words = np.array(COLORS, object)
+    vocab = []
+    for _ in range(distinct):
+        target = int(rng.integers(10, 44))
+        text = ""
+        while len(text) < target:
+            text += ("" if not text else " ") + str(rng.choice(words))
+        vocab.append(text[:target])
+    idx = rng.integers(0, distinct, lineitem.num_rows)
+    return lineitem.append_column(
+        "l_comment", pa.array(vocab, pa.string()).take(pa.array(idx)))
+
+
+def ooc_sort_query(session, lineitem):
+    return session.create_dataframe(lineitem).select(
+        *OOC_SORT_COLUMNS).sort(*OOC_SORT_KEYS)
+
+
+def check_ooc_sort(out, lineitem, what):
+    """The keys in order, the row count, the (l_orderkey, l_linenumber)
+    pairs and the unscaled l_extendedprice sum: numpy's."""
+    import numpy as np
+    if out.num_rows != lineitem.num_rows:
+        raise AssertionError(f"{what}: {out.num_rows} rows, want "
+                             f"{lineitem.num_rows}")
+    ship = _col(out, "l_shipdate").astype(np.int64)
+    ok = _col(out, "l_orderkey").astype(np.int64)
+    ln = _col(out, "l_linenumber").astype(np.int64)
+    d_ship, d_ok, d_ln = np.diff(ship), np.diff(ok), np.diff(ln)
+    ordered = (d_ship > 0) | ((d_ship == 0) & ((d_ok > 0) | (
+        (d_ok == 0) & (d_ln >= 0))))
+    if not ordered.all():
+        raise AssertionError(f"{what}: keys out of order at row "
+                             f"{int(np.argmin(ordered))}")
+    pairs = np.sort(ok * 16 + ln)
+    want = (_col(lineitem, "l_orderkey").astype(np.int64) * 16
+            + _col(lineitem, "l_linenumber").astype(np.int64))
+    if not (np.diff(want) > 0).all():      # the generator's order
+        want = np.sort(want)
+    if not np.array_equal(pairs, want):
+        raise AssertionError(f"{what}: the (l_orderkey, l_linenumber) "
+                             f"pairs differ")
+    got_sum = int(unscaled(out, "l_extendedprice").sum())
+    want_sum = int(unscaled(lineitem, "l_extendedprice").sum())
+    if got_sum != want_sum:
+        raise AssertionError(f"{what}: l_extendedprice sums {got_sum}, "
+                             f"want {want_sum}")
+    return want_sum
+
+
+def ooc_sort_phase(session, lineitem, conf=None) -> dict:
+    """Phase 1: the sort of five lineitem columns (`with_comment`'s
+    l_comment one of them) by three keys at the session's conf (over
+    `sql.sort.outOfCore.thresholdBytes`, so out of core), checked against
+    numpy, then the same sort in core. The in-core sort is the reading
+    beside it: where it does not fit the card, its OOM (outside any retry
+    scope, as in the JAX package) and the site are what it reads."""
+    from spark_rapids_tpu_torch.config import SORT_OOC_THRESHOLD
+    from spark_rapids_tpu_torch.memory.retry import is_oom_error
+    dev = session.device
+    t0 = time.perf_counter()
+    lineitem = with_comment(lineitem.select(
+        [c for c in OOC_SORT_COLUMNS if c != "l_comment"]))
+    comment_s = time.perf_counter() - t0
+    runs = {}
+    for mode, extra in (("out_of_core", conf or {}),
+                        ("in_core", dict(conf or {}, **{
+                            "spark.rapids.tpu.sql.sort.outOfCore.enabled":
+                            False}))):
+        sess = session_with(session, extra)
+        q = ooc_sort_query(sess, lineitem)
+        gc.collect()
+        torch_peak_reset(dev)
+        try:
+            out, wall, layers, syncs = timed_query(q, dev)
+        except Exception as e:  # noqa: BLE001 - an OOM in core is data
+            if mode == "out_of_core" or not is_oom_error(e):
+                raise
+            runs[mode] = {"oom": type(e).__name__, "site": port_site(e),
+                          "message": str(e).split("\n", 1)[0][:300],
+                          "peak_device_bytes": torch_peak(dev)}
+            del e
+            release_device_cache(dev)
+            emit({"phase": f"ooc_sort_{mode}",
+                  "nvidia_smi": card_line(dev), **runs[mode]})
+            continue
+        counters = memory_counters(q)
+        total = check_ooc_sort(out, lineitem, f"the {mode} sort")
+        if mode == "out_of_core" and counters["oocRangePartitions"] <= 0:
+            raise AssertionError("the sort did not go out of core")
+        if mode == "in_core" and counters["oocRangePartitions"]:
+            raise AssertionError("the in-core sort went out of core")
+        runs[mode] = {"wall_s": wall, "rows": out.num_rows,
+                      "oocRangePartitions": counters["oocRangePartitions"],
+                      "sortTime_s": layers.get("sortTime"),
+                      "mapTime_s": layers.get("mapTime"),
+                      "reduceTime_s": layers.get("reduceTime"),
+                      "collectTime_s": layers.get("collectTime"),
+                      "host_syncs": syncs,
+                      "peak_device_bytes": torch_peak(dev),
+                      "extendedprice_unscaled_sum": total}
+        del out, q
+        release_device_cache(dev)
+        emit({"phase": f"ooc_sort_{mode}", "nvidia_smi": card_line(dev),
+              "columns": list(OOC_SORT_COLUMNS),
+              "keys": list(OOC_SORT_KEYS), "comment_gen_s": comment_s,
+              "threshold_bytes": sess.conf.get(SORT_OOC_THRESHOLD),
+              **runs[mode]})
+    return runs
+
+
+def release_device_cache(device):
+    """Drop the garbage and hand the CUDA allocator's cached blocks back
+    (a no-op off the card)."""
+    gc.collect()
+    if device.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+def constrained_phase(session, tables, expects, defaults, confs=None,
+                      queries=None) -> dict:
+    """Phase 2: Q9, Q18 and Q21 under CONSTRAINED_CONFS (each conf its
+    CONSTRAINED_RUNS, or `queries`; a spill directory of its own), each
+    equal to its reference and to its default-conf result `defaults[n]`
+    (doubles compared bit for bit, and the largest relative difference
+    reported), with the spills, the out-of-core counters, peak device
+    memory, peak host RSS, the pinned bytes cached before and after, the
+    most bytes parked at once, the device reservation after (back at its
+    start) and the spill directory after (empty). Over all the runs, one
+    must spill to host, one to disk, one must take a sub-partitioned
+    join."""
+    import shutil
+
+    from spark_rapids_tpu_torch.memory import diagnostics
+    confs = CONSTRAINED_CONFS if confs is None else confs
+    per, seen = {}, {"host": 0, "disk": 0, "subpart": 0}
+    pinned0 = pinned_host_bytes()
+    for label, base in confs.items():
+        conf = dict(base)
+        spill_dir = tempfile.mkdtemp(prefix="chip-smoke-spill-")
+        conf["spark.rapids.tpu.memory.spill.dir"] = spill_dir
+        sess = session_with(session, conf)
+        dev = sess.device
+        store, dm = sess.spill_store, sess.device_manager
+        try:
+            for n in queries or CONSTRAINED_RUNS.get(label,
+                                                     CONSTRAINED_QUERIES):
+                q = tpch_query(n, sess, tables)
+                before = dict(store.metrics)
+                reserved0 = dm.reserved
+                diagnostics.reset_watermarks()
+                release_device_cache(dev)
+                torch_peak_reset(dev)
+                with HostRss() as rss:
+                    out, wall, layers, syncs = timed_query(q, dev)
+                check_tpch(n, out, expects[n], f"the {label} conf")
+                spills = {k: store.metrics[k] - before[k] for k in before}
+                counters = memory_counters(q)
+                left = os.listdir(spill_dir)
+                if dm.reserved != reserved0 or store.open_handles or left:
+                    raise AssertionError(
+                        f"Q{n}: reserved {dm.reserved} (from {reserved0}),"
+                        f" {store.open_handles} handles open, files {left}")
+                ref = defaults.get(n)
+                bits = same_bits(out, ref) if ref is not None else None
+                if ref is not None and n not in TPCH_DOUBLE_QUERIES \
+                        and not bits:
+                    raise AssertionError(f"Q{n}: differs from its "
+                                         f"default-conf result")
+                seen["host"] += spills["spillToHost"] > 0
+                seen["disk"] += spills["spillToDisk"] > 0
+                seen["subpart"] += counters["numSubPartitions"] > 0
+                per[f"{label}_q{n}"] = {
+                    "wall_s": wall, "rows": out.num_rows, **spills,
+                    **counters,
+                    "equal_to_default_conf_bit_for_bit": bits,
+                    "max_rel_diff_to_default_conf": max_rel_diff(out, ref),
+                    "parked_peak_bytes":
+                        diagnostics.watermarks_snapshot()["devicePeakBytes"],
+                    "peak_device_bytes": torch_peak(dev),
+                    "peak_host_rss_bytes": rss.peak,
+                    "pinned_host_bytes": pinned_host_bytes(),
+                    "device_reserved_after": dm.reserved,
+                    "spill_dir_files_after": len(left),
+                    "host_syncs": syncs,
+                    "layers_s": {k: layers[k] for k in Q3_LAYERS
+                                 if k in layers}}
+        finally:
+            shutil.rmtree(spill_dir, ignore_errors=True)
+    emit({"phase": "constrained_memory",
+          "nvidia_smi": card_line(session.device),
+          "confs": {label: {k.rsplit("spark.rapids.tpu.", 1)[-1]: v
+                            for k, v in c.items()}
+                    for label, c in confs.items()},
+          "pinned_host_bytes_before": pinned0,
+          "pinned_host_bytes_after": pinned_host_bytes(), "runs": per})
+    if not (seen["host"] and seen["disk"] and seen["subpart"]):
+        raise AssertionError(f"the constrained queries: spilled to host "
+                             f"{seen['host']}, to disk {seen['disk']}, "
+                             f"sub-partitioned {seen['subpart']} times")
+    return per
+
+
+def max_rel_diff(a, b):
+    """The largest relative difference of two results' double columns
+    (None without a second result or a double column)."""
+    import numpy as np
+    import pyarrow as pa
+    if b is None or a.schema != b.schema or a.num_rows != b.num_rows:
+        return None
+    worst = None
+    for name in a.column_names:
+        if pa.types.is_floating(a.schema.field(name).type):
+            x = a.column(name).to_numpy(zero_copy_only=False)
+            y = b.column(name).to_numpy(zero_copy_only=False)
+            d = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+            worst = max(worst or 0.0, float(np.nanmax(d)) if d.size else 0.)
+    return worst
+
+
+class CudaCap:
+    """The CUDA caching allocator capped at `limit` bytes of the card
+    (`torch.cuda.set_per_process_memory_fraction`) for a block, lifted
+    and the cache emptied afterwards, also when the block raised."""
+
+    def __init__(self, device, limit: int):
+        import torch
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device, self.limit = device, int(limit)
+
+    def __enter__(self):
+        import torch
+        gc.collect()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        torch.cuda.set_per_process_memory_fraction(
+            min(1.0, self.limit / total), self.device)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_per_process_memory_fraction(1.0, self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def port_site(exc) -> str:
+    """Where an OOM escaped every retry scope: the last three operator
+    frames (`exec/`) of the port in its traceback, outermost first, and
+    the port's innermost frame."""
+    import traceback
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if "spark_rapids_tpu_torch" in f.filename]
+    if not frames:
+        return "<outside the port>"
+    chain = [f for f in frames if "/exec/" in f.filename][-3:]
+    if frames[-1] not in chain:
+        chain.append(frames[-1])
+    return " > ".join(
+        f"{f.filename.split('spark_rapids_tpu_torch', 1)[-1]}:{f.lineno} "
+        f"{f.name}" for f in chain)
+
+
+def oom_subjects(session, tables, expects):
+    """Phase 3's subjects in turn, each (name, query maker, check,
+    shares): Q18 itself, then the exchange on Q18's path that maps
+    lineitem's l_orderkey (and l_quantity) into 200 partitions, adaptive
+    execution off, whose map runs in `with_retry` (over the first
+    OOM_EXCHANGE_ROWS rows: each OOM costs a split and a retry)."""
+    import numpy as np
+    li = tables["lineitem"].slice(0, OOM_EXCHANGE_ROWS)
+    want = (li.num_rows, int(_col(li, "l_orderkey").sum()),
+            int(unscaled(li, "l_quantity").sum()))
+    fixed = session_with(session, {
+        "spark.rapids.tpu.sql.adaptive.enabled": False})
+
+    def check_exchange(out, what):
+        got = (out.num_rows, int(np.asarray(_col(out, "l_orderkey")).sum()),
+               int(unscaled(out, "l_quantity").sum()))
+        if got != want:
+            raise AssertionError(f"the exchange {what}: {got}, want {want}")
+
+    return [
+        ("q18", lambda: tpch_query(OOM_QUERY, session, tables),
+         lambda out, what: check_tpch(OOM_QUERY, out, expects[OOM_QUERY],
+                                      what), (0.6,)),
+        ("q18_lineitem_exchange",
+         lambda: fixed.create_dataframe(li).select(
+             "l_orderkey", "l_quantity").repartition(200, "l_orderkey"),
+         check_exchange, OOM_SHARES)]
+
+
+def real_oom_phase(session, tables, expects, subjects=None,
+                   cap=None) -> dict:
+    """Phase 3: each subject (`oom_subjects`) in turn under a cap below
+    its uncapped peak, so the CUDA allocator raises torch.OutOfMemoryError:
+    the subject's peak device bytes over those allocated before it,
+    measured uncapped, then the cap at each of its shares of that in turn
+    until a run is exact with OOMs caught and splits taken in
+    `with_retry`; that cap again for a second run, which must do the
+    same. An attempt whose OOM escapes every retry scope records the
+    port's frames it escaped through (ROADMAP C names them); the phase
+    fails when no subject splits and retries. `cap(share)` makes the
+    capping context (CudaCap at the share of the subject's peak by
+    default)."""
+    from spark_rapids_tpu_torch.memory import retry
+    dev = session.device
+    subjects = subjects or oom_subjects(session, tables, expects)
+    record = {"subjects": {}}
+    for name, make, check, shares in subjects:
+        rec = record["subjects"][name] = {"attempts": []}
+        capper = cap
+        if capper is None:
+            import torch
+            release_device_cache(dev)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch_peak_reset(dev)
+            out, wall, _, _ = timed_query(make(), dev)
+            check(out, "uncapped")
+            del out
+            peak = torch_peak(dev)
+            rec["uncapped"] = {"wall_s": wall, "allocated_before_bytes":
+                               base, "peak_bytes": peak}
+
+            def capper(share, base=base, peak=peak):
+                return CudaCap(dev, base + int(share * (peak - base)))
+
+        chosen = None
+        for share in shares:
+            retry.reset_retry_stats()
+            att = {"share": share}
+            try:
+                with capper(share) as c:
+                    att["cap_bytes"] = getattr(c, "limit", None)
+                    out, wall, _, _ = timed_query(make(), dev)
+                check(out, f"capped at {share}")
+                att.update(wall_s=wall, exact=True, **retry.retry_stats())
+            except Exception as e:  # noqa: BLE001 - an escaped OOM is data
+                if not retry.is_oom_error(e):
+                    raise
+                att.update(escaped=type(e).__name__, site=port_site(e),
+                           message=str(e).split("\n", 1)[0][:200],
+                           **retry.retry_stats())
+            out = None
+            rec["attempts"].append(att)
+            if att.get("exact") and att["ooms"] > 0 and att["splits"] > 0:
+                chosen = share
+                break
+        if chosen is None:
+            continue
+        retry.reset_retry_stats()
+        with capper(chosen) as c:
+            out, wall, _, _ = timed_query(make(), dev)
+        check(out, f"capped at {chosen}, again")
+        again = dict(retry.retry_stats(), wall_s=wall,
+                     cap_bytes=getattr(c, "limit", None), exact=True)
+        rec.update(chosen_share=chosen, second_run=again)
+        if not (again["ooms"] > 0 and again["splits"] > 0):
+            raise AssertionError(f"{name}: the second capped run caught no "
+                                 f"OOM or took no split: {again}")
+        record["split_and_retried"] = name
+        break
+    emit({"phase": "real_oom", "nvidia_smi": card_line(dev), **record})
+    if "split_and_retried" not in record:
+        raise AssertionError(f"no subject split and retried to an exact "
+                             f"result under a cap: {record}")
+    return record
+
+
+def concurrency_phase(session, tables, queries=CONCURRENCY_QUERIES) -> dict:
+    """Phase 4: per query, the root's partitions, semaphoreWaitMs and the
+    permits held at once, and the wall beside the same query with
+    `sql.concurrentTpuTasks` 1, which must give the same rows; then
+    Q18's inner aggregate (lineitem grouped by l_orderkey, no sort), a
+    root with several partitions."""
+    import spark_rapids_tpu_torch.functions as F
+
+    def inner_agg(sess):
+        return sess.create_dataframe(tables["lineitem"]).group_by(
+            "l_orderkey").agg(F.sum("l_quantity").alias("sum_qty"))
+
+    makers = {f"q{n}": (lambda sess, n=n: tpch_query(n, sess, tables))
+              for n in queries}
+    makers["q18_inner_aggregate"] = inner_agg
+    out = {}
+    for name, make in makers.items():
+        runs, results = {}, {}
+        for tasks in (session.conf.concurrent_tasks, 1):
+            sess = session_with(session, {
+                "spark.rapids.tpu.sql.concurrentTpuTasks": tasks})
+            q = make(sess)
+            got, wall, _, _ = timed_query(q, sess.device)
+            root = q.last_plan()
+            m = q.last_metrics().get(root._op_id, {})
+            peak = m.get("semaphorePeakHeld")
+            if peak is not None and peak > tasks:
+                raise AssertionError(f"{name}: {peak} permits held at once "
+                                     f"of {tasks}")
+            runs[f"tasks_{tasks}"] = {
+                "wall_s": wall, "rows": got.num_rows,
+                "root_partitions": root.num_partitions(None),
+                "semaphoreWaitMs": m.get("semaphoreWaitMs", 0.0),
+                "semaphorePeakHeld": peak}
+            results[tasks] = got
+        a, b = results.values()
+        if name.startswith("q18_inner"):
+            a, b = (t.sort_by("l_orderkey") for t in (a, b))
+        if not a.equals(b):
+            raise AssertionError(f"{name}: the rows differ between the "
+                                 f"permit counts")
+        out[name] = runs
+    emit({"phase": "concurrency", "nvidia_smi": card_line(session.device),
+          "queries": out})
+    return out
+
+
+def memory_runtime_phases(session, tables, expects, defaults, sort_conf=None,
+                          constrained_confs=None, oom_subjects=None,
+                          oom_cap=None) -> dict:
+    """The four memory-runtime phases over gen_all's tables (the CPU
+    rehearsal passes a smaller threshold, a scaled conf and an injected
+    cap)."""
+    release_pinned_cache("the memory runtime phases")
+    return {"ooc_sort": ooc_sort_phase(session, tables["lineitem"],
+                                       sort_conf),
+            "constrained": constrained_phase(session, tables, expects,
+                                             defaults, constrained_confs),
+            "real_oom": real_oom_phase(session, tables, expects,
+                                       oom_subjects, oom_cap),
+            "concurrency": concurrency_phase(session, tables)}
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -3300,7 +3842,9 @@ def main() -> int:
     double_sum_repeat(session.device)
     tpch_tables, tpch_expects = tpch_data(SF)
     release_pinned_cache("the adaptive pass")
-    by_path.update(tpch_phases(session, tpch_tables, tpch_expects))
+    defaults = {}
+    by_path.update(tpch_phases(session, tpch_tables, tpch_expects,
+                               keep=defaults))
     by_path.update(skew_join_phase(session, tpch_tables))
     by_path.update(join_condition_phases(session, tpch_tables))
     li = tpch_tables["lineitem"]
@@ -3321,9 +3865,11 @@ def main() -> int:
          6: q6_expect},
         runs=1, queries=ALL_QUERIES, label="written", profile=False))
     release_pinned_cache("the device Parquet decode")
+    # one run of each: the memory-runtime phases below need the time
     parquet_decode_phases(session.device, {"spark.rapids.tpu.sql."
                                            "batchSizeRows": BATCH_ROWS},
-                          li, q6_expect, q1_full_expect)
+                          li, q6_expect, q1_full_expect, runs=1)
+    memory_runtime_phases(session, tpch_tables, tpch_expects, defaults)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

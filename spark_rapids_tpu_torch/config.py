@@ -7,6 +7,8 @@ ignored, as they are by the JAX package's `TpuConf`.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Any, Callable, Dict, Optional
 
 __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
@@ -23,7 +25,10 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "ADAPTIVE_SKEW_MIN_BYTES", "ADAPTIVE_COALESCE_ENABLED",
            "ADAPTIVE_DEMOTE_ENABLED", "ADAPTIVE_CALIBRATION",
            "EXCHANGE_REUSE", "EXCHANGE_ASYNC_BROADCAST",
-           "EXCHANGE_BROADCAST_TIMEOUT"]
+           "EXCHANGE_BROADCAST_TIMEOUT", "CONCURRENT_TASKS",
+           "HBM_POOL_FRACTION", "HBM_POOL_BYTES", "HOST_SPILL_LIMIT",
+           "SPILL_DIR", "OOM_MAX_RETRIES", "SORT_OOC_ENABLED",
+           "SORT_OOC_THRESHOLD"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -52,6 +57,44 @@ def _conf(key, default, doc, typ):
 BATCH_SIZE_ROWS = _conf(
     "sql.batchSizeRows", 1 << 20,
     "Target rows per columnar batch moved to the device.", int)
+CONCURRENT_TASKS = _conf(
+    "sql.concurrentTpuTasks", 2,
+    "Max tasks concurrently admitted to the device (TpuSemaphore "
+    "permits; analog of spark.rapids.sql.concurrentGpuTasks). The "
+    "collect runs a query's partitions on min(partitions, max(2, 2 x "
+    "this)) threads, each holding a permit while it advances its "
+    "partition.", int)
+HBM_POOL_FRACTION = _conf(
+    "memory.tpu.allocFraction", 0.85,
+    "Fraction of device memory the memory manager may budget for "
+    "columnar data (on CUDA, of torch.cuda.mem_get_info's total).",
+    float)
+HBM_POOL_BYTES = _conf(
+    "memory.tpu.poolBytes", None,
+    "Explicit device budget in bytes; overrides allocFraction when set.",
+    int)
+HOST_SPILL_LIMIT = _conf(
+    "memory.host.spillStorageSize", 32 * 1024 * 1024 * 1024,
+    "Bytes of host DRAM usable for spilled device buffers before "
+    "cascading to disk.", int)
+SPILL_DIR = _conf(
+    "memory.spill.dir", os.path.join(tempfile.gettempdir(), "srtpu-spill"),
+    "Directory for disk-tier spill files (default: srtpu-spill under "
+    "the process's temporary directory).", str)
+OOM_MAX_RETRIES = _conf(
+    "memory.oom.maxRetries", 8,
+    "Bounded retries after device OOM before giving up (analog of "
+    "DeviceMemoryEventHandler maxFailedOOMRetries). Registered as in "
+    "the JAX package, which reads it nowhere either: the retry loops "
+    "bound themselves (12 splits, 2 unsplit retries).", int)
+SORT_OOC_ENABLED = _conf(
+    "sql.sort.outOfCore.enabled", True,
+    "Enable out-of-core sort (range exchange over spill handles + "
+    "per-partition sorts) for big inputs.", bool)
+SORT_OOC_THRESHOLD = _conf(
+    "sql.sort.outOfCore.thresholdBytes", 2 << 30,
+    "Device bytes of sort input above which the out-of-core path "
+    "activates.", int)
 PARQUET_READER_TYPE = _conf(
     "sql.format.parquet.reader.type", "AUTO",
     "AUTO|PERFILE|COALESCING|MULTITHREADED. AUTO picks COALESCING when "
@@ -98,9 +141,10 @@ HOST_STAGING_POOL_BYTES = _conf(
     "leases past the cap are transient (freed on release).", int)
 HOST_MEMORY_LIMIT = _conf(
     "memory.host.limitBytes", 0,
-    "Global host-DRAM byte budget (HostAlloc.scala:36 analog). The "
-    "port's one consumer is the staging pool's cached buffers; a "
-    "reservation over budget leaves the lease transient. 0 = "
+    "Global host-DRAM byte budget (HostAlloc.scala:36 analog) shared by "
+    "the spill store's host tier and the staging pool's cached buffers. "
+    "A spill reservation over budget fires the host->disk pressure "
+    "cascade; a staging lease over budget stays transient. 0 = "
     "unlimited.", int)
 FILECACHE_ENABLED = _conf(
     "filecache.enabled", False,
@@ -135,15 +179,18 @@ AGG_STRING_HASH_KEYS = _conf(
 AGG_MAX_MERGE_ROWS = _conf(
     "sql.agg.maxMergeRows", 1 << 21,
     "Upper bound on buffered partial-aggregate rows merged in one "
-    "concat pass. Above it, every partial splits into hash buckets of "
-    "disjoint keys and each bucket merges and finalizes on its own. The "
-    "port keeps the partials on the device (no spill store yet).", int)
+    "concat pass. Buffered partials live in the spill store; when the "
+    "total group state exceeds this, the aggregation repartitions every "
+    "partial into hash buckets of disjoint keys and merges/finalizes "
+    "each bucket separately, the out-of-core fallback "
+    "(GpuAggregateExec.scala:863-894 repartition algorithm analog).", int)
 JOIN_BUILD_BUDGET = _conf(
     "sql.join.buildSideBudgetBytes", 2 << 30,
-    "When a join partition's build side exceeds this many bytes, the JAX "
-    "package rehashes both sides into disjoint-key sub-partitions joined "
-    "one at a time. The port has no such out-of-core join: it raises "
-    "NotPorted instead. 0 disables the check.", int)
+    "When a join partition's build side exceeds this many bytes, both "
+    "sides are rehashed into disjoint-key sub-partitions (spillable "
+    "piles) joined one at a time, so builds bigger than device memory "
+    "complete instead of dying (GpuSubPartitionHashJoin.scala:617 "
+    "analog). 0 disables.", int)
 BROADCAST_THRESHOLD = _conf(
     "sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
     "Build sides estimated at or below this many bytes use a broadcast "
@@ -253,3 +300,7 @@ class TpuConf:
     @property
     def batch_size_rows(self) -> int:
         return self.get(BATCH_SIZE_ROWS)
+
+    @property
+    def concurrent_tasks(self) -> int:
+        return self.get(CONCURRENT_TASKS)

@@ -14,11 +14,16 @@ equality keys, matching rows segment-reduce; collisions retry in a
 second round with more buckets). If any row is still left over, the
 batch instead runs the sort-segmented path (one stable sort on the
 normalized keys, group boundaries, segment reductions), and the hash
-pass is off for the rest of the query. Per-batch partials then merge by
-the sort-segmented path and finalize. Partials stay on the device (the
-JAX package's spill handles wait for the memory runtime); above
-`sql.agg.maxMergeRows` buffered rows they split into hash buckets of
-disjoint keys that merge one at a time. The port keeps exact lengths
+pass is off for the rest of the query. Each batch's first pass runs under
+`with_retry`, so a device OOM splits the batch. Per-batch partials are
+parked in the spill store as partial-format batches (priority 8; JAX
+`:452-476`), merged eagerly while merging still shrinks them, and
+merged by the sort-segmented path and finalized at the end; above
+`sql.agg.maxMergeRows` buffered rows they split into 16 at most hash
+buckets of disjoint keys (`numBucketSplits`) that merge one at a time,
+a bucket still too big splitting again with a fresh seed
+(`numBucketRecursions`, 10 levels at most). Every handle closes when
+the stream ends, fails or is abandoned. The port keeps exact lengths
 where the JAX package pads to power-of-two capacities: a partial holds
 its live groups only, so the same groups and values come out, in an
 order only a sort defines.
@@ -36,6 +41,7 @@ from ..expr.aggregates import (AggExpr, Count, ident, seg_any,
                                 seg_min_max, seg_sum)
 from ..expr.expressions import (Alias, BoundRef, EmitCtx, Expression,
                                 UnsupportedExpr)
+from ..memory.retry import retry_no_split, with_retry
 from ..ops import sortkeys as sk
 from ..ops.concat import concat_cvs, concat_masks
 from ..ops.gather import compact, compaction_perm, gather_cols, take
@@ -219,7 +225,12 @@ class HashAggregateExec(TpuExec):
         self._stages = None
         self._hash_ok = all(isinstance(k.dtype, _HASHABLE)
                             for k in self.keys)
+        # set once, by whichever task meets the first overflow: either
+        # path sums a group's rows in row order, so the result does not
+        # depend on which batches took which
         self._hash_disabled = False
+        self._wire = self.schema if mode == "partial" \
+            else self._partial_schema()
 
     def _partial_schema(self) -> Schema:
         """The partial-state wire schema: the keys, then one column per
@@ -488,20 +499,44 @@ class HashAggregateExec(TpuExec):
         return (out[:nk], [cv.data for cv in out[nk:]],
                 torch.ones(n, dtype=torch.bool, device=sl.device), n)
 
-    def _emit_final(self, ctx: ExecContext, parts: List[Partial],
-                    force_merge: bool = False, depth: int = 0):
-        """Merge the partials and emit finalized (or partial-format)
-        batches. Above maxMergeRows buffered rows, every partial splits
-        into K hash buckets of disjoint keys, and each bucket merges on
-        its own, recursing with a fresh seed on a bucket still too big."""
+    # -- spillable partials --------------------------------------------
+    def _park(self, ctx: ExecContext, part: Partial):
+        """A partial as a partial-format batch in the spill store
+        (priority 8): (handle, rows)."""
+        ks, st, sl, n = part
+        cvs = list(ks) + [CV(s, torch.ones_like(sl)) for s in st]
+        batch = DeviceBatch(make_table(self._wire, cvs, n), n, sl)
+        store = ctx.spill_store
+        h = retry_no_split(lambda: store.add_batch(batch, priority=8),
+                           dm=ctx.device_manager)
+        return ctx.track(h), n
+
+    def _unpark(self, h, close: bool = True) -> Partial:
+        b = h.materialize()
+        if close:
+            h.close()
+        cvs = b.cvs()
+        nk = len(self.keys)
+        return (cvs[:nk], [cv.data for cv in cvs[nk:]], b.row_mask,
+                b.capacity)
+
+    def _emit_final(self, ctx: ExecContext, handles, force_merge=False,
+                    depth: int = 0):
+        """Merge the parked partials and emit finalized (or
+        partial-format) batches. Above maxMergeRows buffered rows, every
+        partial splits into K hash buckets of disjoint keys, and each
+        bucket merges on its own, recursing with a fresh seed on a bucket
+        still too big. Handles close on generator exit, also when the
+        consumer abandons the stream."""
         max_rows = ctx.conf.get(AGG_MAX_MERGE_ROWS)
-        total = sum(p[3] for p in parts)
+        total = sum(n for _, n in handles)
         nb = 1
         while nb < 16 and total > nb * max_rows:
             nb *= 2
         emit_partial = self.mode == "partial"
         if nb == 1:
             with ctx.timer(self._op_id, "mergeTime"):
+                parts = [self._unpark(h) for h, _ in handles]
                 if (len(parts) > 1 or force_merge
                         or (not emit_partial and parts[0][3] > 4096)):
                     part = self._merge_partials(ctx, parts)
@@ -510,37 +545,61 @@ class HashAggregateExec(TpuExec):
                 out = self._emit_batch(part, emit_partial)
             yield out
             return
+        ctx.add_metric(self._op_id, "numBucketSplits", 1)
         seed = (0x5EED ^ (depth * 0x9E3779B9)) & 0x7FFFFFFF
-        for b in range(nb):
-            with ctx.timer(self._op_id, "mergeTime"):
-                parts_b = [q for q in (self._bucket_slice(p, b, nb, seed)
-                                       for p in parts) if q is not None]
-            if not parts_b:
-                continue
-            rows = sum(p[3] for p in parts_b)
-            if (rows > max_rows and depth + 1 < _MAX_BUCKET_DEPTH
-                    and rows < total):
-                ctx.add_metric(self._op_id, "numBucketRecursions", 1)
-                yield from self._emit_final(ctx, parts_b, force_merge,
-                                            depth + 1)
-                continue
-            with ctx.timer(self._op_id, "mergeTime"):
-                out = self._emit_batch(self._merge_partials(ctx, parts_b),
-                                       emit_partial)
-            yield out
+        open_handles = {h for h, _ in handles}
+        try:
+            for b in range(nb):
+                sub = out = None
+                with ctx.timer(self._op_id, "mergeTime"):
+                    parts_b = []
+                    for h, _ in handles:
+                        last = b == nb - 1
+                        part = self._unpark(h, close=last)
+                        if last:
+                            open_handles.discard(h)
+                        q = self._bucket_slice(part, b, nb, seed)
+                        if q is not None:
+                            parts_b.append(q)
+                    rows = sum(p[3] for p in parts_b)
+                    if (rows > max_rows and depth + 1 < _MAX_BUCKET_DEPTH
+                            and rows < total):
+                        # still too big: park this bucket and split it
+                        # again; rows < total stops a split that one key
+                        # dominates
+                        ctx.add_metric(self._op_id, "numBucketRecursions",
+                                       1)
+                        sub = [self._park(ctx, p) for p in parts_b]
+                    elif parts_b:
+                        out = self._emit_batch(
+                            self._merge_partials(ctx, parts_b),
+                            emit_partial)
+                del parts_b
+                if sub is not None:
+                    yield from self._emit_final(ctx, sub, force_merge,
+                                                depth + 1)
+                elif out is not None:
+                    yield out
+        finally:
+            for h in open_handles:
+                h.close()
 
     def _execute_final(self, ctx: ExecContext, pid: int):
-        """Merge the partial-format batches of one exchange partition and
-        finalize; a merge always runs, since one exchanged batch holds
-        same-key rows of different map partitions."""
-        nk = len(self.keys)
-        parts = []
-        for batch in self.children[0].execute_partition(ctx, pid):
-            cvs = batch.cvs()
-            parts.append((cvs[:nk], [cv.data for cv in cvs[nk:]],
-                          batch.row_mask, batch.capacity))
-        if parts:
-            yield from self._emit_final(ctx, parts, force_merge=True)
+        """Park the partial-format batches of one exchange partition,
+        then merge and finalize; a merge always runs, since one exchanged
+        batch holds same-key rows of different map partitions."""
+        store, dm = ctx.spill_store, ctx.device_manager
+        handles = []
+        try:
+            for batch in self.children[0].execute_partition(ctx, pid):
+                h = retry_no_split(lambda b=batch: store.add_batch(
+                    b, priority=8), dm=dm)
+                handles.append((ctx.track(h), batch.capacity))
+            if handles:
+                yield from self._emit_final(ctx, handles, force_merge=True)
+        finally:
+            for h, _ in handles:
+                h.close()
 
     def _empty_batch(self, device) -> DeviceBatch:
         cvs = [CV(torch.zeros(dt.alloc_shape(f.dtype, 0),
@@ -563,23 +622,37 @@ class HashAggregateExec(TpuExec):
         hash_once = (self._has_string_keys()
                      and bool(ctx.conf.get(AGG_STRING_HASH_KEYS)))
         max_rows = ctx.conf.get(AGG_MAX_MERGE_ROWS)
-        parts: List[Partial] = []
+        dm = ctx.device_manager
+
+        def update(b):
+            return self._update_one(ctx, b, hash_once)
+
+        handles = []            # (handle, rows)
         buffered = 0
         compactable = True      # do eager merges still shrink the state?
-        for cpid in child_pids:
-            for batch in child.execute_partition(ctx, cpid):
-                ctx.add_metric(self._op_id, "inputBatches", 1)
-                part = self._update_one(ctx, batch, hash_once)
-                parts.append(part)
-                buffered += part[3]
-                if compactable and buffered > max_rows and len(parts) > 1:
-                    with ctx.timer(self._op_id, "mergeTime"):
-                        merged = self._merge_partials(ctx, parts)
-                    parts, buffered = [merged], merged[3]
-                    # high cardinality: merging no longer shrinks
-                    compactable = merged[3] <= max_rows // 2
-        if not parts:
-            if self.mode != "partial":
-                yield self._empty_batch(ctx.device)
-            return
-        yield from self._emit_final(ctx, parts)
+        try:
+            for cpid in child_pids:
+                for batch in child.execute_partition(ctx, cpid):
+                    ctx.add_metric(self._op_id, "inputBatches", 1)
+                    for part in with_retry(batch, update, dm=dm):
+                        handles.append(self._park(ctx, part))
+                        buffered += part[3]
+                    if (compactable and buffered > max_rows
+                            and len(handles) > 1):
+                        with ctx.timer(self._op_id, "mergeTime"):
+                            parts = [self._unpark(h) for h, _ in handles]
+                            merged = self._merge_partials(ctx, parts)
+                            del parts
+                            handles = [self._park(ctx, merged)]
+                        buffered = merged[3]
+                        # high cardinality: merging no longer shrinks
+                        compactable = merged[3] <= max_rows // 2
+                        del merged
+            if not handles:
+                if self.mode != "partial":
+                    yield self._empty_batch(ctx.device)
+                return
+            yield from self._emit_final(ctx, handles)
+        finally:
+            for h, _ in handles:
+                h.close()

@@ -2,7 +2,12 @@
 
 Every operator yields DeviceBatches per partition. The ExecContext
 carries the conf snapshot and the torch device the query runs on, so
-scans upload there and every op works on tensors already there.
+scans upload there and every op works on tensors already there, and the
+run's memory resources: the device manager and spill store of its conf
+and device (the session's), the session (for its semaphore), and the
+spill handles operators registered, which `close()` closes when the run
+ends (an operator closes its own handles as it goes; the registry
+catches a generator abandoned mid-stream).
 """
 from __future__ import annotations
 
@@ -28,12 +33,38 @@ class ExecContext:
     must not materialize an adaptive stage."""
 
     def __init__(self, conf: TpuConf, device: torch.device,
-                 planning: bool = False):
+                 planning: bool = False, session=None):
         self.conf = conf
         self.device = device
         self.planning = planning
+        self.session = session
         self.metrics: Dict[str, Dict[str, float]] = {}
         self._lock = threading.Lock()
+        self._handles: List = []
+
+    @property
+    def device_manager(self):
+        from ..memory.device import device_manager
+        return device_manager(self.conf, self.device)
+
+    @property
+    def spill_store(self):
+        from ..memory.spill import spill_store
+        return spill_store(self.conf, self.device)
+
+    def track(self, handle):
+        """Register a spill handle for `close()`; returns it."""
+        with self._lock:
+            self._handles.append(handle)
+        return handle
+
+    def close(self):
+        """Release the run's resources: every registered spill handle
+        still open closes (close is idempotent)."""
+        with self._lock:
+            handles, self._handles = self._handles, []
+        for h in handles:
+            h.close()
 
     def add_metric(self, op_id: str, name: str, value: float):
         with self._lock:
@@ -97,6 +128,12 @@ class TpuExec:
     def execute_partition(self, ctx: ExecContext,
                           pid: int) -> Iterator[DeviceBatch]:
         raise NotImplementedError
+
+    def release(self):
+        """Free long-lived resources this operator holds (recursing into
+        its children)."""
+        for c in self.children:
+            c.release()
 
     def fusable_stage(self):
         """A pure per-batch transform (cvs, mask) -> (cvs, mask) that a

@@ -22,7 +22,16 @@ pieces this process holds, uncompressed; the JAX package counts its
 shuffle files' compressed serialized bytes (ROADMAP C.7), so a decision
 taken on them can differ between the packages on the same data, never
 the rows. The map phase runs once, under the exchange's lock, whichever
-thread (a broadcast build's included) asks first.
+thread (a broadcast build's or a concurrent collect task's included)
+asks first.
+
+Memory runtime (JAX `:153-213`, `:302`): each batch's map pass runs
+under `with_retry`, so a device OOM splits the batch and its halves give
+more pieces a partition, with the same rows; the reduce concatenation
+and upload run under `retry_no_split`. `RangeShuffleExchangeExec` (JAX
+`:321-378`) partitions on one numeric or date key by bounds sampled from
+the first child batch (`searchsorted`, right side; nulls to partition
+0): the out-of-core sort's exchange. `release()` drops the host pieces.
 """
 from __future__ import annotations
 
@@ -36,13 +45,14 @@ from ..columnar import dtypes as dt
 from ..columnar.column import Column, buffer_names
 from ..columnar.table import Schema, Table
 from ..expr.expressions import EmitCtx, Expression
+from ..memory.retry import retry_no_split, with_retry
 from ..ops.gather import take
 from ..ops.hash import partition_ids
 from ..ops.partition_kernels import partition_ids_i32
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, to_device, to_host
 
-__all__ = ["ShuffleExchangeExec"]
+__all__ = ["ShuffleExchangeExec", "RangeShuffleExchangeExec"]
 
 
 class ShuffleExchangeExec(TpuExec):
@@ -97,22 +107,32 @@ class ShuffleExchangeExec(TpuExec):
             if self._pieces is None:
                 self._run_map(ctx)
 
+    def release(self):
+        with self._lock:
+            self._pieces = None
+            self._pstats = None
+        super().release()
+
     def _run_map(self, ctx: ExecContext):
         pieces: List[list] = [[] for _ in range(self.n)]
         child = self.children[0]
         nparts = child.num_partitions(ctx)
+        dm = ctx.device_manager
         for mpid in range(nparts):
             for batch in child.execute_partition(ctx, mpid):
-                # ends in the D2H sync: absorbs the batch's device work
+                # ends in the D2H sync: absorbs the batch's device work;
+                # an OOM splits the batch, and its halves give more
+                # pieces a partition
                 with ctx.timer(self._op_id, "mapTime"):
-                    cols, counts = self._map_batch(batch)
+                    hosts = list(with_retry(batch, self._map_batch, dm=dm))
                 ctx.add_metric(self._op_id, "mapBatches", 1)
                 with ctx.timer(self._op_id, "sliceTime"):
-                    starts = np.concatenate([[0], np.cumsum(counts)])
-                    for rp in np.flatnonzero(counts):
-                        lo, hi = int(starts[rp]), int(starts[rp + 1])
-                        sl = [_slice(c, lo, hi) for c in cols]
-                        pieces[rp].append((sl, hi - lo, _nbytes(sl)))
+                    for cols, counts in hosts:
+                        starts = np.concatenate([[0], np.cumsum(counts)])
+                        for rp in np.flatnonzero(counts):
+                            lo, hi = int(starts[rp]), int(starts[rp + 1])
+                            sl = [_slice(c, lo, hi) for c in cols]
+                            pieces[rp].append((sl, hi - lo, _nbytes(sl)))
         pstats = [sum(p[2] for p in subs) for subs in pieces]
         m = ctx.metrics_for(self._op_id)
         m.set("mapPartitionsExecuted", nparts)
@@ -155,11 +175,15 @@ class ShuffleExchangeExec(TpuExec):
         if total == 0:
             return None
         names = [buffer_names(f.dtype) for f in self.schema.fields]
-        with ctx.timer(self._op_id, "reduceTime"):
+
+        def reduce():
             host = [a for j in range(len(names))
                     for a in _concat([cols[j] for cols, _, _ in subs],
                                      names[j])]
-            dev = iter(to_device(host, ctx.device))
+            return iter(to_device(host, ctx.device))
+
+        with ctx.timer(self._op_id, "reduceTime"):
+            dev = retry_no_split(reduce, dm=ctx.device_manager)
         cols = [Column(f.dtype, total, *[next(dev) for _ in bs])
                 for f, bs in zip(self.schema.fields, names)]
         return DeviceBatch(Table(self.schema.names, cols), total,
@@ -169,6 +193,71 @@ class ShuffleExchangeExec(TpuExec):
         batch = self.read_slice(ctx, pid)
         if batch is not None:
             yield batch
+
+
+class RangeShuffleExchangeExec(ShuffleExchangeExec):
+    """Range partitioning on one numeric or date key (reference:
+    GpuRangePartitioner.scala, sample-based bounds): n - 1 bounds at the
+    quantiles of the first child batch's live, valid keys; a row goes to
+    the first partition whose bound exceeds its key (`searchsorted`,
+    right side), a null to partition 0. Keys compare as int64 (integers,
+    dates, timestamps, decimal64, booleans) or as float64 with NaN at
+    +inf (floating types), an order-preserving map, so the partitions
+    are in the key's ascending order."""
+
+    def __init__(self, child, num_partitions, bound_keys, schema):
+        super().__init__(child, num_partitions, bound_keys, schema)
+        if not bound_keys or len(bound_keys) != 1 \
+                or not range_key_ok(bound_keys[0].dtype):
+            raise ValueError("range partitioning takes one numeric or "
+                             "date key")
+        self._bounds: Optional[torch.Tensor] = None
+
+    def _key(self, cvs, mask):
+        kcv = self.keys[0].emit(EmitCtx(cvs, mask.shape[0], mask.device))
+        x = kcv.data
+        if x.is_floating_point():
+            x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")),
+                            x).to(torch.float64)
+        else:
+            x = x.to(torch.int64)
+        return x.contiguous(), kcv.validity
+
+    def _ensure_bounds(self, ctx: ExecContext):
+        if self._bounds is not None:
+            return
+        first = next(iter(self.children[0].execute_partition(ctx, 0)),
+                     None)
+        if first is None or first.capacity == 0:
+            self._bounds = torch.zeros(self.n - 1, dtype=torch.int64,
+                                       device=ctx.device)
+            return
+        key, valid = self._key(first.cvs(), first.row_mask)
+        live = first.row_mask & valid
+        # the live keys first, in order (dead rows take the maximum)
+        ordered = torch.sort(torch.where(live, key, key.max())).values
+        nlive = live.sum().clamp(min=1)
+        qs = (torch.arange(1, self.n, device=key.device) * nlive) // self.n
+        self._bounds = ordered[qs.clamp(0, first.capacity - 1)].contiguous()
+
+    def _partition_ids(self, cvs, mask):
+        key, valid = self._key(cvs, mask)
+        bounds = self._bounds.to(key.dtype)
+        pids = torch.searchsorted(bounds, key, right=True).to(torch.int32)
+        return torch.where(valid, pids, 0)
+
+    def _ensure_shuffled(self, ctx: ExecContext):
+        with self._lock:
+            self._ensure_bounds(ctx)
+            super()._ensure_shuffled(ctx)
+
+
+def range_key_ok(dtype) -> bool:
+    """A key the range exchange partitions on: fixed width, one word."""
+    return not (dtype.is_variable_width
+                or isinstance(dtype, dt.NullType)
+                or (isinstance(dtype, dt.DecimalType)
+                    and dtype.is_decimal128))
 
 
 def _nbytes(cols) -> int:

@@ -60,8 +60,20 @@ condition with no equi keys: the build is collected once, and each
 stream batch crosses it in chunks of about `_CHUNK_TARGET` pairs, each
 judged as in the conditional hash join.
 
-Not ported: the out-of-core sub-partitioned join (`:599-790`): a build
-over `sql.join.buildSideBudgetBytes` raises NotPorted here.
+Every stream batch's probe runs under `with_retry` (JAX `:534-597`): a
+device OOM splits the batch and each half probes alone; the matched
+build marks of a right or full join accumulate by OR, so a failed
+attempt's marks (true matches all) do no harm. A build over
+`sql.join.buildSideBudgetBytes` joins out of core (JAX `:599-791`, the
+reference's GpuSubPartitionHashJoin.scala:617): both sides are rehashed
+on the join keys into S of 2..16 disjoint-key piles of spill handles
+(priority 7; `numSubPartitions`), and each pile pair joins alone, which
+decomposes every join type exactly, a condition included. A pile whose
+build is still over budget splits again with the seed
+`0xAB5 ^ depth * 0x9E3779B9` (`numSubPartRecursions`), 10 levels at
+most; a split that does not shrink the biggest pile stops the
+recursion. Every pile closes when its join ends, fails or is
+abandoned.
 """
 from __future__ import annotations
 
@@ -74,12 +86,13 @@ from ..columnar import dtypes as dt
 from ..columnar.table import Schema
 from ..config import (EXCHANGE_ASYNC_BROADCAST, EXCHANGE_BROADCAST_TIMEOUT,
                       JOIN_BUILD_BUDGET)
-from ..errors import NotPorted
 from ..expr.aggregates import seg_any
 from ..expr.expressions import EmitCtx, Expression
+from ..memory.retry import with_retry
 from ..ops import sortkeys as sk
 from ..ops.concat import concat_cvs, concat_masks
 from ..ops.gather import gather_cols, gather_groups, row_of_unit
+from ..ops.hash import partition_ids
 from ..ops.kernel_utils import CV
 from ..utils import transfer
 from ..utils.transfer import fetch_int, fetch_ints
@@ -209,11 +222,10 @@ class HashJoinExec(TpuExec):
                             for b in right.execute_partition(ctx, bpid)]
         budget = ctx.conf.get(JOIN_BUILD_BUDGET)
         total = sum(b.nbytes for b in bbatches)
-        if budget > 0 and total > budget:
-            raise NotPorted(
-                f"a join build of {total} bytes, over "
-                f"sql.join.buildSideBudgetBytes ({budget}): the "
-                f"out-of-core sub-partitioned join")
+        if budget > 0 and total > budget and self.lkeys:
+            yield from self._execute_subpartitioned(ctx, bbatches, stream,
+                                                    total, budget)
+            return
         yield from self._join_pass(ctx, bbatches, stream)
 
     def _join_pass(self, ctx: ExecContext, bbatches, stream_batches):
@@ -236,21 +248,138 @@ class HashJoinExec(TpuExec):
             if self.how in ("right", "full"):
                 build.matched = torch.zeros(build.rows, dtype=torch.bool,
                                             device=dev)
+
+        def probe(b):
+            if self.condition is not None:
+                return self._probe_cond(ctx, b, build, fast)
+            return [self._probe_batch(ctx, b, build, fast)]
+
+        dm = ctx.device_manager
         for batch in stream_batches:
             ctx.add_metric(op, "streamBatches", 1)
             batch = maybe_compact(batch, left.schema, factor=8)
-            if self.condition is not None:
-                outs = self._probe_cond(ctx, batch, build, fast)
-            else:
-                outs = [self._probe_batch(ctx, batch, build, fast)]
-            for out in outs:
-                if out is not None:
-                    ctx.add_metric(op, "numOutputBatches", 1)
-                    yield out
+            for outs in with_retry(batch, probe, dm=dm):
+                for out in outs:
+                    if out is not None:
+                        ctx.add_metric(op, "numOutputBatches", 1)
+                        yield out
         if build.matched is not None:
             out = self._unmatched_build(ctx, bcvs, bmask & ~build.matched)
             if out is not None:
                 yield out
+
+    # ---- out of core: disjoint-key sub-partitions -----------------------
+    _MAX_SUBPART_DEPTH = 10
+
+    @staticmethod
+    def _fanout(nbytes: int, budget: int) -> int:
+        s = 2
+        while s < 16 and nbytes > s * budget:
+            s *= 2
+        return s
+
+    def _subpartition(self, batch: DeviceBatch, keys, schema: Schema,
+                      S: int, seed: int):
+        """The live rows of `batch` by the bucket of their join-key hash
+        (murmur3 under `seed`, pmod S): one stable sort by bucket, one
+        host read of the counts, one gather a non-empty bucket. Yields
+        (bucket, batch)."""
+        cvs, mask = batch.cvs(), batch.row_mask
+        dev = mask.device
+        kcvs = [k.emit(EmitCtx(cvs, mask.shape[0], dev)) for k in keys]
+        pids = partition_ids(kcvs, [k.dtype for k in keys], S, seed=seed)
+        eff = torch.where(mask, pids.to(torch.int64), S)
+        order = torch.argsort(eff, stable=True)
+        counts = fetch_ints(list(torch.bincount(eff, minlength=S + 1)[:S]))
+        start = 0
+        for s_, cnt in enumerate(counts):
+            if cnt:
+                out = gather_cols(cvs, order[start:start + cnt], None)
+                yield s_, DeviceBatch(make_table(schema, out, cnt), cnt,
+                                      device=dev)
+            start += cnt
+
+    def _split_both(self, ctx: ExecContext, S: int, seed: int,
+                    build_batches, stream_batches):
+        """Both sides into S disjoint-key piles of spill handles: (build
+        piles, their bytes, stream piles). On an error every handle
+        parked so far closes."""
+        store = ctx.spill_store
+        left, right = self.children
+        piles_b = [[] for _ in range(S)]
+        bytes_b = [0] * S
+        piles_s = [[] for _ in range(S)]
+        try:
+            with ctx.timer(self._op_id, "buildTime"):
+                for b in build_batches:
+                    for s_, sb in self._subpartition(b, self.rkeys,
+                                                     right.schema, S, seed):
+                        bytes_b[s_] += sb.nbytes
+                        piles_b[s_].append(ctx.track(
+                            store.add_batch(sb, priority=7)))
+            for b in stream_batches:
+                with ctx.timer(self._op_id, "probeTime"):
+                    for s_, sb in self._subpartition(b, self.lkeys,
+                                                     left.schema, S, seed):
+                        piles_s[s_].append(ctx.track(
+                            store.add_batch(sb, priority=7)))
+        except BaseException:
+            for h in (h for p in piles_b + piles_s for h in p):
+                h.close()
+            raise
+        return piles_b, bytes_b, piles_s
+
+    def _run_buckets(self, ctx, piles_b, bytes_b, piles_s, budget, depth):
+        """Each pile pair through `_join_bucket`; every pile closes on
+        generator exit, the consumer's abandonment included."""
+        try:
+            for s_ in range(len(piles_b)):
+                yield from self._join_bucket(ctx, piles_b[s_], piles_s[s_],
+                                             bytes_b[s_], budget, depth)
+        finally:
+            for h in (h for p in piles_b + piles_s for h in p):
+                h.close()
+
+    @staticmethod
+    def _drain(handles):
+        """Each handle's batch, the handle closed once the batch has been
+        consumed."""
+        for h in handles:
+            b = h.materialize()
+            yield b
+            h.close()
+
+    def _execute_subpartitioned(self, ctx, bbatches, stream, total,
+                                budget):
+        S = self._fanout(total, budget)
+        ctx.add_metric(self._op_id, "numSubPartitions", S)
+        piles = self._split_both(ctx, S, 0xAB5, bbatches, stream)
+        del bbatches
+        yield from self._run_buckets(ctx, *piles, budget, depth=1)
+
+    def _join_bucket(self, ctx, bhandles, shandles, bbytes, budget, depth):
+        """One disjoint-key pile pair: split again while its build is over
+        the budget, else one join pass. The build handles stay open (their
+        reservation counted) through the pass."""
+        if bbytes > budget and depth < self._MAX_SUBPART_DEPTH:
+            S = self._fanout(bbytes, budget)
+            seed = (0xAB5 ^ (depth * 0x9E3779B9)) & 0x7FFFFFFF
+            piles_b, bytes_b, piles_s = self._split_both(
+                ctx, S, seed, self._drain(bhandles), self._drain(shandles))
+            if max(bytes_b) >= bbytes:
+                # one dominant key: splitting does not shrink the
+                # biggest pile, so join below as it is
+                depth = self._MAX_SUBPART_DEPTH
+            ctx.add_metric(self._op_id, "numSubPartRecursions", 1)
+            yield from self._run_buckets(ctx, piles_b, bytes_b, piles_s,
+                                         budget, depth + 1)
+            return
+        try:
+            builds = [h.materialize() for h in bhandles]
+            yield from self._join_pass(ctx, builds, self._drain(shandles))
+        finally:
+            for h in bhandles + shandles:
+                h.close()
 
     def _unmatched_build(self, ctx, bcvs, unmatched):
         """The build rows no pair matched, the left side null (right and

@@ -629,15 +629,82 @@ def _batch_to_arrow(batch: DeviceBatch):
 
 
 def collect_to_arrow(root: TpuExec, ctx: ExecContext):
-    """Run the plan and materialize a host pyarrow Table, partitions in
-    order (the JAX package runs them concurrently and concatenates in
-    the same order)."""
+    """Run the plan and materialize a host pyarrow Table (the analog of
+    GpuColumnarToRowExec + collect). Partitions run as concurrent tasks
+    on a `tpu-collect` pool of min(partitions, max(2, 2 x
+    concurrentTpuTasks)) threads, bounded by the session's TpuSemaphore
+    (the GpuSemaphore admission model, reference GpuSemaphore.scala:183):
+    a task holds a permit while it advances its partition's iterator
+    (the device work, enqueued on the caller's CUDA stream) and releases
+    it around the D2H copy and the Arrow conversion. The pieces
+    concatenate in partition order; the seconds tasks waited for a
+    permit are `semaphoreWaitMs` on the root, the most permits held at
+    once `semaphorePeakHeld`. One partition runs on the calling
+    thread."""
+    import concurrent.futures as cf
+
     import pyarrow as pa
-    pieces = []
-    for b in root.execute_all(ctx):
+    nparts = root.num_partitions(ctx)
+
+    def to_arrow(b):
         # the D2H inside waits for the device work queued for this batch
         with ctx.timer(root._op_id, "collectTime"):
-            pieces.append(_batch_to_arrow(b))
+            return _batch_to_arrow(b)
+
+    if nparts <= 1:
+        pieces = [to_arrow(b) for b in root.execute_all(ctx)]
+    else:
+        sem = _session_semaphore(ctx)
+        sem.reset_peak()
+        waits = []
+        # the tasks enqueue on the caller's stream, after the work the
+        # stage driver queued there
+        stream = (torch.cuda.current_stream(ctx.device)
+                  if ctx.device is not None and ctx.device.type == "cuda"
+                  else None)
+
+        def run_part(pid):
+            if stream is None:
+                return run_task(pid)
+            with torch.cuda.stream(stream):
+                return run_task(pid)
+
+        def run_task(pid):
+            out, waited = [], 0.0
+            it = root.execute_partition(ctx, pid)
+            try:
+                while True:
+                    waited += sem.acquire()
+                    try:
+                        b = next(it, None)
+                    finally:
+                        sem.release()
+                    if b is None:
+                        break
+                    out.append(to_arrow(b))
+            finally:
+                waits.append(waited)
+                it.close()
+            return out
+
+        workers = min(nparts, max(2, 2 * ctx.conf.concurrent_tasks))
+        with cf.ThreadPoolExecutor(
+                workers, thread_name_prefix="tpu-collect") as pool:
+            results = list(pool.map(run_part, range(nparts)))
+        pieces = [at for r in results for at in r]
+        ctx.add_metric(root._op_id, "semaphoreWaitMs",
+                       round(sum(waits) * 1e3, 3))
+        ctx.set_metric(root._op_id, "semaphorePeakHeld",
+                       sem.metrics["peakHeld"])
     if not pieces:
         return root.schema.to_arrow().empty_table()
     return pa.concat_tables(pieces)
+
+
+def _session_semaphore(ctx: ExecContext):
+    """The session's semaphore, or one of its own for a context that has
+    no session."""
+    if ctx.session is not None:
+        return ctx.session.semaphore
+    from ..memory.semaphore import TpuSemaphore
+    return TpuSemaphore(ctx.conf.concurrent_tasks)

@@ -1,1 +1,3 @@
-"""Host memory: the global host budget and the pinned staging pool."""
+"""The memory runtime: the device budget, the spill store, the retry
+framework, the task semaphore, the host budget and its pinned staging
+pool."""

@@ -5,7 +5,9 @@ The reference bounds executor host DRAM with one HostAlloc pool
 (HostAlloc.scala:36; limits RapidsConf.scala:337-353): pinned pool +
 non-pinned limit. The port keeps the JAX package's shape of it: ONE
 process-wide byte budget (`memory.host.limitBytes`) that host-resident
-consumers draw from, and ONE reusable pool of size-bucketed
+consumers draw from (the spill stores' host tier, the staging pool's
+cached buffers), with pressure hooks that demote spilled batches from
+host memory to disk, and ONE reusable pool of size-bucketed
 staging buffers for the device Parquet scan (raw chunk reads, snappy
 decompression targets, H2D upload sources).
 
@@ -21,26 +23,40 @@ chunk, row group, file and query.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-__all__ = ["HostMemoryManager", "host_manager", "PinnedStagingPool",
-           "StagingBuffer", "staging_pool"]
+__all__ = ["HostMemoryManager", "HostBudgetExceeded", "host_manager",
+           "PinnedStagingPool", "StagingBuffer", "staging_pool"]
+
+
+class HostBudgetExceeded(MemoryError):
+    pass
 
 
 class HostMemoryManager:
     """One byte budget (0 = unlimited). Like the reference's
     TrafficController, ONE outstanding reservation is always admitted so
-    a single oversized buffer cannot wedge the process. (The JAX
-    package's pressure hooks free host bytes for its spill store; the
-    port has no spill store yet, so a refused reservation is final.)"""
+    a single oversized buffer cannot wedge the process. Pressure hooks
+    (the spill stores register their host->disk cascade) free host bytes
+    when a `reserve` would overflow; one that still cannot fit raises
+    HostBudgetExceeded, so the caller routes around host memory (a
+    spill goes straight to disk)."""
 
     def __init__(self, budget_bytes: int):
         self.budget = int(budget_bytes)
         self._reserved = 0
         self._holders = 0
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
+        self._hooks: List[Callable[[int], int]] = []
+        self.metrics = {"pressureCalls": 0, "pressureFreed": 0}
+
+    def register_pressure_hook(self, fn: Callable[[int], int]):
+        """fn(bytes_needed) -> bytes freed (e.g. host->disk demotion)."""
+        with self._lock:
+            if fn not in self._hooks:
+                self._hooks.append(fn)
 
     @property
     def reserved(self) -> int:
@@ -49,13 +65,45 @@ class HostMemoryManager:
 
     def try_reserve(self, nbytes: int) -> bool:
         with self._lock:
-            if self.budget <= 0 \
-                    or self._reserved + nbytes <= self.budget \
-                    or self._holders == 0:
-                self._reserved += nbytes
-                self._holders += 1
-                return True
-            return False
+            if not (self.budget <= 0
+                    or self._reserved + nbytes <= self.budget
+                    or self._holders == 0):
+                return False
+            self._reserved += nbytes
+            self._holders += 1
+            cur = self._reserved
+        from .diagnostics import record_host_watermark
+        record_host_watermark(cur)
+        return True
+
+    def reserve(self, nbytes: int):
+        """Reserve host bytes, firing the pressure hooks when over
+        budget. Raises HostBudgetExceeded when the hooks cannot make room
+        and other reservations are outstanding."""
+        if self.try_reserve(nbytes):
+            return
+        with self._lock:
+            self.metrics["pressureCalls"] += 1
+            hooks = list(self._hooks)
+        for fn in hooks:
+            freed = int(fn(nbytes) or 0)
+            with self._lock:
+                self.metrics["pressureFreed"] += freed
+            if self.try_reserve(nbytes):
+                return
+        raise HostBudgetExceeded(
+            f"host reservation of {nbytes} bytes over budget "
+            f"{self.budget} ({self.reserved} reserved)")
+
+    def force_reserve(self, nbytes: int):
+        """Unconditional reservation (soft admit): the accounting may
+        exceed the budget; later reservations see the pressure."""
+        with self._lock:
+            self._reserved += nbytes
+            self._holders += 1
+            cur = self._reserved
+        from .diagnostics import record_host_watermark
+        record_host_watermark(cur)
 
     def release(self, nbytes: int):
         with self._lock:

@@ -27,6 +27,9 @@ from .expr.aggregates import AggExpr
 from .expr.expressions import (Alias, BoundRef, Coalesce, Expression,
                                col)
 from .functions import _to_expr
+from .memory.device import device_manager
+from .memory.semaphore import TpuSemaphore
+from .memory.spill import spill_store
 from .plan import logical as L
 from .plan.aqe import run_stage_driver
 from .plan.planner import Planner
@@ -98,10 +101,25 @@ def _split_join_condition(expr, lschema, rschema):
 
 
 class TpuSession:
+    """A session on one torch device. It owns the TpuSemaphore its
+    queries' tasks share (`sql.concurrentTpuTasks` permits), and reaches
+    the device manager and spill store of its conf and device
+    (`memory/device.py` `device_manager`, `memory/spill.py`
+    `spill_store`: sessions of one budget share them)."""
+
     def __init__(self, conf: Optional[Dict] = None, device=None):
         self.conf = TpuConf(conf)
         self.device = _resolve_device(device)
         self.read = DataFrameReader(self)
+        self.semaphore = TpuSemaphore(self.conf.concurrent_tasks)
+
+    @property
+    def device_manager(self):
+        return device_manager(self.conf, self.device)
+
+    @property
+    def spill_store(self):
+        return spill_store(self.conf, self.device)
 
     def create_dataframe(self, data, schema=None) -> "DataFrame":
         import pyarrow as pa
@@ -323,21 +341,25 @@ class DataFrame:
         """(root exec, its ExecContext): a fresh plan of this DataFrame
         on the session's device."""
         s = self._session
-        return Planner(s.conf).plan(self._plan), ExecContext(s.conf,
-                                                             s.device)
+        return Planner(s.conf).plan(self._plan), ExecContext(
+            s.conf, s.device, session=s)
 
     def to_arrow(self):
         root, ctx = self.physical_plan()
-        # the stage driver: shuffle stages materialize and re-plan
-        # (coalesce, skew split, join demotion) before the consumer
-        # runs; a stage that fails fails the query
-        t0 = time.perf_counter()
-        decisions = run_stage_driver(root, ctx, self._session.conf)
-        ctx.set_metric(root._op_id, "stageDriverTime",
-                       time.perf_counter() - t0)
-        self._last_plan = root
-        self._last_aqe_decisions = decisions
-        out = collect_to_arrow(root, ctx)
+        try:
+            # the stage driver: shuffle stages materialize and re-plan
+            # (coalesce, skew split, join demotion) before the consumer
+            # runs; a stage that fails fails the query
+            t0 = time.perf_counter()
+            decisions = run_stage_driver(root, ctx, self._session.conf)
+            ctx.set_metric(root._op_id, "stageDriverTime",
+                           time.perf_counter() - t0)
+            self._last_plan = root
+            self._last_aqe_decisions = decisions
+            out = collect_to_arrow(root, ctx)
+        finally:
+            # spill handles a failed or abandoned operator left open
+            ctx.close()
         # the observed cardinalities close the adaptive loop; advisory,
         # it never fails the query (JAX `session.py:1050-1069`)
         try:
@@ -366,11 +388,14 @@ class DataFrame:
         """Per-operator metrics of this DataFrame's most recent action:
         host seconds per layer (scanTime, decodeTime, hashPassTime,
         sortPassTime, mergeTime, mapTime, sliceTime, reduceTime, buildTime,
-        probeTime, expandTime, sortTime, limitTime, collectTime) and
-        counts (mapBatches, skippedRowGroups, inputBatches,
-        hashPassBatches, sortPassBatches, mergePasses, numBucketRecursions,
-        a join's streamBatches, directProbeBatches, sortedProbeBatches,
-        countProbeBatches, fkOutputBatches, expandOutputBatches)."""
+        probeTime, expandTime, sortTime, limitTime, collectTime; summed
+        over the collect's concurrent tasks, so a layer can exceed the
+        wall) and counts (mapBatches, skippedRowGroups, inputBatches,
+        hashPassBatches, sortPassBatches, mergePasses, numBucketSplits,
+        numBucketRecursions, a join's streamBatches, directProbeBatches,
+        sortedProbeBatches, countProbeBatches, fkOutputBatches,
+        expandOutputBatches, numSubPartitions, numSubPartRecursions, the
+        sort's oocRangePartitions, the root's semaphoreWaitMs)."""
         return getattr(self, "_last_metrics", {})
 
     def collect(self) -> List[tuple]:

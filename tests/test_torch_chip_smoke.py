@@ -756,3 +756,142 @@ def test_double_sum_and_bit_equal_runs_rehearse_on_the_cpu(tpch_small,
     assert not chip_smoke.same_bits(a, pa.table({"x": [1.0, None, 0.3]}))
     assert not chip_smoke.same_bits(a, pa.table({"x": [1.0, 2.0,
                                                        0.1 + 0.2]}))
+
+
+class _InjectedCap:
+    """The CPU's stand-in for chip_smoke.CudaCap at a share of 4096
+    rows: while it is entered, the aggregate's first pass over a batch
+    longer than the share raises torch.OutOfMemoryError, as a capped CUDA
+    allocator would for a big enough allocation (inside `with_retry`);
+    under half, so does every merge of partials (outside any retry
+    scope)."""
+
+    def __init__(self, share):
+        self.rows = int(4096 * share)
+        self.merges_fail = share < 0.5
+
+    def __enter__(self):
+        import torch
+        from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+        cls = HashAggregateExec
+        self._orig = (cls._update_one, cls._merge_partials)
+        update, merge = self._orig
+        rows, merges_fail = self.rows, self.merges_fail
+
+        def oom():
+            return torch.OutOfMemoryError("CUDA out of memory (injected)")
+
+        def capped_update(agg, ctx, batch, *a):
+            if batch.capacity > rows:
+                raise oom()
+            return update(agg, ctx, batch, *a)
+
+        def capped_merge(agg, *a):
+            if merges_fail:
+                raise oom()
+            return merge(agg, *a)
+
+        cls._update_one, cls._merge_partials = capped_update, capped_merge
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+        HashAggregateExec._update_one, HashAggregateExec._merge_partials = \
+            self._orig
+
+
+def test_memory_runtime_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """The four memory-runtime phases at sf 0.01: the sort over a 64 KiB
+    threshold goes out of core and equals numpy; Q9, Q18 and Q21 under a
+    conf scaled to the data spill to host and disk and sub-partition,
+    exact, leaving no handle, reservation or file; the injected cap
+    splits Q18's aggregate and retries it, twice; the concurrency
+    readings hold the permit bound and the rows."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096,
+                       "spark.rapids.tpu.sql.adaptive."
+                       "advisoryPartitionSizeInBytes": 1 << 15},
+                      device="cpu")
+    queries = (5, 9, 18, 21)
+    expects = {n: chip_smoke.tpch_reference(n, tpch_small) for n in queries}
+    defaults = {n: chip_smoke.tpch_query(n, s, tpch_small).to_arrow()
+                for n in chip_smoke.CONSTRAINED_QUERIES}
+
+    def q18():
+        return chip_smoke.tpch_query(18, s, tpch_small)
+
+    def check18(out, what):
+        chip_smoke.check_tpch(18, out, expects[18], what)
+
+    capsys.readouterr()
+    out = chip_smoke.memory_runtime_phases(
+        s, tpch_small, expects, defaults,
+        sort_conf={"spark.rapids.tpu.sql.sort.outOfCore.thresholdBytes":
+                   1 << 16},
+        constrained_confs={"scaled": {
+            "spark.rapids.tpu.memory.tpu.poolBytes": 512 << 10,
+            "spark.rapids.tpu.sql.join.buildSideBudgetBytes": 256 << 10,
+            "spark.rapids.tpu.sql.agg.maxMergeRows": 4096,
+            "spark.rapids.tpu.memory.host.spillStorageSize": 128 << 10}},
+        oom_subjects=[("q18_merges", q18, check18, (0.3,)),
+                      ("q18", q18, check18, (1.0, 0.9, 0.5))],
+        oom_cap=_InjectedCap)
+    phases = {d["phase"]: d for d in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    ooc, inc = phases["ooc_sort_out_of_core"], phases["ooc_sort_in_core"]
+    assert ooc["oocRangePartitions"] > 0 and inc["oocRangePartitions"] == 0
+    assert ooc["rows"] == inc["rows"] == tpch_small["lineitem"].num_rows
+    assert out["ooc_sort"]["out_of_core"]["extendedprice_unscaled_sum"] \
+        == inc["extendedprice_unscaled_sum"]
+    con = phases["constrained_memory"]["runs"]
+    assert set(con) == {"scaled_q9", "scaled_q18", "scaled_q21"}
+    assert any(q["spillToHost"] for q in con.values())
+    assert any(q["spillToDisk"] for q in con.values())
+    assert any(q["numSubPartitions"] for q in con.values())
+    for name, q in con.items():
+        assert q["spill_dir_files_after"] == 0
+        assert q["device_reserved_after"] == 0
+        assert 0 < q["parked_peak_bytes"] <= 512 << 10
+        if name != "scaled_q9":
+            assert q["equal_to_default_conf_bit_for_bit"] is True
+    assert con["scaled_q9"]["max_rel_diff_to_default_conf"] < 1e-12
+    oom = phases["real_oom"]["subjects"]
+    # under half a share the merges (outside any retry scope) fail: the
+    # OOM escapes and names the frames it passed; the next subject at
+    # share 1.0 leaves 4096-row batches whole and at 0.9 splits them
+    esc = oom["q18_merges"]["attempts"]
+    assert len(esc) == 1 and esc[0]["site"].endswith("_emit_final")
+    assert [a["share"] for a in oom["q18"]["attempts"]] == [1.0, 0.9]
+    assert oom["q18"]["attempts"][0]["ooms"] == 0
+    assert oom["q18"]["chosen_share"] == 0.9
+    assert oom["q18"]["second_run"]["ooms"] > 0
+    assert oom["q18"]["second_run"]["splits"] > 0
+    assert out["real_oom"]["split_and_retried"] == "q18"
+    # the card's default subjects: Q18, then lineitem's exchange, whose
+    # check holds its rows and sums to numpy's
+    subj = chip_smoke.oom_subjects(s, tpch_small, expects)
+    assert [x[0] for x in subj] == ["q18", "q18_lineitem_exchange"]
+    _, make, check, shares = subj[1]
+    check(make().to_arrow(), "uncapped")
+    assert shares == chip_smoke.OOM_SHARES
+    conc = phases["concurrency"]["queries"]
+    assert set(conc) == {"q5", "q18", "q18_inner_aggregate"}
+    inner = conc["q18_inner_aggregate"]
+    assert inner["tasks_2"]["root_partitions"] > 1
+    assert 1 <= inner["tasks_2"]["semaphorePeakHeld"] <= 2
+    assert inner["tasks_1"]["semaphorePeakHeld"] == 1
+    assert conc["q5"]["tasks_2"]["root_partitions"] == 1
+
+
+def test_an_escaped_oom_names_its_site():
+    import torch
+    from spark_rapids_tpu_torch.memory import retry
+    with pytest.raises(torch.OutOfMemoryError) as e:
+        retry.retry_no_split(lambda: (_ for _ in ()).throw(
+            torch.OutOfMemoryError("CUDA out of memory")), retries=0)
+    assert chip_smoke.port_site(e.value).startswith(
+        "/memory/retry.py:") and "retry_no_split" in \
+        chip_smoke.port_site(e.value)

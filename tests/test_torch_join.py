@@ -11,7 +11,8 @@ which path ran. Also: an empty build and an empty stream, the int64
 maximum key next to null build keys, the broadcast and the per-partition
 (shuffled) topologies, the joined column names, and the NotPorted
 refusals (a count(DISTINCT) outside the optimizer's rewrite, a mesh
-exchange, a build over `sql.join.buildSideBudgetBytes`). Each result must equal the JAX
+exchange; a build over `sql.join.buildSideBudgetBytes` now joins out of
+core, equal to the in-core join). Each result must equal the JAX
 package's Arrow table, row for row once both are sorted by every column
 (the row order of a join output is not defined). Tolerance: exact.
 """
@@ -317,11 +318,17 @@ def test_refusals_raise_not_ported():
     with pytest.raises(NotPorted, match="mesh exchange"):
         mesh.create_dataframe(stream).join(
             mesh.create_dataframe(build), on=["k"]).to_arrow()
+    # a build over sql.join.buildSideBudgetBytes is no refusal since the
+    # memory runtime: it joins sub-partitioned, equal to the in-core join
     tiny = pt.TpuSession({"spark.rapids.tpu.sql.join.buildSideBudgetBytes":
                           100}, device="cpu")
-    with pytest.raises(NotPorted, match="buildSideBudgetBytes"):
-        tiny.create_dataframe(stream).join(
-            tiny.create_dataframe(build), on=["k"]).to_arrow()
+    q = tiny.create_dataframe(stream).join(tiny.create_dataframe(build),
+                                           on=["k"])
+    got = q.to_arrow()
+    assert sum(m.get("numSubPartitions", 0)
+               for m in q.last_metrics().values()) > 0
+    assert _sorted(got).equals(_sorted(left.join(right, on=["k"])
+                                       .to_arrow()))
 
 
 @pytest.mark.parametrize("downstream", ["aggregate", "exchange", "join"])
