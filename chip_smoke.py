@@ -69,10 +69,14 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
  16-34. each of those queries (`workloads/tpch_queries.py`) over
      `create_dataframe` of the eight tables at the default conf (join
      reorder, adaptive execution, exchange reuse, the async broadcast
-     build), each a fresh plan, twice (the second run plans with the
-     calibration the first recorded), the pinned-host cache released
-     first: the plan shape that ran (broadcast and per-partition joins,
-     exchanges, aggregate modes) beside the written plan's, whether the
+     build, the exchange map on a pool of min(4, cores) workers), each
+     a fresh plan, twice (the second run plans with the calibration the
+     first recorded), once at the default conf and once with
+     `sql.exec.exchange.mapThreads` = 1, the default first on every
+     other query, and the two results bit-equal (on one plan), with
+     each run's map threads and `mapPoolWaitMs`, the pinned-host cache
+     released first: the plan shape that ran (broadcast and
+     per-partition joins, exchanges, aggregate modes) beside the written plan's, whether the
      join order differs from the written one, both runs' plan
      signatures, and per run the adaptive decisions (partitions before
      and after, coalesced away, skew splits, demotions with their build
@@ -102,6 +106,26 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      `condition=c_nationkey == n_nationkey` alone (37.5M pairs in
      chunks of about 2^20), whose rows must equal the equi-join's and
      numpy's;
+ 38a. `stats_by_shipdate`: gen_all's lineitem grouped by l_shipdate
+     (2,526 dates) over stddev(l_quantity), variance(l_extendedprice),
+     median, percentile 0.9 and percentile_approx 0.5 of l_extendedprice
+     as a double, approx_count_distinct(l_partkey), first and last
+     l_orderkey: CollectAggExec behind an exchange of the raw rows on
+     the date, where the partition kernel runs (its launches counted:
+     one a map batch, every one the vector variant); each group held to
+     numpy (`stats_reference`, `check_stats`): first / last in scan
+     order, median and percentile exact, the variances within a
+     relative 1e-9, approx_count_distinct within 4 rsd, the t-digest's
+     value at a rank within pi / (2C) of 0.5;
+ 38b. `distinct_beside_sum`: group_by(l_suppkey) (100,000 groups) over
+     count_distinct(l_orderkey), sum(l_quantity) and
+     avg(l_extendedprice), exact against numpy;
+ 38c. `float_decimal_keys`: group_by(l_quantity as a double), count and
+     sum(l_extendedprice), 50 groups through a partial exchange on the
+     double key, exact; then repartition(200) on the decimal128 product
+     l_extendedprice * (1 - l_discount); both exchanges' host pieces
+     hashed again with numpy's version of the JAX hash (every row where
+     it belongs), every row conserved and the product's sum exact;
  39-60. the written plans: all 22 queries over the same tables, once
      each, with `WRITTEN_CONF` (the four features off: joins in the
      written order, fixed partitions, no reuse, each build before its
@@ -128,24 +152,28 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      `sql.sort.outOfCore.thresholdBytes` and so runs out of core
      (`oocRangePartitions` > 0), checked against numpy (the keys in
      order, the row count, the (l_orderkey, l_linenumber) pairs, the
-     unscaled l_extendedprice sum), beside the same sort in core (an OOM
-     there, outside any retry scope, is its reading);
- 63. Q9, Q18 and Q21 under `CONSTRAINED_CONFS` (the specified 1 GiB
-     device budget, 64 MiB builds, 2^20 merge rows and a 512 MiB host
-     tier; then 128 MiB and 64 MiB, under which the batches spill), each
+     unscaled l_extendedprice sum); the same sort in core only over an
+     input of at most 1 GiB (at SF10 it fails for memory, PERF.md §5);
+ 63. Q21 under `CONSTRAINED_CONFS`' specified 1 GiB device budget (64
+     MiB builds, 2^20 merge rows and a 512 MiB host tier), Q9 and Q18
+     under 128 MiB and 64 MiB, under which the batches spill, each
      exact and equal to its default-conf result (Q9's double reported,
      not held, bit for bit), with its spills, out-of-core counters, most
      bytes parked, peak device memory and host RSS, the device
      reservation back at its start and the spill directory empty; over
      the runs one spills to host, one to disk, one sub-partitions a join;
- 64. Q18 under a CUDA allocator cap below its uncapped peak
-     (`set_per_process_memory_fraction`), at shares of that peak in turn
-     until a run is exact with OOMs caught and splits taken in
-     `with_retry`, then that cap again; an escaped OOM names its site;
+ 64. Q18 under a CUDA allocator cap below its uncapped peak at
+     `mapThreads` = 1 (`set_per_process_memory_fraction`), at shares of
+     that peak in turn until a run is exact with OOMs caught and splits
+     taken in `with_retry`, then that cap again, which must do the same;
+     an escaped OOM names its site and the next subject follows
+     (lineitem's exchange on the map pool, its steps that met an OOM
+     retried alone, `mapPoolAloneSteps`);
  65. the concurrent collect: Q5, Q18 and Q18's inner aggregate (lineitem
      grouped by l_orderkey, a root of several partitions) with the
-     session's permits and with one, the same rows, the root's
-     `semaphoreWaitMs` and permits held at once.
+     session's permits and with one, the map pool at 4 workers, the
+     same rows, the root's `semaphoreWaitMs` and permits held at once;
+     the one-permit run must finish within CONCURRENCY_TIMEOUT_S.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
@@ -170,6 +198,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -2615,7 +2644,8 @@ def release_pinned_cache(what):
 
 
 def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
-                label="tpch", profile=True, keep=None) -> dict:
+                label="tpch", profile=True, keep=None,
+                ab_threads=None, ab_offset=0) -> dict:
     """One phase per query (each run a fresh plan; the partition kernel's
     launches counted from 0 and held to the plan's int32 exchanges; the
     plan held to its adaptive decisions), then, with `profile`, Q5 and
@@ -2627,15 +2657,35 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
     when they ran one plan; where calibration changed the second run's
     plan, a third run must repeat that plan and the second run's bits.
     Returns the partition kernel's launches per path; `keep`, where
-    given, gets the first result of each of CONSTRAINED_QUERIES."""
+    given, gets the first result of each of CONSTRAINED_QUERIES.
+
+    With `ab_threads` (and two runs) one run maps at the session's conf
+    and the other at `sql.exec.exchange.mapThreads` = ab_threads, which
+    runs first alternating query by query (the session's conf first on
+    the queries whose index plus `ab_offset` is even: a run with the
+    other offset reads every query in the other order, so the pool is
+    told apart from run order across runs); every query's two results
+    must then be bit-equal (on one plan, as above), and each run
+    carries its map threads and `mapPoolWaitMs`."""
     dev = session.device
     per = session.conf.batch_size_rows
     batches = sum(-(-t.num_rows // per) for t in tables.values())
     launches = {}
-    for n in queries:
+    other = (session_with(session, {MAP_THREADS_KEY: ab_threads})
+             if ab_threads is not None and runs == 2 else None)
+    for qi, n in enumerate(queries):
         out_runs, outs = [], []
-        for _ in range(runs):
-            out, info, q = query_run(n, session, tables, expects, label)
+        sessions = [session] * runs
+        if other is not None:
+            sessions = ([session, other] if (qi + ab_offset) % 2 == 0
+                        else [other, session])
+        for sess in sessions:
+            out, info, q = query_run(n, sess, tables, expects, label)
+            if other is not None:
+                info["map_threads"] = map_threads_of(sess)
+                info["mapPoolWaitMs"] = sum(
+                    m.get("mapPoolWaitMs", 0.0)
+                    for m in q.last_metrics().values())
             outs.append(out)
             out_runs.append(info)
         if keep is not None and n in CONSTRAINED_QUERIES:
@@ -2644,13 +2694,17 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
             info["partition_kernel_launches"]
         bit_equal = recheck = None
         sigs = [r["plan_signature"] for r in out_runs]
-        if n in TPCH_DOUBLE_QUERIES and len(out_runs) > 1:
+        if (n in TPCH_DOUBLE_QUERIES or other is not None) \
+                and len(out_runs) > 1:
             if sigs[0] == sigs[1]:
                 bit_equal = same_bits(outs[0], outs[1])
             else:
-                # calibration changed the plan: run that plan again
-                out, info, q = query_run(n, session, tables, expects,
+                # calibration changed the plan: run that plan again (with
+                # the first run's threads: the pair stays an A/B)
+                out, info, q = query_run(n, sessions[0], tables, expects,
                                           label)
+                if other is not None:
+                    info["map_threads"] = map_threads_of(sessions[0])
                 if info["plan_signature"] != sigs[1]:
                     raise AssertionError(f"Q{n}: the third run's plan "
                                          f"differs from the second's")
@@ -2666,7 +2720,10 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
               "plan_signatures": sigs,
               "int32_exchanges": int32_exchanges(root),
               "input_batches": batches, "runs_bit_equal": bit_equal,
-              "third_run_after_calibration": recheck, "runs": out_runs})
+              "third_run_after_calibration": recheck,
+              **({"default_conf_first": sessions[0] is session}
+                 if other is not None else {}),
+              "runs": out_runs})
     for n, groups in ((5, Q3_GROUPS), (13, Q13_GROUPS)):
         if not profile or n not in queries:
             continue
@@ -3201,8 +3258,14 @@ CONSTRAINED_CONFS = {
 #: the queries of each constrained conf: Q21, which takes its joins
 #: whole under 64 MiB builds, cycles its parked batches through host
 #: memory and disk many times over under 128 MiB, and is left out there
-#: to bound the run
-CONSTRAINED_RUNS = {"1gib": CONSTRAINED_QUERIES, "128mib": (9, 18)}
+#: to bound the run; Q9 and Q18 never fill the 1 GiB budget (PERF.md §6)
+#: and run under 128 MiB only
+CONSTRAINED_RUNS = {"1gib": (21,), "128mib": (9, 18)}
+#: the in-core sort runs beside the out-of-core one only over an input
+#: this small: at SF10 (3.7 GB) its one string gather asks 11.77 GiB
+#: and fails (PERF.md §5), a reading that costs the run and shows nothing
+#: new
+IN_CORE_SORT_MAX_BYTES = 1 << 30
 MEMORY_COUNTERS = ("numSubPartitions", "numSubPartRecursions",
                    "numBucketSplits", "numBucketRecursions",
                    "oocRangePartitions")
@@ -3214,6 +3277,8 @@ OOM_SHARES = (0.9, 0.75, 0.6, 0.45)
 OOM_EXCHANGE_ROWS = 16 * BATCH_ROWS
 OOM_QUERY = 18
 CONCURRENCY_QUERIES = (5, 18)
+CONCURRENCY_MAP_THREADS = 4
+CONCURRENCY_TIMEOUT_S = 300
 
 
 def card_line(device) -> str:
@@ -3299,9 +3364,10 @@ def ooc_sort_phase(session, lineitem, conf=None) -> dict:
     """Phase 1: the sort of five lineitem columns (`with_comment`'s
     l_comment one of them) by three keys at the session's conf (over
     `sql.sort.outOfCore.thresholdBytes`, so out of core), checked against
-    numpy, then the same sort in core. The in-core sort is the reading
-    beside it: where it does not fit the card, its OOM (outside any retry
-    scope, as in the JAX package) and the site are what it reads."""
+    numpy, then the same sort in core over an input of at most
+    IN_CORE_SORT_MAX_BYTES. The in-core sort is the reading beside it:
+    where it does not fit the card, its OOM (outside any retry scope, as
+    in the JAX package) and the site are what it reads."""
     from spark_rapids_tpu_torch.config import SORT_OOC_THRESHOLD
     from spark_rapids_tpu_torch.memory.retry import is_oom_error
     dev = session.device
@@ -3310,10 +3376,15 @@ def ooc_sort_phase(session, lineitem, conf=None) -> dict:
         [c for c in OOC_SORT_COLUMNS if c != "l_comment"]))
     comment_s = time.perf_counter() - t0
     runs = {}
-    for mode, extra in (("out_of_core", conf or {}),
-                        ("in_core", dict(conf or {}, **{
-                            "spark.rapids.tpu.sql.sort.outOfCore.enabled":
-                            False}))):
+    modes = [("out_of_core", conf or {})]
+    if lineitem.nbytes <= IN_CORE_SORT_MAX_BYTES:
+        modes.append(("in_core", dict(conf or {}, **{
+            "spark.rapids.tpu.sql.sort.outOfCore.enabled": False})))
+    else:
+        emit({"phase": "ooc_sort_in_core", "skipped": True,
+              "input_bytes": lineitem.nbytes,
+              "in_core_max_bytes": IN_CORE_SORT_MAX_BYTES})
+    for mode, extra in modes:
         sess = session_with(session, extra)
         q = ooc_sort_query(sess, lineitem)
         gc.collect()
@@ -3516,7 +3587,10 @@ def oom_subjects(session, tables, expects):
     shares): Q18 itself, then the exchange on Q18's path that maps
     lineitem's l_orderkey (and l_quantity) into 200 partitions, adaptive
     execution off, whose map runs in `with_retry` (over the first
-    OOM_EXCHANGE_ROWS rows: each OOM costs a split and a retry)."""
+    OOM_EXCHANGE_ROWS rows: each OOM costs a split and a retry), on the
+    map pool of the default conf. A maker called with `serial=True`
+    makes the same query at `mapThreads` = 1, whose peak the phase caps
+    against."""
     import numpy as np
     li = tables["lineitem"].slice(0, OOM_EXCHANGE_ROWS)
     want = (li.num_rows, int(_col(li, "l_orderkey").sum()),
@@ -3530,14 +3604,28 @@ def oom_subjects(session, tables, expects):
         if got != want:
             raise AssertionError(f"the exchange {what}: {got}, want {want}")
 
+    def serial_or(sess, serial):
+        return session_with(sess, {MAP_THREADS_KEY: 1}) if serial else sess
+
+    def exchange(serial=False):
+        return serial_or(fixed, serial).create_dataframe(li).select(
+            "l_orderkey", "l_quantity").repartition(200, "l_orderkey")
+
+    def q18(serial=False):
+        return tpch_query(OOM_QUERY, serial_or(session, serial), tables)
+
     return [
-        ("q18", lambda: tpch_query(OOM_QUERY, session, tables),
+        ("q18", q18,
          lambda out, what: check_tpch(OOM_QUERY, out, expects[OOM_QUERY],
                                       what), (0.6,)),
-        ("q18_lineitem_exchange",
-         lambda: fixed.create_dataframe(li).select(
-             "l_orderkey", "l_quantity").repartition(200, "l_orderkey"),
-         check_exchange, OOM_SHARES)]
+        ("q18_lineitem_exchange", exchange, check_exchange, OOM_SHARES)]
+
+
+def alone_steps(q) -> int:
+    """The pooled map steps of the query's last run that caught an OOM
+    and retried alone (`mapPoolAloneSteps`, summed over its exchanges)."""
+    return sum(m.get("mapPoolAloneSteps", 0)
+               for m in q.last_metrics().values())
 
 
 def real_oom_phase(session, tables, expects, subjects=None,
@@ -3545,12 +3633,16 @@ def real_oom_phase(session, tables, expects, subjects=None,
     """Phase 3: each subject (`oom_subjects`) in turn under a cap below
     its uncapped peak, so the CUDA allocator raises torch.OutOfMemoryError:
     the subject's peak device bytes over those allocated before it,
-    measured uncapped, then the cap at each of its shares of that in turn
+    measured uncapped with one map step at a time (`make(serial=True)`:
+    how many of the pool's steps overlap varies from run to run, and
+    with it the pooled peak, so a cap under the pooled peak of one run
+    can miss the next), then the cap at each of its shares of that in turn
     until a run is exact with OOMs caught and splits taken in
     `with_retry`; that cap again for a second run, which must do the
     same. An attempt whose OOM escapes every retry scope records the
     port's frames it escaped through (ROADMAP C names them); the phase
-    fails when no subject splits and retries. `cap(share)` makes the
+    fails when no subject splits and retries, or when the second run of
+    the one that did fails. `cap(share)` makes the
     capping context (CudaCap at the share of the subject's peak by
     default)."""
     from spark_rapids_tpu_torch.memory import retry
@@ -3566,12 +3658,12 @@ def real_oom_phase(session, tables, expects, subjects=None,
             torch.cuda.synchronize(dev)
             base = torch.cuda.memory_allocated(dev)
             torch_peak_reset(dev)
-            out, wall, _, _ = timed_query(make(), dev)
+            out, wall, _, _ = timed_query(make(serial=True), dev)
             check(out, "uncapped")
             del out
             peak = torch_peak(dev)
             rec["uncapped"] = {"wall_s": wall, "allocated_before_bytes":
-                               base, "peak_bytes": peak}
+                               base, "peak_bytes": peak, "map_threads": 1}
 
             def capper(share, base=base, peak=peak):
                 return CudaCap(dev, base + int(share * (peak - base)))
@@ -3583,9 +3675,11 @@ def real_oom_phase(session, tables, expects, subjects=None,
             try:
                 with capper(share) as c:
                     att["cap_bytes"] = getattr(c, "limit", None)
-                    out, wall, _, _ = timed_query(make(), dev)
+                    q = make()
+                    out, wall, _, _ = timed_query(q, dev)
                 check(out, f"capped at {share}")
-                att.update(wall_s=wall, exact=True, **retry.retry_stats())
+                att.update(wall_s=wall, exact=True, **retry.retry_stats(),
+                           mapPoolAloneSteps=alone_steps(q))
             except Exception as e:  # noqa: BLE001 - an escaped OOM is data
                 if not retry.is_oom_error(e):
                     raise
@@ -3601,10 +3695,12 @@ def real_oom_phase(session, tables, expects, subjects=None,
             continue
         retry.reset_retry_stats()
         with capper(chosen) as c:
-            out, wall, _, _ = timed_query(make(), dev)
+            q = make()
+            out, wall, _, _ = timed_query(q, dev)
         check(out, f"capped at {chosen}, again")
         again = dict(retry.retry_stats(), wall_s=wall,
-                     cap_bytes=getattr(c, "limit", None), exact=True)
+                     cap_bytes=getattr(c, "limit", None), exact=True,
+                     mapPoolAloneSteps=alone_steps(q))
         rec.update(chosen_share=chosen, second_run=again)
         if not (again["ooms"] > 0 and again["splits"] > 0):
             raise AssertionError(f"{name}: the second capped run caught no "
@@ -3618,12 +3714,36 @@ def real_oom_phase(session, tables, expects, subjects=None,
     return record
 
 
+def _within(seconds, fn, what):
+    """fn() on a daemon thread, failing the phase if it has not returned
+    within `seconds` (a deadlock must fail the run, not hang it)."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise AssertionError(f"{what}: no result within {seconds} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
 def concurrency_phase(session, tables, queries=CONCURRENCY_QUERIES) -> dict:
     """Phase 4: per query, the root's partitions, semaphoreWaitMs and the
     permits held at once, and the wall beside the same query with
     `sql.concurrentTpuTasks` 1, which must give the same rows; then
     Q18's inner aggregate (lineitem grouped by l_orderkey, no sort), a
-    root with several partitions."""
+    root with several partitions. Both runs map on a pool of
+    CONCURRENCY_MAP_THREADS workers; the one-permit run must finish
+    within CONCURRENCY_TIMEOUT_S."""
     import spark_rapids_tpu_torch.functions as F
 
     def inner_agg(sess):
@@ -3637,10 +3757,16 @@ def concurrency_phase(session, tables, queries=CONCURRENCY_QUERIES) -> dict:
     for name, make in makers.items():
         runs, results = {}, {}
         for tasks in (session.conf.concurrent_tasks, 1):
+            # the map pool at 4: with one permit, the collect task holds
+            # it while its iterator runs the pooled map side (chained
+            # exchanges below), the case PermitRider exists for
             sess = session_with(session, {
-                "spark.rapids.tpu.sql.concurrentTpuTasks": tasks})
+                "spark.rapids.tpu.sql.concurrentTpuTasks": tasks,
+                MAP_THREADS_KEY: CONCURRENCY_MAP_THREADS})
             q = make(sess)
-            got, wall, _, _ = timed_query(q, sess.device)
+            got, wall = _within(CONCURRENCY_TIMEOUT_S,
+                                lambda: timed_query(q, sess.device)[:2],
+                                f"{name} with {tasks} permit(s)")
             root = q.last_plan()
             m = q.last_metrics().get(root._op_id, {})
             peak = m.get("semaphorePeakHeld")
@@ -3649,6 +3775,9 @@ def concurrency_phase(session, tables, queries=CONCURRENCY_QUERIES) -> dict:
                                      f"of {tasks}")
             runs[f"tasks_{tasks}"] = {
                 "wall_s": wall, "rows": got.num_rows,
+                "map_threads": map_threads_of(sess),
+                "mapPoolWaitMs": sum(v.get("mapPoolWaitMs", 0.0) for v in
+                                     q.last_metrics().values()),
                 "root_partitions": root.num_partitions(None),
                 "semaphoreWaitMs": m.get("semaphoreWaitMs", 0.0),
                 "semaphorePeakHeld": peak}
@@ -3679,6 +3808,409 @@ def memory_runtime_phases(session, tables, expects, defaults, sort_conf=None,
             "real_oom": real_oom_phase(session, tables, expects,
                                        oom_subjects, oom_cap),
             "concurrency": concurrency_phase(session, tables)}
+
+
+# ----------------------------------------------------------------------
+# Slice 11: the rest of grouping, float / double / decimal128 keys
+# ----------------------------------------------------------------------
+MAP_THREADS_KEY = "spark.rapids.tpu.sql.exec.exchange.mapThreads"
+STATS_RSD = 0.05            # approx_count_distinct's default
+STATS_ACCURACY = 10000      # percentile_approx's default: C = 128
+#: percentile_approx's rank bound: one k1 bucket at the median, pi / (2C)
+#: (the JAX t-digest's worst rank error there); the sort path bins each
+#: group once, with no merge to widen it
+STATS_RANK_BOUND = math.pi / (2 * max(16, min(128, STATS_ACCURACY // 50)))
+GROUPING_REPARTITION_N = 200
+_M32 = 0xFFFFFFFF
+
+
+def _np_mix_k1(k):
+    import numpy as np
+    k = k * np.uint32(0xCC9E2D51)
+    k = (k << np.uint32(15)) | (k >> np.uint32(17))
+    return k * np.uint32(0x1B873593)
+
+
+def _np_mix_h1(h, k):
+    import numpy as np
+    h = h ^ k
+    h = (h << np.uint32(13)) | (h >> np.uint32(19))
+    return h * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def _np_fmix(h, length):
+    import numpy as np
+    h = h ^ np.uint32(length)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def map_threads_of(session) -> int:
+    """The map pool's width under the session's conf (0 resolves to
+    min(4, cores)) for an exchange of many partitions."""
+    from spark_rapids_tpu_torch.exec.exchange_pool import \
+        resolve_map_threads
+    return resolve_map_threads(session, 1 << 30)
+
+
+def np_hash_long(x, seed=42):
+    """Spark's Murmur3 hashLong of int64 values, in numpy uint32."""
+    import numpy as np
+    x = np.asarray(x, np.int64)
+    lo = (x & _M32).astype(np.uint32)
+    hi = ((x >> 32) & _M32).astype(np.uint32)
+    h = np.full(x.shape, seed, np.uint32)
+    with np.errstate(over="ignore"):
+        return _np_fmix(_np_mix_h1(_np_mix_h1(h, _np_mix_k1(lo)),
+                                   _np_mix_k1(hi)), 8)
+
+
+def np_double_word(x):
+    """The JAX package's float64 hash input as its CPU compile computes
+    it (`ops/hash.py:103-114`): subnormals and -0.0 as 0.0, frexp of
+    |x|, mant = trunc(m 2^53) with x's sign, mant ^ (e << 1); NaN as 0.0,
+    +-infinity as +-(2^63 - 1)."""
+    import numpy as np
+    x = np.asarray(x, np.float64)
+    xx = np.where(np.abs(x) < np.finfo(np.float64).tiny, 0.0, x)
+    m, e = np.frexp(np.abs(xx))
+    finite = np.isfinite(xx)
+    mant = (np.where(finite, m, 0.0) * 2.0 ** 53).astype(np.int64)
+    mant = np.where(np.isinf(xx), np.int64(2 ** 63 - 1), mant)
+    mant = np.where(xx < 0, -mant, mant)
+    return mant ^ (np.where(finite, e, 0).astype(np.int64) << 1)
+
+
+def np_partition_ids(words, valid, n):
+    """pmod(hashLong(word), n) of each row, a null row hashing to the
+    seed 42: the JAX package's `partition_ids` of one double (through
+    `np_double_word`) or decimal128 (the limbs xor-ed) key."""
+    import numpy as np
+    h = np.where(valid, np_hash_long(words), np.uint32(42))
+    return h.view(np.int32).astype(np.int64) % n
+
+
+def np_fma(a, b, c):
+    """numpy's `exec/aggregate.py` `fma`: a * b + c rounded once (the
+    JAX package's compiled percentile interpolation)."""
+    import numpy as np
+    p = a * b
+    t = 134217729.0 * a
+    ah = t - (t - a)
+    al = a - ah
+    t = 134217729.0 * b
+    bh = t - (t - b)
+    bl = b - bh
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    r = s + (((p - (s - bb)) + (c - bb)) + err)
+    return np.where(np.isfinite(r), r, p + c)
+
+
+def stats_reference(lineitem) -> dict:
+    """The exact per-l_shipdate statistics of `stats_by_shipdate`: one
+    stable sort by date (scan order within a date), then per group the
+    first / last l_orderkey, the two-pass sample variance of l_quantity
+    and l_extendedprice (unscaled x 10^-2, as the port scales), the
+    sorted l_extendedprice doubles (for the percentiles and the
+    t-digest's rank) and the exact distinct l_partkey count."""
+    import numpy as np
+    date = lineitem.column("l_shipdate").to_numpy()       # int32 days
+    order = np.argsort(date, kind="stable")
+    d = date[order]
+    starts = np.flatnonzero(np.concatenate([[True], d[1:] != d[:-1]]))
+    ends = np.concatenate([starts[1:], [len(d)]])
+    ok = lineitem.column("l_orderkey").to_numpy()[order]
+    pk = lineitem.column("l_partkey").to_numpy()[order]
+    qty = unscaled(lineitem, "l_quantity")[order].astype(np.float64) * 0.01
+    price_u = unscaled(lineitem, "l_extendedprice")[order]
+    price = price_u.astype(np.float64) * 0.01
+    price_d = price_u.astype(np.float64) / 100.0    # the cast to double
+    out = {}
+    for s, e in zip(starts, ends):
+        g = {"first": int(ok[s]), "last": int(ok[e - 1]), "n": int(e - s)}
+        for name, x in (("var_qty", qty[s:e]), ("var_price", price[s:e])):
+            mu = x.sum() / len(x)
+            g[name] = float(((x - mu) ** 2).sum() / (len(x) - 1)) \
+                if len(x) > 1 else None
+        vals = np.sort(price_d[s:e])
+        g["sorted_price"] = vals
+        for key, p in (("median", 0.5), ("p90", 0.9)):
+            fi = p * float(len(vals) - 1)
+            lo, hi = int(math.floor(fi)), int(math.ceil(fi))
+            frac = fi - lo
+            g[key] = float(np_fma(np.float64(vals[hi]), np.float64(frac),
+                                  np.float64(vals[lo]) * (1 - frac)))
+        u = np.sort(pk[s:e])
+        g["distinct_partkey"] = int(1 + (u[1:] != u[:-1]).sum())
+        out[int(d[s])] = g
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def check_stats(at, expect, what) -> dict:
+    """Each group of `stats_by_shipdate` against `stats_reference`:
+    first / last, median and the 90th percentile exact, the variances
+    and stddev within a relative 1e-9, approx_count_distinct within
+    4 rsd of the exact count, percentile_approx's value at a rank
+    within STATS_RANK_BOUND of 0.5. Returns the worst of each."""
+    import numpy as np
+    rows = at.to_pylist()
+    if len(rows) != len(expect):
+        raise AssertionError(f"{what}: {len(rows)} groups, want "
+                             f"{len(expect)}")
+    worst = {"var_rel": 0.0, "acd_rel": 0.0, "pa_rank_err": 0.0}
+    for r in rows:
+        g = expect[r["l_shipdate"]]
+        if (r["first_ok"], r["last_ok"]) != (g["first"], g["last"]):
+            raise AssertionError(f"{what}: first / last differ at "
+                                 f"{r['l_shipdate']}")
+        if (r["med"], r["p90"]) != (g["median"], g["p90"]):
+            raise AssertionError(f"{what}: median / p90 "
+                                 f"{(r['med'], r['p90'])} want "
+                                 f"{(g['median'], g['p90'])}")
+        for got, want in ((r["var_price"], g["var_price"]),
+                          (r["sd_qty"] ** 2 if r["sd_qty"] is not None
+                           else None, g["var_qty"])):
+            if (got is None) != (want is None):
+                raise AssertionError(f"{what}: a variance's null differs")
+            if got is not None:
+                worst["var_rel"] = max(worst["var_rel"], _rel(got, want))
+        exact = g["distinct_partkey"]
+        worst["acd_rel"] = max(worst["acd_rel"],
+                               abs(r["acd"] - exact) / exact)
+        # the rank's own step, 1 / n, on top of the bound: a group of a
+        # few rows cannot place a value nearer
+        rank = np.searchsorted(g["sorted_price"], r["pa50"]) / g["n"]
+        worst["pa_rank_err"] = max(worst["pa_rank_err"],
+                                   abs(rank - 0.5) - 1.0 / g["n"])
+    if worst["var_rel"] > 1e-9 or worst["acd_rel"] > 4 * STATS_RSD \
+            or worst["pa_rank_err"] > STATS_RANK_BOUND:
+        raise AssertionError(f"{what}: beyond the bounds: {worst}")
+    return worst
+
+
+def stats_query(session, lineitem):
+    """group_by(l_shipdate) over the new aggregates: median and
+    percentile put it on CollectAggExec's exchange of the raw rows on
+    the date, where the partition kernel runs."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    price = F.col("l_extendedprice").cast(dt.FLOAT64)
+    return session.create_dataframe(lineitem).group_by("l_shipdate").agg(
+        F.stddev("l_quantity").alias("sd_qty"),
+        F.variance("l_extendedprice").alias("var_price"),
+        F.median(price).alias("med"),
+        F.percentile(price, 0.9).alias("p90"),
+        F.percentile_approx(price, 0.5, STATS_ACCURACY).alias("pa50"),
+        F.approx_count_distinct("l_partkey", STATS_RSD).alias("acd"),
+        F.first("l_orderkey").alias("first_ok"),
+        F.last("l_orderkey").alias("last_ok"))
+
+
+def distinct_query(session, lineitem):
+    import spark_rapids_tpu_torch.functions as F
+    return session.create_dataframe(lineitem).group_by("l_suppkey").agg(
+        F.count_distinct("l_orderkey").alias("orders"),
+        F.sum("l_quantity").alias("qty"),
+        F.avg("l_extendedprice").alias("avg_price"))
+
+
+def distinct_reference(lineitem) -> dict:
+    """Per l_suppkey: distinct l_orderkey count (one sort of suppkey
+    << 26 | orderkey), the unscaled l_quantity sum, and the HALF_UP
+    decimal(18, 6) average of l_extendedprice (unscaled)."""
+    import numpy as np
+    sk = lineitem.column("l_suppkey").to_numpy()
+    ok = lineitem.column("l_orderkey").to_numpy()
+    if ok.max() >= 1 << 26 or sk.max() >= 1 << 36 or sk.min() < 0:
+        raise AssertionError("the packed key does not fit")
+    comb = np.sort((sk.astype(np.int64) << 26) | ok)
+    first = np.concatenate([[True], comb[1:] != comb[:-1]])
+    n = int(sk.max()) + 1
+    orders = np.bincount(comb[first] >> 26, minlength=n)
+    cnt = np.bincount(sk, minlength=n)
+    qty = np.bincount(sk, weights=unscaled(lineitem, "l_quantity"),
+                      minlength=n)
+    price = np.bincount(sk, weights=unscaled(lineitem, "l_extendedprice"),
+                        minlength=n)
+    if qty.max() >= 2 ** 53 or price.max() * 10 ** 4 >= 2 ** 62:
+        raise AssertionError("a sum leaves the exact range")
+    out = {}
+    for s in np.flatnonzero(cnt):
+        out[int(s)] = (int(orders[s]), int(qty[s]),
+                       _half_up_div(int(price[s]) * 10 ** 4, int(cnt[s])))
+    return out
+
+
+def _unscaled_ints(at, name) -> list:
+    """A decimal column's unscaled values as Python ints (decimal128
+    too)."""
+    scale = at.schema.field(name).type.scale
+    return [None if d is None else int(d.scaleb(scale))
+            for d in at.column(name).to_pylist()]
+
+
+def check_distinct(at, expect, what):
+    got = {}
+    for s, o, q, a in zip(at.column("l_suppkey").to_pylist(),
+                          at.column("orders").to_pylist(),
+                          _unscaled_ints(at, "qty"),
+                          _unscaled_ints(at, "avg_price")):
+        got[s] = (o, q, a)
+    if got != expect:
+        bad = [(k, got.get(k), expect[k]) for k in expect
+               if got.get(k) != expect[k]][:3]
+        raise AssertionError(f"{what}: suppliers differ, e.g. {bad}")
+
+
+def _exchange_of(root):
+    ex = [x for x in plan_nodes(root)
+          if type(x).__name__ == "ShuffleExchangeExec"]
+    if len(ex) != 1:
+        raise AssertionError(f"want one exchange, got {len(ex)}")
+    return ex[0]
+
+
+def check_placement(q, key_word, what) -> dict:
+    """Materialize the plan's one exchange and hash every row's key in
+    its host pieces with the numpy version of the JAX hash: every row of
+    reduce partition p must hash to p. Returns the rows and the pieces
+    (the key is column 0 of the exchange's schema)."""
+    import numpy as np
+    root, ctx = q.physical_plan()
+    ex = _exchange_of(root)
+    ex.stage_stats(ctx)
+    rows = pieces = 0
+    try:
+        for rp, subs in enumerate(ex._pieces):
+            if not subs:
+                continue
+            data = np.concatenate([cols[0]["data"] for cols, _, _ in subs])
+            valid = np.concatenate([cols[0]["validity"]
+                                    for cols, _, _ in subs]).astype(bool)
+            if not (np_partition_ids(key_word(data), valid,
+                                     ex.n) == rp).all():
+                raise AssertionError(f"{what}: reduce partition {rp} "
+                                     f"holds rows of another")
+            rows += len(valid)
+            pieces += len(subs)
+    finally:
+        ex.release()
+        ctx.close()
+    return {"rows_placed": rows, "pieces": pieces,
+            "num_partitions": ex.n}
+
+
+def grouping_phases(session, lineitem) -> dict:
+    """The three phases of slice 11 over lineitem at the session's conf;
+    returns the partition kernel's launches on `stats_by_shipdate`."""
+    import numpy as np
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    dev = session.device
+    t0 = time.perf_counter()
+    stats_expect = stats_reference(lineitem)
+    distinct_expect = distinct_reference(lineitem)
+    ref_s = time.perf_counter() - t0
+
+    # ---- 1. stats_by_shipdate ----------------------------------------
+    q = stats_query(session, lineitem)
+    torch_peak_reset(dev)
+    pk.launches = pk.vector_launches = pk.scalar_launches = 0
+    out, wall, layers, syncs = timed_query(q, dev)
+    got = {"all": pk.launches, "vector": pk.vector_launches,
+           "scalar": pk.scalar_launches}
+    root = q.last_plan()
+    map_batches = int(sum(m.get("mapBatches", 0) for k, m in
+                          q.last_metrics().items()
+                          if k.startswith("ShuffleExchangeExec")))
+    want = map_batches if dev.type == "cuda" else 0
+    if int32_exchanges(root) != 1 or got != {"all": want, "vector": want,
+                                             "scalar": 0}:
+        raise AssertionError(f"stats_by_shipdate: partition kernel "
+                             f"launches {got}, map batches {map_batches}")
+    worst = check_stats(out, stats_expect, "stats_by_shipdate")
+    emit({"phase": "stats_by_shipdate", "nvidia_smi": card_line(dev),
+          "rows": lineitem.num_rows, "groups": out.num_rows,
+          "wall_s": wall, "layers_s": layers, "host_syncs": syncs,
+          "plan": plan_chain(q), "map_batches": map_batches,
+          "partition_kernel_launches": got,
+          "peak_device_bytes": torch_peak(dev), "reference_s": ref_s,
+          "bounds": {"var_rel": 1e-9, "acd_rel": 4 * STATS_RSD,
+                     "pa_rank_err": STATS_RANK_BOUND}, "worst": worst})
+
+    # ---- 2. distinct_beside_sum --------------------------------------
+    q = distinct_query(session, lineitem)
+    torch_peak_reset(dev)
+    out, wall, layers, syncs = timed_query(q, dev)
+    check_distinct(out, distinct_expect, "distinct_beside_sum")
+    emit({"phase": "distinct_beside_sum", "nvidia_smi": card_line(dev),
+          "rows": lineitem.num_rows, "groups": out.num_rows,
+          "wall_s": wall, "layers_s": layers, "host_syncs": syncs,
+          "plan": plan_chain(q), "peak_device_bytes": torch_peak(dev)})
+
+    # ---- 3. float_decimal_keys ---------------------------------------
+    qty_d = F.col("l_quantity").cast(dt.FLOAT64)
+    q = session.create_dataframe(lineitem).group_by(qty_d.alias("q")).agg(
+        F.count("*").alias("c"), F.sum("l_extendedprice").alias("s"))
+    out, wall, layers, syncs = timed_query(q, dev)
+    # quantities are whole numbers 1..50: bincount, not np.unique (which
+    # took minutes over 60M rows with the card machine's numpy)
+    qu = unscaled(lineitem, "l_quantity")
+    cnt = np.bincount(qu)
+    sums = np.bincount(qu, weights=unscaled(lineitem, "l_extendedprice"))
+    keys = np.flatnonzero(cnt)
+    if sums.max() >= 2 ** 53:
+        raise AssertionError("a sum leaves the exact range")
+    want = {float(k) / 100.0: (int(cnt[k]), int(sums[k])) for k in keys}
+    gotd = dict(zip(out.column("q").to_pylist(), zip(
+        out.column("c").to_pylist(), _unscaled_ints(out, "s"))))
+    if gotd != want:
+        raise AssertionError("float_decimal_keys: the double-key "
+                             "aggregate differs from numpy")
+    dbl = check_placement(q, np_double_word, "the double key")
+    rev = (F.col("l_extendedprice") * (F.lit(1) - F.col("l_discount"))) \
+        .alias("rev")
+    rq = session.create_dataframe(lineitem).select(rev).repartition(
+        GROUPING_REPARTITION_N, "rev")
+    rtype = rq.physical_plan()[0].schema.fields[0].dtype
+    if not rtype.is_decimal128:
+        raise AssertionError(f"the product is {rtype}, not decimal128")
+    t0 = time.perf_counter()
+    dec = check_placement(rq, lambda d: d[:, 0] ^ d[:, 1],
+                          "the decimal128 key")
+    place_s = time.perf_counter() - t0
+    rout, rwall, _, _ = timed_query(rq, dev)
+    # every product is positive and under 2^63: its low limb is it
+    want_sum = int((unscaled(lineitem, "l_extendedprice")
+                    * (100 - unscaled(lineitem, "l_discount"))).sum())
+    limbs = unscaled(rout, "rev")
+    got_sum = int(limbs[:, 0].sum())
+    if rout.num_rows != lineitem.num_rows or dec["rows_placed"] != \
+            lineitem.num_rows or got_sum != want_sum \
+            or (limbs[:, 1] != 0).any():
+        raise AssertionError(f"float_decimal_keys: rows {rout.num_rows}, "
+                             f"placed {dec['rows_placed']}, sum "
+                             f"{got_sum} want {want_sum}")
+    emit({"phase": "float_decimal_keys", "nvidia_smi": card_line(dev),
+          "double_key": {"groups": out.num_rows, "wall_s": wall,
+                         "layers_s": layers, "plan": plan_chain(q),
+                         **dbl},
+          "decimal128_repartition": {"type": str(rtype),
+                                     "rows": rout.num_rows,
+                                     "wall_s": rwall,
+                                     "placement_check_s": place_s,
+                                     "unscaled_sum": got_sum, **dec}})
+    return {"stats_by_shipdate": got}
 
 
 def torch_peak_reset(device):
@@ -3733,6 +4265,17 @@ def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
     return tables, expects
 
 
+def pool_ab_offset(argv, started: float) -> int:
+    """The adaptive pass's A/B order (`tpch_phases`' `ab_offset`):
+    `--pool-ab-offset=0` or `=1` sets it; by default the parity of the
+    run's start second (printed in the device phase), so successive runs
+    read the queries in either order."""
+    for a in argv:
+        if a.startswith("--pool-ab-offset="):
+            return int(a.split("=", 1)[1]) % 2
+    return int(started) % 2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3746,7 +4289,10 @@ def main() -> int:
     torch.cuda.set_device(0)
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    emit({"phase": "device", "nvidia_smi": smi,
+    started = time.time()
+    ab_offset = pool_ab_offset(sys.argv[1:], started)
+    emit({"phase": "device", "nvidia_smi": smi, "started_unix_s": started,
+          "pool_ab_offset": ab_offset,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3843,11 +4389,16 @@ def main() -> int:
     tpch_tables, tpch_expects = tpch_data(SF)
     release_pinned_cache("the adaptive pass")
     defaults = {}
+    # the second reading of each query maps serially: the pool's A/B,
+    # in the order this run's offset gives
     by_path.update(tpch_phases(session, tpch_tables, tpch_expects,
-                               keep=defaults))
+                               keep=defaults, ab_threads=1,
+                               ab_offset=ab_offset))
     by_path.update(skew_join_phase(session, tpch_tables))
     by_path.update(join_condition_phases(session, tpch_tables))
     li = tpch_tables["lineitem"]
+    release_pinned_cache("the grouping phases")
+    by_path.update(grouping_phases(session, li))
     t0 = time.perf_counter()
     q6_expect = tpch.q6_numpy_baseline(
         li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),

@@ -24,7 +24,8 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "ADAPTIVE_SKEW_ENABLED", "ADAPTIVE_SKEW_FACTOR",
            "ADAPTIVE_SKEW_MIN_BYTES", "ADAPTIVE_COALESCE_ENABLED",
            "ADAPTIVE_DEMOTE_ENABLED", "ADAPTIVE_CALIBRATION",
-           "EXCHANGE_REUSE", "EXCHANGE_ASYNC_BROADCAST",
+           "EXCHANGE_REUSE", "EXCHANGE_MAP_THREADS",
+           "EXCHANGE_ASYNC_BROADCAST",
            "EXCHANGE_BROADCAST_TIMEOUT", "CONCURRENT_TASKS",
            "HBM_POOL_FRACTION", "HBM_POOL_BYTES", "HOST_SPILL_LIMIT",
            "SPILL_DIR", "OOM_MAX_RETRIES", "SORT_OOC_ENABLED",
@@ -269,6 +270,16 @@ EXCHANGE_REUSE = _conf(
     "structurally identical exchange subtrees become ReusedExchange "
     "nodes sharing the first occurrence's materialization; hits are "
     "exchangeReuseHits.", bool)
+EXCHANGE_MAP_THREADS = _conf(
+    "sql.exec.exchange.mapThreads", 0,
+    "Worker threads executing an exchange's map-side child partitions "
+    "concurrently (each worker runs a full map partition: child "
+    "execute, device partition pass, host slicing, shuffle write). "
+    "Device admission still goes through the TpuSemaphore, so chip "
+    "concurrency stays bounded by sql.concurrentTpuTasks; this conf "
+    "overlaps the HOST halves (decode, slicing, serialization, file "
+    "I/O) across partitions (the RapidsShuffleThreadedWriter analog). "
+    "0 = auto (min(4, cpu cores)); 1 = serial map side.", int)
 EXCHANGE_ASYNC_BROADCAST = _conf(
     "sql.exec.exchange.asyncBroadcast.enabled", True,
     "Materialize a broadcast join's build side on a background thread "

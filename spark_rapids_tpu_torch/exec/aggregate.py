@@ -1,4 +1,5 @@
-"""Aggregation: ungrouped reductions and the grouped hash aggregate.
+"""Aggregation: ungrouped reductions, the grouped hash aggregate and the
+sort-path `CollectAggExec`.
 
 Ungrouped: the filter/project chain below the aggregate is applied
 inside it, per batch (the JAX package's collapse_fusable), then each
@@ -37,8 +38,10 @@ import torch
 from ..columnar import dtypes as dt
 from ..columnar.table import Field, Schema
 from ..config import AGG_MAX_MERGE_ROWS, AGG_STRING_HASH_KEYS
-from ..expr.aggregates import (AggExpr, Count, ident, seg_any,
-                                seg_min_max, seg_sum)
+from ..errors import NotPorted
+from ..expr.aggregates import (AggExpr, Count, CountDistinct, Percentile,
+                                _FirstLast, _pick, _seg_extreme_pos, ident,
+                                seg_any, seg_min_max, seg_sum)
 from ..expr.expressions import (Alias, BoundRef, EmitCtx, Expression,
                                 UnsupportedExpr)
 from ..memory.retry import retry_no_split, with_retry
@@ -48,12 +51,13 @@ from ..ops.gather import compact, compaction_perm, gather_cols, take
 from ..ops.hash import (_mul32, hash_once_rows, murmur3_row_hash,
                         partition_ids)
 from ..ops.kernel_utils import CV
+from ..utils import transfer
 from ..utils.transfer import fetch_ints
 from .base import ExecContext, TpuExec, collapse_fusable
 from .batch import DeviceBatch
 from .nodes import make_table
 
-__all__ = ["UngroupedAggExec", "HashAggregateExec"]
+__all__ = ["UngroupedAggExec", "HashAggregateExec", "CollectAggExec"]
 
 # Hash first pass: round 0 scatter-reduces into _HASH_BUCKETS buckets,
 # later rounds into ~rows/4 (at most _HASH_BUCKETS_MAX); rows whose bucket
@@ -65,10 +69,11 @@ _HASH_BUCKETS_MAX = 1 << 18
 _M32 = 0xFFFFFFFF
 # deepest bucket recursion of the merge split (10 levels x 16 buckets)
 _MAX_BUCKET_DEPTH = 10
-# murmur3 of these key types is ported; any other key takes the sort path
+# key types of the hash first pass (the JAX package's list); any other
+# key takes the sort path
 _HASHABLE = (dt.BooleanType, dt.ByteType, dt.ShortType, dt.IntegerType,
-             dt.DateType, dt.LongType, dt.TimestampType, dt.StringType,
-             dt.BinaryType)
+             dt.DateType, dt.LongType, dt.TimestampType, dt.DecimalType,
+             dt.FloatType, dt.DoubleType, dt.StringType, dt.BinaryType)
 
 #: a partial: (key CVs, flat state tensors, live-row mask, rows)
 Partial = Tuple[List[CV], List[torch.Tensor], torch.Tensor, int]
@@ -215,6 +220,9 @@ class HashAggregateExec(TpuExec):
         self.agg_names = list(agg_names)
         self.aggs = list(bound_aggs)
         for a in self.aggs:
+            if a.state_reducers is None:
+                raise UnsupportedExpr(f"{a!r} does not support grouped "
+                                      f"merge")
             if (a.child is not None and a.child.dtype.is_variable_width
                     and not isinstance(a, Count)):
                 raise UnsupportedExpr(f"{a!r} over variable-width input")
@@ -223,8 +231,12 @@ class HashAggregateExec(TpuExec):
         super().__init__([child], schema)
         self._base = None
         self._stages = None
-        self._hash_ok = all(isinstance(k.dtype, _HASHABLE)
-                            for k in self.keys)
+        # an aggregate whose update sorts (the t-digest) would defeat
+        # the sort-free first pass (JAX `:398-406`)
+        self._hash_ok = (all(isinstance(k.dtype, _HASHABLE)
+                             for k in self.keys)
+                         and all(getattr(a, "sort_free_update", True)
+                                 for a in self.aggs))
         # set once, by whichever task meets the first overflow: either
         # path sums a group's rows in row order, so the result does not
         # depend on which batches took which
@@ -656,3 +668,196 @@ class HashAggregateExec(TpuExec):
         finally:
             for h, _ in handles:
                 h.close()
+
+
+_SPLIT = 134217729.0     # 2^27 + 1: Dekker's split of a float64
+
+
+def fma(a, b, c):
+    """a * b + c rounded once, from plain float64 ops (Dekker's exact
+    product, Knuth's exact sum), the same bits on any device: the fused
+    multiply-add that XLA makes of the JAX package's percentile
+    interpolation. Where the split overflows (|a| or |b| near the top of
+    the range) or a value is not finite, plain a * b + c."""
+    p = a * b
+
+    def split(v):
+        t = _SPLIT * v
+        hi = t - (t - v)
+        return hi, v - hi
+
+    ah, al = split(a)
+    bh, bl = split(b)
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    r = s + (((p - (s - bb)) + (c - bb)) + err)
+    return torch.where(torch.isfinite(r), r, p + c)
+
+
+class CollectAggExec(TpuExec):
+    """Grouped aggregation on the sort path, for the aggregates the
+    fixed-width state wire cannot carry (the port of the JAX package's
+    `exec/aggregate.py:1267-1515`): count(DISTINCT) beside another
+    aggregate or over several children, percentile and median, first /
+    last of a string. The partition's batches concatenate on the device
+    and compact to their live rows (like the JAX class, a whole
+    partition at once and outside any retry scope, ROADMAP C.10); one
+    stable sort by the keys makes each group's rows contiguous, in input
+    order. Plain aggregates ride that segmentation (`g_update`, then
+    `finalize`); a count(DISTINCT) and a percentile add a second sort of
+    each group's values. The output holds the groups only (the JAX class
+    pads to the partition's rows): one host read counts them.
+
+    The planner first hash-exchanges the input rows on the grouping
+    keys, so each partition's groups are whole and final
+    (`per_partition`); without keys the aggregate is one group, which an
+    empty input still yields (count 0, other values null)."""
+
+    def __init__(self, child: TpuExec, key_names, bound_keys, agg_names,
+                 bound_aggs, schema: Schema, per_partition: bool = False):
+        super().__init__([child], schema)
+        self.key_names = list(key_names)
+        self.keys = list(bound_keys)
+        self.agg_names = list(agg_names)
+        self.aggs = list(bound_aggs)
+        self.per_partition = per_partition
+
+    def num_partitions(self, ctx):
+        if self.per_partition:
+            return self.children[0].num_partitions(ctx)
+        return 1
+
+    def _segments(self, key_cvs, n, dev):
+        """(perm, seg_ids, first row of each segment in sorted order):
+        one stable sort by each key's null flag and order keys."""
+        if not self.keys:
+            return (torch.arange(n, device=dev),
+                    torch.zeros(n, dtype=torch.int64, device=dev),
+                    torch.zeros(1, dtype=torch.int64, device=dev))
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        nchunks = sk.key_nchunks(key_cvs, [k.dtype for k in self.keys],
+                                 ones)
+        arrays, widths = [], []
+        for kcv, k, nc in zip(key_cvs, self.keys, nchunks):
+            arrays += [(~kcv.validity).to(torch.uint8)] \
+                + sk.order_keys(kcv, k.dtype, nc)
+            widths += [None] + sk.key_widths(k.dtype, nc)
+        words = sk.pack_keys(arrays, widths)
+        perm = sk.lexsort(words)
+        boundary = sk.group_boundaries([w[perm] for w in words])
+        seg_ids = torch.cumsum(boundary.to(torch.int64), 0) - 1
+        starts = torch.nonzero(boundary).squeeze(1)
+        transfer.note_sync()
+        return perm, seg_ids, starts
+
+    def _value_order(self, a, vs: CV, seg_ids):
+        """The second sort: (segment, [valid first,] value) of one
+        aggregate's sorted input."""
+        nc = (sk.string_nchunks(vs, torch.ones_like(vs.validity))
+              if a.child.dtype.is_variable_width else 0)
+        varrs = [(~vs.validity).to(torch.uint8)] \
+            + sk.order_keys(vs, a.child.dtype, nc)
+        widths = [None, None] + sk.key_widths(a.child.dtype, nc)
+        order2 = sk.lexsort([seg_ids] + varrs, widths)
+        return order2, varrs
+
+    def _collect_output(self, a, vs: CV, seg_ids, starts, nseg):
+        valid = vs.validity
+        if isinstance(a, _FirstLast):
+            # a string's first / last: the row by position (the key
+            # sort is stable, so positions keep the input order)
+            elig = valid if a.ignore_nulls else torch.ones_like(valid)
+            sel, has = _seg_extreme_pos(elig, seg_ids, nseg, a.take_first)
+            return take(vs, sel, in_bounds=has)
+        order2, varrs = self._value_order(a, vs, seg_ids)
+        if isinstance(a, CountDistinct):
+            seg2 = seg_ids[order2]
+            first = sk.group_boundaries([seg2] + [x[order2] for x in varrs])
+            keep = valid[order2] & first
+            cnt = seg_sum(keep.to(torch.int64), seg2, nseg)
+            return CV(cnt, torch.ones(nseg, dtype=torch.bool,
+                                      device=cnt.device))
+        if isinstance(a, Percentile):
+            return self._percentile_output(a, vs, valid, seg_ids, order2,
+                                           starts, nseg)
+        raise NotPorted(f"{a!r} (an ArrayType result, ROADMAP A.5)")
+
+    @staticmethod
+    def _percentile_output(a, vs, valid, seg_ids, order2, starts, nseg):
+        """Rank selection from the value order: the valid values of
+        segment g lie at order2 positions [starts[g], starts[g] +
+        nvalid[g]), ascending (nulls sort after them). Interpolated
+        linearly between the ranks floor(p (n - 1)) and ceil."""
+        n = vs.validity.shape[0]
+        nvalid = seg_sum(valid.to(torch.int32), seg_ids, nseg)
+        sorted_vals = vs.data[order2]
+        fi = a.percentages[0] * (nvalid - 1).clamp(min=0).to(torch.float64)
+        lo = torch.floor(fi).to(torch.int64)
+        hi = torch.ceil(fi).to(torch.int64)
+        vlo = _pick(sorted_vals, (starts + lo).clamp(0, max(n - 1, 0)))
+        vhi = _pick(sorted_vals, (starts + hi).clamp(0, max(n - 1, 0)))
+        frac = fi - lo.to(torch.float64)
+        # vlo (1 - frac) + vhi frac, as the JAX package's CPU compile
+        # contracts it: one rounding of vhi * frac + (vlo (1 - frac))
+        v = fma(vhi.to(torch.float64), frac,
+                vlo.to(torch.float64) * (1 - frac))
+        return CV(v, nvalid > 0)
+
+    def _run(self, cvs, n: int, dev) -> DeviceBatch:
+        ectx = EmitCtx(cvs, n, dev)
+        key_cvs = [k.emit(ectx) for k in self.keys]
+        perm, seg_ids, starts = self._segments(key_cvs, n, dev)
+        nseg = starts.shape[0]
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+        outs = [take(kcv, perm[starts]) for kcv in key_cvs]
+        for a in self.aggs:
+            if a.child is None:
+                cv = CV(torch.zeros(n, dtype=torch.int8, device=dev), live)
+            else:
+                cv = a.child.emit(ectx)
+            if getattr(a, "is_collect", False):
+                outs.append(self._collect_output(a, take(cv, perm),
+                                                 seg_ids, starts, nseg))
+                continue
+            if cv.offsets is not None:      # count reads the validity
+                scv = CV(torch.zeros(n, dtype=torch.int8, device=dev),
+                         cv.validity[perm])
+            else:
+                scv = CV(cv.data[perm], cv.validity[perm])
+            v, ok = a.finalize(a.g_update(scv, live, seg_ids, nseg))
+            # a count's validity is one 0-d True
+            outs.append(CV(v, ok & torch.ones(nseg, dtype=torch.bool,
+                                              device=dev)))
+        return DeviceBatch(make_table(self.schema, outs, nseg), nseg)
+
+    def execute_partition(self, ctx: ExecContext, pid: int):
+        child = self.children[0]
+        pids = [pid] if self.per_partition \
+            else range(child.num_partitions(ctx))
+        batches = [b for cpid in pids
+                   for b in child.execute_partition(ctx, cpid)]
+        if not batches and self.keys:
+            return
+        with ctx.timer(self._op_id, "opTime"):
+            fields = child.schema.fields
+            if batches:
+                cvs = [concat_cvs([b.cvs()[i] for b in batches], f.dtype)
+                       for i, f in enumerate(fields)]
+                mask = concat_masks([b.row_mask for b in batches])
+            else:
+                cvs = [CV(torch.zeros(dt.alloc_shape(f.dtype, 0),
+                                      dtype=dt.torch_dtype(f.dtype),
+                                      device=ctx.device),
+                          torch.zeros(0, dtype=torch.bool,
+                                      device=ctx.device),
+                          torch.zeros(1, dtype=torch.int32,
+                                      device=ctx.device)
+                          if f.dtype.is_variable_width else None)
+                       for f in fields]
+                mask = torch.zeros(0, dtype=torch.bool, device=ctx.device)
+            del batches
+            cvs, n = compact(cvs, mask)
+            out = self._run(cvs, n, ctx.device)
+        ctx.add_metric(self._op_id, "numOutputBatches", 1)
+        yield out

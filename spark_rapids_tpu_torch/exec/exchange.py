@@ -25,6 +25,20 @@ the rows. The map phase runs once, under the exchange's lock, whichever
 thread (a broadcast build's or a concurrent collect task's included)
 asks first.
 
+The map side (JAX `:196-270`) runs its partitions on a pool of
+`sql.exec.exchange.mapThreads` workers (0 = min(4, cores); 1 = one
+after another): each worker runs one map partition (the child's
+batches, the device pass, the host slicing) into pieces of its own,
+which merge in map-partition order, never in completion order. Device
+admission goes through `exchange_pool.PermitRider`, so a caller that
+holds the only permit cannot deadlock its workers; the seconds workers
+waited are `mapPoolWaitMs`. A worker that catches an OOM in its device
+step (the child's upload included: the scan copies under
+`retry_no_split`) retries once the other workers' steps have ended, as
+the serial map side would (`mapPoolAloneSteps` counts such steps).
+`mapTime` and `sliceTime` add up over the workers, so on the pool they
+exceed the map side's wall time.
+
 Memory runtime (JAX `:153-213`, `:302`): each batch's map pass runs
 under `with_retry`, so a device OOM splits the batch and its halves give
 more pieces a partition, with the same rows; the reduce concatenation
@@ -35,6 +49,8 @@ the first child batch (`searchsorted`, right side; nulls to partition
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
+import contextlib
 import threading
 from typing import List, Optional, Sequence
 
@@ -51,6 +67,7 @@ from ..ops.hash import partition_ids
 from ..ops.partition_kernels import partition_ids_i32
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, to_device, to_host
+from .exchange_pool import PermitRider, resolve_map_threads
 
 __all__ = ["ShuffleExchangeExec", "RangeShuffleExchangeExec"]
 
@@ -113,18 +130,40 @@ class ShuffleExchangeExec(TpuExec):
             self._pstats = None
         super().release()
 
-    def _run_map(self, ctx: ExecContext):
+    def _map_partition(self, ctx: ExecContext, mpid: int, rider=None,
+                       stop=None):
+        """One map task: child partition `mpid`'s batches, each
+        partitioned on the device (under the rider's admission on the
+        pool) and sliced on the host into this task's own pieces, per
+        reduce partition in batch order; None when `stop` is set.
+
+        A step maps one batch and then fetches the next: at the
+        partition's end that exhausts the child's generators, whose
+        frames still hold the batch just mapped, so a worker that waits
+        for its next step (behind one retrying alone, say) holds no
+        device memory of a finished partition."""
         pieces: List[list] = [[] for _ in range(self.n)]
-        child = self.children[0]
-        nparts = child.num_partitions(ctx)
         dm = ctx.device_manager
-        for mpid in range(nparts):
-            for batch in child.execute_partition(ctx, mpid):
-                # ends in the D2H sync: absorbs the batch's device work;
-                # an OOM splits the batch, and its halves give more
-                # pieces a partition
-                with ctx.timer(self._op_id, "mapTime"):
-                    hosts = list(with_retry(batch, self._map_batch, dm=dm))
+        it = self.children[0].execute_partition(ctx, mpid)
+        step = rider.step if rider is not None else contextlib.nullcontext
+        fetched, batch = False, None
+        try:
+            while True:
+                if stop is not None and stop.is_set():
+                    return None     # a sibling worker failed
+                with step():
+                    if not fetched:
+                        batch, fetched = next(it, None), True
+                    if batch is None:
+                        break
+                    # ends in the D2H sync: absorbs the batch's device
+                    # work; an OOM splits the batch, and its halves give
+                    # more pieces a partition
+                    with ctx.timer(self._op_id, "mapTime"):
+                        hosts = list(with_retry(batch, self._map_batch,
+                                                dm=dm))
+                    batch = None    # not held while the child fetches
+                    batch = next(it, None)
                 ctx.add_metric(self._op_id, "mapBatches", 1)
                 with ctx.timer(self._op_id, "sliceTime"):
                     for cols, counts in hosts:
@@ -133,6 +172,64 @@ class ShuffleExchangeExec(TpuExec):
                             lo, hi = int(starts[rp]), int(starts[rp + 1])
                             sl = [_slice(c, lo, hi) for c in cols]
                             pieces[rp].append((sl, hi - lo, _nbytes(sl)))
+        finally:
+            batch = None
+            it.close()
+        return pieces
+
+    def _run_pool(self, ctx: ExecContext, nparts: int,
+                  threads: int) -> List[list]:
+        """The map tasks on a pool of `threads` workers, every worker on
+        the caller's CUDA stream (device work stays in the order one
+        thread would give it; the host halves overlap). A failing worker
+        stops the others and its exception propagates; the results come
+        back in map-partition order."""
+        from .nodes import _session_semaphore
+        rider = PermitRider(_session_semaphore(ctx))
+        stop = threading.Event()
+        stream = (torch.cuda.current_stream(ctx.device)
+                  if ctx.device is not None and ctx.device.type == "cuda"
+                  else None)
+
+        def task(mpid):
+            if stream is None:
+                return self._map_partition(ctx, mpid, rider, stop)
+            with torch.cuda.stream(stream):
+                return self._map_partition(ctx, mpid, rider, stop)
+
+        with cf.ThreadPoolExecutor(
+                threads, thread_name_prefix="tpu-exch-map") as pool:
+            futs = [pool.submit(task, mpid) for mpid in range(nparts)]
+            try:
+                for f in cf.as_completed(futs):
+                    f.result()
+            except BaseException:
+                stop.set()
+                for f in futs:
+                    f.cancel()
+                raise
+        ctx.add_metric(self._op_id, "mapPoolWaitMs",
+                       round(rider.waited_secs * 1e3, 3))
+        ctx.add_metric(self._op_id, "mapPoolAloneSteps", rider.alone_steps)
+        return [f.result() for f in futs]
+
+    def _run_map(self, ctx: ExecContext):
+        """Every map task, on the pool when `sql.exec.exchange.mapThreads`
+        resolves to more than one worker. Each task fills pieces for its
+        own map partition, and they merge in map-partition order, so the
+        pool's completion order never changes what a reduce partition
+        reads: its pieces, and a double sum over them, are those of the
+        serial map side."""
+        child = self.children[0]
+        nparts = child.num_partitions(ctx)
+        threads = resolve_map_threads(ctx, nparts)
+        if threads <= 1:
+            per_task = [self._map_partition(ctx, mpid)
+                        for mpid in range(nparts)]
+        else:
+            per_task = self._run_pool(ctx, nparts, threads)
+        pieces = [[p for task in per_task for p in task[rp]]
+                  for rp in range(self.n)]
         pstats = [sum(p[2] for p in subs) for subs in pieces]
         m = ctx.metrics_for(self._op_id)
         m.set("mapPartitionsExecuted", nparts)

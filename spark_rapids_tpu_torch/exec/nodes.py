@@ -46,11 +46,17 @@ def make_table(schema: Schema, cvs: Sequence[CV], num_rows: int) -> Table:
 
 def _upload(ctx: ExecContext, op_id: str, at) -> DeviceBatch:
     """Host Arrow decode, then one copy to the device ("scanTime": host
-    seconds, the device copy only enqueued). The rows, known on the host,
-    are `numOutputRows` (the calibration harvest reads it)."""
+    seconds, the device copy only enqueued), under `retry_no_split`: an
+    OOM in the copy (an exchange's pooled map workers upload at once)
+    recovers and copies again, alone among the workers (ROADMAP C.12).
+    The rows, known on the host, are `numOutputRows` (the calibration
+    harvest reads it)."""
+    from ..memory.retry import retry_no_split
     with ctx.timer(op_id, "scanTime"):
-        batch = DeviceBatch(Table.from_arrow(at, ctx.device),
-                            num_rows=at.num_rows, device=ctx.device)
+        batch = retry_no_split(
+            lambda: DeviceBatch(Table.from_arrow(at, ctx.device),
+                                num_rows=at.num_rows, device=ctx.device),
+            dm=ctx.device_manager)
     ctx.add_metric(op_id, "numOutputRows", at.num_rows)
     return batch
 

@@ -1,9 +1,14 @@
 """Aggregate functions: the update / merge / finalize protocol, ungrouped
 and grouped.
 
-Ported subset: Sum, Count, CountStar, Avg, Min, Max and CountDistinct
-(which runs only through the optimizer's two-level rewrite,
-`plan/optimizer.py` `rewrite_distinct_aggs`). Ungrouped states
+Ported: Sum, Count, CountStar, Avg, Min, Max, First, Last, Variance,
+Stddev, ApproxCountDistinct (HyperLogLog++) and ApproxPercentile (a
+t-digest), which ride the partial states; CountDistinct (the optimizer's
+two-level rewrite, `plan/optimizer.py` `rewrite_distinct_aggs`, or
+`CollectAggExec`), Percentile and Median are `is_collect`: they run on
+`CollectAggExec`'s sort path, as a string's First / Last does. Not
+ported: CollectList, CollectSet and percentiles over a list (ArrayType,
+ROADMAP A.5), BloomFilterAggregate (A.9). Ungrouped states
 are tuples of 0-d tensors; grouped states (`g_update`) are tuples of
 [num_segments] tensors, one per entry of `state_reducers`, which names
 how the grouped merge combines each ("sum", "or", "min" or "max"), and
@@ -36,6 +41,7 @@ card, so a grouped double sum repeats bit for bit.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -45,7 +51,9 @@ from ..ops.kernel_utils import CV
 from .expressions import Expression, UnsupportedExpr
 
 __all__ = ["AggExpr", "Sum", "Count", "CountStar", "Avg", "Min", "Max",
-           "CountDistinct", "seg_sum", "seg_any", "seg_min_max", "float_key"]
+           "CountDistinct", "First", "Last", "Variance", "Stddev",
+           "ApproxCountDistinct", "Percentile", "ApproxPercentile",
+           "Median", "seg_sum", "seg_any", "seg_min_max", "float_key"]
 
 
 def seg_sum(x: torch.Tensor, seg_ids: torch.Tensor,
@@ -433,11 +441,10 @@ class Max(_MinMax):
 
 
 class CountDistinct(AggExpr):
-    """count(DISTINCT x), an INT64 that skips nulls. The JAX package
-    answers it on the sort path (`CollectAggExec`); the port runs it
-    only as the optimizer's two-level rewrite (an inner DISTINCT
-    aggregate over the keys and x, an outer Count), and the planner
-    refuses any shape that rewrite leaves alone."""
+    """count(DISTINCT x), an INT64 that skips nulls: the optimizer's
+    two-level rewrite (an inner DISTINCT aggregate over the keys and x,
+    an outer Count) where it applies, else `CollectAggExec`'s sort path
+    (the first of each group's equal values counts)."""
 
     is_collect = True
 
@@ -448,3 +455,592 @@ class CountDistinct(AggExpr):
 
     def __repr__(self):
         return f"count(DISTINCT {self.child})"
+
+
+# ----------------------------------------------------------------------
+# first / last
+# ----------------------------------------------------------------------
+def _seg_extreme_pos(eligible, seg_ids, num_segments: int,
+                     take_first: bool):
+    """Per segment, the position of its first (or last) eligible row:
+    (a safe index, found)."""
+    n = eligible.shape[0]
+    cand = torch.where(eligible, torch.arange(n, device=eligible.device),
+                       n if take_first else -1)
+    pos = seg_min_max(cand, seg_ids, num_segments, take_first)
+    found = (pos < n) if take_first else (pos >= 0)
+    return pos.clamp(0, max(n - 1, 0)), found
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx]; zeros when x has no rows (every idx then unfound)."""
+    if x.shape[0] == 0:
+        return torch.zeros(tuple(idx.shape) + tuple(x.shape[1:]),
+                           dtype=x.dtype, device=x.device)
+    return x[idx]
+
+
+class _FirstLast(AggExpr):
+    """State (value, valid, has): `has` marks that an eligible row was
+    seen. The grouped merge takes the first (last) eligible partial in
+    concatenation order, which every merge keeps (stable sorts, partials
+    and exchange pieces in input order), so the answer is the first
+    (last) row in scan order. A string input cannot ride the
+    fixed-width state wire: it runs on `CollectAggExec`'s sort path."""
+
+    take_first = True
+    state_reducers = ("custom",)
+
+    def __init__(self, child, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def bind(self, schema):
+        b = type(self)(self.child.bind(schema), self.ignore_nulls)
+        b._resolve_type()
+        return b
+
+    def _resolve_type(self):
+        ct = self.child.dtype
+        if isinstance(ct, dt.NestedType):
+            raise UnsupportedExpr("first/last on nested input")
+        if ct.is_variable_width:
+            self.is_collect = True
+        self.dtype = ct
+
+    def num_state_cols(self):
+        return 3
+
+    def state_dtypes(self):
+        return [self.dtype, dt.BOOL, dt.BOOL]
+
+    def update(self, cv: CV, mask):
+        v, ok, has = self.g_update(
+            cv, mask, torch.zeros_like(mask, dtype=torch.int64), 1)
+        return v[0], ok[0], has[0]
+
+    def merge(self, s1, s2):
+        a, b = (s1, s2) if self.take_first else (s2, s1)
+        return (torch.where(a[2], a[0], b[0]),
+                torch.where(a[2], a[1], b[1]), a[2] | b[2])
+
+    def finalize(self, s):
+        return s[0], s[1]
+
+    def g_update(self, cv, mask, seg_ids, num_segments):
+        elig = mask & cv.validity if self.ignore_nulls else mask
+        safe, has = _seg_extreme_pos(elig, seg_ids, num_segments,
+                                     self.take_first)
+        return (_pick(cv.data, safe), _pick(cv.validity, safe) & has, has)
+
+    def g_merge_custom(self, cols_sorted, live, seg_ids, num_segments):
+        val, valid, has = cols_sorted
+        safe, found = _seg_extreme_pos(live & has.bool(), seg_ids,
+                                       num_segments, self.take_first)
+        return (_pick(val, safe), _pick(valid, safe).bool() & found, found)
+
+    def __repr__(self):
+        ign = ", ignorenulls" if self.ignore_nulls else ""
+        return f"{type(self).__name__.lower()}({self.child}{ign})"
+
+
+class First(_FirstLast):
+    take_first = True
+
+
+class Last(_FirstLast):
+    take_first = False
+
+
+# ----------------------------------------------------------------------
+# variance / stddev
+# ----------------------------------------------------------------------
+class Variance(AggExpr):
+    """var_samp (Spark's variance). State (n, mean, M2): an update takes
+    each segment's mean, then M2 = sum((x - mean)^2); merges combine by
+    Chan's formula. Never E[x^2] - E[x]^2, which cancels catastrophically
+    for large magnitudes. A decimal input scales by 10^-scale."""
+
+    state_reducers = ("custom",)
+    ddof = 1
+
+    def _resolve_type(self):
+        ct = self.child.dtype
+        if not (ct.is_numeric or isinstance(ct, dt.NullType)):
+            raise UnsupportedExpr(f"variance({ct})")
+        if isinstance(ct, dt.DecimalType) and ct.is_decimal128:
+            raise UnsupportedExpr(
+                "variance over decimal precision > 18 (cast first)")
+        self.dtype = dt.FLOAT64
+        self._scale = (10.0 ** -ct.scale
+                       if isinstance(ct, dt.DecimalType) else 1.0)
+
+    def num_state_cols(self):
+        return 3
+
+    def state_dtypes(self):
+        return [dt.INT64, dt.FLOAT64, dt.FLOAT64]
+
+    def _xs(self, cv, m):
+        return torch.where(m, cv.data.to(torch.float64), 0.0) * self._scale
+
+    def update(self, cv: CV, mask):
+        m = mask & cv.validity
+        x = self._xs(cv, m)
+        n = m.sum(dtype=torch.int64)
+        mean = x.sum() / n.clamp(min=1).to(torch.float64)
+        d = torch.where(m, x - mean, 0.0)
+        return (n, mean, (d * d).sum())
+
+    def merge(self, s1, s2):
+        n1, m1, q1 = s1
+        n2, m2, q2 = s2
+        n = n1 + n2
+        nf = n.clamp(min=1).to(torch.float64)
+        delta = m2 - m1
+        mean = m1 + delta * (n2.to(torch.float64) / nf)
+        q = q1 + q2 + delta * delta * (n1.to(torch.float64)
+                                       * n2.to(torch.float64) / nf)
+        return (n, mean, q)
+
+    def finalize(self, s):
+        n, _, m2 = s
+        valid = n > self.ddof
+        denom = torch.where(valid, (n - self.ddof).to(torch.float64), 1.0)
+        return self._final_value(m2.clamp(min=0.0) / denom), valid
+
+    def _final_value(self, var):
+        return var
+
+    def g_update(self, cv, mask, seg_ids, num_segments):
+        m = mask & cv.validity
+        x = self._xs(cv, m)
+        n = seg_sum(m.to(torch.int64), seg_ids, num_segments)
+        mean = seg_sum(x, seg_ids, num_segments) \
+            / n.clamp(min=1).to(torch.float64)
+        d = torch.where(m, x - mean[seg_ids], 0.0)
+        return (n, mean, seg_sum(d * d, seg_ids, num_segments))
+
+    def g_merge_custom(self, cols_sorted, live, seg_ids, num_segments):
+        """Chan's combine of a segment's partial states: Mean =
+        sum(n_i mean_i) / N, M2 = sum(M2_i) + sum(n_i (mean_i - Mean)^2);
+        differences of means stay small, so nothing cancels."""
+        n_i, mean_i, m2_i = cols_sorted
+        n_i = torch.where(live, n_i, 0)
+        mean_i = torch.where(live, mean_i, 0.0)
+        m2_i = torch.where(live, m2_i, 0.0)
+        n = seg_sum(n_i, seg_ids, num_segments)
+        mean = seg_sum(n_i.to(torch.float64) * mean_i, seg_ids,
+                       num_segments) / n.clamp(min=1).to(torch.float64)
+        dev = mean_i - mean[seg_ids]
+        m2 = seg_sum(m2_i, seg_ids, num_segments) \
+            + seg_sum(n_i.to(torch.float64) * dev * dev, seg_ids,
+                      num_segments)
+        return (n, mean, m2)
+
+
+class Stddev(Variance):
+    """stddev_samp (Spark's stddev)."""
+
+    def _final_value(self, var):
+        return torch.sqrt(var)
+
+
+# ----------------------------------------------------------------------
+# approx_count_distinct: HyperLogLog++
+# ----------------------------------------------------------------------
+class _HllHash(Expression):
+    """Internal: the murmur3 of the child (seed 42) with the CHILD's
+    validity, so a null skips the sketch. Any input type reaches the
+    sketch as one 32-bit word (unsigned, in int64)."""
+
+    def __init__(self, child):
+        self.child = child
+        self.children = [child]
+        self.dtype = dt.INT32
+
+    def bind(self, schema):
+        return _HllHash(self.child.bind(schema))
+
+    def emit(self, ctx):
+        from ..ops.hash import murmur3_cv
+        cv = self.child.emit(ctx)
+        seed = torch.full(cv.validity.shape, 42, dtype=torch.int64,
+                          device=cv.validity.device)
+        return CV(murmur3_cv(cv, self.child.dtype, seed), cv.validity)
+
+    def __repr__(self):
+        return f"hll_hash({self.child})"
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _clz32(x):
+    """Leading zeros of 32-bit words (unsigned, in int64)."""
+    zero = x == 0
+    c = torch.zeros_like(x)
+    for sh in (16, 8, 4, 2, 1):
+        cond = x < (1 << (32 - sh))
+        c = c + torch.where(cond, sh, 0)
+        x = torch.where(cond, (x << sh) & _M32, x)
+    return torch.where(zero, 32, c)
+
+
+class ApproxCountDistinct(AggExpr):
+    """approx_count_distinct as HyperLogLog++ with 2^p registers a group
+    (reference: GpuHyperLogLogPlusPlus), p from rsd = 1.04 / sqrt(2^p),
+    clamped to [4, 12]. The registers of a group pack 8 a word into
+    W = 2^p / 8 int64 state columns, so a partial rides the partial
+    wire, the spill store and the exchange like any other aggregate.
+
+    Each row's register index and rho come from its 32-bit murmur3
+    (`_HllHash`); one scatter-max over (segment * 2^p + register) ids
+    fills the registers. They are bytes, and a register byte's place in
+    its word is little-endian, so the byte tensor viewed as int64 IS the
+    packed state: the JAX package's words, bit for bit, without its
+    int32 (segments, 2^p) intermediate (ROADMAP C.10). Merge is a byte-
+    wise max. The estimate uses the HLL++ alpha, linear counting below
+    2.5m and the 32-bit large-range correction; the empirical bias table
+    is omitted (docs/compatibility.md), as in the JAX package."""
+
+    state_reducers = ("custom",)
+
+    def __init__(self, child, rsd: float = 0.05):
+        super().__init__(child)
+        self.rsd = rsd
+        p = math.ceil(2 * math.log2(1.04 / rsd))
+        self.p = max(4, min(12, p))
+        self.m = 1 << self.p
+        self.W = self.m // 8
+
+    def bind(self, schema):
+        bc = self.child.bind(schema)
+        if isinstance(bc.dtype, dt.NestedType):
+            raise UnsupportedExpr("approx_count_distinct over nested")
+        b = type(self)(_HllHash(bc), self.rsd)
+        b._resolve_type()
+        return b
+
+    def _resolve_type(self):
+        self.dtype = dt.INT64
+
+    def num_state_cols(self):
+        return self.W
+
+    def state_dtypes(self):
+        return [dt.INT64] * self.W
+
+    def _registers(self, cv: CV, mask, seg_ids, num_segments):
+        """(num_segments, 2^p) uint8 registers of the rows under mask."""
+        h = cv.data
+        valid = mask & cv.validity
+        idx = torch.where(valid, h >> (32 - self.p), 0)
+        rho = (_clz32((h << self.p) & _M32) + 1).clamp(
+            max=32 - self.p + 1)
+        rho = torch.where(valid, rho, 0).to(torch.uint8)
+        regs = torch.zeros(num_segments * self.m, dtype=torch.uint8,
+                           device=h.device)
+        regs.scatter_reduce_(0, seg_ids.to(torch.int64) * self.m + idx,
+                             rho, "amax", include_self=True)
+        return regs.view(num_segments, self.m)
+
+    def _words(self, regs):
+        """(n, 2^p) uint8 registers -> the W packed int64 columns."""
+        return tuple(regs.view(torch.int64).unbind(1))
+
+    def g_update(self, cv: CV, mask, seg_ids, num_segments):
+        return self._words(self._registers(cv, mask, seg_ids,
+                                           num_segments))
+
+    def g_merge_custom(self, cols_sorted, live, seg_ids, num_segments):
+        regs = torch.stack(list(cols_sorted), dim=1).view(torch.uint8)
+        regs = torch.where(live[:, None], regs, 0)
+        out = torch.zeros(num_segments, self.m, dtype=torch.uint8,
+                          device=regs.device)
+        out.scatter_reduce_(0, seg_ids.to(torch.int64)[:, None].expand(
+            -1, self.m), regs, "amax", include_self=True)
+        return self._words(out)
+
+    # ungrouped: ONE (W,) int64 vector
+    def update(self, cv: CV, mask):
+        return (self._registers(cv, mask, torch.zeros_like(
+            mask, dtype=torch.int64), 1).view(torch.int64)[0],)
+
+    def merge(self, s1, s2):
+        return (torch.maximum(s1[0].view(torch.uint8),
+                              s2[0].view(torch.uint8)).view(torch.int64),)
+
+    def finalize(self, s):
+        ungrouped = len(s) == 1
+        words = s[0][None, :] if ungrouped else torch.stack(list(s), 1)
+        regs = words.contiguous().view(torch.uint8).to(torch.float64)
+        m = float(self.m)
+        alpha = 0.7213 / (1.0 + 1.079 / m)
+        e_raw = alpha * m * m / torch.exp2(-regs).sum(dim=1)
+        zeros = (regs == 0).to(torch.float64).sum(dim=1)
+        lin = m * torch.log(m / zeros.clamp(min=1.0))
+        est = torch.where((e_raw <= 2.5 * m) & (zeros > 0), lin, e_raw)
+        two32 = 4294967296.0
+        est = torch.where(
+            est > two32 / 30.0,
+            -two32 * torch.log1p(-est.clamp(max=two32 * 0.999) / two32),
+            est)
+        out = torch.round(est).to(torch.int64)
+        ok = torch.ones_like(out, dtype=torch.bool)
+        return (out[0], ok[0]) if ungrouped else (out, ok)
+
+    def __repr__(self):
+        return f"approx_count_distinct({self.child}, rsd={self.rsd})"
+
+
+# ----------------------------------------------------------------------
+# percentile, median (the sort path) and percentile_approx (t-digest)
+# ----------------------------------------------------------------------
+def _refuse_array(kind: str):
+    from ..errors import NotPorted
+    raise NotPorted(f"{kind} over a list of percentages (an ArrayType "
+                    f"result, ROADMAP A.5)")
+
+
+class Percentile(AggExpr):
+    """percentile / median over `CollectAggExec`'s value sort: each
+    group's values lie contiguous and ordered, so a percentile is a rank
+    selection, linearly interpolated (Spark's percentile). Exact, and
+    the accuracy argument is accepted and ignored. A list of
+    percentages returns an ArrayType, which waits for A.5."""
+
+    is_collect = True
+    state_reducers = None
+
+    def __init__(self, child, percentages, accuracy: int = 10000):
+        super().__init__(child)
+        self.scalar_out = not isinstance(percentages, (list, tuple))
+        self.percentages = ([float(percentages)] if self.scalar_out
+                            else [float(p) for p in percentages])
+        for p in self.percentages:
+            if not 0.0 <= p <= 1.0:
+                raise ValueError(f"percentage out of [0,1]: {p}")
+        self.accuracy = accuracy
+
+    def bind(self, schema):
+        b = type(self)(self.child.bind(schema),
+                       (self.percentages[0] if self.scalar_out
+                        else list(self.percentages)), self.accuracy)
+        b._resolve_type()
+        return b
+
+    def _resolve_type(self):
+        ct = self.child.dtype
+        if not ct.is_numeric or isinstance(ct, dt.DecimalType):
+            raise UnsupportedExpr(f"percentile over {ct}")
+        if not self.scalar_out:
+            _refuse_array(repr(self).split("(")[0])
+        self.dtype = dt.FLOAT64
+
+    def __repr__(self):
+        return f"percentile({self.child}, {self.percentages})"
+
+
+class Median(Percentile):
+    def __init__(self, child, percentages=0.5, accuracy: int = 10000):
+        super().__init__(child, 0.5, accuracy)
+
+    def __repr__(self):
+        return f"median({self.child})"
+
+
+def _sort3(minor, mid, major):
+    """Stable argsort by (major, mid, minor): stable single-key sorts,
+    least significant first."""
+    p = torch.argsort(minor, stable=True)
+    p = p[torch.argsort(mid[p], stable=True)]
+    return p[torch.argsort(major[p], stable=True)]
+
+
+class ApproxPercentile(Percentile):
+    """percentile_approx as a t-digest with C centroids a group
+    (reference: GpuApproximatePercentile over cuDF's t-digest), C =
+    clamp(accuracy // 50, 16, 128), stored as 2C + 2 float64 state
+    columns (means, weights, min, max) so partial digests ride the
+    partial wire like any other aggregate.
+
+    An update sorts the rows by (segment, valid first, value), bins each
+    row's within-group rank through the k1 scale function k(q) = (C/pi)
+    (asin(2q - 1) + pi/2), and sums by (segment * C + bin). A merge
+    flattens the digests to candidate centroids, sorts them by (segment,
+    mean) and re-bins the cumulative-weight midpoints the same way.
+    finalize interpolates between centroid midranks, with the min and
+    max at the tails. The result is a float64 approximation, not an
+    input element as Spark's CPU returns (docs/compatibility.md); the
+    rank error of a bucket is about pi / (2C) at the median, smaller
+    toward the tails. NaN is the greatest value. Its update sorts, so it
+    keeps the grouped aggregate off its sort-free hash pass."""
+
+    is_collect = False
+    state_reducers = ("custom",)
+    sort_free_update = False
+
+    def __init__(self, child, percentages, accuracy: int = 10000):
+        super().__init__(child, percentages, accuracy)
+        if int(accuracy) <= 0:
+            raise ValueError(
+                f"accuracy must be greater than 0 (got {accuracy})")
+        self.C = max(16, min(128, int(accuracy) // 50))
+
+    def num_state_cols(self):
+        return 2 * self.C + 2
+
+    def state_dtypes(self):
+        return [dt.FLOAT64] * (2 * self.C + 2)
+
+    def _kbin(self, q):
+        """The k1 scale function: a centroid bin in [0, C - 1]."""
+        t = (torch.asin((2.0 * q - 1.0).clamp(-1.0, 1.0)) + math.pi / 2) \
+            * (self.C / math.pi)
+        return t.to(torch.int32).clamp(0, self.C - 1)
+
+    def _binned(self, sseg, b, w, x, num_segments):
+        """(num_segments, C) weights and means of rows in bin `b`."""
+        comb = sseg.to(torch.int64) * self.C + b.to(torch.int64)
+        n = num_segments * self.C
+        wsum = seg_sum(w, comb, n)
+        xsum = seg_sum(x, comb, n)
+        means = torch.where(wsum > 0, xsum / wsum.clamp(min=1.0), 0.0)
+        return (means.reshape(num_segments, self.C),
+                wsum.reshape(num_segments, self.C))
+
+    def _columns(self, means, ws, vmin, vmax):
+        return tuple(means.unbind(1)) + tuple(ws.unbind(1)) + (vmin, vmax)
+
+    def g_update(self, cv: CV, mask, seg_ids, num_segments):
+        cap = mask.shape[0]
+        dev = mask.device
+        valid = mask & cv.validity
+        x = cv.data.to(torch.float64)
+        # (segment, valid first, value): NaN sorts after +inf, the
+        # greatest value, as Java's Double.compare orders it
+        perm = _sort3(x, (~valid).to(torch.uint8), seg_ids)
+        sseg = seg_ids[perm]
+        pos = torch.arange(cap, device=dev)
+        segstart = seg_min_max(pos, sseg, num_segments, True)
+        rank = (pos - _pick(segstart, sseg)).to(torch.float64)
+        ng = seg_sum(valid.to(torch.float64), seg_ids, num_segments)
+        q = (rank + 0.5) / _pick(ng, sseg).clamp(min=1.0)
+        svalid = valid[perm]
+        means, ws = self._binned(
+            sseg, self._kbin(q), svalid.to(torch.float64),
+            torch.where(svalid, x[perm], 0.0), num_segments)
+        # NaN stays out of the min (its identity +inf resolves to the
+        # max in finalize for an all-NaN group) but reaches the max
+        fin = valid & ~torch.isnan(x)
+        vmax = seg_min_max(torch.where(valid, x, float("-inf")), seg_ids,
+                           num_segments, False)
+        vmin = seg_min_max(torch.where(fin, x, float("inf")), seg_ids,
+                           num_segments, True)
+        return self._columns(means, ws, vmin, vmax)
+
+    def _recompress(self, fm, fw, fseg, num_segments):
+        """Flat candidate centroids (mean fm, weight fw, segment fseg)
+        merged into (num_segments, C) digests: sorted by (segment, empty
+        last, mean), cumulative-weight midpoints re-binned."""
+        n = fm.shape[0]
+        p = _sort3(torch.where(fw > 0, fm, float("inf")),
+                   (fw <= 0).to(torch.uint8), fseg)
+        sseg = fseg[p]
+        sw = fw[p]
+        sm = torch.where(sw > 0, fm[p], 0.0)      # no 0 * inf NaNs below
+        pre = torch.cumsum(sw, 0) - sw               # exclusive prefix
+        sstart = seg_min_max(torch.arange(n, device=fm.device), sseg,
+                             num_segments, True).clamp(0, max(n - 1, 0))
+        segbase = _pick(_pick(pre, sstart), sseg)
+        totw = seg_sum(fw, fseg, num_segments)
+        q = (pre - segbase + sw / 2) / _pick(totw, sseg).clamp(min=1e-300)
+        comb = sseg.to(torch.int64) * self.C \
+            + self._kbin(q).to(torch.int64)
+        nw = seg_sum(sw, comb, num_segments * self.C)
+        nx = seg_sum(sw * sm, comb, num_segments * self.C)
+        nm = torch.where(nw > 0, nx / nw.clamp(min=1e-300), 0.0)
+        return (nm.reshape(num_segments, self.C),
+                nw.reshape(num_segments, self.C))
+
+    def g_merge_custom(self, cols_sorted, live, seg_ids, num_segments):
+        C = self.C
+        means = torch.stack(list(cols_sorted[:C]), dim=1)
+        ws = torch.where(live[:, None],
+                         torch.stack(list(cols_sorted[C:2 * C]), dim=1),
+                         0.0)
+        nm, nw = self._recompress(
+            means.reshape(-1), ws.reshape(-1),
+            seg_ids.repeat_interleave(C), num_segments)
+        vmin = seg_min_max(torch.where(live, cols_sorted[2 * C],
+                                       float("inf")), seg_ids,
+                           num_segments, True)
+        vmax = seg_min_max(torch.where(live, cols_sorted[2 * C + 1],
+                                       float("-inf")), seg_ids,
+                           num_segments, False)
+        return self._columns(nm, nw, vmin, vmax)
+
+    # ungrouped: (means (C,), weights (C,), (min, max))
+    def update(self, cv: CV, mask):
+        cols = self.g_update(cv, mask, torch.zeros_like(
+            mask, dtype=torch.int64), 1)
+        C = self.C
+        return (torch.cat(cols[:C]), torch.cat(cols[C:2 * C]),
+                torch.cat(cols[2 * C:]))
+
+    def merge(self, s1, s2):
+        nm, nw = self._recompress(
+            torch.cat([s1[0], s2[0]]), torch.cat([s1[1], s2[1]]),
+            torch.zeros(2 * self.C, dtype=torch.int64,
+                        device=s1[0].device), 1)
+        return (nm[0], nw[0], torch.stack([
+            torch.minimum(s1[2][0], s2[2][0]),
+            torch.maximum(s1[2][1], s2[2][1])]))
+
+    def finalize(self, s):
+        C = self.C
+        ungrouped = len(s) == 3
+        if ungrouped:
+            means, ws = s[0][None, :], s[1][None, :]
+            vmin, vmax = s[2][:1], s[2][1:]
+        else:
+            means = torch.stack(list(s[:C]), dim=1)
+            ws = torch.stack(list(s[C:2 * C]), dim=1)
+            vmin, vmax = s[2 * C], s[2 * C + 1]
+        # an all-NaN group kept vmin at its +inf identity: resolve to
+        # vmax (NaN); an all-+inf group has vmax = +inf and stands
+        vmin = torch.where(torch.isposinf(vmin) & ~torch.isposinf(vmax),
+                           vmax, vmin)
+        # the nonempty centroids first, in rank order; an empty one's
+        # midpoint is +inf, so it is never selected
+        order = torch.argsort((ws <= 0).to(torch.uint8), dim=1,
+                              stable=True)
+        cm = torch.gather(means, 1, order)
+        cw = torch.gather(ws, 1, order)
+        nc = (cw > 0).sum(dim=1)
+        totw = cw.sum(dim=1)
+        mid = torch.where(cw > 0, torch.cumsum(cw, 1) - cw / 2,
+                          float("inf"))
+        t = self.percentages[0] * totw
+        j = (mid <= t[:, None]).sum(dim=1)
+        jl = (j - 1).clamp(0, C - 1)[:, None]
+        jr = j.clamp(0, C - 1)[:, None]
+        lm = torch.where(j > 0, torch.gather(cm, 1, jl)[:, 0], vmin)
+        lr = torch.where(j > 0, torch.gather(mid, 1, jl)[:, 0], 0.0)
+        rm = torch.where(j < nc, torch.gather(cm, 1, jr)[:, 0], vmax)
+        rr = torch.where(j < nc, torch.gather(mid, 1, jr)[:, 0], totw)
+        frac = ((t - lr) / (rr - lr).clamp(min=1e-300)).clamp(0.0, 1.0)
+        # a NaN neighbour must not poison an answer at frac 0 or 1; an
+        # interior frac with a NaN right neighbour keeps the left
+        # centroid, so NaN comes back only from the NaN centroid's own
+        # midpoint on (docs/compatibility.md)
+        mid_v = lm + frac * (rm - lm)
+        mid_v = torch.where(torch.isnan(rm) & ~torch.isnan(lm), lm, mid_v)
+        v = torch.where(frac <= 0.0, lm, torch.where(frac >= 1.0, rm,
+                                                     mid_v))
+        ok = totw > 0
+        return (v[0], ok[0]) if ungrouped else (v, ok)
+
+    def __repr__(self):
+        return f"percentile_approx({self.child}, {self.percentages})"

@@ -3,11 +3,15 @@ ported subset of pyspark.sql.functions."""
 from __future__ import annotations
 
 from .expr import aggregates as _agg
+from .errors import NotPorted
 from .expr import string_exprs as _se
 from .expr.expressions import CaseWhen, Expression, Literal, col, lit
 
 __all__ = ["col", "lit", "sum", "count", "countDistinct",
-           "count_distinct", "min", "max", "avg", "mean",
+           "count_distinct", "min", "max", "avg", "mean", "first", "last",
+           "stddev", "stddev_samp", "variance", "var_samp",
+           "approx_count_distinct", "percentile", "percentile_approx",
+           "median", "collect_list", "collect_set",
            "when", "substring", "contains", "startswith", "endswith",
            "like"]
 
@@ -42,6 +46,52 @@ def avg(e):
 
 
 mean = avg
+
+
+def first(e, ignorenulls=False):
+    return _agg.First(_to_expr(e), ignorenulls)
+
+
+def last(e, ignorenulls=False):
+    return _agg.Last(_to_expr(e), ignorenulls)
+
+
+def stddev(e):
+    return _agg.Stddev(_to_expr(e))
+
+
+stddev_samp = stddev
+
+
+def variance(e):
+    return _agg.Variance(_to_expr(e))
+
+
+var_samp = variance
+
+
+def approx_count_distinct(e, rsd: float = 0.05):
+    return _agg.ApproxCountDistinct(_to_expr(e), rsd)
+
+
+def percentile(e, percentages, frequency=1):
+    return _agg.Percentile(_to_expr(e), percentages)
+
+
+def percentile_approx(e, percentages, accuracy: int = 10000):
+    return _agg.ApproxPercentile(_to_expr(e), percentages, accuracy)
+
+
+def median(e):
+    return _agg.Median(_to_expr(e))
+
+
+def collect_list(e):
+    raise NotPorted("collect_list (an ArrayType result, ROADMAP A.5)")
+
+
+def collect_set(e):
+    raise NotPorted("collect_set (an ArrayType result, ROADMAP A.5)")
 
 
 def _to_expr(e) -> Expression:

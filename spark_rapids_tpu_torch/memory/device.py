@@ -3,11 +3,13 @@
 The port of the JAX package's `memory/device.py`. Operators reserve the
 bytes of the batches they park (the spill store's handles) against one
 analytic budget; a reservation that does not fit first runs the spill
-hooks (the spill store demotes handles to host memory or disk), and
-raises `BudgetExceeded` only when they cannot free enough and something
-else is still reserved: like the host budget, the device budget admits
-one reservation of any size, so a batch bigger than the whole budget
-can still be parked and brought back. The retry
+hooks (the spill store demotes handles to host memory or disk), then,
+while another live thread that is not itself waiting holds a
+reservation, waits for a release (the exchange's map workers run
+concurrently), and raises `BudgetExceeded` when none of that can make
+room and something else is still reserved: like the host budget, the
+device budget admits one reservation of any size, so a batch bigger
+than the whole budget can still be parked and brought back. The retry
 framework (`memory/retry.py`) treats that exception like a real
 `torch.OutOfMemoryError` from the CUDA caching allocator: both split or
 spill and run again (reference: GpuDeviceManager.scala:182,
@@ -21,7 +23,8 @@ session has no device memory to ask: its default is
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import torch
 
@@ -30,6 +33,14 @@ __all__ = ["DeviceManager", "BudgetExceeded", "device_manager",
 
 #: the budget base of a CPU session without `memory.tpu.poolBytes`
 CPU_DEFAULT_BYTES = 16 << 30
+#: passes that may skip the hooks because a release raced the shortfall
+#: check and another reservation then took the room (a live budget
+#: cannot make `reserve` spin forever)
+_MAX_RACES = 64
+#: the longest a reservation waits for other threads' releases
+_WAIT_S = 60.0
+#: how often a waiting reservation looks again at who holds bytes
+_LOOK_S = 0.5
 
 
 class BudgetExceeded(Exception):
@@ -42,6 +53,11 @@ class DeviceManager:
                  alloc_fraction: float = 0.85,
                  device: Optional[torch.device] = None):
         self._lock = threading.RLock()
+        # notified on every release: a reservation that cannot fit while
+        # another thread holds bytes waits for them
+        self._released = threading.Condition(self._lock)
+        self._by_thread: Dict[int, int] = {}   # reserved bytes per owner
+        self._waiting: Set[int] = set()   # owners waiting for a release
         self._reserved = 0
         self._spill_hooks: List[Callable[[int], int]] = []
         if budget_bytes is None:
@@ -67,29 +83,85 @@ class DeviceManager:
         with self._lock:
             return self._reserved
 
+    def _charge(self, owner: int, delta: int):
+        """Move `owner`'s reserved bytes by delta (caller holds the
+        lock)."""
+        n = self._by_thread.get(owner, 0) + delta
+        if n > 0:
+            self._by_thread[owner] = n
+        else:
+            self._by_thread.pop(owner, None)
+
     def try_reserve(self, nbytes: int) -> bool:
         with self._lock:
             if self._reserved + nbytes > self.budget:
                 return False
             self._reserved += nbytes
+            self._charge(threading.get_ident(), nbytes)
             cur = self._reserved
         from .diagnostics import record_device_watermark
         record_device_watermark(cur)
         return True
 
     def reserve(self, nbytes: int):
-        """Reserve, spilling as needed; raises BudgetExceeded when a pass
-        of the spill hooks frees nothing, the bytes still do not fit and
-        other reservations are outstanding (with none, any size is
+        """Reserve, spilling as needed. When the spill hooks cannot make
+        room and another live thread that is not itself waiting here
+        holds a reservation, wait for a release (at most `_WAIT_S` in
+        all) and try again; otherwise raise BudgetExceeded at once,
+        unless nothing else is reserved (one reservation of any size is
         admitted)."""
         if self.try_reserve(nbytes):
             return
         with self._lock:
             hooks = list(self._spill_hooks)
+        deadline = time.monotonic() + _WAIT_S
         while True:
-            # the hooks again while they free something: another
-            # thread's reservation may take what one pass freed
-            freed = 0
+            if self._spill_and_reserve(nbytes, hooks):
+                return
+            with self._lock:
+                # one reservation is always admitted (the host budget's
+                # rule): a batch bigger than the whole budget parks alone
+                me = threading.get_ident()
+                if self._reserved == 0:
+                    self._reserved = nbytes
+                    self._charge(me, nbytes)
+                    break
+                left = deadline - time.monotonic()
+                if left <= 0 or not self._release_may_come(me):
+                    raise BudgetExceeded(
+                        f"need {nbytes} bytes, reserved {self._reserved} "
+                        f"of {self.budget} and spill store exhausted")
+                # another task holds bytes (two pool workers each merging
+                # more than the budget): wait for a release, looking
+                # again now and then (a holder may exit or start waiting)
+                self._waiting.add(me)
+                try:
+                    self._released.wait(min(left, _LOOK_S))
+                finally:
+                    self._waiting.discard(me)
+        from .diagnostics import record_device_watermark
+        record_device_watermark(nbytes)
+
+    def _release_may_come(self, me: int) -> bool:
+        """Whether another thread that holds bytes can still release
+        them: one that is alive and not itself waiting here for a
+        release (two waiters that each hold bytes would wait for each
+        other; bytes charged to a thread that exited have no live owner
+        to release them). The caller holds the lock."""
+        alive = {t.ident for t in threading.enumerate()}
+        return any(owner != me and owner in alive
+                   and owner not in self._waiting
+                   for owner in self._by_thread)
+
+    def _spill_and_reserve(self, nbytes: int, hooks) -> bool:
+        """Run the spill hooks and try the reservation again, pass after
+        pass while they free bytes. A pass that skipped a hook because
+        another task's release had made room, which a third task then
+        took, runs again too (at most `_MAX_RACES` times): it did not ask
+        the hooks."""
+        races = 0
+        while True:
+            freed, raced = 0, False
             for hook in hooks:
                 # the shortfall again before every hook: other threads'
                 # reservations move it between calls
@@ -97,27 +169,25 @@ class DeviceManager:
                     needed = nbytes - (self.budget - self._reserved)
                 if needed > 0:
                     freed += int(hook(needed) or 0)
+                else:
+                    raced = True
                 if self.try_reserve(nbytes):
-                    return
-            if not freed:
-                break
-        with self._lock:
-            # one reservation is always admitted (the host budget's rule):
-            # a batch bigger than the whole budget parks alone
-            admitted = self._reserved == 0
-            if admitted:
-                self._reserved = nbytes
-        if admitted:
-            from .diagnostics import record_device_watermark
-            record_device_watermark(nbytes)
-            return
-        raise BudgetExceeded(
-            f"need {nbytes} bytes, reserved {self.reserved} of "
-            f"{self.budget} and spill store exhausted")
+                    return True
+            if freed:
+                continue
+            if not raced or races >= _MAX_RACES:
+                return False
+            races += 1
 
-    def release(self, nbytes: int):
+    def release(self, nbytes: int, owner: Optional[int] = None):
+        """Give back bytes that thread `owner` (the calling thread by
+        default) reserved: a spill hook releases another thread's
+        handle on that thread's account."""
         with self._lock:
             self._reserved = max(0, self._reserved - nbytes)
+            self._charge(threading.get_ident() if owner is None else owner,
+                         -nbytes)
+            self._released.notify_all()
 
     def trigger_spill(self, nbytes: Optional[int] = None):
         """Ask the spill hooks to free memory proactively (the retry

@@ -7,8 +7,10 @@ half when retrying alone cannot help. OOM is either the analytic
 `BudgetExceeded` or the CUDA caching allocator's `torch.OutOfMemoryError`
 (which a kernel launch may also surface as a `RuntimeError` whose
 message starts "CUDA error: out of memory"); both take the same path.
-Before the retry: `gc.collect()`, `torch.cuda.empty_cache()` (the
-allocator keeps freed blocks), then the device manager's spill hooks.
+Before the retry: the thread's pressure hook (`on_pressure`: an
+exchange's pooled map worker waits until its step runs alone),
+`gc.collect()`, `torch.cuda.empty_cache()` (the allocator keeps freed
+blocks), then the device manager's spill hooks.
 The exception and its traceback, which hold the failed attempt's
 tensors, are dropped first.
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import gc
 import threading
+from contextlib import contextmanager
 from typing import Callable, Iterator, List, Optional
 
 import torch
@@ -30,7 +33,7 @@ from .device import BudgetExceeded, DeviceManager
 
 __all__ = ["with_retry", "retry_no_split", "split_batch_in_half",
            "OutOfCoreError", "is_oom_error", "retry_stats",
-           "reset_retry_stats"]
+           "reset_retry_stats", "on_pressure"]
 
 MAX_SPLITS = 12
 
@@ -79,9 +82,29 @@ def is_oom_error(e: BaseException) -> bool:
             or "out of memory" in head)
 
 
+_PRESSURE = threading.local()
+
+
+@contextmanager
+def on_pressure(hook: Callable[[], None]):
+    """Run `hook()` on this thread before every recovery between attempts
+    inside the block: an exchange's map worker waits there until the
+    other workers' device steps have ended, so its retry runs alone."""
+    prev = getattr(_PRESSURE, "hook", None)
+    _PRESSURE.hook = hook
+    try:
+        yield
+    finally:
+        _PRESSURE.hook = prev
+
+
 def _recover(dm: Optional[DeviceManager]):
-    """Between attempts: drop the failed attempt's garbage, hand the
-    allocator's cached blocks back, and let the spill store demote."""
+    """Between attempts: wait for this thread's pressure hook (if any),
+    drop the failed attempt's garbage, hand the allocator's cached blocks
+    back, and let the spill store demote."""
+    hook = getattr(_PRESSURE, "hook", None)
+    if hook is not None:
+        hook()
     gc.collect()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.empty_cache()

@@ -97,12 +97,15 @@ class SpillableBatchHandle:
         self._pinned = 0
         self._host_reserved = False
         self.closed = False
+        # the thread whose device reservation this handle holds
+        self._owner = threading.get_ident()
 
     # -- spill path ----------------------------------------------------
     def _leave_device(self):
-        """The device copy is gone: give its reservation back."""
+        """The device copy is gone: give its reservation back, on the
+        account of the thread that made it."""
         self._batch = None
-        self.store.dm.release(self.nbytes)
+        self.store.dm.release(self.nbytes, self._owner)
 
     def spill_to_host(self, charge_budget: bool = True) -> int:
         """Demote to host memory; returns the bytes freed on the device
@@ -153,8 +156,9 @@ class SpillableBatchHandle:
     # -- promote back ----------------------------------------------------
     def materialize(self):
         """The batch on the device, promoted back from host memory or
-        disk if it was spilled. Pinned meanwhile, so the reservation
-        below cannot demote this handle."""
+        disk if it was spilled, by the thread that owns the handle.
+        Pinned meanwhile, so the reservation below cannot demote this
+        handle."""
         from ..exec.batch import DeviceBatch
         with _LOCK:
             if self.closed:
@@ -162,27 +166,37 @@ class SpillableBatchHandle:
             if self.state == DEVICE:
                 return self._batch
             self.pin()
-            try:
-                if self.state == DISK:
-                    raw = np.fromfile(self._disk_path, dtype=np.uint8)
-                    self._host = torch.from_numpy(raw)
-                    os.unlink(self._disk_path)
-                    self._disk_path = None
-                    self.state = HOST
-                self.store.dm.reserve(self.nbytes)
-                it = iter(_from_host(self._host, self._layout,
-                                     self.device))
-                names, cols, num_rows = self._meta
-                table = Table(names, [
-                    Column(dtype, length, *[next(it) for _ in range(nb)])
-                    for dtype, length, nb in cols])
-                self._batch = DeviceBatch(table, num_rows, next(it))
+        try:
+            # outside the lock: the reservation may wait for another
+            # task's release, and that task needs the lock to close its
+            # handles
+            self.store.dm.reserve(self.nbytes)
+            with _LOCK:
+                self._owner = threading.get_ident()
+                try:
+                    if self.state == DISK:
+                        raw = np.fromfile(self._disk_path, dtype=np.uint8)
+                        self._host = torch.from_numpy(raw)
+                        os.unlink(self._disk_path)
+                        self._disk_path = None
+                        self.state = HOST
+                    it = iter(_from_host(self._host, self._layout,
+                                         self.device))
+                    names, cols, num_rows = self._meta
+                    table = Table(names, [
+                        Column(dtype, length,
+                               *[next(it) for _ in range(nb)])
+                        for dtype, length, nb in cols])
+                    self._batch = DeviceBatch(table, num_rows, next(it))
+                except BaseException:
+                    self.store.dm.release(self.nbytes)
+                    raise
                 self._host = None
                 self._release_host()
                 self.state = DEVICE
                 return self._batch
-            finally:
-                self.unpin()
+        finally:
+            self.unpin()
 
     def pin(self):
         with _LOCK:

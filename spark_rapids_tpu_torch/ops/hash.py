@@ -2,13 +2,18 @@
 aggregation's hash-once 64-bit row hash.
 
 The port's copy of the JAX package's `ops/hash.py`: murmur3 of bool,
-byte/short/int/date (hashInt), long/timestamp/decimal64 (hashLong) and
+byte/short/int/date/float (hashInt), long/timestamp/decimal/double
+(hashLong) and
 string/binary keys (hashUnsafeBytes, with the JAX package's fold past 64
 bytes, docs/compatibility.md:59), folded left to right across key
 columns; `pmod(hash, n)` partition ids; and `fold64` / `avalanche32` /
 `hash_once_rows`, the xxhash64-style bucket hash of the grouped
-aggregation. Bit-identical to the JAX functions. (Float keys and the
-Spark-facing xxhash64 / hive hashes wait.)
+aggregation. Float, double and decimal128 keys hash as the JAX package
+hashes them (`_float_bits`, `_double_word`, the limbs folded), its CPU
+compile's ids for every value; a float NaN whose bits are not the
+canonical 0x7FC00000 is the one departure (ROADMAP C.15). Bit-identical
+to the JAX functions otherwise. (The Spark-facing xxhash64 / hive
+hashes wait.)
 
 torch has no unsigned 32-bit arithmetic on every build, and `>>` on
 int64 is arithmetic. So every 32-bit word here lives in an int64 tensor
@@ -94,14 +99,56 @@ def murmur3_cv(cv: CV, dtype: dt.DataType, seed):
     elif isinstance(dtype, (dt.ByteType, dt.ShortType, dt.IntegerType,
                             dt.DateType)):
         h = hash_int32(x, seed)
-    elif isinstance(dtype, (dt.LongType, dt.TimestampType)) or (
-            isinstance(dtype, dt.DecimalType) and not dtype.is_decimal128):
+    elif isinstance(dtype, (dt.LongType, dt.TimestampType)):
         h = hash_int64(x, seed)
+    elif isinstance(dtype, dt.DecimalType):
+        # decimal128: the two limbs folded (the JAX package's departure
+        # from Spark, which hashes the unscaled value's bytes)
+        h = hash_int64(x[:, 0] ^ x[:, 1] if dtype.is_decimal128 else x,
+                       seed)
+    elif isinstance(dtype, dt.FloatType):
+        h = hash_int32(_float_bits(x), seed)
+    elif isinstance(dtype, dt.DoubleType):
+        h = hash_int64(_double_word(x), seed)
     elif dtype.is_variable_width:
         h = _hash_string(cv, seed)
     else:
         raise NotPorted(f"hash({dtype})")
     return torch.where(cv.validity, h, seed)
+
+
+def _flush_zero(x):
+    """-0.0 and the subnormals as 0.0: the JAX package's CPU compiles
+    flush subnormals to zero, so they hash as 0.0 there."""
+    tiny = torch.finfo(x.dtype).tiny
+    return torch.where(x.abs() < tiny, torch.zeros_like(x), x)
+
+
+def _float_bits(x):
+    """Spark's float hash input: -0.0 as 0.0, then the int32 bits; every
+    NaN as the one canonical NaN 0x7FC00000 (Java's floatToIntBits), so
+    NaN rows land in one partition whatever bits a device computed."""
+    bits = _flush_zero(x).view(torch.int32)
+    return torch.where(torch.isnan(x), 0x7FC00000, bits)
+
+
+def _double_word(x):
+    """The JAX package's float64 hash input (engine-internal, not Spark's
+    doubleToLongBits, docs/compatibility.md:44-46): m, e = frexp(|x|),
+    mant = trunc(m * 2^53) with x's sign, then mant ^ (e << 1). Its CPU
+    compile hashes NaN as 0.0 (frexp gives NaN and 0, the cast of NaN
+    gives 0) and +-Infinity as mant = +-(2^63 - 1), e = 0 (the cast
+    saturates); those values are written out here, since a cast of a
+    NaN or an infinity to int64 is undefined in C and differs by
+    device."""
+    xx = _flush_zero(x)
+    m, e = torch.frexp(xx.abs())
+    finite = torch.isfinite(xx)
+    mant = (torch.where(finite, m, 0.0) * (2.0 ** 53)).to(torch.int64)
+    mant = torch.where(torch.isinf(xx), (1 << 63) - 1, mant)
+    mant = torch.where(xx < 0, -mant, mant)
+    e = torch.where(finite, e.to(torch.int64), 0)
+    return mant ^ (e << 1)
 
 
 def _hash_string(cv: CV, seed):

@@ -4,12 +4,17 @@ One rule per logical node class, as in the JAX package's planner, for the
 ported nodes. A grouped Aggregate over a multi-partition input becomes
 the JAX package's three stages: a partial aggregate per input partition,
 a hash exchange of the partial states on the grouping keys, and a final
-aggregate per exchange partition. A Join becomes a broadcast hash join
-(the build side behind a BroadcastExchangeExec) when the build side's
-estimated bytes are at most `sql.autoBroadcastJoinThreshold`, else a
-shuffled hash join (both sides hash-exchanged on their keys, joined per
-partition); the estimate is the JAX planner's, from the scans' row
-counts and a fixed width per type, so the choice is the same.
+aggregate per exchange partition; an aggregate whose result cannot ride
+the partial states (count(DISTINCT) that the optimizer's rewrite leaves
+alone, percentile, median, a string's first / last) becomes a hash
+exchange of the raw rows on the keys and a `CollectAggExec` per
+partition, or one `CollectAggExec` without keys. A Join becomes a
+broadcast hash join (the build side behind a BroadcastExchangeExec) when
+the build side's estimated bytes are at most
+`sql.autoBroadcastJoinThreshold`, else a shuffled hash join (both sides
+hash-exchanged on their keys, joined per partition); the estimate is the
+JAX planner's, from the scans' row counts and a fixed width per type, so
+the choice is the same.
 
 At the JAX package's defaults the plan is adaptive, as there
 (`sql.adaptive.enabled`): the exchange under a final aggregate and both
@@ -30,9 +35,8 @@ A cross join without a condition is a broadcast hash join whatever the
 threshold (`how="cross"`); a condition with no equi keys is a
 `NestedLoopJoinExec`; any other condition rides the hash join. The
 bloom-filter prefilter of a shuffled join is off by default in JAX and
-not ported. A mesh exchange, a count(DISTINCT) that the optimizer's
-rewrite leaves alone (JAX `CollectAggExec`), and any node without a rule
-raise NotPorted; nothing falls back to another engine.
+not ported. A mesh exchange and any node without a rule raise
+NotPorted; nothing falls back to another engine.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from ..config import (ADAPTIVE_CALIBRATION, ADAPTIVE_COALESCE_ENABLED,
                       TpuConf)
 from ..errors import NotPorted
 from ..exec import nodes as x
-from ..exec.aggregate import HashAggregateExec, UngroupedAggExec
+from ..exec.aggregate import (CollectAggExec, HashAggregateExec,
+                              UngroupedAggExec)
 from ..exec.aqe import AqeShufflePlan, AQEShuffleReadExec
 from ..exec.base import ExecContext, TpuExec
 from ..exec.broadcast import BroadcastExchangeExec
@@ -135,19 +140,31 @@ def _agg(node, conv, conf):
     child = conv(node.child)
     names = [n for n, _ in node.bound_aggs]
     aggs = [a for _, a in node.bound_aggs]
-    if any(getattr(a, "is_collect", False) for a in aggs):
-        raise NotPorted(
-            "CollectAggExec (count(DISTINCT) beside another aggregate, "
-            "over several distinct children, or with "
-            "sql.optimizer.distinctAggRewrite.enabled off)")
+    has_collect = any(getattr(a, "is_collect", False) for a in aggs)
     if not node.keys:
+        if has_collect:
+            # count(DISTINCT x), median, ... without keys: one segment
+            return CollectAggExec(child, [], [], names, aggs, node.schema)
         return UngroupedAggExec(child, names, aggs, node.schema)
     key_names = [k.name for k in node.keys]
     nparts = conf.get(SHUFFLE_PARTITIONS)
     if conf.get(MESH_DEVICES) > 1:
         raise NotPorted("mesh exchange (MeshExchangeExec)")
-    if child.num_partitions(ExecContext(conf, None, planning=True)) > 1 \
-            and nparts > 1:
+    multi_input = child.num_partitions(
+        ExecContext(conf, None, planning=True)) > 1 and nparts > 1
+    if has_collect:
+        # these results cannot ride the partial / final state wire: the
+        # raw rows hash-exchange on the keys, then each partition's sort
+        # path is final (its keys are disjoint from the others')
+        if multi_input:
+            exch = ShuffleExchangeExec(child, nparts, node.bound_keys,
+                                       child.schema)
+            exch, _ = _aqe_wrap(exch, conf, allow_split=False)
+            return CollectAggExec(exch, key_names, node.bound_keys, names,
+                                  aggs, node.schema, per_partition=True)
+        return CollectAggExec(child, key_names, node.bound_keys, names,
+                              aggs, node.schema)
+    if multi_input:
         # partial per input partition (rows shrink to the group count),
         # exchange of the states on the keys, final merge per partition
         partial = HashAggregateExec(child, key_names, node.bound_keys,

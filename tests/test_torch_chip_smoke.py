@@ -895,3 +895,91 @@ def test_an_escaped_oom_names_its_site():
     assert chip_smoke.port_site(e.value).startswith(
         "/memory/retry.py:") and "retry_no_split" in \
         chip_smoke.port_site(e.value)
+
+
+def test_grouping_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """Slice 11's phases at sf 0.01 in 4096-row batches: the new
+    aggregates by date equal their numpy references, the distinct count
+    beside a sum is exact, every row of the double and decimal128
+    exchanges sits where numpy's version of the JAX hash puts it; and
+    numpy's hash equals the JAX package's partition ids."""
+    import json
+
+    import numpy as np
+
+    import jax.numpy as jnp
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    from spark_rapids_tpu.ops.hash import partition_ids
+    from spark_rapids_tpu.ops.kernel_utils import CV as JCV
+    rng = np.random.default_rng(2)
+    d = np.concatenate([rng.standard_normal(2000) * 1e5,
+                        [0.0, -0.0, 5e-324, np.inf, -np.inf, np.nan]])
+    valid = rng.random(len(d)) > 0.1
+    want = np.asarray(partition_ids([JCV(jnp.asarray(d),
+                                         jnp.asarray(valid))],
+                                    [jdt.FLOAT64], 200))
+    got = chip_smoke.np_partition_ids(chip_smoke.np_double_word(d), valid,
+                                      200)
+    assert np.array_equal(got, want)
+    m = rng.integers(-2**63, 2**63, (2000, 2), dtype=np.int64)
+    want = np.asarray(partition_ids([JCV(jnp.asarray(m),
+                                         jnp.asarray(valid[:2000]))],
+                                    [jdt.DecimalType(30, 4)], 200))
+    got = chip_smoke.np_partition_ids(m[:, 0] ^ m[:, 1], valid[:2000], 200)
+    assert np.array_equal(got, want)
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    launches = chip_smoke.grouping_phases(s, tpch_small["lineitem"])
+    assert launches == {"stats_by_shipdate": {"all": 0, "vector": 0,
+                                              "scalar": 0}}
+    phases = {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    st = phases["stats_by_shipdate"]
+    assert st["plan"][:3] == ["CollectAggExec", "AQEShuffleReadExec",
+                              "ShuffleExchangeExec"]
+    assert st["worst"]["pa_rank_err"] <= st["bounds"]["pa_rank_err"]
+    assert phases["distinct_beside_sum"]["groups"] == 100
+    fd = phases["float_decimal_keys"]
+    assert fd["double_key"]["groups"] == 50
+    dec = fd["decimal128_repartition"]
+    assert dec["rows"] == dec["rows_placed"] == \
+        tpch_small["lineitem"].num_rows
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_adaptive_pool_ab_rehearses_on_the_cpu(tpch_small, capsys, offset):
+    """The adaptive pass's A/B: one reading at the default map pool, one
+    at mapThreads = 1, alternating which runs first, in the order the
+    offset gives; every pair bit-equal."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    queries = (4, 9, 18)
+    expects = {n: chip_smoke.tpch_reference(n, tpch_small) for n in queries}
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096,
+                       "spark.rapids.tpu.sql.adaptive."
+                       "advisoryPartitionSizeInBytes": 1 << 15},
+                      device="cpu")
+    chip_smoke.tpch_phases(s, tpch_small, expects, runs=2, queries=queries,
+                           profile=False, ab_threads=1, ab_offset=offset)
+    phases = {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    for i, n in enumerate(queries):
+        ph = phases[f"tpch_q{n}"]
+        assert ph["runs_bit_equal"] is True
+        threads = [r["map_threads"] for r in ph["runs"][:2]]
+        serial_first = (i + offset) % 2
+        assert threads[1 - serial_first] == 1
+        assert threads[serial_first] == chip_smoke.map_threads_of(s)
+        assert ph["default_conf_first"] is (serial_first == 0)
+        assert all("mapPoolWaitMs" in r for r in ph["runs"])
+
+
+def test_pool_ab_offset_from_the_argument_or_the_start_second():
+    assert chip_smoke.pool_ab_offset(["--pool-ab-offset=1"], 10.0) == 1
+    assert chip_smoke.pool_ab_offset(["--pool-ab-offset=0"], 11.0) == 0
+    assert [chip_smoke.pool_ab_offset([], t) for t in (10.9, 11.2)] \
+        == [0, 1]

@@ -558,3 +558,112 @@ def test_retry_scope_and_watermarks():
     hm = HostMemoryManager(0)
     hm.reserve(123)
     assert diagnostics.watermarks_snapshot()["hostPeakBytes"] >= 123
+
+
+def test_reserve_retries_when_a_release_races_the_shortfall_check():
+    """The interleaving of ROADMAP C.13, forced: a budget of 10 holds a
+    spillable 5 and a 4; `reserve(2)` fails its first `try_reserve`,
+    another task then releases the 4, so the shortfall check reads no
+    shortfall and skips the hook, and a third task takes 4 again just
+    before the next `try_reserve`. The pass freed nothing only because
+    it never asked the hook: `reserve` must try again, spill the 5 and
+    succeed."""
+    dm = DeviceManager(budget_bytes=10)
+    spillable = [5]
+    hook_calls = []
+
+    def hook(needed):
+        hook_calls.append(needed)
+        freed, spillable[0] = spillable[0], 0
+        dm.release(freed)
+        return freed
+
+    dm.register_spill_hook(hook)
+    dm.reserve(5)
+    dm.reserve(4)
+    real = dm.try_reserve
+    calls = []
+
+    def racing(nbytes):
+        calls.append(nbytes)
+        if len(calls) == 2:
+            assert real(4)          # a third task takes the room
+        ok = real(nbytes)
+        if len(calls) == 1:
+            dm.release(4)           # another task releases its 4
+        return ok
+
+    dm.try_reserve = racing
+    dm.reserve(2)
+    assert hook_calls == [1]
+    assert spillable == [0]
+    assert dm.reserved == 4 + 2
+
+
+def test_reservations_that_wait_for_each_other_raise_at_once():
+    """Two tasks each hold bytes and each ask for more than is left:
+    neither can release while it waits, so the second to ask must raise
+    at once (its task then drops its bytes and the first is admitted),
+    not after the whole wait. Bytes charged to a thread that has exited
+    have no live owner to release them: a reservation does not wait for
+    them either."""
+    dm = DeviceManager(budget_bytes=10)
+    start = threading.Barrier(2)
+    done, refused = [], []
+
+    def task():
+        dm.reserve(4)
+        start.wait()
+        try:
+            dm.reserve(5)
+            done.append(True)
+            dm.release(5)
+        except BudgetExceeded:
+            refused.append(True)
+        dm.release(4)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=task) for _ in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=30)
+    assert time.perf_counter() - t0 < 5
+    assert refused and len(done) + len(refused) == 2
+    assert dm.reserved == 0
+    gone = threading.Thread(target=lambda: dm.reserve(6))
+    gone.start()
+    gone.join()
+    t0 = time.perf_counter()
+    with pytest.raises(BudgetExceeded):
+        dm.reserve(6)
+    assert time.perf_counter() - t0 < 5
+
+
+def test_reserve_waits_for_another_threads_release():
+    """Two tasks each need more than the whole budget (two map workers
+    each merging a partition): the second waits for the first's release
+    and is then admitted alone; the same thread, holding the bytes
+    itself, is refused at once."""
+    dm = DeviceManager(budget_bytes=10)
+    dm.reserve(15)                      # admitted alone
+    got, t0 = [], time.perf_counter()
+
+    def other():
+        dm.reserve(12)
+        got.append(time.perf_counter() - t0)
+
+    t = threading.Thread(target=other)
+    t.start()
+    time.sleep(0.2)
+    assert not got                      # still waiting for the release
+    dm.release(15)
+    t.join(timeout=30)
+    assert got and got[0] >= 0.2
+    assert dm.reserved == 12
+    dm2 = DeviceManager(budget_bytes=10)
+    dm2.reserve(8)
+    t0 = time.perf_counter()
+    with pytest.raises(BudgetExceeded):
+        dm2.reserve(5)
+    assert time.perf_counter() - t0 < 5
