@@ -57,7 +57,9 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
  14. a grouped double sum (`seg_sum`) of one fixed 2M-row input over
      100,000 segments, five times: the results must be bit-equal (and
      `index_add_`, the atomic sum it replaces, beside it for contrast);
- 15. the earlier tables freed, `tpch.gen_all(10)` (seed 7): rows and
+ 15. `tpch.gen_all(10)` (seed 7), made once before phase 4 (phases 4-13
+     run over its lineitem, cut to the short generator's columns, and its
+     customer and orders): rows and
      generation seconds per table, then the exact numpy reference of
      each of Q2, Q4, Q5, Q7-Q22 (Q18 at the spec's 300), timed (int64
      unscaled decimals with an overflow guard, the generators' 0..n-1
@@ -126,6 +128,34 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      l_extendedprice * (1 - l_discount); both exchanges' host pieces
      hashed again with numpy's version of the JAX hash (every row where
      it belongs), every row conserved and the product's sum exact;
+ 38d. `dates_by_year`: gen_all's lineitem, its day columns viewed as
+     date32, grouped by year(l_shipdate), an int32 key, so the exchange's
+     map side runs the partition kernel (its launches counted, every one
+     the vector variant): count, the sums of two datediffs and of the
+     month, quarter, dayofmonth, dayofweek and dayofyear of l_shipdate,
+     max(last_day(l_commitdate)), min(date_add(l_shipdate, 30)) and
+     max(date_sub(l_receiptdate, 7)), exact against numpy's
+     datetime64[D];
+ 38e. `strings_casts_hashes`: orders (15M rows) grouped by o_orderstatus:
+     the lengths of o_comment and of lpad(o_orderpriority, 20, "*"),
+     counts where instr, upper(lower(..)) and trim(concat(..)) hold, the
+     length and xxhash64 of concat_ws("|", lower, reverse, repeat) (a
+     max over strings, which neither package has, is not asked), the
+     round trips of o_totalprice, o_orderkey and o_orderdate through
+     strings, round, pmod, shiftleft, greatest, and the sums of sqrt, log
+     and atan2 over doubles, hash(o_orderkey, o_custkey), xxhash64 and
+     hive_hash of o_orderkey: exact against pyarrow.compute and numpy
+     (`strings_reference`, the hashes against `np_hash_long`,
+     `np_xxhash64_long`, `np_hive_hash_long`), the double sums within a
+     relative 1e-9; then the three hashes of o_comment over a seeded
+     sample of 100,000 rows against plain Python;
+ 38f. `timestamps_tz`: ts = o_orderkey * 9973 % 946684800 seconds as a
+     timestamp, its wall time in America/Los_Angeles and that wall
+     time's hour, minute and second, to_utc_timestamp back (equal to ts
+     but in the hour after each fall back, which Java's earlier-offset
+     rule maps an hour early), and cast(ts as string) and to_timestamp
+     of it back, exact against Python's zoneinfo over the distinct UTC
+     hours;
  39-60. the written plans: all 22 queries over the same tables, once
      each, with `WRITTEN_CONF` (the four features off: joins in the
      written order, fixed partitions, no reuse, each build before its
@@ -3868,6 +3898,41 @@ def np_hash_long(x, seed=42):
                                    _np_mix_k1(hi)), 8)
 
 
+_P64 = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+        0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5)
+
+
+def _np_rotl64(x, r):
+    import numpy as np
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def np_xxhash64_long(x, seed=42):
+    """Spark's XXH64 hashLong of int64 values (xxhash64(col) of one long
+    column), in numpy uint64 arithmetic; returned as int64."""
+    import numpy as np
+    p1, p2, p3, p4, p5 = (np.uint64(p) for p in _P64)
+    x = np.asarray(x, np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        h = np.uint64(seed) + p5 + np.uint64(8)
+        h = h ^ (_np_rotl64(x * p2, 31) * p1)
+        h = _np_rotl64(h, 27) * p1 + p4
+        h = h ^ (h >> np.uint64(33))
+        h = h * p2
+        h = h ^ (h >> np.uint64(29))
+        h = h * p3
+        h = h ^ (h >> np.uint64(32))
+    return h.view(np.int64)
+
+
+def np_hive_hash_long(x):
+    """Hive's hashCode of int64 values, (int) (v ^ (v >>> 32)), as
+    hive_hash(col) of one long column gives it (0 * 31 + that)."""
+    import numpy as np
+    u = np.asarray(x, np.int64).view(np.uint64)
+    return (u ^ (u >> np.uint64(32))).astype(np.uint32).view(np.int32)
+
+
 def np_double_word(x):
     """The JAX package's float64 hash input as its CPU compile computes
     it (`ops/hash.py:103-114`): subnormals and -0.0 as 0.0, frexp of
@@ -3894,7 +3959,7 @@ def np_partition_ids(words, valid, n):
 
 
 def np_fma(a, b, c):
-    """numpy's `exec/aggregate.py` `fma`: a * b + c rounded once (the
+    """numpy's `ops/kernel_utils.py` `fma`: a * b + c rounded once (the
     JAX package's compiled percentile interpolation)."""
     import numpy as np
     p = a * b
@@ -4213,6 +4278,469 @@ def grouping_phases(session, lineitem) -> dict:
     return {"stats_by_shipdate": got}
 
 
+# ----------------------------------------------------------------------
+# Slice 12: the scalar expression surface, dates and times
+# ----------------------------------------------------------------------
+DATE_COLUMNS = ("l_shipdate", "l_commitdate", "l_receiptdate",
+                "o_orderdate")
+TZ = "America/Los_Angeles"
+STRING_SAMPLE_ROWS = 100_000
+_DATE_AGGS = ("n", "rd", "cd", "mo", "qu", "dom", "dow", "doy", "ld",
+              "da", "ds")
+
+
+def as_dates(table):
+    """The table with its int32 day columns viewed as Arrow date32 (the
+    same buffers, no copy): the generator stores them as int32."""
+    import pyarrow as pa
+    for name in DATE_COLUMNS:
+        if name in table.column_names:
+            i = table.column_names.index(name)
+            table = table.set_column(i, name, pa.chunked_array(
+                [c.view(pa.date32()) for c in table.column(i).chunks],
+                pa.date32()))
+    return table
+
+
+def dates_query(session, lineitem):
+    """group_by(year(l_shipdate)): an int32 key, so the hash exchange's
+    map side runs the partition kernel, over the date functions."""
+    import spark_rapids_tpu_torch.functions as F
+    d = F.col("l_shipdate")
+    return session.create_dataframe(as_dates(lineitem)).group_by(
+        F.year(d).alias("y")).agg(
+        F.count("*").alias("n"),
+        F.sum(F.datediff("l_receiptdate", d)).alias("rd"),
+        F.sum(F.datediff("l_commitdate", d)).alias("cd"),
+        F.sum(F.month(d)).alias("mo"), F.sum(F.quarter(d)).alias("qu"),
+        F.sum(F.dayofmonth(d)).alias("dom"),
+        F.sum(F.dayofweek(d)).alias("dow"),
+        F.sum(F.dayofyear(d)).alias("doy"),
+        F.max(F.last_day("l_commitdate")).alias("ld"),
+        F.min(F.date_add(d, 30)).alias("da"),
+        F.max(F.date_sub("l_receiptdate", 7)).alias("ds"))
+
+
+def dates_reference(lineitem) -> dict:
+    """Per year of l_shipdate, exactly, from numpy's datetime64[D] over
+    the distinct ship days (their fields weighted by each day's rows):
+    the count, the day sums and the min / max dates (as days)."""
+    import numpy as np
+    ship = lineitem.column("l_shipdate").to_numpy().astype(np.int64)
+    commit = lineitem.column("l_commitdate").to_numpy()
+    receipt = lineitem.column("l_receiptdate").to_numpy()
+    lo = int(ship.min())
+    per_day = np.bincount(ship - lo).astype(np.float64)
+    days = np.arange(len(per_day), dtype=np.int64) + lo
+    d64 = days.astype("datetime64[D]")
+    ym = d64.astype("datetime64[M]")
+    yy = d64.astype("datetime64[Y]")
+    month = ym.astype(np.int64) % 12 + 1
+    fields = {"mo": month, "qu": (month - 1) // 3 + 1,
+              "dom": (d64 - ym.astype("datetime64[D]")).astype(np.int64) + 1,
+              "dow": (days + 4) % 7 + 1,
+              "doy": (d64 - yy.astype("datetime64[D]")).astype(np.int64) + 1}
+    year = yy.astype(np.int64) + 1970
+    y0 = int(year[per_day > 0].min())
+    yid = year - y0
+    ny = int(yid.max()) + 1
+    row_year = yid[ship - lo]
+    cnt = np.bincount(yid, weights=per_day, minlength=ny)
+    sums = {k: np.bincount(yid, weights=per_day * v, minlength=ny)
+            for k, v in fields.items()}
+    ship_sum = np.bincount(yid, weights=per_day * days, minlength=ny)
+    sums["rd"] = np.bincount(row_year, weights=receipt, minlength=ny) \
+        - ship_sum
+    sums["cd"] = np.bincount(row_year, weights=commit, minlength=ny) \
+        - ship_sum
+    out = {}
+    for i in np.flatnonzero(cnt):
+        m = row_year == i
+        g = {"n": int(cnt[i])}
+        for k in ("rd", "cd", "mo", "qu", "dom", "dow", "doy"):
+            if abs(sums[k][i]) >= 2 ** 53:
+                raise AssertionError("a day sum leaves the exact range")
+            g[k] = int(sums[k][i])
+        # last_day only grows with the day: the max's last day
+        cm = np.datetime64(int(commit[m].max()), "D").astype(
+            "datetime64[M]")
+        g["ld"] = int(((cm + 1).astype("datetime64[D]") - 1).astype(
+            np.int64))
+        g["da"] = int(days[(yid == i) & (per_day > 0)].min()) + 30
+        g["ds"] = int(receipt[m].max()) - 7
+        out[y0 + int(i)] = g
+    return out
+
+
+def check_dates(at, expect, what):
+    import pyarrow as pa
+    got = {}
+    cols = {k: (at.column(k).cast(pa.int32()) if k in ("ld", "da", "ds")
+                else at.column(k)).to_pylist() for k in _DATE_AGGS}
+    for i, y in enumerate(at.column("y").to_pylist()):
+        got[y] = {k: cols[k][i] for k in _DATE_AGGS}
+    if got != expect:
+        bad = [(y, got.get(y), expect[y]) for y in expect
+               if got.get(y) != expect[y]][:2]
+        raise AssertionError(f"{what}: years differ from numpy: {bad}")
+
+
+def _np_hash_pair(a, b, seed=42):
+    """hash(a, b) of two int64 columns: murmur3 hashLong of b seeded by
+    hashLong of a (Spark folds left to right), as int32."""
+    import numpy as np
+    return np_hash_long(b, np_hash_long(a, seed)).view(np.int32)
+
+
+def strings_query(session, orders):
+    """group_by(o_orderstatus) over the string functions, the casts
+    through strings, the math functions and the hashes."""
+    import spark_rapids_tpu_torch.functions as F
+    c, p, st = F.col("o_comment"), F.col("o_orderpriority"), \
+        F.col("o_orderstatus")
+    price = F.col("o_totalprice")
+    okey, ckey = F.col("o_orderkey"), F.col("o_custkey")
+
+    def count_if(cond):
+        return F.sum(F.when(cond, 1).otherwise(0))
+    cw = F.concat_ws("|", F.lower(p), F.reverse(st), F.repeat(st, 2))
+    dbl = price.cast("double")
+    return session.create_dataframe(as_dates(orders)).group_by(
+        "o_orderstatus").agg(
+        F.count("*").alias("n"),
+        F.sum(F.length(c)).alias("len_comment"),
+        F.sum(F.length(F.lpad(p, 20, "*"))).alias("len_lpad"),
+        count_if(F.instr(c, "special") > 0).alias("n_special"),
+        count_if(F.upper(F.lower(p)) == p).alias("n_case"),
+        count_if(F.trim(F.concat(F.lit(" "), p, F.lit(" "))) == p)
+        .alias("n_trim"),
+        F.sum(F.length(cw)).alias("len_ws"),
+        F.sum(F.xxhash64(cw)).alias("xx_ws"),
+        count_if(price.cast("string").cast("decimal(15,2)") == price)
+        .alias("rt_price"),
+        count_if(okey.cast("string").cast("bigint") == okey)
+        .alias("rt_key"),
+        count_if(F.to_date(F.col("o_orderdate").cast("string"))
+                 == F.col("o_orderdate")).alias("rt_date"),
+        F.sum(F.round(price, 1)).alias("round1"),
+        F.sum(F.pmod(ckey, F.lit(7))).alias("pmod7"),
+        F.sum(F.shiftleft(F.col("o_shippriority") + 1, 3)).alias("shl"),
+        F.max(F.greatest(ckey, okey)).alias("greatest"),
+        F.sum(F.sqrt(dbl)).alias("sqrt"), F.sum(F.log(dbl)).alias("log"),
+        F.sum(F.atan2(ckey, okey + 1)).alias("atan2"),
+        F.sum(F.hash(okey, ckey)).alias("h_murmur"),
+        F.sum(F.xxhash64(okey)).alias("h_xx"),
+        F.sum(F.hive_hash(okey)).alias("h_hive"))
+
+
+def strings_reference(orders) -> dict:
+    """Per o_orderstatus, from pyarrow.compute and numpy: the integer
+    and decimal aggregates exactly (sums of int64 wrap as Spark's do),
+    the double sums in float64."""
+    import numpy as np
+    import pyarrow.compute as pc
+
+    def codes_of(name):
+        # dictionary codes, not np.unique (minutes over 15M rows with
+        # the card machine's numpy)
+        enc = orders.column(name).combine_chunks().dictionary_encode()
+        return (enc.indices.to_numpy().astype(np.int64),
+                enc.dictionary.to_pylist())
+    inv, codes = codes_of("o_orderstatus")
+    pinv, pvals = codes_of("o_orderpriority")
+    comment = orders.column("o_comment")
+    price = unscaled(orders, "o_totalprice")
+    okey = orders.column("o_orderkey").to_numpy()
+    ckey = orders.column("o_custkey").to_numpy()
+    ship = orders.column("o_shippriority").to_numpy().astype(np.int64)
+    # concat_ws("|", lower(p), reverse(s), repeat(s, 2)) over the few
+    # (priority, status) pairs: its length and xxhash64 per pair
+    ws = [f"{pv.lower()}|{sv[::-1]}|{sv * 2}".encode()
+          for pv in pvals for sv in codes]
+    pair = pinv * len(codes) + inv
+    cw_len = np.array([len(w) for w in ws], np.int64)[pair]
+    cw_xx = np.array([py_xxhash64_bytes(w, 42) for w in ws],
+                     np.int64)[pair]
+    # upper(lower(p)) == p and trim(concat(" ", p, " ")) == p for each of
+    # the few priorities, then spread over the rows by code
+    pcase = np.array([p.encode().lower().upper() == p.encode()
+                      for p in pvals], np.int64)
+    ptrim = np.array([(b" " + p.encode() + b" ").strip(b" ") == p.encode()
+                      for p in pvals], np.int64)
+    cols = {
+        "len_comment": pc.utf8_length(comment).to_numpy().astype(np.int64),
+        "len_lpad": np.full(len(price), 20, np.int64),  # lpad cuts too
+        "n_special": pc.match_substring(comment, "special").to_numpy(
+            zero_copy_only=False).astype(np.int64),
+        "n_case": pcase[pinv], "n_trim": ptrim[pinv],
+        "len_ws": cw_len, "xx_ws": cw_xx,
+        "round1": (price + 5) // 10,        # HALF_UP, every price > 0
+        "pmod7": ckey % 7, "shl": (ship + 1) << 3,
+        "h_murmur": _np_hash_pair(okey, ckey).astype(np.int64),
+        "h_xx": np_xxhash64_long(okey),
+        "h_hive": np_hive_hash_long(okey).astype(np.int64)}
+    if (price <= 0).any():
+        raise AssertionError("round1's shortcut needs positive prices")
+    dbl = price.astype(np.float64) / 100.0
+    floats = {"sqrt": np.sqrt(dbl), "log": np.log(dbl),
+              "atan2": np.arctan2(ckey.astype(np.float64),
+                                  (okey + 1).astype(np.float64))}
+    out = {}
+    for i, code in enumerate(codes):
+        m = inv == i
+        g = {"n": int(m.sum()), "rt_price": int(m.sum()),
+             "rt_key": int(m.sum()), "rt_date": int(m.sum()),
+             "greatest": int(np.maximum(ckey[m], okey[m]).max())}
+        with np.errstate(over="ignore"):
+            for k, v in cols.items():
+                g[k] = int(v[m].sum(dtype=np.int64))
+        for k, v in floats.items():
+            g[k] = float(v[m].sum())
+        out[str(code)] = g
+    return out
+
+
+def check_strings(at, expect, what) -> float:
+    """Every aggregate of `strings_query` exact but the double sums,
+    within a relative 1e-9; returns the worst relative difference."""
+    worst = 0.0
+    rows = {r["o_orderstatus"]: r for r in at.to_pylist()}
+    if set(rows) != set(expect):
+        raise AssertionError(f"{what}: groups {sorted(rows)}")
+    for code, g in expect.items():
+        r = rows[code]
+        for k, want in g.items():
+            got = r[k]
+            if k == "round1":
+                got = int(got.scaleb(1))
+            if isinstance(want, float):
+                rel = abs(got - want) / abs(want)
+                worst = max(worst, rel)
+                if rel > 1e-9:
+                    raise AssertionError(f"{what}: {code} {k} {got} want "
+                                         f"{want}")
+            elif got != want:
+                raise AssertionError(f"{what}: {code} {k} {got} want {want}")
+    return worst
+
+
+def py_murmur3_bytes(b: bytes, seed: int = 42) -> int:
+    """Spark's Murmur3_x86_32 hashUnsafeBytes (strings up to 64 bytes,
+    where the JAX package's bound leaves it exact), as an int32."""
+    m = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & m
+
+    def mix(h, k):
+        k = rotl((k * 0xCC9E2D51) & m, 15) * 0x1B873593 & m
+        return (rotl(h ^ k, 13) * 5 + 0xE6546B64) & m
+    if len(b) > 64:
+        raise ValueError("past the 64-byte bound")
+    h = seed & m
+    n4 = len(b) // 4 * 4
+    for i in range(0, n4, 4):
+        h = mix(h, int.from_bytes(b[i:i + 4], "little"))
+    for x in b[n4:]:
+        h = mix(h, (x - 256 if x >= 128 else x) & m)
+    h ^= len(b)
+    h ^= h >> 16
+    h = h * 0x85EBCA6B & m
+    h ^= h >> 13
+    h = h * 0xC2B2AE35 & m
+    h ^= h >> 16
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def py_xxhash64_bytes(b: bytes, seed: int = 42) -> int:
+    """Spark's XXH64 hashUnsafeBytes for inputs under 32 bytes (where
+    the JAX package's schedule is exact), as an int64."""
+    p1, p2, p3, p4, p5 = _P64
+    mask = (1 << 64) - 1
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & mask
+    if len(b) >= 32:
+        raise ValueError("past the small-input schedule")
+    h = (seed + p5 + len(b)) & mask
+    i = 0
+    while i + 8 <= len(b):
+        k = int.from_bytes(b[i:i + 8], "little")
+        h = (rotl(h ^ (rotl((k * p2) & mask, 31) * p1 & mask), 27) * p1
+             + p4) & mask
+        i += 8
+    if i + 4 <= len(b):
+        k = int.from_bytes(b[i:i + 4], "little")
+        h = (rotl(h ^ ((k * p1) & mask), 23) * p2 + p3) & mask
+        i += 4
+    for x in b[i:]:
+        h = (rotl(h ^ ((x * p5) & mask), 11) * p1) & mask
+    h ^= h >> 33
+    h = (h * p2) & mask
+    h ^= h >> 29
+    h = (h * p3) & mask
+    h ^= h >> 32
+    return h - (1 << 64) if h >= 1 << 63 else h
+
+
+def py_hive_hash_bytes(b: bytes) -> int:
+    """Hive's hash of a string as the JAX package computes it: Java's
+    String.hashCode polynomial over the sign-extended UTF-8 bytes."""
+    h = 0
+    for x in b[:64]:
+        h = (h * 31 + (x - 256 if x >= 128 else x)) & 0xFFFFFFFF
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def string_hash_sample(session, orders, rows=STRING_SAMPLE_ROWS,
+                       seed=TPCH_SEED) -> int:
+    """hash, xxhash64 and hive_hash of o_comment over a seeded sample of
+    rows, each row against plain Python; returns the rows checked."""
+    import numpy as np
+    import spark_rapids_tpu_torch.functions as F
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(orders.num_rows, min(rows, orders.num_rows),
+                             replace=False))
+    sample = orders.select(["o_comment"]).take(idx)
+    out = session.create_dataframe(sample).select(
+        F.hash("o_comment").alias("m"), F.xxhash64("o_comment").alias("x"),
+        F.hive_hash("o_comment").alias("h")).to_arrow()
+    raw = [v.encode() for v in sample.column(0).to_pylist()]
+    for name, fn in (("m", py_murmur3_bytes), ("x", py_xxhash64_bytes),
+                     ("h", py_hive_hash_bytes)):
+        if out.column(name).to_pylist() != [fn(b) for b in raw]:
+            raise AssertionError(f"string hash {name} differs from Python")
+    return len(raw)
+
+
+def timestamps_query(session, orders, tz=TZ):
+    """ts = o_orderkey * 9973 % 946684800 seconds, its wall time in `tz`
+    and its fields, the way back to UTC, and the round trip through a
+    string; one group."""
+    import spark_rapids_tpu_torch.functions as F
+    ts = (F.col("o_orderkey") * 9973 % 946684800).cast("timestamp")
+    secs = ts.cast("bigint")
+    wall = F.from_utc_timestamp(ts, tz)
+    back = F.to_utc_timestamp(wall, tz)
+
+    def count_if(cond):
+        return F.sum(F.when(cond, 1).otherwise(0))
+    return session.create_dataframe(orders.select(["o_orderkey"])).agg(
+        F.count("*").alias("n"),
+        F.sum(wall.cast("bigint") - secs).alias("offset_s"),
+        F.sum(F.hour(wall)).alias("hour"),
+        F.sum(F.minute(wall)).alias("minute"),
+        F.sum(F.second(wall)).alias("second"),
+        count_if(back == ts).alias("back_equal"),
+        F.sum(back.cast("bigint") - secs).alias("back_diff_s"),
+        F.sum(F.length(ts.cast("string"))).alias("len_string"),
+        count_if(F.to_timestamp(ts.cast("string")) == ts)
+        .alias("string_equal"))
+
+
+def timestamps_reference(orders, tz=TZ) -> dict:
+    """Python's zoneinfo over the distinct UTC hours, spread back over
+    the rows with numpy: the offset, the wall fields, and the rows whose
+    wall time Java's rule (the earlier offset at an overlap) maps back
+    to another instant."""
+    import datetime as dtm
+    from zoneinfo import ZoneInfo
+
+    import numpy as np
+    z = ZoneInfo(tz)
+    secs = orders.column("o_orderkey").to_numpy() * 9973 % 946684800
+    # the distinct hours by a presence table, not np.unique (minutes over
+    # 15M rows with the card machine's numpy)
+    h = secs // 3600
+    present = np.zeros(int(h.max()) + 1, np.bool_)
+    present[h] = True
+    hours = np.flatnonzero(present)
+    inv = (np.cumsum(present) - 1)[h]
+    off = np.empty(len(hours), np.int64)
+    back = np.empty(len(hours), np.int64)
+    epoch = dtm.datetime(1970, 1, 1, tzinfo=dtm.timezone.utc)
+    for i, h in enumerate(hours):
+        u = epoch + dtm.timedelta(hours=int(h))
+        o = u.astimezone(z).utcoffset()
+        off[i] = o.days * 86400 + o.seconds
+        naive = (u + o).replace(tzinfo=None)
+        b = naive.replace(tzinfo=z, fold=0).utcoffset()
+        back[i] = b.days * 86400 + b.seconds
+    wall = secs + off[inv]
+    tod = wall % 86400
+    n = len(secs)
+    return {"n": n, "offset_s": int(off[inv].sum()),
+            "hour": int((tod // 3600).sum()),
+            "minute": int((tod // 60 % 60).sum()),
+            "second": int((tod % 60).sum()),
+            "back_equal": int((back[inv] == off[inv]).sum()),
+            "back_diff_s": int((off[inv] - back[inv]).sum()),
+            "len_string": 19 * n, "string_equal": n}
+
+
+def scalar_phases(session, tables) -> dict:
+    """The three phases of slice 12 over gen_all's tables at the
+    session's conf; returns the partition kernel's launches on
+    `dates_by_year`."""
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    dev = session.device
+    li, orders = tables["lineitem"], tables["orders"]
+
+    # ---- dates_by_year -----------------------------------------------
+    t0 = time.perf_counter()
+    expect = dates_reference(li)
+    ref_s = time.perf_counter() - t0
+    q = dates_query(session, li)
+    pk.launches = pk.vector_launches = pk.scalar_launches = 0
+    out, wall, layers, syncs = timed_query(q, dev)
+    got = {"all": pk.launches, "vector": pk.vector_launches,
+           "scalar": pk.scalar_launches}
+    root = q.last_plan()
+    check_partition_launches("dates_by_year", root, got, dev)
+    if int32_exchanges(root) != 1:
+        raise AssertionError("dates_by_year: want one exchange on the "
+                             "int32 year")
+    check_dates(out, expect, "dates_by_year")
+    emit({"phase": "dates_by_year", "nvidia_smi": card_line(dev),
+          "rows": li.num_rows, "groups": out.num_rows, "wall_s": wall,
+          "reference_s": ref_s, "layers_s": layers, "host_syncs": syncs,
+          "plan": plan_chain(q), "partition_kernel_launches": got,
+          "check": "exact"})
+
+    # ---- strings_casts_hashes ----------------------------------------
+    t0 = time.perf_counter()
+    expect = strings_reference(orders)
+    ref_s = time.perf_counter() - t0
+    q = strings_query(session, orders)
+    out, wall, layers, syncs = timed_query(q, dev)
+    worst = check_strings(out, expect, "strings_casts_hashes")
+    t0 = time.perf_counter()
+    sampled = string_hash_sample(session, orders)
+    emit({"phase": "strings_casts_hashes", "nvidia_smi": card_line(dev),
+          "rows": orders.num_rows, "groups": out.num_rows, "wall_s": wall,
+          "reference_s": ref_s, "layers_s": layers, "host_syncs": syncs,
+          "check": "exact; doubles within a relative 1e-9",
+          "worst_double_rel": worst, "string_hash_rows": sampled,
+          "string_hash_s": time.perf_counter() - t0})
+
+    # ---- timestamps_tz -----------------------------------------------
+    t0 = time.perf_counter()
+    expect = timestamps_reference(orders)
+    ref_s = time.perf_counter() - t0
+    q = timestamps_query(session, orders)
+    out, wall, layers, syncs = timed_query(q, dev)
+    row = out.to_pylist()[0]
+    if row != expect:
+        raise AssertionError(f"timestamps_tz: {row} want {expect}")
+    emit({"phase": "timestamps_tz", "nvidia_smi": card_line(dev),
+          "rows": orders.num_rows, "zone": TZ, "wall_s": wall,
+          "reference_s": ref_s, "layers_s": layers, "host_syncs": syncs,
+          "check": "exact",
+          "rows_at_overlap": expect["n"] - expect["back_equal"],
+          **{k: row[k] for k in ("offset_s", "back_diff_s")}})
+    return {"dates_by_year": got}
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -4346,19 +4874,21 @@ def main() -> int:
           "floor_device_us": ktime["floor_device_us"],
           "variants": per_kind})
 
+    # gen_all's tables, made once: the opening path phases run over its
+    # lineitem (its columns of `gen_lineitem`'s short form), customer and
+    # orders, and the TPC-H phases over all eight
+    tpch_tables, tpch_expects = tpch_data(SF)
+    li = tpch_tables["lineitem"]
+    lineitem = li.select(tpch.gen_lineitem(0.0001, seed=0).column_names)
     t0 = time.perf_counter()
-    lineitem = tpch.gen_lineitem(SF, seed=0)
     expect = tpch.q6_numpy_baseline(
-        lineitem.column("l_shipdate").to_numpy(),
-        unscaled(lineitem, "l_discount"), unscaled(lineitem, "l_quantity"),
-        unscaled(lineitem, "l_extendedprice"))
-    gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    q1_expect = q1_reference(lineitem)
-    shipdate_expect = shipdate_reference(lineitem)
-    emit({"phase": "data", "sf": SF, "rows": lineitem.num_rows,
-          "gen_and_baseline_s": gen_s,
-          "q1_and_shipdate_reference_s": time.perf_counter() - t0,
+        li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),
+        unscaled(li, "l_quantity"), unscaled(li, "l_extendedprice"))
+    q1_expect = q1_reference(li)
+    shipdate_expect = shipdate_reference(li)
+    emit({"phase": "data", "sf": SF, "rows": li.num_rows,
+          "table": "gen_all's lineitem", "columns": lineitem.column_names,
+          "q6_q1_shipdate_reference_s": time.perf_counter() - t0,
           "q6_expected_unscaled": expect,
           "q1_expected_unscaled": {"|".join(k): v
                                    for k, v in sorted(q1_expect.items())},
@@ -4369,24 +4899,21 @@ def main() -> int:
     by_path = path_phases(session, lineitem, expect, q1_expect,
                           shipdate_expect)
 
-    t0 = time.perf_counter()
-    tables = q3_tables(SF, lineitem)
-    gen_s = time.perf_counter() - t0
+    tables = tuple(tpch_tables[k] for k in ("customer", "orders",
+                                            "lineitem"))
     t0 = time.perf_counter()
     q3_expect = q3_reference(*tables)
     emit({"phase": "q3_data", "sf": SF,
           "rows": {n: t.num_rows for n, t in zip(
               ("customer", "orders", "lineitem"), tables)},
-          "gen_s": gen_s, "reference_s": time.perf_counter() - t0,
+          "reference_s": time.perf_counter() - t0,
           "result_rows": len(q3_expect[0]),
           "top": [[int(x) for x in t] for t in zip(*(
               a[:Q3_LIMIT] for a in q3_expect))]})
     by_path.update(q3_phases(session, tables, q3_expect))
-    # the earlier phases' tables go before the eight of gen_all
     del lineitem, tables
     gc.collect()
     double_sum_repeat(session.device)
-    tpch_tables, tpch_expects = tpch_data(SF)
     release_pinned_cache("the adaptive pass")
     defaults = {}
     # the second reading of each query maps serially: the pool's A/B,
@@ -4396,30 +4923,20 @@ def main() -> int:
                                ab_offset=ab_offset))
     by_path.update(skew_join_phase(session, tpch_tables))
     by_path.update(join_condition_phases(session, tpch_tables))
-    li = tpch_tables["lineitem"]
     release_pinned_cache("the grouping phases")
     by_path.update(grouping_phases(session, li))
-    t0 = time.perf_counter()
-    q6_expect = tpch.q6_numpy_baseline(
-        li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),
-        unscaled(li, "l_quantity"), unscaled(li, "l_extendedprice"))
-    q1_full_expect = q1_reference(li)
-    q3_full_expect = q3_reference(*(tpch_tables[k] for k in (
-        "customer", "orders", "lineitem")))
-    emit({"phase": "written_plans_data", "rows": li.num_rows,
-          "reference_s": time.perf_counter() - t0,
-          "q6_expected_unscaled": q6_expect})
+    release_pinned_cache("the scalar phases")
+    by_path.update(scalar_phases(session, tpch_tables))
     release_pinned_cache("the written-plan pass")
     by_path.update(tpch_phases(
         written_session(session), tpch_tables,
-        {**tpch_expects, 1: q1_full_expect, 3: q3_full_expect,
-         6: q6_expect},
+        {**tpch_expects, 1: q1_expect, 3: q3_expect, 6: expect},
         runs=1, queries=ALL_QUERIES, label="written", profile=False))
     release_pinned_cache("the device Parquet decode")
     # one run of each: the memory-runtime phases below need the time
     parquet_decode_phases(session.device, {"spark.rapids.tpu.sql."
                                            "batchSizeRows": BATCH_ROWS},
-                          li, q6_expect, q1_full_expect, runs=1)
+                          li, expect, q1_expect, runs=1)
     memory_runtime_phases(session, tpch_tables, tpch_expects, defaults)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}

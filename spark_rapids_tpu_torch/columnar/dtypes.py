@@ -12,8 +12,7 @@ ported slice needs. Device representations:
                         pair (decimal128)
   - NullType         -> int8, all null
   - StringType / BinaryType -> uint8 bytes plus int32 offsets [n + 1]
-  - TimestampType    -> int64 microseconds since the epoch (UTC); a scan
-                        and a collect move it, no expression takes it yet
+  - TimestampType    -> int64 microseconds since the epoch (UTC)
 
 Nested types exist so that schemas of real tables resolve; a column of
 one of them on the device raises NotPorted.
@@ -34,6 +33,7 @@ __all__ = [
     "BOOL", "INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
     "STRING", "BINARY", "DATE", "TIMESTAMP", "NULLTYPE",
     "promote", "from_arrow", "to_arrow", "torch_dtype", "alloc_shape",
+    "from_name",
 ]
 
 
@@ -195,7 +195,8 @@ _TORCH = {
     BooleanType: torch.bool, ByteType: torch.int8, ShortType: torch.int16,
     IntegerType: torch.int32, LongType: torch.int64,
     FloatType: torch.float32, DoubleType: torch.float64,
-    DateType: torch.int32, DecimalType: torch.int64, NullType: torch.int8,
+    DateType: torch.int32, TimestampType: torch.int64,
+    DecimalType: torch.int64, NullType: torch.int8,
     StringType: torch.uint8, BinaryType: torch.uint8,
 }
 
@@ -267,3 +268,32 @@ def to_arrow(dt: DataType):
             BinaryType: pa.binary(), DateType: pa.date32(),
             TimestampType: pa.timestamp("us", tz="UTC"),
             NullType: pa.null()}[type(dt)]
+
+
+_NAME_TO_DTYPE = {
+    "boolean": BOOL, "bool": BOOL,
+    "byte": INT8, "tinyint": INT8,
+    "short": INT16, "smallint": INT16,
+    "int": INT32, "integer": INT32,
+    "long": INT64, "bigint": INT64,
+    "float": FLOAT32, "real": FLOAT32,
+    "double": FLOAT64,
+    "string": STRING, "binary": BINARY,
+    "date": DATE, "timestamp": TIMESTAMP,
+}
+
+
+def from_name(name: str) -> DataType:
+    """Resolve a Spark SQL type name ('int', 'bigint', 'decimal(10,2)',
+    ...) to a DataType, as the JAX package's `from_name` does."""
+    t = name.strip().lower()
+    if t in _NAME_TO_DTYPE:
+        return _NAME_TO_DTYPE[t]
+    if t.startswith("decimal"):
+        inner = t[len("decimal"):].strip()
+        if not inner:
+            return DecimalType(10, 0)
+        if inner.startswith("(") and inner.endswith(")"):
+            p, _, s = inner[1:-1].partition(",")
+            return DecimalType(int(p), int(s or 0))
+    raise ValueError(f"unknown type name {name!r}")

@@ -50,7 +50,7 @@ from ..ops.concat import concat_cvs, concat_masks
 from ..ops.gather import compact, compaction_perm, gather_cols, take
 from ..ops.hash import (_mul32, hash_once_rows, murmur3_row_hash,
                         partition_ids)
-from ..ops.kernel_utils import CV
+from ..ops.kernel_utils import CV, fma
 from ..utils import transfer
 from ..utils.transfer import fetch_ints
 from .base import ExecContext, TpuExec, collapse_fusable
@@ -668,31 +668,6 @@ class HashAggregateExec(TpuExec):
         finally:
             for h, _ in handles:
                 h.close()
-
-
-_SPLIT = 134217729.0     # 2^27 + 1: Dekker's split of a float64
-
-
-def fma(a, b, c):
-    """a * b + c rounded once, from plain float64 ops (Dekker's exact
-    product, Knuth's exact sum), the same bits on any device: the fused
-    multiply-add that XLA makes of the JAX package's percentile
-    interpolation. Where the split overflows (|a| or |b| near the top of
-    the range) or a value is not finite, plain a * b + c."""
-    p = a * b
-
-    def split(v):
-        t = _SPLIT * v
-        hi = t - (t - v)
-        return hi, v - hi
-
-    ah, al = split(a)
-    bh, bl = split(b)
-    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    s = p + c
-    bb = s - p
-    r = s + (((p - (s - bb)) + (c - bb)) + err)
-    return torch.where(torch.isfinite(r), r, p + c)
 
 
 class CollectAggExec(TpuExec):

@@ -1,24 +1,30 @@
 """Expression trees: binding, Spark type coercion, and evaluation on
 tensors.
 
-The port's copy of the JAX package's expression layer, cut to the slice:
-column references (string columns included), literals, aliases,
-arithmetic (+, -, *, / and %; decimals above precision 18 on the exact
-limb kernels of `ops/decimal128.py`, a decimal `/` by `dec_div`),
-comparisons (strings too: a literal `=`/`!=` by length and 4-byte
-chunks, any other by `ops/strings.py` `compare`; decimal128 by
-`dec_cmp_scaled`; a NULL literal on either side gives an all-null
-result, and `<=>` the other side's null flag), null-safe equality,
-coalesce, IF, CASE WHEN and IN, Kleene AND/OR/NOT and the numeric casts
-(decimal128 on either side included). The string functions live in
-`string_exprs.py`. `bind(schema)` resolves names and types exactly as
-the JAX package does; `emit(ctx)` evaluates the bound tree eagerly and
-returns a CV. A cast named by a type string raises NotPorted.
+The port's copy of the JAX package's expression layer: column references
+(string columns included), literals (timestamps and decimal128 too),
+aliases, arithmetic (+, -, *, /, %, div and pmod; decimals above
+precision 18 on the exact limb kernels of `ops/decimal128.py`, a decimal
+`/` by `dec_div`), negation and abs, comparisons (strings too: a literal
+`=`/`!=` by length and 4-byte chunks, any other by `ops/strings.py`
+`compare`; decimal128 by `dec_cmp_scaled`; a NULL literal on either side
+gives an all-null result, and `<=>` the other side's null flag),
+null-safe equality, the null predicates and isnan, coalesce, IF, CASE
+WHEN and IN, Kleene AND/OR/NOT, the unary math functions, HALF_UP round,
+greatest and least, the bitwise operations and shifts, pow and atan2,
+and CAST (a type name such as "bigint" or "decimal(10,2)" too) between
+the numeric, boolean, date, timestamp and string types as the JAX `Cast`
+allows them. The string, date and hash functions live in
+`string_exprs.py`, `datetime_exprs.py` and `hash_expr.py`.
+`bind(schema)` resolves names and types exactly as the JAX package does
+and refuses what it refuses (`UnsupportedExpr`); `emit(ctx)` evaluates
+the bound tree eagerly and returns a CV.
 """
 from __future__ import annotations
 
 import datetime
 import decimal
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -32,9 +38,12 @@ from ..ops.kernel_utils import CV
 __all__ = [
     "Expression", "UnsupportedExpr", "EmitCtx", "ColumnRef", "BoundRef",
     "Literal", "Alias", "Add", "Subtract", "Multiply", "Divide",
-    "Remainder", "Eq", "Ne", "Lt",
-    "Le", "Gt", "Ge", "EqNullSafe", "And", "Or", "Not", "Cast",
-    "Coalesce", "If", "CaseWhen", "In", "lit", "col",
+    "IntDivide", "Remainder", "Pmod", "Negate", "Abs", "Eq", "Ne", "Lt",
+    "Le", "Gt", "Ge", "EqNullSafe", "And", "Or", "Not", "IsNull",
+    "IsNotNull", "IsNaN", "Cast", "Coalesce", "If", "CaseWhen", "In",
+    "MathUnary", "Round", "Greatest", "Least", "lit", "col", "BitwiseAnd",
+    "BitwiseOr", "BitwiseXor", "BitwiseNot", "ShiftLeft", "ShiftRight",
+    "Pow", "Atan2",
 ]
 
 
@@ -101,6 +110,9 @@ class Expression:
     def __mod__(self, o):
         return Remainder(self, _wrap(o))
 
+    def __neg__(self):
+        return Negate(self)
+
     def __eq__(self, o):  # type: ignore[override]
         return Eq(self, _wrap(o))
 
@@ -130,6 +142,12 @@ class Expression:
 
     def __hash__(self):
         return id(self)
+
+    def isNull(self):
+        return IsNull(self)
+
+    def isNotNull(self):
+        return IsNotNull(self)
 
     def isin(self, *values):
         return In(self, [_wrap(v) for v in values])
@@ -229,7 +247,7 @@ def _infer_literal_dtype(v) -> dt.DataType:
         precision = max(len(digits), scale)
         return dt.DecimalType(precision, scale)
     if isinstance(v, datetime.datetime):
-        raise NotPorted("timestamp literals")
+        return dt.TIMESTAMP
     if isinstance(v, datetime.date):
         return dt.DATE
     raise UnsupportedExpr(f"cannot infer literal type for {v!r}")
@@ -253,13 +271,24 @@ class Literal(Expression):
                 rounding=decimal.ROUND_HALF_UP))
         if isinstance(d, dt.DateType):
             return (v - datetime.date(1970, 1, 1)).days
+        if isinstance(d, dt.TimestampType):
+            # the JAX package's formula: a naive datetime is UTC
+            ts = v if v.tzinfo else v.replace(tzinfo=datetime.timezone.utc)
+            return int(ts.timestamp() * 1_000_000)
         return v
 
     def emit(self, ctx: EmitCtx) -> CV:
         cap, dev = ctx.capacity, ctx.device
         if isinstance(self.dtype, dt.DecimalType) \
-                and self.dtype.is_decimal128:
-            raise NotPorted("decimal128 literals")
+                and self.dtype.is_decimal128 and self.value is not None:
+            # the unscaled value as its two's-complement (lo, hi) words
+            u = self.device_value() & ((1 << 128) - 1)
+            words = [u & ((1 << 64) - 1), u >> 64]
+            row = torch.tensor([w - (1 << 64) if w >= 1 << 63 else w
+                                for w in words], dtype=torch.int64,
+                               device=dev)
+            return CV(row.expand(cap, 2).contiguous(),
+                      torch.ones(cap, dtype=torch.bool, device=dev))
         if self.dtype.is_variable_width:
             # the bytes tiled once a row: offsets stay monotone
             raw = b"" if self.value is None else (
@@ -360,6 +389,14 @@ def _reject_d128(*dtypes):
     for t in dtypes:
         if isinstance(t, dt.DecimalType) and t.is_decimal128:
             raise NotPorted(f"decimal arithmetic at precision > 18 ({t})")
+
+
+def _refuse_d128(dtype, what: str):
+    """The JAX package's gate for the operators that take no decimal128
+    (`_reject_d128`): it raises UnsupportedExpr, and so does the port."""
+    if isinstance(dtype, dt.DecimalType) and dtype.is_decimal128:
+        raise UnsupportedExpr(
+            f"{what} over decimal precision > 18 not yet implemented")
 
 
 def _adjust_precision_scale(p: int, s: int):
@@ -554,6 +591,82 @@ class Remainder(_BinaryOp):
         return ew.remainder(l, r)
 
 
+class IntDivide(_BinaryOp):
+    """Spark `div`: an int64 quotient truncated toward zero; decimals are
+    brought to one scale first. A divisor of 0 gives null."""
+    symbol = "div"
+
+    def _resolve_type(self):
+        self.left, self.right, out = _coerce_pair(self.left, self.right)
+        if out is None:
+            _refuse_d128(self.left.dtype, "div")
+            _refuse_d128(self.right.dtype, "div")
+        elif not out.is_integral:
+            raise UnsupportedExpr("div on non-integral")
+        self.dtype = dt.INT64
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        if isinstance(self.left.dtype, dt.DecimalType):
+            s1, s2 = self.left.dtype.scale, self.right.dtype.scale
+            l = _dec_scale_shift(l, max(s1, s2) - s1)
+            r = _dec_scale_shift(r, max(s1, s2) - s2)
+        out = ew.int_divide(l, r)
+        return CV(out.data.to(torch.int64), out.validity)
+
+
+class Pmod(Remainder):
+    """Spark pmod, as the JAX package computes it (`ops/elementwise.py`
+    `pmod`); the result type is `%`'s."""
+    symbol = "pmod"
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        if isinstance(self.dtype, dt.DecimalType):
+            s = self.dtype.scale
+            l = _dec_scale_shift(l, s - self.left.dtype.scale)
+            r = _dec_scale_shift(r, s - self.right.dtype.scale)
+        return ew.pmod(l, r)
+
+
+class _UnaryOp(Expression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = [child]
+
+    def bind(self, schema):
+        b = type(self)(self.child.bind(schema))
+        b._resolve_type()
+        return b
+
+    def _resolve_type(self):
+        self.dtype = self.child.dtype
+
+
+class Negate(_UnaryOp):
+    def _resolve_type(self):
+        _refuse_d128(self.child.dtype, "negate")
+        self.dtype = self.child.dtype
+
+    def emit(self, ctx):
+        return ew.negate(self.child.emit(ctx))
+
+    def __repr__(self):
+        return f"(- {self.child})"
+
+
+class Abs(_UnaryOp):
+    def _resolve_type(self):
+        _refuse_d128(self.child.dtype, "abs")
+        self.dtype = self.child.dtype
+
+    def emit(self, ctx):
+        return ew.abs_(self.child.emit(ctx))
+
+    def __repr__(self):
+        return f"abs({self.child})"
+
+
 def _is_str(t) -> bool:
     return isinstance(t, (dt.StringType, dt.BinaryType))
 
@@ -722,16 +835,56 @@ class Not(Expression):
         return f"NOT {self.child}"
 
 
-class Cast(Expression):
-    """Spark CAST, the numeric subset (ops/cast.py): null to any type,
-    boolean to numeric, and numeric to numeric, decimal128 on either
-    side included."""
+class IsNull(_UnaryOp):
+    def _resolve_type(self):
+        self.dtype = dt.BOOL
 
-    def __init__(self, child: Expression, to: dt.DataType):
-        if isinstance(to, str):
-            raise NotPorted("casts named by a type string")
+    def emit(self, ctx):
+        return ew.is_null(self.child.emit(ctx))
+
+    def __repr__(self):
+        return f"({self.child} IS NULL)"
+
+
+class IsNotNull(_UnaryOp):
+    def _resolve_type(self):
+        self.dtype = dt.BOOL
+
+    def emit(self, ctx):
+        return ew.is_not_null(self.child.emit(ctx))
+
+    def __repr__(self):
+        return f"({self.child} IS NOT NULL)"
+
+
+class IsNaN(_UnaryOp):
+    def _resolve_type(self):
+        # the JAX planner's type signature takes only float and double
+        # here (`plan/typesig.py` "IsNaN")
+        if not self.child.dtype.is_floating:
+            raise UnsupportedExpr(f"isnan on {self.child.dtype}")
+        self.dtype = dt.BOOL
+
+    def emit(self, ctx):
+        return ew.is_nan(self.child.emit(ctx))
+
+    def __repr__(self):
+        return f"isnan({self.child})"
+
+
+class Cast(Expression):
+    """Spark CAST (non-ANSI). The target may be a type name
+    ("bigint", "decimal(10,2)"). The numeric, boolean and temporal casts
+    are `ops/cast.py`'s, the casts from and to strings
+    `ops/cast_strings.py`'s; `bind` accepts exactly the pairs the JAX
+    `Cast` accepts and refuses the rest with UnsupportedExpr."""
+
+    def __init__(self, child: Expression, to, ansi=False):
         self.child = child
+        if isinstance(to, str):
+            to = dt.from_name(to)   # pyspark-style .cast("bigint")
         self.to = to
+        self.ansi = ansi
         self.children = [child]
 
     @staticmethod
@@ -741,18 +894,72 @@ class Cast(Expression):
         return c
 
     def bind(self, schema):
-        b = Cast.bound(self.child.bind(schema), self.to)
+        b = Cast(self.child.bind(schema), self.to, self.ansi)
+        b.dtype = self.to
         from_t, to = b.child.dtype, self.to
-        ok = (from_t == to or isinstance(from_t, dt.NullType)
+        temporal = (dt.DateType, dt.TimestampType)
+        str_src_ok = (isinstance(from_t, dt.StringType)
+                      and (to.is_numeric
+                           or isinstance(to, (dt.BooleanType,) + temporal)))
+        str_dst_ok = (isinstance(to, dt.StringType)
+                      and (from_t.is_integral
+                           or isinstance(from_t, (dt.BooleanType,
+                                                  dt.DecimalType)
+                                         + temporal)))
+        ok = (from_t == to
+              or (from_t.is_numeric and to.is_numeric)
+              or isinstance(from_t, dt.NullType)
               or (isinstance(from_t, dt.BooleanType) and to.is_numeric)
-              or (from_t.is_numeric and to.is_numeric))
+              or (from_t.is_numeric and isinstance(to, dt.BooleanType))
+              or (isinstance(from_t, dt.TimestampType)
+                  and (to.is_numeric or isinstance(to, dt.DateType)))
+              or (isinstance(from_t, dt.DateType)
+                  and isinstance(to, (dt.TimestampType, dt.IntegerType)))
+              or (from_t.is_numeric and isinstance(to, dt.TimestampType))
+              or str_src_ok or str_dst_ok)
         if not ok:
-            raise NotPorted(f"cast {from_t} -> {self.to}")
+            raise UnsupportedExpr(f"cast {from_t} -> {to}")
+        if str_dst_ok and isinstance(from_t, dt.DecimalType) \
+                and from_t.is_decimal128:
+            # the JAX device path reads the [n, 2] words as one array and
+            # fails (its host fallback answers); the port refuses it
+            # (ROADMAP C.17)
+            _refuse_d128(from_t, "cast to string")
         return b
 
     def emit(self, ctx):
-        from ..ops.cast import cast_cv
-        return cast_cv(self.child.emit(ctx), self.child.dtype, self.to)
+        from ..ops import cast as cast_ops
+        from ..ops import cast_strings as cs
+        cv = self.child.emit(ctx)
+        from_t, to = self.child.dtype, self.to
+        if isinstance(from_t, dt.StringType) \
+                and not isinstance(to, dt.StringType):
+            if to.is_integral:
+                return cs.string_to_int(cv, to)
+            if to.is_floating:
+                out = cs.string_to_float(cv)
+                return CV(out.data.to(dt.torch_dtype(to)), out.validity)
+            if isinstance(to, dt.BooleanType):
+                return cs.string_to_bool(cv)
+            if isinstance(to, dt.DateType):
+                return cs.string_to_date(cv)
+            if isinstance(to, dt.TimestampType):
+                return cs.string_to_timestamp(cv)
+            return cs.string_to_decimal(cv, to)
+        if isinstance(to, dt.StringType) \
+                and not isinstance(from_t, dt.StringType):
+            if isinstance(from_t, dt.NullType):
+                return cast_ops.cast_cv(cv, from_t, to)
+            if isinstance(from_t, dt.BooleanType):
+                return cs.bool_to_string(cv)
+            if isinstance(from_t, dt.DecimalType):
+                return cs.decimal_to_string(cv, from_t.scale)
+            if isinstance(from_t, dt.DateType):
+                return cs.date_to_string(cv)
+            if isinstance(from_t, dt.TimestampType):
+                return cs.timestamp_to_string(cv)
+            return cs.int_to_string(cv)
+        return cast_ops.cast_cv(cv, from_t, to)
 
     def __repr__(self):
         return f"CAST({self.child} AS {self.to})"
@@ -867,3 +1074,300 @@ class In(Expression):
 
     def __repr__(self):
         return f"{self.child} IN (...)"
+
+
+# ----------------------------------------------------------------------
+# Math, round, greatest / least, bitwise operations and shifts
+# ----------------------------------------------------------------------
+def _cbrt(x):
+    """Cube root with x's sign: |x|^(1/3), then one Newton step (torch
+    has no cbrt; the step brings pow's error on 1/3 back to an ulp or
+    two of the correctly rounded root)."""
+    y = torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+    ok = torch.isfinite(y) & (y != 0)
+    safe = torch.where(ok, y, torch.ones_like(y))
+    step = safe - (safe * safe * safe - x) / (3.0 * safe * safe)
+    return torch.where(ok, step, y)
+
+
+_MATH_FNS = {
+    "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
+    "log10": torch.log10, "log2": torch.log2, "log1p": torch.log1p,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "cbrt": _cbrt, "expm1": torch.expm1, "floor": torch.floor,
+    "ceil": torch.ceil, "signum": lambda x: torch.where(
+        (x == 0) | torch.isnan(x), x, torch.sign(x)),   # jnp.sign's NaN, -0.0
+    "rint": torch.round,
+    # jnp.degrees / radians: one product with the constant
+    "degrees": lambda x: x * (180.0 / math.pi),
+    "radians": lambda x: x * (math.pi / 180.0),
+}
+
+
+class MathUnary(_UnaryOp):
+    """A double-valued unary math function with Spark semantics: log,
+    log10 and log2 of x <= 0, and log1p of x <= -1, are null; floor and
+    ceil of an integral column stay int64."""
+
+    def __init__(self, fn_name: str, child: Expression):
+        super().__init__(child)
+        self.fn_name = fn_name
+        if fn_name not in _MATH_FNS:
+            raise UnsupportedExpr(f"math fn {fn_name}")
+
+    def bind(self, schema):
+        b = MathUnary(self.fn_name, self.child.bind(schema))
+        ct = b.child.dtype
+        if not (ct.is_numeric or isinstance(ct, dt.NullType)):
+            raise UnsupportedExpr(f"{self.fn_name} on {ct}")
+        # the JAX MathUnary reads a decimal128's [n, 2] words as one
+        # array and breaks; the port refuses it (ROADMAP C.17)
+        _refuse_d128(ct, self.fn_name)
+        if b.fn_name in ("floor", "ceil") and ct.is_integral:
+            b.dtype = dt.INT64
+        else:
+            b.dtype = dt.FLOAT64
+        return b
+
+    def emit(self, ctx):
+        cv = self.child.emit(ctx)
+        x = cv.data.to(torch.float64)
+        if isinstance(self.child.dtype, dt.DecimalType):
+            from ..ops.cast import _over_pow10
+            x = _over_pow10(x, self.child.dtype.scale)
+        valid = cv.validity
+        if self.fn_name in ("log", "log10", "log2"):
+            valid = valid & (x > 0)
+            x = torch.where(x > 0, x, 1.0)
+        if self.fn_name == "log1p":
+            valid = valid & (x > -1)
+            x = torch.where(x > -1, x, 0.0)
+        out = _MATH_FNS[self.fn_name](x)
+        if self.dtype == dt.INT64:
+            from ..ops.cast import _f64_to_i64
+            out = _f64_to_i64(out)
+        return CV(out, valid)
+
+    def __repr__(self):
+        return f"{self.fn_name}({self.child})"
+
+
+def _half_up_int(x, p: int):
+    """Integer x / p rounded HALF_UP (away from zero), p > 0."""
+    half = p // 2
+    adj = torch.where(x >= 0, x + half, x - half)
+    q = torch.div(adj, p, rounding_mode="floor")
+    r = adj - q * p
+    return torch.where((r != 0) & (adj < 0), q + 1, q)
+
+
+class Round(Expression):
+    """round(x, d), HALF_UP (Spark ROUND); d may be negative. A decimal
+    keeps its precision at scale min(s, max(d, 0)); an integer keeps its
+    type; anything else is a double."""
+
+    def __init__(self, child: Expression, digits: int = 0):
+        self.child = child
+        self.digits = digits
+        self.children = [child]
+
+    def bind(self, schema):
+        b = Round(self.child.bind(schema), self.digits)
+        ct = b.child.dtype
+        _refuse_d128(ct, "round")
+        if isinstance(ct, dt.DecimalType):
+            b.dtype = dt.DecimalType(ct.precision,
+                                     min(ct.scale, max(self.digits, 0)))
+        elif ct.is_integral:
+            b.dtype = ct
+        else:
+            b.dtype = dt.FLOAT64
+        return b
+
+    def emit(self, ctx):
+        cv = self.child.emit(ctx)
+        ct = self.child.dtype
+        if isinstance(ct, dt.DecimalType):
+            out = cv.data
+            drop = ct.scale - max(self.digits, 0)
+            if drop > 0:
+                out = _half_up_int(out, 10 ** drop)
+            if self.digits < 0:
+                p = 10 ** (-self.digits)
+                out = _half_up_int(out, p) * p
+            return CV(out, cv.validity)
+        if ct.is_integral and self.digits >= 0:
+            return cv
+        if ct.is_integral:  # negative digits: round at 10^-d
+            p = 10 ** (-self.digits)
+            q = _half_up_int(cv.data.to(torch.int64), p)
+            return CV((q * p).to(cv.data.dtype), cv.validity)
+        from ..ops.cast import _over_pow10
+        x = cv.data.to(torch.float64)
+        scaled = x * (10.0 ** self.digits)
+        out = torch.where(scaled >= 0, torch.floor(scaled + 0.5),
+                          torch.ceil(scaled - 0.5))
+        return CV(_over_pow10(out, self.digits), cv.validity)
+
+    def __repr__(self):
+        return f"round({self.child}, {self.digits})"
+
+
+class _MinMaxOf(Expression):
+    """greatest / least: nulls skipped (null only when every input is),
+    NaN above every value; all children promoted to one type."""
+    is_greatest = True
+
+    def __init__(self, *children: Expression):
+        self.children = list(children)
+
+    def bind(self, schema):
+        bc = [c.bind(schema) for c in self.children]
+        out = bc[0].dtype
+        for c in bc[1:]:
+            out = dt.promote(out, c.dtype) if c.dtype != out else out
+        _refuse_d128(out, "greatest/least")
+        bc = [c if c.dtype == out else Cast.bound(c, out) for c in bc]
+        b = type(self)(*bc)
+        b.dtype = out
+        return b
+
+    def emit(self, ctx):
+        cvs = [c.emit(ctx) for c in self.children]
+        out = cvs[0]
+        for cv in cvs[1:]:
+            better = (ew._nan_lt(out.data, cv.data) if self.is_greatest
+                      else ew._nan_lt(cv.data, out.data))
+            pick = cv.validity & (~out.validity | better)
+            out = CV(torch.where(pick, cv.data, out.data),
+                     out.validity | cv.validity)
+        return out
+
+    def __repr__(self):
+        fn = "greatest" if self.is_greatest else "least"
+        return f"{fn}(" + ", ".join(map(repr, self.children)) + ")"
+
+
+class Greatest(_MinMaxOf):
+    is_greatest = True
+
+
+class Least(_MinMaxOf):
+    is_greatest = False
+
+
+class _Bitwise(_BinaryOp):
+    op = None
+
+    def _resolve_type(self):
+        self.left, self.right, out = _coerce_pair(self.left, self.right)
+        if out is None or not out.is_integral:
+            raise UnsupportedExpr("bitwise op on non-integral")
+        self.dtype = out
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        return CV(type(self).op(l.data, r.data), l.validity & r.validity)
+
+
+class BitwiseAnd(_Bitwise):
+    symbol = "&"
+    op = staticmethod(torch.bitwise_and)
+
+
+class BitwiseOr(_Bitwise):
+    symbol = "|"
+    op = staticmethod(torch.bitwise_or)
+
+
+class BitwiseXor(_Bitwise):
+    symbol = "^"
+    op = staticmethod(torch.bitwise_xor)
+
+
+class BitwiseNot(_UnaryOp):
+    def _resolve_type(self):
+        if not self.child.dtype.is_integral:
+            raise UnsupportedExpr("~ on non-integral")
+        self.dtype = self.child.dtype
+
+    def emit(self, ctx):
+        cv = self.child.emit(ctx)
+        return CV(torch.bitwise_not(cv.data), cv.validity)
+
+    def __repr__(self):
+        return f"~{self.child}"
+
+
+class ShiftLeft(_BinaryOp):
+    """shiftleft(a, n): Java's shift, n masked to the width (byte and
+    short promote to int first, as Spark does)."""
+    symbol = "<<"
+
+    def _resolve_type(self):
+        if not (self.left.dtype.is_integral
+                and self.right.dtype.is_integral):
+            raise UnsupportedExpr("shift on non-integral")
+        if isinstance(self.left.dtype, (dt.ByteType, dt.ShortType)):
+            self.left = Cast.bound(self.left, dt.INT32)
+        self.dtype = self.left.dtype
+
+    def _shift(self, x, n):
+        return torch.bitwise_left_shift(x, n)
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        nbits = l.data.element_size() * 8
+        sh = torch.remainder(r.data.to(torch.int32), nbits)
+        return CV(self._shift(l.data, sh.to(l.data.dtype)),
+                  l.validity & r.validity)
+
+
+class ShiftRight(ShiftLeft):
+    """shiftright(a, n): the arithmetic shift."""
+    symbol = ">>"
+
+    def _shift(self, x, n):
+        return torch.bitwise_right_shift(x, n)
+
+
+class Pow(_BinaryOp):
+    symbol = "pow"
+
+    def _resolve_type(self):
+        # numeric only, as the JAX planner's type signature has it
+        for e in (self.left, self.right):
+            if not (e.dtype.is_numeric or isinstance(e.dtype, dt.NullType)):
+                raise UnsupportedExpr(f"pow on {e.dtype}")
+        self.left = (self.left if self.left.dtype.is_floating
+                     else Cast.bound(self.left, dt.FLOAT64))
+        self.right = (self.right if self.right.dtype.is_floating
+                      else Cast.bound(self.right, dt.FLOAT64))
+        self.dtype = dt.FLOAT64
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        return CV(torch.pow(l.data.to(torch.float64),
+                            r.data.to(torch.float64)),
+                  l.validity & r.validity)
+
+
+class Atan2(_BinaryOp):
+    symbol = "atan2"
+
+    def _resolve_type(self):
+        for side in ("left", "right"):
+            e = getattr(self, side)
+            if not (e.dtype.is_numeric or isinstance(e.dtype, dt.NullType)):
+                raise UnsupportedExpr(f"atan2 on {e.dtype}")
+            if not e.dtype.is_floating:
+                setattr(self, side, Cast.bound(e, dt.FLOAT64))
+        self.dtype = dt.FLOAT64
+
+    def emit(self, ctx):
+        l, r = self.left.emit(ctx), self.right.emit(ctx)
+        return CV(torch.atan2(l.data.to(torch.float64),
+                              r.data.to(torch.float64)),
+                  l.validity & r.validity)

@@ -1,19 +1,45 @@
 """Column functions (`import spark_rapids_tpu_torch.functions as F`): the
-ported subset of pyspark.sql.functions."""
+port's copy of the JAX package's `functions.py`, pyspark.sql.functions
+naming.
+
+Every public name of the JAX module is here. The aggregates, the null,
+condition and math functions, the string functions, the hash functions,
+the date and time functions and the time-zone conversions build the
+port's expressions. The rest raise NotPorted naming the ROADMAP item
+that ports them: regex, JSON and parse_url (A.10); arrays, structs,
+maps, explode, the higher-order functions, collect_list / collect_set
+and grouping_id (A.5); the window functions (A.6); bloom_filter_agg and
+might_contain (A.9); udf and df_udf (A.12).
+"""
 from __future__ import annotations
 
-from .expr import aggregates as _agg
 from .errors import NotPorted
+from .expr import aggregates as _agg
+from .expr import datetime_exprs as _de
 from .expr import string_exprs as _se
-from .expr.expressions import CaseWhen, Expression, Literal, col, lit
+from .expr.expressions import (Abs, CaseWhen, Cast, Coalesce,  # noqa: F401
+                               ColumnRef, EqNullSafe, Expression, Greatest,
+                               If, In, IsNaN, IsNull, Least, Literal,
+                               MathUnary, Negate, Pmod, Round, col, lit)
 
-__all__ = ["col", "lit", "sum", "count", "countDistinct",
-           "count_distinct", "min", "max", "avg", "mean", "first", "last",
-           "stddev", "stddev_samp", "variance", "var_samp",
-           "approx_count_distinct", "percentile", "percentile_approx",
-           "median", "collect_list", "collect_set",
-           "when", "substring", "contains", "startswith", "endswith",
-           "like"]
+__all__ = [
+    "col", "lit", "sum", "count", "countDistinct", "count_distinct", "min",
+    "max", "avg", "mean", "first", "last", "stddev", "stddev_samp",
+    "variance", "var_samp", "approx_count_distinct", "percentile",
+    "percentile_approx", "median", "when", "coalesce", "isnull", "isnan",
+    "abs", "sqrt", "exp", "log", "log10", "log2", "floor", "ceil", "round",
+    "greatest", "least", "pmod", "negate", "signum",
+    "length", "upper", "lower", "substring", "concat", "contains",
+    "startswith", "endswith", "like", "trim", "ltrim", "rtrim", "reverse",
+    "instr", "locate", "lpad", "rpad", "repeat", "concat_ws",
+    "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
+    "shiftleft", "shiftright", "pow", "atan2",
+    "hash", "xxhash64", "hive_hash",
+    "year", "month", "dayofmonth", "dayofweek", "dayofyear", "quarter",
+    "hour", "minute", "second", "date_add", "date_sub", "datediff",
+    "last_day", "to_date", "to_timestamp", "from_utc_timestamp",
+    "to_utc_timestamp",
+]
 
 
 def sum(e):  # noqa: A001 - match pyspark naming
@@ -86,14 +112,6 @@ def median(e):
     return _agg.Median(_to_expr(e))
 
 
-def collect_list(e):
-    raise NotPorted("collect_list (an ArrayType result, ROADMAP A.5)")
-
-
-def collect_set(e):
-    raise NotPorted("collect_set (an ArrayType result, ROADMAP A.5)")
-
-
 def _to_expr(e) -> Expression:
     if isinstance(e, Expression):
         return e
@@ -124,8 +142,77 @@ def when(cond, value):
     return _WhenBuilder([(_to_expr(cond), _to_expr(value))])
 
 
+def coalesce(*exprs):
+    return Coalesce(*[_to_expr(e) for e in exprs])
+
+
+def isnull(e):
+    return IsNull(_to_expr(e))
+
+
+def isnan(e):
+    return IsNaN(_to_expr(e))
+
+
+def abs(e):  # noqa: A001
+    return Abs(_to_expr(e))
+
+
+def negate(e):
+    return Negate(_to_expr(e))
+
+
+def _math(name):
+    def fn(e):
+        return MathUnary(name, _to_expr(e))
+    fn.__name__ = name
+    return fn
+
+
+sqrt = _math("sqrt")
+exp = _math("exp")
+log = _math("log")
+log10 = _math("log10")
+log2 = _math("log2")
+floor = _math("floor")
+ceil = _math("ceil")
+signum = _math("signum")
+
+
+def round(e, scale=0):  # noqa: A001
+    return Round(_to_expr(e), scale)
+
+
+def greatest(*es):
+    return Greatest(*[_to_expr(e) for e in es])
+
+
+def least(*es):
+    return Least(*[_to_expr(e) for e in es])
+
+
+def pmod(a, b):
+    return Pmod(_to_expr(a), _to_expr(b))
+
+
+def length(e):
+    return _se.Length(_to_expr(e))
+
+
+def upper(e):
+    return _se.Upper(_to_expr(e))
+
+
+def lower(e):
+    return _se.Lower(_to_expr(e))
+
+
 def substring(e, start, length=None):
     return _se.Substring(_to_expr(e), start, length)
+
+
+def concat(*es):
+    return _se.ConcatStr(*[_to_expr(e) for e in es])
 
 
 def _to_pattern(p):
@@ -147,3 +234,199 @@ def endswith(e, pattern):
 
 def like(e, pattern: str):
     return _se.Like(_to_expr(e), pattern)
+
+
+def trim(e):
+    return _se.Trim(_to_expr(e))
+
+
+def ltrim(e):
+    return _se.Trim(_to_expr(e), left=True, right=False)
+
+
+def rtrim(e):
+    return _se.Trim(_to_expr(e), left=False, right=True)
+
+
+def reverse(e):
+    return _se.Reverse(_to_expr(e))
+
+
+def instr(e, sub):
+    return _se.Instr(_to_expr(e), _to_pattern(sub))
+
+
+def locate(sub, e):
+    return _se.Instr(_to_expr(e), _to_pattern(sub))
+
+
+def lpad(e, length, pad=" "):
+    return _se.Pad(_to_expr(e), length, pad, left=True)
+
+
+def rpad(e, length, pad=" "):
+    return _se.Pad(_to_expr(e), length, pad, left=False)
+
+
+def repeat(e, n):
+    return _se.Repeat(_to_expr(e), n)
+
+
+def concat_ws(sep, *es):
+    return _se.ConcatWs(sep, *[_to_expr(e) for e in es])
+
+
+def bitwise_and(a, b):
+    from .expr.expressions import BitwiseAnd
+    return BitwiseAnd(_to_expr(a), _to_expr(b))
+
+
+def bitwise_or(a, b):
+    from .expr.expressions import BitwiseOr
+    return BitwiseOr(_to_expr(a), _to_expr(b))
+
+
+def bitwise_xor(a, b):
+    from .expr.expressions import BitwiseXor
+    return BitwiseXor(_to_expr(a), _to_expr(b))
+
+
+def bitwise_not(a):
+    from .expr.expressions import BitwiseNot
+    return BitwiseNot(_to_expr(a))
+
+
+def shiftleft(a, b):
+    from .expr.expressions import ShiftLeft
+    return ShiftLeft(_to_expr(a), _to_expr(b))
+
+
+def shiftright(a, b):
+    from .expr.expressions import ShiftRight
+    return ShiftRight(_to_expr(a), _to_expr(b))
+
+
+def pow(a, b):  # noqa: A001
+    from .expr.expressions import Pow
+    return Pow(_to_expr(a), _to_expr(b))
+
+
+def atan2(a, b):
+    from .expr.expressions import Atan2
+    return Atan2(_to_expr(a), _to_expr(b))
+
+
+def hash(*cols):  # noqa: A001 - pyspark naming
+    from .expr.hash_expr import Murmur3Hash
+    return Murmur3Hash([_to_expr(c) for c in cols])
+
+
+def xxhash64(*cols):
+    from .expr.hash_expr import XxHash64
+    return XxHash64([_to_expr(c) for c in cols])
+
+
+def hive_hash(*cols):
+    from .expr.hash_expr import HiveHash
+    return HiveHash([_to_expr(c) for c in cols])
+
+
+def year(e):
+    return _de.Year(_to_expr(e))
+
+
+def month(e):
+    return _de.Month(_to_expr(e))
+
+
+def dayofmonth(e):
+    return _de.DayOfMonth(_to_expr(e))
+
+
+def dayofweek(e):
+    return _de.DayOfWeek(_to_expr(e))
+
+
+def dayofyear(e):
+    return _de.DayOfYear(_to_expr(e))
+
+
+def quarter(e):
+    return _de.Quarter(_to_expr(e))
+
+
+def hour(e):
+    return _de.Hour(_to_expr(e))
+
+
+def minute(e):
+    return _de.Minute(_to_expr(e))
+
+
+def second(e):
+    return _de.Second(_to_expr(e))
+
+
+def date_add(e, days):
+    return _de.DateAdd(_to_expr(e), _to_expr(days))
+
+
+def date_sub(e, days):
+    return _de.DateSub(_to_expr(e), _to_expr(days))
+
+
+def datediff(end, start):
+    return _de.DateDiff(_to_expr(end), _to_expr(start))
+
+
+def last_day(e):
+    return _de.LastDay(_to_expr(e))
+
+
+def to_date(e):
+    return _de.ToDate(_to_expr(e))
+
+
+def to_timestamp(e):
+    return _de.ToTimestamp(_to_expr(e))
+
+
+def from_utc_timestamp(e, tz: str):
+    return _de.FromUTCTimestamp(_to_expr(e), tz)
+
+
+def to_utc_timestamp(e, tz: str):
+    return _de.ToUTCTimestamp(_to_expr(e), tz)
+
+
+# ----------------------------------------------------------------------
+# The JAX module's other entries: each raises NotPorted naming the
+# ROADMAP item that ports it.
+# ----------------------------------------------------------------------
+_NOT_PORTED = {
+    "A.5": ("array struct named_struct get_field size element_at "
+            "array_contains array_min array_max sort_array map_keys "
+            "map_values explode explode_outer posexplode posexplode_outer "
+            "transform filter exists forall aggregate collect_list "
+            "collect_set grouping_id"),
+    "A.6": ("row_number rank dense_rank percent_rank cume_dist ntile lag "
+            "lead first_value last_value nth_value"),
+    "A.9": "bloom_filter_agg might_contain",
+    "A.10": ("rlike regexp_extract regexp_replace get_json_object "
+             "from_json to_json parse_url"),
+    "A.12": "udf df_udf",
+}
+
+
+def _not_ported(name: str, item: str):
+    def fn(*args, **kwargs):
+        raise NotPorted(f"{name} (ROADMAP {item})")
+    fn.__name__ = fn.__qualname__ = name
+    fn.__doc__ = f"Raises NotPorted: {name} waits for ROADMAP {item}."
+    return fn
+
+
+for _item, _names in _NOT_PORTED.items():
+    for _name in _names.split():
+        globals()[_name] = _not_ported(_name, _item)
+del _item, _names, _name

@@ -12,8 +12,12 @@ aggregation. Float, double and decimal128 keys hash as the JAX package
 hashes them (`_float_bits`, `_double_word`, the limbs folded), its CPU
 compile's ids for every value; a float NaN whose bits are not the
 canonical 0x7FC00000 is the one departure (ROADMAP C.15). Bit-identical
-to the JAX functions otherwise. (The Spark-facing xxhash64 / hive
-hashes wait.)
+to the JAX functions otherwise. The Spark-facing xxhash64 (seed 42,
+Spark's XXH64 hashInt / hashLong / hashUnsafeBytes schedule, with the
+JAX package's 64-byte string bound and fold) and hive_hash (Hive's
+31-polynomial row hashCode) follow, with the same float and double
+inputs as murmur3. The bloom filter's positions wait for the runtime
+filter (ROADMAP A.9).
 
 torch has no unsigned 32-bit arithmetic on every build, and `>>` on
 int64 is arithmetic. So every 32-bit word here lives in an int64 tensor
@@ -31,7 +35,8 @@ from .kernel_utils import CV
 
 __all__ = ["hash_int32", "hash_int64", "murmur3_cv", "murmur3_row_hash",
            "partition_ids", "to_signed32", "fold64", "avalanche32",
-           "hash_once_rows"]
+           "hash_once_rows", "xxhash64_cv", "xxhash64_row_hash",
+           "hive_hash_cv", "hive_hash_row_hash"]
 
 _M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
@@ -270,7 +275,11 @@ def _split64(a):
 def fold64(h, a):
     """One xxhash64-style round folding integer array `a` into the 64-bit
     accumulator `h` (a (hi, lo) pair)."""
-    a64 = _mul64(_rotl64(_mul64(_split64(a), _P64_2), 31), _P64_1)
+    return _fold64_w(h, _split64(a))
+
+
+def _fold64_w(h, w):
+    a64 = _mul64(_rotl64(_mul64(w, _P64_2), 31), _P64_1)
     h = _xor64(h, a64)
     return _add64c(_mul64(_rotl64(h, 27), _P64_1), _P64_3)
 
@@ -299,3 +308,202 @@ def hash_once_rows(eq_arrays, seed: int = 0x9E3779B1):
         for a in arrs:
             h = fold64(h, a)
     return avalanche32(h)
+
+
+# ----------------------------------------------------------------------
+# Spark-facing xxhash64 and hive_hash (the JAX package's `ops/hash.py`
+# `xxhash64_*` and `hive_hash_*`). xxhash64 folds left to right from the
+# seed, a null input passing the running hash through; hive_hash folds
+# result * 31 + column hash from 0, a null contributing 0.
+# ----------------------------------------------------------------------
+_P64_4 = 0x85EBCA77C2B2AE63
+_P64_5 = 0x27D4EB2F165667C5
+
+
+def _add64(w, x):
+    """(hi, lo) + x for x in [0, 2^32), mod 2^64."""
+    hi, lo = w
+    lo = lo + x
+    return (hi + (lo >> 32)) & _M32, lo & _M32
+
+
+def _xxh_fmix(h):
+    hi, lo = h
+    h = (hi, lo ^ (hi >> 1))                                # ^= h >> 33
+    hi, lo = _mul64(h, _P64_2)
+    h = (hi ^ (hi >> 29), lo ^ ((lo >> 29) | ((hi << 3) & _M32)))
+    hi, lo = _mul64(h, _P64_3)
+    return hi, lo ^ hi                                      # ^= h >> 32
+
+
+def _xxh_int(x, seed):
+    """Spark XXH64.hashInt of int32 values `x`."""
+    h = _add64c(seed, _P64_5 + 4)
+    w = _mul64((torch.zeros_like(seed[0]), _u32(x)), _P64_1)
+    h = _add64c(_mul64(_rotl64(_xor64(h, w), 23), _P64_2), _P64_3)
+    return _xxh_fmix(h)
+
+
+def _xxh_long_w(w, seed):
+    """Spark XXH64.hashLong of the 64-bit words `w` ((hi, lo) pairs)."""
+    h = _add64c(seed, _P64_5 + 8)
+    k1 = _mul64(_rotl64(_mul64(w, _P64_2), 31), _P64_1)
+    h = _add64c(_mul64(_rotl64(_xor64(h, k1), 27), _P64_1), _P64_4)
+    return _xxh_fmix(h)
+
+
+def _word_at(byte_at, base, nbytes: int):
+    """Little-endian word of `nbytes` (4 or 8) bytes from `base`, as an
+    (hi, lo) pair."""
+    lo = torch.zeros_like(base)
+    for b in range(4):
+        lo = lo | (byte_at(base + b) << (8 * b))
+    hi = torch.zeros_like(base)
+    for b in range(4, nbytes):
+        hi = hi | (byte_at(base + b) << (8 * (b - 4)))
+    return hi, lo
+
+
+def _xxh_string(cv: CV, seed):
+    """XXH64 over a string's bytes: Spark's hashUnsafeBytes small-input
+    schedule (8-byte rounds, one 4-byte round, then a round a byte) over
+    the first 64 bytes, and past 64 bytes a fold of the last 8, as the
+    JAX package bounds it (docs/compatibility.md)."""
+    starts = cv.offsets[:-1].to(torch.int64)
+    lens = (cv.offsets[1:] - cv.offsets[:-1]).to(torch.int64)
+    data = cv.data
+    dcap = data.shape[0]
+
+    def byte_at(pos):
+        if dcap == 0:
+            return torch.zeros_like(pos)
+        return data[pos.clamp(0, dcap - 1)].to(torch.int64)
+
+    maxb = 64
+    h = _add64(_add64c(seed, _P64_5), lens)
+    overlong = lens > maxb
+    eff = torch.where(overlong, maxb, lens)
+    nfull8 = torch.div(eff, 8, rounding_mode="floor")
+
+    def pick(c, a, b):
+        return torch.where(c, a[0], b[0]), torch.where(c, a[1], b[1])
+
+    for w in range(maxb // 8):
+        word = _word_at(byte_at, starts + 8 * w, 8)
+        k1 = _mul64(_rotl64(_mul64(word, _P64_2), 31), _P64_1)
+        step = _add64c(_mul64(_rotl64(_xor64(h, k1), 27), _P64_1), _P64_4)
+        h = pick(w < nfull8, step, h)
+    aligned = nfull8 * 8
+    word4 = _word_at(byte_at, starts + aligned, 4)
+    has4 = aligned + 4 <= eff
+    step = _add64c(_mul64(_rotl64(_xor64(h, _mul64(word4, _P64_1)), 23),
+                          _P64_2), _P64_3)
+    h = pick(has4, step, h)
+    aligned = torch.where(has4, aligned + 4, aligned)
+    zero = torch.zeros_like(starts)
+    for t in range(3):
+        pos = aligned + t
+        k = _mul64((zero, byte_at(starts + pos)), _P64_5)
+        step = _mul64(_rotl64(_xor64(h, k), 11), _P64_1)
+        h = pick(pos < eff, step, h)
+    tail = _word_at(byte_at, torch.maximum(starts, starts + lens - 8), 8)
+    h = pick(overlong, _fold64_w(h, tail), h)
+    return _xxh_fmix(h)
+
+
+def xxhash64_cv(cv: CV, dtype: dt.DataType, seed):
+    """Per-row xxhash64 of one column folded into `seed` ((hi, lo)
+    unsigned halves); a null row keeps the seed."""
+    x = cv.data
+    if isinstance(dtype, dt.BooleanType):
+        h = _xxh_int(x.to(torch.int32), seed)
+    elif isinstance(dtype, (dt.ByteType, dt.ShortType, dt.IntegerType,
+                            dt.DateType)):
+        h = _xxh_int(x, seed)
+    elif isinstance(dtype, (dt.LongType, dt.TimestampType)):
+        h = _xxh_long_w(_split64(x), seed)
+    elif isinstance(dtype, dt.DecimalType):
+        h = _xxh_long_w(_split64(x[:, 0] ^ x[:, 1] if dtype.is_decimal128
+                                 else x), seed)
+    elif isinstance(dtype, dt.FloatType):
+        h = _xxh_int(_float_bits(x), seed)
+    elif isinstance(dtype, dt.DoubleType):
+        h = _xxh_long_w(_split64(_double_word(x)), seed)
+    elif dtype.is_variable_width:
+        h = _xxh_string(cv, seed)
+    else:
+        raise NotPorted(f"xxhash64({dtype})")
+    return (torch.where(cv.validity, h[0], seed[0]),
+            torch.where(cv.validity, h[1], seed[1]))
+
+
+def xxhash64_row_hash(cvs, dtypes, seed: int = 42):
+    """Row xxhash64 across columns, Spark style: the column hashes
+    folded left to right from the seed; int64."""
+    n = cvs[0].validity.shape[0]
+    dev = cvs[0].validity.device
+    h = (torch.full((n,), (seed >> 32) & _M32, dtype=torch.int64,
+                    device=dev),
+         torch.full((n,), seed & _M32, dtype=torch.int64, device=dev))
+    for cv, dtp in zip(cvs, dtypes):
+        h = xxhash64_cv(cv, dtp, h)
+    hi, lo = h
+    return torch.where(hi >= (1 << 31), hi - (1 << 32), hi) * (1 << 32) \
+        + lo
+
+
+def _hive_long(x):
+    """Hive's hash of a long: (int) (v ^ (v >>> 32)), unsigned here."""
+    hi, lo = _split64(x)
+    return hi ^ lo
+
+
+def hive_hash_cv(cv: CV, dtype: dt.DataType):
+    """Hive hashCode of one column as unsigned words in int64; a null row
+    is 0."""
+    x = cv.data
+    if isinstance(dtype, dt.BooleanType):
+        h = x.to(torch.int64)
+    elif isinstance(dtype, (dt.ByteType, dt.ShortType, dt.IntegerType,
+                            dt.DateType)):
+        h = _u32(x)
+    elif isinstance(dtype, (dt.LongType, dt.TimestampType)):
+        h = _hive_long(x)
+    elif isinstance(dtype, dt.DecimalType):
+        h = _hive_long(x[:, 0] ^ x[:, 1] if dtype.is_decimal128 else x)
+    elif isinstance(dtype, dt.FloatType):
+        h = _u32(_float_bits(x))
+    elif isinstance(dtype, dt.DoubleType):
+        h = _hive_long(_double_word(x))
+    elif dtype.is_variable_width:
+        h = _hive_string(cv)
+    else:
+        raise NotPorted(f"hive_hash({dtype})")
+    return torch.where(cv.validity, h, 0)
+
+
+def _hive_string(cv: CV):
+    """Java's String.hashCode polynomial over the (sign-extended) UTF-8
+    bytes, bounded at the first 64 bytes as the JAX package bounds it."""
+    starts = cv.offsets[:-1].to(torch.int64)
+    lens = (cv.offsets[1:] - cv.offsets[:-1]).to(torch.int64)
+    data = cv.data
+    dcap = data.shape[0]
+    h = torch.zeros_like(starts)
+    if dcap == 0:
+        return h
+    for pos in range(64):
+        byte = data[(starts + pos).clamp(0, dcap - 1)].to(torch.int64)
+        signed = torch.where(byte >= 128, byte - 256, byte)
+        h = torch.where(pos < lens, (h * 31 + signed) & _M32, h)
+    return h
+
+
+def hive_hash_row_hash(cvs, dtypes):
+    """Hive row hash: result * 31 + column hash, folded left to right
+    from 0 (int32 wrap-around); int32."""
+    n = cvs[0].validity.shape[0]
+    h = torch.zeros(n, dtype=torch.int64, device=cvs[0].validity.device)
+    for cv, dtp in zip(cvs, dtypes):
+        h = (h * 31 + hive_hash_cv(cv, dtp)) & _M32
+    return to_signed32(h)

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["CV", "and_validity"]
+__all__ = ["CV", "and_validity", "fma"]
 
 
 @dataclasses.dataclass
@@ -33,3 +33,29 @@ def and_validity(*cvs: CV) -> torch.Tensor:
     for c in cvs[1:]:
         v = v & c.validity
     return v
+
+
+_SPLIT = 134217729.0     # 2^27 + 1: Dekker's split of a float64
+
+
+def fma(a, b, c):
+    """a * b + c rounded once, from plain float64 ops (Dekker's exact
+    product, Knuth's exact sum), the same bits on any device: the fused
+    multiply-add that XLA makes of the JAX package's percentile
+    interpolation and of its string -> double parse. Where the split
+    overflows (|a| or |b| near the top of the range) or a value is not
+    finite, plain a * b + c."""
+    p = a * b
+
+    def split(v):
+        t = _SPLIT * v
+        hi = t - (t - v)
+        return hi, v - hi
+
+    ah, al = split(a)
+    bh, bl = split(b)
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    r = s + (((p - (s - bb)) + (c - bb)) + err)
+    return torch.where(torch.isfinite(r), r, p + c)

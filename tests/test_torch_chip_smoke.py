@@ -983,3 +983,62 @@ def test_pool_ab_offset_from_the_argument_or_the_start_second():
     assert chip_smoke.pool_ab_offset(["--pool-ab-offset=0"], 11.0) == 0
     assert [chip_smoke.pool_ab_offset([], t) for t in (10.9, 11.2)] \
         == [0, 1]
+
+
+def test_scalar_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """Slice 12's phases at sf 0.01 in 4096-row batches: the date
+    functions by year, the strings, casts, math and hashes by order
+    status, and the time-zone round trips, each against its numpy,
+    pyarrow or zoneinfo reference; no kernel launch off the card."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    launches = chip_smoke.scalar_phases(s, tpch_small)
+    assert launches == {"dates_by_year": {"all": 0, "vector": 0,
+                                          "scalar": 0}}
+    phases = {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    d = phases["dates_by_year"]
+    assert d["groups"] == 7 and d["plan"][2] == "ShuffleExchangeExec"
+    st = phases["strings_casts_hashes"]
+    assert st["groups"] == 3 and st["worst_double_rel"] <= 1e-9
+    assert st["string_hash_rows"] == tpch_small["orders"].num_rows
+    tz = phases["timestamps_tz"]
+    assert tz["back_diff_s"] == -3600 * tz["rows_at_overlap"]
+
+
+def test_numpy_hash_twins_equal_the_jax_package():
+    """`np_xxhash64_long` and `np_hive_hash_long`, the references of the
+    strings phase, equal the JAX package's xxhash64 and hive_hash of an
+    int64 column; the plain-Python string hashes equal its string
+    hashes."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from spark_rapids_tpu.columnar import dtypes as jdt
+    from spark_rapids_tpu.ops import hash as jh
+    from spark_rapids_tpu.ops.kernel_utils import CV as JCV
+    rng = np.random.default_rng(9)
+    x = rng.integers(-2**63, 2**63, 500, dtype=np.int64)
+    x[:3] = [-2**63, 2**63 - 1, 0]
+    cv = JCV(jnp.asarray(x), jnp.ones(500, bool))
+    assert np.array_equal(
+        np.asarray(jh.xxhash64_row_hash([cv], [jdt.INT64])),
+        chip_smoke.np_xxhash64_long(x))
+    assert np.array_equal(
+        np.asarray(jh.hive_hash_row_hash([cv], [jdt.INT64])),
+        chip_smoke.np_hive_hash_long(x))
+    words = [b"", b"a", b"special requests", b"\xc3\xa9t\xc3\xa9", b"z" * 31]
+    off = np.cumsum([0] + [len(w) for w in words]).astype(np.int32)
+    data = np.frombuffer(b"".join(words), np.uint8)
+    scv = JCV(jnp.asarray(data), jnp.ones(len(words), bool),
+              jnp.asarray(off))
+    for fn, py in ((jh.murmur3_row_hash, chip_smoke.py_murmur3_bytes),
+                   (jh.xxhash64_row_hash, chip_smoke.py_xxhash64_bytes)):
+        assert np.asarray(fn([scv], [jdt.STRING])).tolist() == \
+            [py(w) for w in words]
+    assert np.asarray(jh.hive_hash_row_hash([scv], [jdt.STRING])).tolist() \
+        == [chip_smoke.py_hive_hash_bytes(w) for w in words]

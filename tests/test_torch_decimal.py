@@ -475,13 +475,24 @@ def test_q18_threshold_rows():
     lambda E: E.EqNullSafe(E.col("sum"), E.col("big")),
 ])
 def test_decimal128_casts_and_null_safe_equality_still_raise(build):
-    """Above precision 18, + - * /, the six comparisons and every
-    numeric cast are ported (`test_torch_divide_cast.py`); a cast named
-    by a type string, a cast to boolean and <=> are not."""
+    """Above precision 18, + - * /, the six comparisons and every cast
+    the JAX package binds are ported (`test_torch_divide_cast.py`; a
+    cast named by a type string and a cast to boolean bind to the JAX
+    package's type); <=> still raises NotPorted."""
+    from spark_rapids_tpu.columnar import dtypes as jdt
     from spark_rapids_tpu_torch import NotPorted
     from spark_rapids_tpu_torch.columnar import dtypes as pdt
     ns = types.SimpleNamespace(col=px.col, Cast=px.Cast,
                                Dec=pdt.DecimalType, INT64=pdt.INT64,
                                BOOL=pdt.BOOL, EqNullSafe=px.EqNullSafe)
-    with pytest.raises(NotPorted):
-        build(ns).bind(PSchema.from_arrow(CMP_SCHEMA))
+    jns = types.SimpleNamespace(col=jx.col, Cast=jx.Cast,
+                                Dec=jdt.DecimalType, INT64=jdt.INT64,
+                                BOOL=jdt.BOOL, EqNullSafe=jx.EqNullSafe)
+    port = build(ns)
+    if isinstance(port, px.EqNullSafe):
+        with pytest.raises(NotPorted):
+            port.bind(PSchema.from_arrow(CMP_SCHEMA))
+        return
+    want = build(jns).bind(JSchema.from_arrow(CMP_SCHEMA)).dtype
+    assert repr(port.bind(PSchema.from_arrow(CMP_SCHEMA)).dtype) == \
+        repr(want)

@@ -330,6 +330,14 @@ def test_reflected_division():
 
 
 def test_type_string_casts_stay_unported():
-    from spark_rapids_tpu_torch.errors import NotPorted
-    with pytest.raises(NotPorted):
-        px.col("a").cast("double")
+    """A cast named by a type string, unported until the scalar slice,
+    now resolves the name as the JAX package does (`from_name`), and an
+    unknown name raises ValueError in both."""
+    from spark_rapids_tpu.expr import expressions as jx
+    assert repr(px.col("a").cast("double").to) == \
+        repr(jx.col("a").cast("double").to)
+    assert repr(px.col("a").cast("decimal(20, 3)").to) == \
+        repr(jx.col("a").cast("decimal(20, 3)").to)
+    for E in (px, jx):
+        with pytest.raises(ValueError):
+            E.col("a").cast("varchar")

@@ -39,10 +39,12 @@ SCHEMA = pa.schema([("l_quantity", pa.decimal128(12, 2)),
 
 JAX = types.SimpleNamespace(col=jx.col, lit=jx.lit, Cast=jx.Cast,
                             Dec=jdt.DecimalType, INT32=jdt.INT32,
-                            INT64=jdt.INT64, FLOAT64=jdt.FLOAT64)
+                            INT64=jdt.INT64, FLOAT64=jdt.FLOAT64,
+                            BOOL=jdt.BOOL)
 PORT = types.SimpleNamespace(col=px.col, lit=px.lit, Cast=px.Cast,
                              Dec=pdt.DecimalType, INT32=pdt.INT32,
-                             INT64=pdt.INT64, FLOAT64=pdt.FLOAT64)
+                             INT64=pdt.INT64, FLOAT64=pdt.FLOAT64,
+                             BOOL=pdt.BOOL)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,18 +164,31 @@ def test_decimal_overflow_gives_null():
 
 
 @pytest.mark.parametrize("build", [
-    # a cast named by a type string (every numeric cast is ported)
+    # a cast named by a type string
     lambda E: E.Cast(E.col("l_extendedprice") * E.col("l_quantity"),
                      "decimal(30,4)"),
-    lambda E: E.Cast(E.col("l_quantity"), pdt.BOOL),          # to boolean
-    # a timestamp literal (string literals are ported since the Q3 slice)
+    lambda E: E.Cast(E.col("l_quantity"), E.BOOL),            # to boolean
+    # a timestamp literal against a date
     lambda E: E.lit(datetime.datetime(1998, 1, 1)) == E.col("l_shipdate"),
     lambda E: E.Cast(E.col("l_orderkey"), "int"),
-    lambda E: E.Cast(E.col("l_shipdate"), pdt.BOOL),
+    lambda E: E.Cast(E.col("l_shipdate"), E.BOOL),
 ])
 def test_unported_expressions_raise(build):
-    with pytest.raises(NotPorted):
-        build(PORT).bind(PSchema.from_arrow(SCHEMA))
+    """Five expressions the port once refused with NotPorted, ported
+    since (type-string casts, casts to boolean, timestamp literals):
+    each binds in the port to the JAX package's type, or raises where
+    the JAX package raises, an exception of the same name (a timestamp
+    against a date cannot be promoted; a date does not cast to
+    boolean)."""
+    try:
+        want = build(JAX).bind(JSchema.from_arrow(SCHEMA)).dtype
+    except Exception as e:      # noqa: BLE001 - the JAX package's refusal
+        with pytest.raises(Exception) as got:
+            build(PORT).bind(PSchema.from_arrow(SCHEMA))
+        assert type(got.value).__name__ == type(e).__name__
+        return
+    assert repr(build(PORT).bind(PSchema.from_arrow(SCHEMA)).dtype) == \
+        repr(want)
 
 
 def test_string_against_non_string_compare_is_refused_like_jax():

@@ -1,0 +1,73 @@
+"""The port's `functions.py` has every public name of the JAX package's
+`functions.py`. Each name that builds an expression in the port does so
+without raising; each that the port does not implement yet raises
+NotPorted, and its message names the ROADMAP item that ports it.
+"""
+import inspect
+import re
+
+import pytest
+
+import spark_rapids_tpu.functions as JF
+import spark_rapids_tpu_torch.functions as PF
+from spark_rapids_tpu_torch.errors import NotPorted
+
+PUBLIC = sorted(n for n in dir(JF) if not n.startswith("_")
+                and not inspect.ismodule(getattr(JF, n))
+                and n != "annotations")
+
+#: the entries that wait, by ROADMAP item
+WAITING = {
+    "A.5": ["array", "struct", "named_struct", "get_field", "size",
+            "element_at", "array_contains", "array_min", "array_max",
+            "sort_array", "map_keys", "map_values", "explode",
+            "explode_outer", "posexplode", "posexplode_outer", "transform",
+            "filter", "exists", "forall", "aggregate", "collect_list",
+            "collect_set", "grouping_id"],
+    "A.6": ["row_number", "rank", "dense_rank", "percent_rank",
+            "cume_dist", "ntile", "lag", "lead", "first_value",
+            "last_value", "nth_value"],
+    "A.9": ["bloom_filter_agg", "might_contain"],
+    "A.10": ["rlike", "regexp_extract", "regexp_replace",
+             "get_json_object", "from_json", "to_json", "parse_url"],
+    "A.12": ["udf", "df_udf"],
+}
+ITEM_OF = {n: item for item, names in WAITING.items() for n in names}
+
+#: arguments for the ported functions that take more than one column
+ARGS = {"round": ("x", 2), "lpad": ("x", 5, "*"), "rpad": ("x", 5),
+        "repeat": ("x", 2), "concat_ws": ("|", "x", "y"),
+        "date_add": ("x", 1), "date_sub": ("x", 1),
+        "from_utc_timestamp": ("x", "UTC"),
+        "to_utc_timestamp": ("x", "UTC"), "substring": ("x", 1, 2),
+        "instr": ("x", "a"), "locate": ("a", "x"), "contains": ("x", "a"),
+        "startswith": ("x", "a"), "endswith": ("x", "a"),
+        "like": ("x", "a%"), "when": ("x", 1), "percentile": ("x", 0.5),
+        "percentile_approx": ("x", 0.5)}
+
+
+def test_every_public_name_exists():
+    missing = [n for n in PUBLIC if not hasattr(PF, n)]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("name", PUBLIC)
+def test_each_name_builds_or_names_its_item(name):
+    fn = getattr(PF, name)
+    if name in ITEM_OF:
+        with pytest.raises(NotPorted) as e:
+            fn("x", "y")
+        assert re.search(rf"ROADMAP {re.escape(ITEM_OF[name])}\b",
+                         str(e.value)), str(e.value)
+        return
+    if inspect.isclass(fn) or not callable(fn):
+        return      # the re-exported expression classes and constants
+    args = ARGS.get(name)
+    if args is None:
+        params = inspect.signature(fn).parameters.values()
+        star = any(p.kind == p.VAR_POSITIONAL for p in params)
+        need = sum(1 for p in params if p.default is p.empty
+                   and p.kind in (p.POSITIONAL_ONLY,
+                                  p.POSITIONAL_OR_KEYWORD))
+        args = ("x", "y") if star else ("x", "y")[:need]
+    fn(*args)

@@ -8,6 +8,8 @@ splits its batch, and the exchange's reduce and the sort's parking retry
 unsplit. Each result must equal the JAX package's under the same
 injection, and the uninjected run's: exact.
 """
+import threading
+
 import pyarrow as pa
 import pytest
 
@@ -94,12 +96,20 @@ def test_exchange_map_retry_splits(monkeypatch, oom):
     conf = {"spark.rapids.tpu.sql.batchSizeRows": 512,
             "spark.rapids.tpu.sql.adaptive.enabled": False}
     orig = ShuffleExchangeExec._map_batch
-    state = {"fired": 0, "batches": []}
+    # The map runs on a pool: record each worker thread's capacities, and
+    # which thread met the injected OOM.
+    state = {"fired": 0, "batches": {}, "raiser": None}
+    lock = threading.Lock()
 
     def flaky(self, batch):
-        state["batches"].append(batch.capacity)
-        if state["fired"] < 1 and batch.capacity > 256:
-            state["fired"] += 1
+        tid = threading.get_ident()
+        with lock:
+            state["batches"].setdefault(tid, []).append(batch.capacity)
+            fire = state["fired"] < 1 and batch.capacity > 256
+            if fire:
+                state["fired"] += 1
+                state["raiser"] = tid
+        if fire:
             raise OOMS[oom]()
         return orig(self, batch)
 
@@ -112,8 +122,9 @@ def test_exchange_map_retry_splits(monkeypatch, oom):
     for i in range(n):
         want[i % 900] = want.get(i % 900, 0) + i
     assert got == want and state["fired"] == 1
-    first = state["batches"][0]
-    assert state["batches"][1:3] == [first // 2, first - first // 2]
+    seq = state["batches"][state["raiser"]]
+    first = seq[0]
+    assert seq[1:3] == [first // 2, first - first // 2]
 
     jorig = JExchange._run_map
     jstate = {"fired": 0}
