@@ -22,7 +22,8 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      the pinned-host allocator's counters around the map side;
   7. the same query under torch.profiler: device busy share, device time
      by kernel, and the partition kernel's share of the map side's device
-     time; then, on a 1M-row sample, every row of reduce partition p must
+     time (the other profiled phases read only the trace's device events,
+     `device_entries`); then, on a 1M-row sample, every row of reduce partition p must
      hash to p by the plain version on the CPU;
   8. TPC-H Q1 (`tpch.q1(df).sort("l_returnflag", "l_linestatus")`) over
      `create_dataframe`, twice, and over the 16 Parquet files: the
@@ -59,8 +60,11 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      `index_add_`, the atomic sum it replaces, beside it for contrast);
  15. `tpch.gen_all(10)` (seed 7), made once before phase 4 (phases 4-13
      run over its lineitem, cut to the short generator's columns, and its
-     customer and orders): rows and
-     generation seconds per table, then the exact numpy reference of
+     customer and orders; customer, part, supplier and partsupp made in
+     spawned processes meanwhile): rows and
+     generation seconds per table, then, on REFERENCE_THREADS threads
+     with every other phase's reference (PHASE_REFERENCES), the exact
+     numpy reference of
      each of Q2, Q4, Q5, Q7-Q22 (Q18 at the spec's 300), timed (int64
      unscaled decimals with an overflow guard, the generators' 0..n-1
      keys as indexes, each layout asserted; the double results of Q8,
@@ -72,14 +76,15 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      `create_dataframe` of the eight tables at the default conf (join
      reorder, adaptive execution, exchange reuse, the async broadcast
      build, the exchange map on a pool of min(4, cores) workers), each
-     a fresh plan, twice (the second run plans with the calibration the
+     a fresh plan; AB_QUERIES (Q4, Q16, Q22 and the double-valued ones)
+     twice (the second run plans with the calibration the
      first recorded), once at the default conf and once with
      `sql.exec.exchange.mapThreads` = 1, the default first on every
      other query, and the two results bit-equal (on one plan), with
      each run's map threads and `mapPoolWaitMs`, the pinned-host cache
      released first: the plan shape that ran (broadcast and
      per-partition joins, exchanges, aggregate modes) beside the written plan's, whether the
-     join order differs from the written one, both runs' plan
+     join order differs from the written one, the runs' plan
      signatures, and per run the adaptive decisions (partitions before
      and after, coalesced away, skew splits, demotions with their build
      bytes; the plan held to them: `check_plan_decisions`), the reuse
@@ -226,6 +231,7 @@ CUDA is not available.
 from __future__ import annotations
 
 import collections
+import functools
 import gc
 import json
 import math
@@ -738,6 +744,24 @@ def device_us(e):
             or getattr(e, "self_cuda_time_total", 0) or 0)
 
 
+def device_entries(prof) -> list:
+    """(name, device us, launches) for each name among the device-side
+    entries (kernels, copies, memsets) of a finished torch.profiler run,
+    summed from its raw events: what key_averages() gives for them,
+    without building the host events' tree, which took most of a minute
+    on Q1's 227,000 launches."""
+    from torch.autograd import DeviceType
+    tot = {}
+    for e in prof.profiler.kineto_results.events():
+        us = e.duration_ns() / 1e3
+        if e.device_type() == DeviceType.CPU or us <= 0:
+            continue
+        t = tot.setdefault(e.name(), [0.0, 0])
+        t[0] += us
+        t[1] += 1
+    return [(name, us, n) for name, (us, n) in tot.items()]
+
+
 def kernels_under(evt):
     """The device kernels and copies launched inside a profiled CPU
     event, its children's included (not the range's own annotation)."""
@@ -1002,21 +1026,19 @@ def profiled_query(q, device, batches: int, groups=Q1_GROUPS):
     Q1_GROUPS by default), device launches and host syncs per input
     batch. On the card only the device's activity is traced: the host
     ops' tracing cost minutes of analysis on Q1 and read nothing here."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA if device.type == "cuda"
             else ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
         out, wall, layers, syncs = timed_query(q, device)
-    ka = [e for e in prof.key_averages()
-          if e.device_type != DeviceType.CPU and device_us(e) > 0]
-    busy_us = sum(device_us(e) for e in ka)
+    ka = device_entries(prof)
+    busy_us = sum(us for _, us, _ in ka)
     by_group, launches = collections.Counter(), collections.Counter()
-    for e in ka:
-        grp = q1_group_of(e.key, groups)
-        by_group[grp] += device_us(e)
-        launches[grp] += e.count
-    top = sorted(ka, key=device_us, reverse=True)[:15]
+    for name, us, count in ka:
+        grp = q1_group_of(name, groups)
+        by_group[grp] += us
+        launches[grp] += count
+    top = sorted(ka, key=lambda e: e[1], reverse=True)[:15]
     n = max(batches, 1)
     return out, {
         "wall_s": wall, "device_busy_s": busy_us / 1e6,
@@ -1027,7 +1049,7 @@ def profiled_query(q, device, batches: int, groups=Q1_GROUPS):
         "input_batches": batches,
         "device_launches_per_batch": sum(launches.values()) / n,
         "host_syncs": syncs, "host_syncs_per_batch": syncs / n,
-        "top_device_us": {e.key[:80]: device_us(e) for e in top}}
+        "top_device_us": {name[:80]: us for name, us, _ in top}}
 
 
 def q1_phases(session, lineitem, parquet_dir, q1_expect,
@@ -1134,6 +1156,8 @@ def path_phases(session, lineitem, expect, q1_expect=None,
 
 def _path_phases(session, lineitem, expect, q1_expect, shipdate_expect,
                  d) -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.exec.batch import DeviceBatch
@@ -1158,9 +1182,12 @@ def _path_phases(session, lineitem, expect, q1_expect, shipdate_expect,
     # ---- Q6 over read.parquet (16 files) -----------------------------
     t0 = time.perf_counter()
     per = -(-rows // 16)
-    for i in range(16):
+
+    def write(i):
         pq.write_table(lineitem.slice(i * per, per),
                        os.path.join(d, f"part-{i:02d}.parquet"))
+    with ThreadPoolExecutor(8) as ex:   # Arrow's writer releases the GIL
+        list(ex.map(write, range(16)))
     write_s = time.perf_counter() - t0
     root, ctx = tpch.q6(session.read.parquet(d)).physical_plan()
     scan = root
@@ -1738,6 +1765,10 @@ TPCH_FLOAT_COLUMNS = {8: ("mkt_share",), 9: ("sum_profit",),
 #: the queries whose result holds or depends on a double sum: their two
 #: runs on the card must be bit-equal
 TPCH_DOUBLE_QUERIES = (8, 9, 11, 14, 15, 17, 22)
+#: the adaptive pass's pool A/B: the queries read at both map pools (the
+#: double-valued ones keep their second run for its bit-equal check; the
+#: rest run once, which keeps the script inside its time limit)
+AB_QUERIES = tuple(sorted({4, 16, 22} | set(TPCH_DOUBLE_QUERIES)))
 TPCH_RTOL = 1e-9
 
 
@@ -2675,7 +2706,7 @@ def release_pinned_cache(what):
 
 def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
                 label="tpch", profile=True, keep=None,
-                ab_threads=None, ab_offset=0) -> dict:
+                ab_threads=None, ab_offset=0, ab_queries=None) -> dict:
     """One phase per query (each run a fresh plan; the partition kernel's
     launches counted from 0 and held to the plan's int32 exchanges; the
     plan held to its adaptive decisions), then, with `profile`, Q5 and
@@ -2696,7 +2727,9 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
     other offset reads every query in the other order, so the pool is
     told apart from run order across runs); every query's two results
     must then be bit-equal (on one plan, as above), and each run
-    carries its map threads and `mapPoolWaitMs`."""
+    carries its map threads and `mapPoolWaitMs`. With `ab_queries` only
+    those queries get the pair; the others run once, at the session's
+    conf."""
     dev = session.device
     per = session.conf.batch_size_rows
     batches = sum(-(-t.num_rows // per) for t in tables.values())
@@ -2706,9 +2739,13 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
     for qi, n in enumerate(queries):
         out_runs, outs = [], []
         sessions = [session] * runs
-        if other is not None:
+        paired = other is not None and (ab_queries is None
+                                        or n in ab_queries)
+        if paired:
             sessions = ([session, other] if (qi + ab_offset) % 2 == 0
                         else [other, session])
+        elif other is not None:
+            sessions = [session]
         for sess in sessions:
             out, info, q = query_run(n, sess, tables, expects, label)
             if other is not None:
@@ -2724,8 +2761,7 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
             info["partition_kernel_launches"]
         bit_equal = recheck = None
         sigs = [r["plan_signature"] for r in out_runs]
-        if (n in TPCH_DOUBLE_QUERIES or other is not None) \
-                and len(out_runs) > 1:
+        if (n in TPCH_DOUBLE_QUERIES or paired) and len(out_runs) > 1:
             if sigs[0] == sigs[1]:
                 bit_equal = same_bits(outs[0], outs[1])
             else:
@@ -2752,7 +2788,7 @@ def tpch_phases(session, tables, expects, runs=2, queries=TPCH_QUERIES,
               "input_batches": batches, "runs_bit_equal": bit_equal,
               "third_run_after_calibration": recheck,
               **({"default_conf_first": sessions[0] is session}
-                 if other is not None else {}),
+                 if paired else {}),
               "runs": out_runs})
     for n, groups in ((5, Q3_GROUPS), (13, Q13_GROUPS)):
         if not profile or n not in queries:
@@ -4174,18 +4210,23 @@ def check_placement(q, key_word, what) -> dict:
             "num_partitions": ex.n}
 
 
-def grouping_phases(session, lineitem) -> dict:
+def grouping_phases(session, lineitem, expects=None) -> dict:
     """The three phases of slice 11 over lineitem at the session's conf;
-    returns the partition kernel's launches on `stats_by_shipdate`."""
+    returns the partition kernel's launches on `stats_by_shipdate`.
+    `expects`, where given, holds the "stats" and "distinct" references
+    (`phase_references`), else they are made here."""
     import numpy as np
     import spark_rapids_tpu_torch.functions as F
     from spark_rapids_tpu_torch.columnar import dtypes as dt
     from spark_rapids_tpu_torch.ops import partition_kernels as pk
     dev = session.device
     t0 = time.perf_counter()
-    stats_expect = stats_reference(lineitem)
-    distinct_expect = distinct_reference(lineitem)
-    ref_s = time.perf_counter() - t0
+    ref_s = None
+    if expects is None:
+        expects = {"stats": stats_reference(lineitem),
+                   "distinct": distinct_reference(lineitem)}
+        ref_s = time.perf_counter() - t0
+    stats_expect, distinct_expect = expects["stats"], expects["distinct"]
 
     # ---- 1. stats_by_shipdate ----------------------------------------
     q = stats_query(session, lineitem)
@@ -4678,18 +4719,30 @@ def timestamps_reference(orders, tz=TZ) -> dict:
             "len_string": 19 * n, "string_equal": n}
 
 
-def scalar_phases(session, tables) -> dict:
+def scalar_phases(session, tables, expects=None) -> dict:
     """The three phases of slice 12 over gen_all's tables at the
     session's conf; returns the partition kernel's launches on
-    `dates_by_year`."""
+    `dates_by_year`. `expects`, where given, holds the "dates",
+    "strings" and "timestamps" references (`phase_references`), else
+    each is made here, timed (its `reference_s`)."""
     from spark_rapids_tpu_torch.ops import partition_kernels as pk
     dev = session.device
     li, orders = tables["lineitem"], tables["orders"]
 
+    made = {"dates": (dates_reference, li),
+            "strings": (strings_reference, orders),
+            "timestamps": (timestamps_reference, orders)}
+
+    def reference(name):
+        """(the reference, its seconds here, or None where given)"""
+        if expects is not None:
+            return expects[name], None
+        t0 = time.perf_counter()
+        fn, table = made[name]
+        return fn(table), time.perf_counter() - t0
+
     # ---- dates_by_year -----------------------------------------------
-    t0 = time.perf_counter()
-    expect = dates_reference(li)
-    ref_s = time.perf_counter() - t0
+    expect, ref_s = reference("dates")
     q = dates_query(session, li)
     pk.launches = pk.vector_launches = pk.scalar_launches = 0
     out, wall, layers, syncs = timed_query(q, dev)
@@ -4708,9 +4761,7 @@ def scalar_phases(session, tables) -> dict:
           "check": "exact"})
 
     # ---- strings_casts_hashes ----------------------------------------
-    t0 = time.perf_counter()
-    expect = strings_reference(orders)
-    ref_s = time.perf_counter() - t0
+    expect, ref_s = reference("strings")
     q = strings_query(session, orders)
     out, wall, layers, syncs = timed_query(q, dev)
     worst = check_strings(out, expect, "strings_casts_hashes")
@@ -4724,9 +4775,7 @@ def scalar_phases(session, tables) -> dict:
           "string_hash_s": time.perf_counter() - t0})
 
     # ---- timestamps_tz -----------------------------------------------
-    t0 = time.perf_counter()
-    expect = timestamps_reference(orders)
-    ref_s = time.perf_counter() - t0
+    expect, ref_s = reference("timestamps")
     q = timestamps_query(session, orders)
     out, wall, layers, syncs = timed_query(q, dev)
     row = out.to_pylist()[0]
@@ -4755,42 +4804,122 @@ def torch_peak(device):
     return torch.cuda.max_memory_allocated(device)
 
 
-def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY):
+#: the host references' threads (the card's machine has 8 cores)
+REFERENCE_THREADS = 8
+#: the references that took longest alone on the card's machine, started
+#: first so that none is left running alone at the end
+LONG_REFERENCES = ("stats", "strings", "q21", "q1", "shipdate", "q17",
+                   "dates", "q3", "q8", "q19", "q12", "q5", "q7")
+
+
+#: gen_all's tables, in its order, each made by one generator call
+GEN_TABLES = ("lineitem", "orders", "customer", "part", "supplier",
+              "partsupp", "nation", "region")
+#: gen_all's tables whose generators loop in Python (names, phones,
+#: brands), made in spawned processes while lineitem and orders are made
+#: here
+GEN_IN_PROCESSES = ("customer", "part", "supplier", "partsupp")
+GEN_PROCESSES = len(GEN_IN_PROCESSES)
+
+
+def generate(name, sf, seed):
+    """(gen_all's table `name` at `sf`, its generation seconds)."""
+    from spark_rapids_tpu_torch.workloads import tpch
+    t0 = time.perf_counter()
+    if name in ("lineitem", "orders", "customer"):
+        t = getattr(tpch, f"gen_{name}")(sf, seed, full=True)
+    elif name in ("part", "supplier", "partsupp"):
+        t = getattr(tpch, f"gen_{name}")(sf)
+    else:
+        t = getattr(tpch, f"gen_{name}")()
+    return t, time.perf_counter() - t0
+
+
+def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY, extra=None,
+              threads=REFERENCE_THREADS, procs=0):
     """(gen_all's tables, reference rows per query), printing each table's
     rows and generation seconds and each reference's seconds. The tables
-    are gen_all's, made one generator call at a time to time each."""
-    from spark_rapids_tpu_torch.workloads import tpch
-    makers = {
-        "lineitem": lambda: tpch.gen_lineitem(sf, seed, full=True),
-        "orders": lambda: tpch.gen_orders(sf, seed, full=True),
-        "customer": lambda: tpch.gen_customer(sf, seed, full=True),
-        "part": lambda: tpch.gen_part(sf),
-        "supplier": lambda: tpch.gen_supplier(sf),
-        "partsupp": lambda: tpch.gen_partsupp(sf),
-        "nation": tpch.gen_nation,
-        "region": tpch.gen_region,
-    }
-    tables, gen_s = {}, {}
-    for name, make in makers.items():
+    are gen_all's, made one generator call at a time to time each (with
+    `procs`, GEN_IN_PROCESSES in that many spawned processes). The
+    references run on `threads` threads (numpy and Arrow release the GIL
+    for most of their work), the longest first; `extra` maps a name to
+    a function of the tables whose result joins the returned references
+    under that name."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+    t0 = time.perf_counter()
+    made = {}
+    if procs:
+        # the Python loops hold the GIL: GEN_IN_PROCESSES in `procs`
+        # spawned processes, the rest here meanwhile
+        with ProcessPoolExecutor(procs, multiprocessing.get_context(
+                "spawn")) as ex:
+            futs = {k: ex.submit(generate, k, sf, seed)
+                    for k in GEN_IN_PROCESSES}
+            made.update({k: generate(k, sf, seed) for k in GEN_TABLES
+                         if k not in futs})
+            made.update({k: f.result() for k, f in futs.items()})
+    else:
+        made = {k: generate(k, sf, seed) for k in GEN_TABLES}
+    tables = {k: made[k][0] for k in GEN_TABLES}
+    gen_s = {k: made[k][1] for k in GEN_TABLES}
+    gen_wall = time.perf_counter() - t0
+    notes = {}
+    jobs = {f"q{n}": functools.partial(tpch_reference, n, tables, qty,
+                                       notes)
+            for n in TPCH_QUERIES if n != 18}
+    # every order over Q18's threshold, then the limit
+    jobs["q18"] = functools.partial(q18_reference, tables, qty, limit=None)
+    jobs.update({k: functools.partial(f, tables)
+                 for k, f in (extra or {}).items()})
+
+    def timed(name):
         t0 = time.perf_counter()
-        tables[name] = make()
-        gen_s[name] = time.perf_counter() - t0
-    ref_s, expects, notes = {}, {}, {}
-    for n in TPCH_QUERIES:
-        t0 = time.perf_counter()
-        if n == 18:     # every order over the threshold, then the limit
-            q18_all = q18_reference(tables, qty, limit=None)
-            expects[n] = q18_all[:100]
-        else:
-            expects[n] = tpch_reference(n, tables, qty, notes)
-        ref_s[f"q{n}"] = time.perf_counter() - t0
+        return jobs[name](), time.perf_counter() - t0
+    order = sorted(jobs, key=lambda k: LONG_REFERENCES.index(k)
+                   if k in LONG_REFERENCES else len(LONG_REFERENCES))
+    t0 = time.perf_counter()
+    with HostRss() as rss, ThreadPoolExecutor(threads) as ex:
+        done = dict(zip(order, ex.map(timed, order)))
+    wall = time.perf_counter() - t0
+    q18_all = done["q18"][0]
+    expects = {n: done[f"q{n}"][0] for n in TPCH_QUERIES}
+    expects[18] = q18_all[:100]
+    expects.update({k: done[k][0] for k in extra or {}})
     emit({"phase": "tpch_data", "sf": sf, "seed": seed,
           "rows": {k: v.num_rows for k, v in tables.items()},
-          "gen_s": gen_s, "reference_s": ref_s,
-          "result_rows": {f"q{n}": len(e) for n, e in expects.items()},
+          "gen_s": gen_s, "gen_processes": procs, "gen_wall_s": gen_wall,
+          "reference_s": {k: done[k][1] for k in jobs},
+          "reference_threads": threads, "references_wall_s": wall,
+          "references_peak_host_rss_bytes": rss.peak,
+          "result_rows": {f"q{n}": len(expects[n]) for n in TPCH_QUERIES},
           "q18_qty": qty, "q18_orders_over_qty": len(q18_all),
           "q11_fraction": tpch_kw(11, tables)["fraction"], **notes})
     return tables, expects
+
+
+def _q6_reference(tables):
+    from spark_rapids_tpu_torch.workloads import tpch
+    li = tables["lineitem"]
+    return tpch.q6_numpy_baseline(
+        li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),
+        unscaled(li, "l_quantity"), unscaled(li, "l_extendedprice"))
+
+
+#: the other phases' references over gen_all's tables, made on
+#: tpch_data's threads beside the TPC-H ones
+PHASE_REFERENCES = {
+    "q6": _q6_reference,
+    "q1": lambda t: q1_reference(t["lineitem"]),
+    "shipdate": lambda t: shipdate_reference(t["lineitem"]),
+    "q3": lambda t: q3_reference(t["customer"], t["orders"],
+                                 t["lineitem"]),
+    "stats": lambda t: stats_reference(t["lineitem"]),
+    "distinct": lambda t: distinct_reference(t["lineitem"]),
+    "dates": lambda t: dates_reference(t["lineitem"]),
+    "strings": lambda t: strings_reference(t["orders"]),
+    "timestamps": lambda t: timestamps_reference(t["orders"]),
+}
 
 
 def pool_ab_offset(argv, started: float) -> int:
@@ -4877,18 +5006,15 @@ def main() -> int:
     # gen_all's tables, made once: the opening path phases run over its
     # lineitem (its columns of `gen_lineitem`'s short form), customer and
     # orders, and the TPC-H phases over all eight
-    tpch_tables, tpch_expects = tpch_data(SF)
+    tpch_tables, tpch_expects = tpch_data(SF, extra=PHASE_REFERENCES,
+                                          procs=GEN_PROCESSES)
+    refs = {k: tpch_expects.pop(k) for k in PHASE_REFERENCES}
     li = tpch_tables["lineitem"]
     lineitem = li.select(tpch.gen_lineitem(0.0001, seed=0).column_names)
-    t0 = time.perf_counter()
-    expect = tpch.q6_numpy_baseline(
-        li.column("l_shipdate").to_numpy(), unscaled(li, "l_discount"),
-        unscaled(li, "l_quantity"), unscaled(li, "l_extendedprice"))
-    q1_expect = q1_reference(li)
-    shipdate_expect = shipdate_reference(li)
+    expect, q1_expect = refs["q6"], refs["q1"]
+    shipdate_expect = refs["shipdate"]
     emit({"phase": "data", "sf": SF, "rows": li.num_rows,
           "table": "gen_all's lineitem", "columns": lineitem.column_names,
-          "q6_q1_shipdate_reference_s": time.perf_counter() - t0,
           "q6_expected_unscaled": expect,
           "q1_expected_unscaled": {"|".join(k): v
                                    for k, v in sorted(q1_expect.items())},
@@ -4901,12 +5027,10 @@ def main() -> int:
 
     tables = tuple(tpch_tables[k] for k in ("customer", "orders",
                                             "lineitem"))
-    t0 = time.perf_counter()
-    q3_expect = q3_reference(*tables)
+    q3_expect = refs["q3"]
     emit({"phase": "q3_data", "sf": SF,
           "rows": {n: t.num_rows for n, t in zip(
               ("customer", "orders", "lineitem"), tables)},
-          "reference_s": time.perf_counter() - t0,
           "result_rows": len(q3_expect[0]),
           "top": [[int(x) for x in t] for t in zip(*(
               a[:Q3_LIMIT] for a in q3_expect))]})
@@ -4916,17 +5040,17 @@ def main() -> int:
     double_sum_repeat(session.device)
     release_pinned_cache("the adaptive pass")
     defaults = {}
-    # the second reading of each query maps serially: the pool's A/B,
-    # in the order this run's offset gives
+    # the second reading of each of AB_QUERIES maps serially: the pool's
+    # A/B, in the order this run's offset gives
     by_path.update(tpch_phases(session, tpch_tables, tpch_expects,
                                keep=defaults, ab_threads=1,
-                               ab_offset=ab_offset))
+                               ab_offset=ab_offset, ab_queries=AB_QUERIES))
     by_path.update(skew_join_phase(session, tpch_tables))
     by_path.update(join_condition_phases(session, tpch_tables))
     release_pinned_cache("the grouping phases")
-    by_path.update(grouping_phases(session, li))
+    by_path.update(grouping_phases(session, li, refs))
     release_pinned_cache("the scalar phases")
-    by_path.update(scalar_phases(session, tpch_tables))
+    by_path.update(scalar_phases(session, tpch_tables, refs))
     release_pinned_cache("the written-plan pass")
     by_path.update(tpch_phases(
         written_session(session), tpch_tables,

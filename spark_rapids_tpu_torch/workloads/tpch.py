@@ -91,7 +91,7 @@ def dec_from_unscaled(vals: np.ndarray, precision: int, scale: int):
     words[1::2] = hi
     return pa.Array.from_buffers(
         pa.decimal128(38, scale), n,
-        [None, pa.py_buffer(words.tobytes())]).cast(
+        [None, pa.py_buffer(words)]).cast(
             pa.decimal128(precision, scale))
 
 
@@ -105,6 +105,13 @@ def _pick(rng, words, n):
     return np.array(words, dtype=object)[rng.integers(0, len(words), n)]
 
 
+def _take(words, idx) -> pa.Array:
+    """words[idx] as an Arrow string array, gathered by Arrow: building it
+    from a numpy array of Python or unicode strings took most of a
+    minute over SF10's lineitem."""
+    return pa.array(list(words), pa.string()).take(pa.array(idx))
+
+
 def gen_lineitem(sf: float = 0.1, seed: int = 0,
                  full: bool = False) -> pa.Table:
     n = int(LINEITEM_ROWS_PER_SF * sf)
@@ -116,8 +123,8 @@ def gen_lineitem(sf: float = 0.1, seed: int = 0,
     shipdate = rng.integers(8036, 10591, n).astype(np.int32)      # days
     rf = rng.integers(0, 3, n)
     ls = rng.integers(0, 2, n)
-    returnflag = pa.array(np.array(["A", "N", "R"])[rf])
-    linestatus = pa.array(np.array(["F", "O"])[ls])
+    returnflag = _take(["A", "N", "R"], rf)
+    linestatus = _take(["F", "O"], ls)
     okey = rng.integers(0, max(n // 4, 1), n).astype(np.int64)
     cols = {
         "l_orderkey": pa.array(okey, pa.int64()),
@@ -147,9 +154,10 @@ def gen_lineitem(sf: float = 0.1, seed: int = 0,
                 r2.integers(1, 8, n).astype(np.int32), pa.int32()),
             "l_commitdate": pa.array(commit, pa.int32()),
             "l_receiptdate": pa.array(receipt, pa.int32()),
-            "l_shipinstruct": pa.array(_pick(r2, SHIPINSTRUCT, n),
-                                       pa.string()),
-            "l_shipmode": pa.array(_pick(r2, SHIPMODES, n), pa.string()),
+            "l_shipinstruct": _take(SHIPINSTRUCT, r2.integers(
+                0, len(SHIPINSTRUCT), n)),
+            "l_shipmode": _take(SHIPMODES, r2.integers(
+                0, len(SHIPMODES), n)),
         })
     return pa.table(cols)
 
@@ -234,18 +242,18 @@ def gen_orders(sf: float = 0.1, seed: int = 1,
         j = r2.integers(0, max(2 * ncust // 3, 1), n)
         cols["o_custkey"] = pa.array(
             (3 * (j // 2) + 1 + (j % 2)).astype(np.int64))
-        status = np.array(["F", "O", "P"])[r2.integers(0, 3, n)]
-        comments = _pick(r2, COLORS, n)
+        status = _take(["F", "O", "P"], r2.integers(0, 3, n))
+        color = r2.integers(0, len(COLORS), n)
         # about 2 % of the comments carry Q13's exclusion pattern
         special = r2.random(n) < 0.02
-        comments = np.where(
-            special, comments + np.array([" special requests"], object),
-            comments)
+        comments = _take(
+            list(COLORS) + [c + " special requests" for c in COLORS],
+            color + special * len(COLORS))
         cols.update({
-            "o_orderstatus": pa.array(status, pa.string()),
-            "o_orderpriority": pa.array(_pick(r2, ORDERPRIORITIES, n),
-                                        pa.string()),
-            "o_comment": pa.array(comments.astype(object), pa.string()),
+            "o_orderstatus": status,
+            "o_orderpriority": _take(ORDERPRIORITIES, r2.integers(
+                0, len(ORDERPRIORITIES), n)),
+            "o_comment": comments,
         })
     return pa.table(cols)
 

@@ -649,6 +649,90 @@ def test_tpch_data_prints_rows_and_seconds(capsys):
         line["result_rows"]["q18"] > 0
 
 
+def test_tpch_data_in_processes_with_the_phase_references(capsys):
+    """main's form of tpch_data: all tables but lineitem made in spawned
+    processes, every reference on the thread pool, the other phases'
+    references among them; the tables are gen_all's and every reference
+    equals the one made alone."""
+    import json
+    import pickle
+
+    from spark_rapids_tpu_torch.workloads import tpch
+    tables, expects = chip_smoke.tpch_data(
+        0.002, seed=3, qty=150, extra=chip_smoke.PHASE_REFERENCES, procs=2)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["gen_processes"] == 2 and line["reference_threads"] == 8
+    assert set(line["reference_s"]) == {
+        f"q{n}" for n in chip_smoke.TPCH_QUERIES} \
+        | set(chip_smoke.PHASE_REFERENCES)
+    exp = tpch.gen_all(0.002, seed=3)
+    assert list(tables) == list(exp)
+    assert all(tables[k].equals(exp[k]) for k in exp)
+    assert set(expects) == set(chip_smoke.TPCH_QUERIES) \
+        | set(chip_smoke.PHASE_REFERENCES)
+    for n in chip_smoke.TPCH_QUERIES:
+        alone = (chip_smoke.q18_reference(exp, 150)[:100] if n == 18 else
+                 chip_smoke.tpch_reference(n, exp, 150))
+        assert pickle.dumps(expects[n]) == pickle.dumps(alone), n
+    for k, fn in chip_smoke.PHASE_REFERENCES.items():
+        assert pickle.dumps(expects[k]) == pickle.dumps(fn(exp)), k
+
+
+class _Event:
+    def __init__(self, name, device, ns):
+        self._v = (name, device, ns)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def duration_ns(self):
+        return self._v[2]
+
+
+def test_device_entries_sum_the_device_events_by_name():
+    """profiled_query's reading of a trace: the device-side events summed
+    by name, each with its count; host events and empty ones left out."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    events = [_Event("k1", DeviceType.CUDA, 3000),
+              _Event("Memcpy HtoD", DeviceType.CUDA, 500),
+              _Event("k1", DeviceType.CUDA, 1000),
+              _Event("k2", DeviceType.CUDA, 0),
+              _Event("aten::add", DeviceType.CPU, 9000)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    assert sorted(chip_smoke.device_entries(prof)) == [
+        ("Memcpy HtoD", 0.5, 1), ("k1", 4.0, 2)]
+
+
+def test_adaptive_pool_ab_pairs_only_the_ab_queries(tpch_small, capsys):
+    """With `ab_queries` the pool A/B reads only those queries twice; the
+    others run once, at the session's map pool."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    queries = (4, 18)
+    expects = {n: chip_smoke.tpch_reference(n, tpch_small) for n in queries}
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    chip_smoke.tpch_phases(s, tpch_small, expects, runs=2, queries=queries,
+                           profile=False, ab_threads=1, ab_queries=(4,))
+    phases = {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    q4, q18 = phases["tpch_q4"], phases["tpch_q18"]
+    assert q4["runs_bit_equal"] is True and "default_conf_first" in q4
+    assert sorted(r["map_threads"] for r in q4["runs"][:2]) == sorted(
+        [1, chip_smoke.map_threads_of(s)])
+    assert len(q18["runs"]) == 1 and "default_conf_first" not in q18
+    assert q18["runs"][0]["map_threads"] == chip_smoke.map_threads_of(s)
+    assert set(chip_smoke.TPCH_DOUBLE_QUERIES) <= set(chip_smoke.AB_QUERIES)
+
+
 def test_partition_launches_follow_the_plan(tpch_small):
     """A plan with an exchange on one int32 key must launch the kernel
     on the card, every launch the vector variant; any other plan must
