@@ -2,7 +2,11 @@
 
 A column is a data tensor plus a bool validity tensor (True = valid) of
 one length; a string or binary column adds int32 offsets [n + 1] over
-uint8 bytes, as Arrow lays them out. Unlike the JAX package, which pads every buffer to a
+uint8 bytes, as Arrow lays them out. A list or map column has int32
+offsets [n + 1] into one child column of elements (a map's elements are
+struct<key, value>); a struct column has one child column per field,
+each of n rows, under its own validity. A nested column's data tensor
+is empty, and its children's lengths are their tensors' lengths. Unlike the JAX package, which pads every buffer to a
 power-of-two capacity to bound XLA recompiles, the port keeps columns at
 their true length: eager PyTorch compiles nothing per shape. A column may
 still arrive padded (`interop.batch_from_numpy` takes the JAX package's
@@ -10,27 +14,68 @@ padded buffers); `length` is then the logical row count and `capacity`
 the buffer length.
 
 Host decode and export are numpy <-> Arrow; the move between host and
-device is `exec/batch.py`'s `to_device` / `to_host`.
+device is `exec/batch.py`'s `to_device` / `to_host`. On the host a
+column is a buffer tree: a dict of "data", "validity", "offsets" (var
+width and lists) and "children" (a list of such dicts, nested types);
+every transfer lists its buffers flat, in `buffer_names` order.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..errors import NotPorted
+from ..ops.kernel_utils import CV
 from . import dtypes as dt
 
-__all__ = ["Column", "buffer_names"]
+__all__ = ["Column", "buffer_names", "child_dtypes", "tree_from_flat",
+           "tree_to_flat"]
+
+
+def child_dtypes(dtype: dt.DataType):
+    """The types of a column's children: a list's element, a struct's
+    fields; none for a flat column."""
+    if isinstance(dtype, (dt.ArrayType, dt.MapType)):
+        return [dt.element_dtype(dtype)]
+    if isinstance(dtype, dt.StructType):
+        return [f.dtype for f in dtype.fields]
+    return []
+
+
+def _own_names(dtype: dt.DataType):
+    if dtype.is_variable_width or isinstance(dtype, (dt.ArrayType,
+                                                     dt.MapType)):
+        return ("data", "validity", "offsets")
+    return ("data", "validity")
 
 
 def buffer_names(dtype: dt.DataType):
     """The host/device buffers of a column of `dtype`, in the order every
-    transfer lists them."""
-    if dtype.is_variable_width:
-        return ("data", "validity", "offsets")
-    return ("data", "validity")
+    transfer lists them: its own, then each child's, depth first (a
+    child's names prefixed "ch<j>.")."""
+    out = list(_own_names(dtype))
+    for j, c in enumerate(child_dtypes(dtype)):
+        out += [f"ch{j}.{n}" for n in buffer_names(c)]
+    return tuple(out)
+
+
+def tree_from_flat(dtype: dt.DataType, it) -> dict:
+    """A column's buffer tree from an iterator over its flat buffers."""
+    tree = {k: next(it) for k in _own_names(dtype)}
+    kids = child_dtypes(dtype)
+    if kids:
+        tree["children"] = [tree_from_flat(c, it) for c in kids]
+    return tree
+
+
+def tree_to_flat(dtype: dt.DataType, tree: dict) -> list:
+    """Inverse of `tree_from_flat`."""
+    out = [tree[k] for k in _own_names(dtype)]
+    for c, sub in zip(child_dtypes(dtype), tree.get("children", ())):
+        out += tree_to_flat(c, sub)
+    return out
 
 
 class Column:
@@ -38,16 +83,41 @@ class Column:
 
     def __init__(self, dtype: dt.DataType, length: int, data: torch.Tensor,
                  validity: torch.Tensor,
-                 offsets: Optional[torch.Tensor] = None):
+                 offsets: Optional[torch.Tensor] = None,
+                 children: Sequence["Column"] = ()):
         self.dtype = dtype
         self.length = int(length)
         self.data = data
         self.validity = validity
         self.offsets = offsets
+        self.children = list(children)
 
     def buffers(self):
         """This column's tensors in `buffer_names` order."""
-        return [getattr(self, b) for b in buffer_names(self.dtype)]
+        out = [getattr(self, b) for b in _own_names(self.dtype)]
+        for c in self.children:
+            out += c.buffers()
+        return out
+
+    @staticmethod
+    def from_buffers(dtype: dt.DataType, length: int, it) -> "Column":
+        """A column from an iterator over its tensors in `buffer_names`
+        order."""
+        own = [next(it) for _ in _own_names(dtype)]
+        kids = [Column.from_buffers(c, 0, it) for c in child_dtypes(dtype)]
+        for k in kids:
+            k.length = k.capacity
+        return Column(dtype, length, *own, children=kids)
+
+    def cv(self) -> CV:
+        return CV(self.data, self.validity, self.offsets,
+                  tuple(c.cv() for c in self.children))
+
+    @staticmethod
+    def from_cv(dtype: dt.DataType, length: int, cv: CV) -> "Column":
+        kids = [Column.from_cv(c, ccv.capacity, ccv)
+                for c, ccv in zip(child_dtypes(dtype), cv.children)]
+        return Column(dtype, length, cv.data, cv.validity, cv.offsets, kids)
 
     @property
     def capacity(self) -> int:
@@ -108,6 +178,28 @@ class Column:
                 data = words[2 * o:2 * (o + n):2].copy()
             return dtype, n, {"data": data, "validity": validity}
 
+        if isinstance(dtype, (dt.ArrayType, dt.MapType)):
+            # offsets rebased to start at 0 over the elements they span
+            # (a null row keeps whatever range Arrow gave it; every op
+            # masks a row's elements by its validity)
+            if pa.types.is_large_list(arr.type):
+                arr = arr.cast(pa.list_(arr.type.value_type))
+            off = np.frombuffer(arr.buffers()[1], dtype=np.int32,
+                                count=n + 1 + arr.offset)[arr.offset:]
+            lo, hi = (int(off[0]), int(off[-1])) if n else (0, 0)
+            values = arr.values.slice(lo, hi - lo)
+            _, _, child = Column.host_from_arrow(
+                values, dt.element_dtype(dtype))
+            return dtype, n, {"data": np.zeros(0, np.int8),
+                              "validity": validity,
+                              "offsets": (off - lo).astype(np.int32),
+                              "children": [child]}
+        if isinstance(dtype, dt.StructType):
+            kids = [Column.host_from_arrow(arr.field(i), f.dtype)[2]
+                    for i, f in enumerate(dtype.fields)]
+            return dtype, n, {"data": np.zeros(0, np.int8),
+                              "validity": validity, "children": kids}
+
         if isinstance(dtype, dt.DateType):
             data = np.asarray(arr.fill_null(0).cast(pa.int32()))
         elif isinstance(dtype, dt.TimestampType):
@@ -138,6 +230,8 @@ class Column:
         if isinstance(dtype, dt.NullType):
             return pa.nulls(n)
         all_valid = bool(validity.all())
+        if dtype.is_nested:
+            return _nested_arrow(dtype, n, bufs, validity, all_valid)
         if dtype.is_variable_width:
             off = np.asarray(bufs["offsets"])[:n + 1].astype(np.int32)
             bitmap = (None if all_valid else
@@ -175,3 +269,38 @@ class Column:
             return pa.array(vals, type=pa.timestamp("us"), mask=mask).cast(
                 dt.to_arrow(dtype))
         return pa.array(vals, type=dt.to_arrow(dtype), mask=mask)
+
+
+def _nested_arrow(dtype, n: int, bufs, validity, all_valid: bool):
+    """A list, map or struct Arrow array from its host buffer tree. A
+    list's elements are gathered to a dense layout of its valid rows, so
+    the array never references elements of a null row."""
+    import pyarrow as pa
+    kids = bufs["children"]
+    if isinstance(dtype, dt.StructType):
+        arrs = [Column.arrow_from_host(f.dtype, n, cb)
+                for f, cb in zip(dtype.fields, kids)]
+        mask = None if all_valid else pa.array(~validity)
+        return pa.StructArray.from_arrays(
+            arrs, [f.name for f in dtype.fields], mask=mask)
+    off = np.asarray(bufs["offsets"])[:n + 1].astype(np.int64)
+    lens = np.where(validity, off[1:] - off[:-1], 0) if n else \
+        np.zeros(0, np.int64)
+    dense = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=dense[1:])
+    total = int(dense[-1])
+    idx = (np.repeat(off[:-1] - dense[:-1], lens)
+           + np.arange(total, dtype=np.int64))
+    cb = kids[0]
+    ecap = int(np.asarray(cb["validity"]).shape[0])
+    edt = dt.element_dtype(dtype)
+    child = Column.arrow_from_host(edt, ecap, cb)
+    if not (total == ecap and (idx == np.arange(total)).all()):
+        child = child.take(pa.array(idx, type=pa.int64()))
+    mask = None if all_valid else np.concatenate([~validity, [False]])
+    off_arr = pa.array(dense.astype(np.int32), type=pa.int32(), mask=mask)
+    if isinstance(dtype, dt.MapType):
+        return pa.MapArray.from_arrays(off_arr, child.field(0),
+                                       child.field(1))
+    return pa.ListArray.from_arrays(off_arr, child,
+                                    type=dt.to_arrow(dtype))

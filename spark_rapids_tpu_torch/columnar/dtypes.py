@@ -14,12 +14,19 @@ ported slice needs. Device representations:
   - StringType / BinaryType -> uint8 bytes plus int32 offsets [n + 1]
   - TimestampType    -> int64 microseconds since the epoch (UTC)
 
-Nested types exist so that schemas of real tables resolve; a column of
-one of them on the device raises NotPorted.
+  - ArrayType        -> int32 offsets [n + 1] plus one element child
+  - StructType       -> one child per field
+  - MapType          -> a list of struct<key, value>
+
+A nested column's own data tensor is empty: its values live in its
+children (`ops/kernel_utils.py` `CV`).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -29,11 +36,12 @@ from ..errors import NotPorted
 __all__ = [
     "DataType", "BooleanType", "ByteType", "ShortType", "IntegerType",
     "LongType", "FloatType", "DoubleType", "StringType", "BinaryType",
-    "DateType", "TimestampType", "DecimalType", "NullType", "NestedType",
+    "DateType", "TimestampType", "DecimalType", "NullType", "ArrayType",
+    "StructType", "StructField", "MapType",
     "BOOL", "INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
     "STRING", "BINARY", "DATE", "TIMESTAMP", "NULLTYPE",
     "promote", "from_arrow", "to_arrow", "torch_dtype", "alloc_shape",
-    "from_name",
+    "from_name", "element_dtype",
 ]
 
 
@@ -58,8 +66,13 @@ class DataType:
 
     @property
     def is_variable_width(self) -> bool:
-        """Bytes plus offsets: string and binary."""
+        """Bytes plus offsets: string and binary. (The JAX package counts
+        arrays and maps here too; the port asks `is_nested` for them.)"""
         return isinstance(self, (StringType, BinaryType))
+
+    @property
+    def is_nested(self) -> bool:
+        return isinstance(self, (ArrayType, StructType, MapType))
 
     def simple_name(self) -> str:
         return type(self).__name__.replace("Type", "").lower()
@@ -122,23 +135,6 @@ class NullType(DataType):
     np_dtype = np.dtype(np.int8)
 
 
-class NestedType(DataType):
-    """List, struct or map: named by its Arrow type, never on device."""
-
-    def __init__(self, arrow_type):
-        self.arrow_type = arrow_type
-
-    def simple_name(self) -> str:
-        return str(self.arrow_type)
-
-    def __eq__(self, other):
-        return (isinstance(other, NestedType)
-                and other.arrow_type == self.arrow_type)
-
-    def __hash__(self):
-        return hash((NestedType, str(self.arrow_type)))
-
-
 class DecimalType(DataType):
     """Fixed-point decimal. p <= 18 is backed by a scaled int64."""
 
@@ -175,6 +171,71 @@ class DecimalType(DataType):
         return hash((DecimalType, self.precision, self.scale))
 
 
+@dataclasses.dataclass(frozen=True)
+class StructField:
+    name: str
+    dtype: "DataType"
+    nullable: bool = True
+
+
+class StructType(DataType):
+    def __init__(self, fields: Tuple[StructField, ...]):
+        self.fields = tuple(fields)
+
+    def simple_name(self) -> str:
+        inner = ",".join(f"{f.name}:{f.dtype.simple_name()}"
+                         for f in self.fields)
+        return f"struct<{inner}>"
+
+    def __eq__(self, other):
+        return isinstance(other, StructType) and other.fields == self.fields
+
+    def __hash__(self):
+        return hash((StructType, self.fields))
+
+
+class ArrayType(DataType):
+    def __init__(self, element: DataType, contains_null: bool = True):
+        self.element = element
+        self.contains_null = contains_null
+
+    def simple_name(self) -> str:
+        return f"array<{self.element.simple_name()}>"
+
+    def __eq__(self, other):
+        return isinstance(other, ArrayType) and other.element == self.element
+
+    def __hash__(self):
+        return hash((ArrayType, self.element))
+
+
+class MapType(DataType):
+    def __init__(self, key: DataType, value: DataType,
+                 value_contains_null: bool = True):
+        self.key = key
+        self.value = value
+        self.value_contains_null = value_contains_null
+
+    def simple_name(self) -> str:
+        return f"map<{self.key.simple_name()},{self.value.simple_name()}>"
+
+    def __eq__(self, other):
+        return (isinstance(other, MapType) and other.key == self.key
+                and other.value == self.value)
+
+    def __hash__(self):
+        return hash((MapType, self.key, self.value))
+
+
+def element_dtype(dtype: DataType) -> DataType:
+    """The element type of a list layout; a map is a list of
+    struct<key, value> (JAX `Column.element_dtype`)."""
+    if isinstance(dtype, MapType):
+        return StructType((StructField("key", dtype.key, False),
+                           StructField("value", dtype.value)))
+    return dtype.element
+
+
 BOOL = BooleanType()
 INT8 = ByteType()
 INT16 = ShortType()
@@ -202,7 +263,10 @@ _TORCH = {
 
 
 def torch_dtype(dt: DataType) -> torch.dtype:
-    """Tensor dtype of a column's data buffer."""
+    """Tensor dtype of a column's data buffer (a nested column's is an
+    empty int8 tensor)."""
+    if dt.is_nested:
+        return torch.int8
     try:
         return _TORCH[type(dt)]
     except KeyError:
@@ -250,8 +314,13 @@ def from_arrow(at) -> DataType:
             return dt
     if pa.types.is_decimal(at):
         return DecimalType(at.precision, at.scale)
-    if pa.types.is_nested(at):
-        return NestedType(at)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow(at.value_type))
+    if pa.types.is_struct(at):
+        return StructType(tuple(StructField(f.name, from_arrow(f.type))
+                                for f in at))
+    if pa.types.is_map(at):
+        return MapType(from_arrow(at.key_type), from_arrow(at.item_type))
     raise TypeError(f"unsupported arrow type: {at}")
 
 
@@ -259,8 +328,12 @@ def to_arrow(dt: DataType):
     import pyarrow as pa
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
-    if isinstance(dt, NestedType):
-        return dt.arrow_type
+    if isinstance(dt, ArrayType):
+        return pa.list_(to_arrow(dt.element))
+    if isinstance(dt, StructType):
+        return pa.struct([(f.name, to_arrow(f.dtype)) for f in dt.fields])
+    if isinstance(dt, MapType):
+        return pa.map_(to_arrow(dt.key), to_arrow(dt.value))
     return {BooleanType: pa.bool_(), ByteType: pa.int8(),
             ShortType: pa.int16(), IntegerType: pa.int32(),
             LongType: pa.int64(), FloatType: pa.float32(),

@@ -6,7 +6,7 @@ from typing import List, Sequence
 import torch
 
 from . import dtypes as dt
-from .column import Column, buffer_names
+from .column import Column, tree_to_flat
 
 __all__ = ["Field", "Schema", "Table"]
 
@@ -82,8 +82,7 @@ class Table:
         names = list(at.schema.names)
         host = [Column.host_from_arrow(at.column(i))
                 for i in range(len(names))]
-        flat = [b[k] for dtype, _, b in host for k in buffer_names(dtype)]
+        flat = [a for dtype, _, b in host for a in tree_to_flat(dtype, b)]
         dev = iter(to_device(flat, device))
-        cols = [Column(dtype, n, *[next(dev) for _ in buffer_names(dtype)])
-                for dtype, n, _ in host]
+        cols = [Column.from_buffers(dtype, n, dev) for dtype, n, _ in host]
         return Table(names, cols)

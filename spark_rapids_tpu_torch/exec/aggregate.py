@@ -31,6 +31,7 @@ order only a sort defines.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -38,9 +39,9 @@ import torch
 from ..columnar import dtypes as dt
 from ..columnar.table import Field, Schema
 from ..config import AGG_MAX_MERGE_ROWS, AGG_STRING_HASH_KEYS
-from ..errors import NotPorted
 from ..expr.aggregates import (AggExpr, Count, CountDistinct, Percentile,
-                                _FirstLast, _pick, _seg_extreme_pos, ident,
+                                _Collect, _FirstLast, _pick,
+                                _seg_extreme_pos, ident, percentile_list,
                                 seg_any, seg_min_max, seg_sum)
 from ..expr.expressions import (Alias, BoundRef, EmitCtx, Expression,
                                 UnsupportedExpr)
@@ -50,7 +51,7 @@ from ..ops.concat import concat_cvs, concat_masks
 from ..ops.gather import compact, compaction_perm, gather_cols, take
 from ..ops.hash import (_mul32, hash_once_rows, murmur3_row_hash,
                         partition_ids)
-from ..ops.kernel_utils import CV, fma
+from ..ops.kernel_utils import CV, fma, null_cv
 from ..utils import transfer
 from ..utils.transfer import fetch_ints
 from .base import ExecContext, TpuExec, collapse_fusable
@@ -183,19 +184,27 @@ class UngroupedAggExec(TpuExec):
         if acc is None:
             # an aggregate over empty input still yields one row: the
             # stages run over zero-length base columns
-            cvs = [CV(torch.zeros(dt.alloc_shape(f.dtype, 0),
-                                  dtype=dt.torch_dtype(f.dtype),
-                                  device=ctx.device),
-                      torch.zeros(0, dtype=torch.bool, device=ctx.device))
+            cvs = [null_cv(f.dtype, 0, ctx.device)
                    for f in base.schema.fields]
             acc = self._update(cvs, torch.zeros(0, dtype=torch.bool,
                                                 device=ctx.device))
         out = []
         for a, s in zip(self.aggs, acc):
             v, ok = a.finalize(s)
-            out.append(CV(v.reshape((1,) + tuple(v.shape)), ok.reshape(1)))
+            out.append(_with_valid(v.reshape((1,) + tuple(v.shape))
+                                   if not isinstance(v, CV) else v,
+                                   ok.reshape(1)))
         ctx.add_metric(self._op_id, "numOutputRows", 1)
         yield DeviceBatch(make_table(self.schema, out, 1), 1)
+
+
+def _with_valid(v, ok) -> CV:
+    """A finalized value as a column: a tensor with validity `ok`, or an
+    array-valued finalize (a list of percentages) with `ok` ANDed into
+    its rows' validity."""
+    if isinstance(v, CV):
+        return dataclasses.replace(v, validity=v.validity & ok)
+    return CV(v, ok)
 
 
 class HashAggregateExec(TpuExec):
@@ -306,7 +315,8 @@ class HashAggregateExec(TpuExec):
                                  torch.ones_like(mask)))
                 continue
             cv = a.child.emit(ectx)
-            if cv.offsets is not None:    # count reads the validity only
+            if cv.offsets is not None or cv.children:
+                # count reads the validity only
                 cv = CV(torch.zeros(cap, dtype=torch.int8,
                                     device=mask.device), cv.validity)
             inputs.append(cv)
@@ -485,7 +495,7 @@ class HashAggregateExec(TpuExec):
             k = _state_width(a)
             v, ok = a.finalize(tuple(st[i:i + k]))
             i += k
-            outs.append(CV(v, ok & sl))
+            outs.append(_with_valid(v, ok & sl))
         return outs
 
     def _emit_batch(self, part: Partial, emit_partial: bool) -> DeviceBatch:
@@ -614,12 +624,7 @@ class HashAggregateExec(TpuExec):
                 h.close()
 
     def _empty_batch(self, device) -> DeviceBatch:
-        cvs = [CV(torch.zeros(dt.alloc_shape(f.dtype, 0),
-                              dtype=dt.torch_dtype(f.dtype), device=device),
-                  torch.zeros(0, dtype=torch.bool, device=device),
-                  torch.zeros(1, dtype=torch.int32, device=device)
-                  if f.dtype.is_variable_width else None)
-               for f in self.schema.fields]
+        cvs = [null_cv(f.dtype, 0, device) for f in self.schema.fields]
         return DeviceBatch(make_table(self.schema, cvs, 0), 0,
                            torch.zeros(0, dtype=torch.bool, device=device))
 
@@ -670,18 +675,37 @@ class HashAggregateExec(TpuExec):
                 h.close()
 
 
+def _list_output(vs: CV, keep, seg_ids, nseg: int) -> CV:
+    """A list column of `nseg` rows from the kept rows of `vs` (in
+    segment order, each segment's rows in order): per-segment counts
+    give the offsets, the kept rows in order the element child (JAX
+    `exec/aggregate.py:1425`). One host read, the kept count."""
+    cnt = seg_sum(keep.to(torch.int64), seg_ids, nseg)
+    off = torch.zeros(nseg + 1, dtype=torch.int32, device=keep.device)
+    if nseg:
+        torch.cumsum(cnt, 0, dtype=torch.int32, out=off[1:])
+    idx = torch.nonzero(keep).squeeze(1)
+    transfer.note_sync()
+    child = take(vs, idx)
+    return CV(torch.zeros(0, dtype=torch.int8, device=keep.device),
+              torch.ones(nseg, dtype=torch.bool, device=keep.device), off,
+              (child,))
+
+
 class CollectAggExec(TpuExec):
     """Grouped aggregation on the sort path, for the aggregates the
     fixed-width state wire cannot carry (the port of the JAX package's
     `exec/aggregate.py:1267-1515`): count(DISTINCT) beside another
-    aggregate or over several children, percentile and median, first /
-    last of a string. The partition's batches concatenate on the device
+    aggregate or over several children, percentile and median (a list
+    of percentages too), first / last of a string, collect_list and
+    collect_set. The partition's batches concatenate on the device
     and compact to their live rows (like the JAX class, a whole
     partition at once and outside any retry scope, ROADMAP C.10); one
     stable sort by the keys makes each group's rows contiguous, in input
     order. Plain aggregates ride that segmentation (`g_update`, then
-    `finalize`); a count(DISTINCT) and a percentile add a second sort of
-    each group's values. The output holds the groups only (the JAX class
+    `finalize`); a count(DISTINCT), a percentile and a collect_set add a
+    second sort of each group's values; a collect's kept rows, in order,
+    are its list child. The output holds the groups only (the JAX class
     pads to the partition's rows): one host read counts them.
 
     The planner first hash-exchanges the input rows on the grouping
@@ -745,6 +769,9 @@ class CollectAggExec(TpuExec):
             elig = valid if a.ignore_nulls else torch.ones_like(valid)
             sel, has = _seg_extreme_pos(elig, seg_ids, nseg, a.take_first)
             return take(vs, sel, in_bounds=has)
+        if isinstance(a, _Collect) and not a.is_set:
+            # collect_list: the key sort is stable, so input order
+            return _list_output(vs, valid, seg_ids, nseg)
         order2, varrs = self._value_order(a, vs, seg_ids)
         if isinstance(a, CountDistinct):
             seg2 = seg_ids[order2]
@@ -756,7 +783,13 @@ class CollectAggExec(TpuExec):
         if isinstance(a, Percentile):
             return self._percentile_output(a, vs, valid, seg_ids, order2,
                                            starts, nseg)
-        raise NotPorted(f"{a!r} (an ArrayType result, ROADMAP A.5)")
+        # collect_set: each value's first occurrence in the value order
+        # (a stable sort: the first in input order)
+        seg2 = seg_ids[order2]
+        firsts = sk.group_boundaries([seg2] + [x[order2] for x in varrs])
+        first = torch.zeros_like(firsts)
+        first[order2] = firsts
+        return _list_output(vs, valid & first, seg_ids, nseg)
 
     @staticmethod
     def _percentile_output(a, vs, valid, seg_ids, order2, starts, nseg):
@@ -767,17 +800,22 @@ class CollectAggExec(TpuExec):
         n = vs.validity.shape[0]
         nvalid = seg_sum(valid.to(torch.int32), seg_ids, nseg)
         sorted_vals = vs.data[order2]
-        fi = a.percentages[0] * (nvalid - 1).clamp(min=0).to(torch.float64)
-        lo = torch.floor(fi).to(torch.int64)
-        hi = torch.ceil(fi).to(torch.int64)
-        vlo = _pick(sorted_vals, (starts + lo).clamp(0, max(n - 1, 0)))
-        vhi = _pick(sorted_vals, (starts + hi).clamp(0, max(n - 1, 0)))
-        frac = fi - lo.to(torch.float64)
-        # vlo (1 - frac) + vhi frac, as the JAX package's CPU compile
-        # contracts it: one rounding of vhi * frac + (vlo (1 - frac))
-        v = fma(vhi.to(torch.float64), frac,
-                vlo.to(torch.float64) * (1 - frac))
-        return CV(v, nvalid > 0)
+        outs = []
+        for p in a.percentages:
+            fi = p * (nvalid - 1).clamp(min=0).to(torch.float64)
+            lo = torch.floor(fi).to(torch.int64)
+            hi = torch.ceil(fi).to(torch.int64)
+            vlo = _pick(sorted_vals, (starts + lo).clamp(0, max(n - 1, 0)))
+            vhi = _pick(sorted_vals, (starts + hi).clamp(0, max(n - 1, 0)))
+            frac = fi - lo.to(torch.float64)
+            # vlo (1 - frac) + vhi frac, as the JAX package's CPU compile
+            # contracts it: one rounding of vhi * frac + (vlo (1 - frac))
+            outs.append(fma(vhi.to(torch.float64), frac,
+                            vlo.to(torch.float64) * (1 - frac)))
+        ok = nvalid > 0
+        if a.scalar_out:
+            return CV(outs[0], ok)
+        return percentile_list(outs, ok)
 
     def _run(self, cvs, n: int, dev) -> DeviceBatch:
         ectx = EmitCtx(cvs, n, dev)
@@ -795,15 +833,16 @@ class CollectAggExec(TpuExec):
                 outs.append(self._collect_output(a, take(cv, perm),
                                                  seg_ids, starts, nseg))
                 continue
-            if cv.offsets is not None:      # count reads the validity
+            if cv.offsets is not None or cv.children:
+                # count reads the validity
                 scv = CV(torch.zeros(n, dtype=torch.int8, device=dev),
                          cv.validity[perm])
             else:
                 scv = CV(cv.data[perm], cv.validity[perm])
             v, ok = a.finalize(a.g_update(scv, live, seg_ids, nseg))
             # a count's validity is one 0-d True
-            outs.append(CV(v, ok & torch.ones(nseg, dtype=torch.bool,
-                                              device=dev)))
+            outs.append(_with_valid(v, ok & torch.ones(
+                nseg, dtype=torch.bool, device=dev)))
         return DeviceBatch(make_table(self.schema, outs, nseg), nseg)
 
     def execute_partition(self, ctx: ExecContext, pid: int):
@@ -821,15 +860,7 @@ class CollectAggExec(TpuExec):
                        for i, f in enumerate(fields)]
                 mask = concat_masks([b.row_mask for b in batches])
             else:
-                cvs = [CV(torch.zeros(dt.alloc_shape(f.dtype, 0),
-                                      dtype=dt.torch_dtype(f.dtype),
-                                      device=ctx.device),
-                          torch.zeros(0, dtype=torch.bool,
-                                      device=ctx.device),
-                          torch.zeros(1, dtype=torch.int32,
-                                      device=ctx.device)
-                          if f.dtype.is_variable_width else None)
-                       for f in fields]
+                cvs = [null_cv(f.dtype, 0, ctx.device) for f in fields]
                 mask = torch.zeros(0, dtype=torch.bool, device=ctx.device)
             del batches
             cvs, n = compact(cvs, mask)

@@ -119,8 +119,7 @@ class DeviceBatch:
         return self.row_mask.device
 
     def cvs(self) -> List[CV]:
-        return [CV(c.data, c.validity, c.offsets)
-                for c in self.table.columns]
+        return [c.cv() for c in self.table.columns]
 
     @property
     def nbytes(self) -> int:

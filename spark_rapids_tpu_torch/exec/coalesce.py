@@ -13,7 +13,18 @@ from .base import ExecContext, TpuExec
 from .batch import DeviceBatch
 from .nodes import make_table
 
-__all__ = ["CoalesceBatchesExec"]
+__all__ = ["CoalesceBatchesExec", "concat_batches"]
+
+
+def concat_batches(batches: List[DeviceBatch], schema) -> DeviceBatch:
+    """One batch of the live rows of `batches`, in order."""
+    if len(batches) == 1:
+        return batches[0]
+    cvs = [concat_cvs([b.cvs()[i] for b in batches], f.dtype)
+           for i, f in enumerate(schema.fields)]
+    mask = torch.cat([b.row_mask for b in batches])
+    out_cvs, n = compact(cvs, mask)
+    return DeviceBatch(make_table(schema, out_cvs, n), n, device=mask.device)
 
 
 class CoalesceBatchesExec(TpuExec):
@@ -27,16 +38,6 @@ class CoalesceBatchesExec(TpuExec):
     def num_partitions(self, ctx):
         n = self.children[0].num_partitions(ctx)
         return max(1, -(-n // self.fan_in))
-
-    def _flush(self, pending: List[DeviceBatch]):
-        if len(pending) == 1:
-            return pending[0]
-        cvs = [concat_cvs([b.cvs()[i] for b in pending], f.dtype)
-               for i, f in enumerate(self.schema.fields)]
-        mask = torch.cat([b.row_mask for b in pending])
-        out_cvs, n = compact(cvs, mask)
-        return DeviceBatch(make_table(self.schema, out_cvs, n), n,
-                           device=mask.device)
 
     def _child_batches(self, ctx, pid):
         child = self.children[0]
@@ -55,7 +56,7 @@ class CoalesceBatchesExec(TpuExec):
             pending.append(batch)
             pending_rows += batch.num_rows
             if pending_rows >= self.target:
-                yield self._flush(pending)
+                yield concat_batches(pending, self.schema)
                 pending, pending_rows = [], 0
         if pending:
-            yield self._flush(pending)
+            yield concat_batches(pending, self.schema)

@@ -58,12 +58,13 @@ import numpy as np
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.column import Column, buffer_names
+from ..columnar.column import Column, tree_from_flat, tree_to_flat
 from ..columnar.table import Schema, Table
 from ..expr.expressions import EmitCtx, Expression
 from ..memory.retry import retry_no_split, with_retry
 from ..ops.gather import take
 from ..ops.hash import partition_ids
+from ..ops.kernel_utils import cv_buffers
 from ..ops.partition_kernels import partition_ids_i32
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, to_device, to_host
@@ -104,8 +105,8 @@ class ShuffleExchangeExec(TpuExec):
 
     def _map_batch(self, batch: DeviceBatch):
         """Partition one batch on the device; return its host copy:
-        per-column buffers ({"data", "validity"[, "offsets"]}) sorted by
-        target, and the counts."""
+        per-column buffer trees (`columnar/column.py`) sorted by target,
+        and the counts."""
         cvs, mask = batch.cvs(), batch.row_mask
         pids = self._partition_ids(cvs, mask)
         eff = torch.where(mask, pids, self.n)
@@ -113,10 +114,9 @@ class ShuffleExchangeExec(TpuExec):
         counts = torch.bincount(eff.to(torch.int64),
                                 minlength=self.n + 1)[:self.n]
         out = [take(cv, order, mask[order]) for cv in cvs]
-        names = [buffer_names(f.dtype) for f in self.schema.fields]
-        host = iter(to_host([getattr(cv, b) for cv, bs in zip(out, names)
-                             for b in bs] + [counts]))
-        cols = [{b: next(host) for b in bs} for bs in names]
+        host = iter(to_host([t for cv in out for t in cv_buffers(cv)]
+                            + [counts]))
+        cols = [tree_from_flat(f.dtype, host) for f in self.schema.fields]
         return cols, next(host)
 
     def _ensure_shuffled(self, ctx: ExecContext):
@@ -271,18 +271,17 @@ class ShuffleExchangeExec(TpuExec):
         total = sum(rows for _, rows, _ in subs)
         if total == 0:
             return None
-        names = [buffer_names(f.dtype) for f in self.schema.fields]
+        fields = self.schema.fields
 
         def reduce():
-            host = [a for j in range(len(names))
-                    for a in _concat([cols[j] for cols, _, _ in subs],
-                                     names[j])]
+            host = [a for j, f in enumerate(fields)
+                    for a in tree_to_flat(f.dtype, _concat(
+                        [cols[j] for cols, _, _ in subs]))]
             return iter(to_device(host, ctx.device))
 
         with ctx.timer(self._op_id, "reduceTime"):
             dev = retry_no_split(reduce, dm=ctx.device_manager)
-        cols = [Column(f.dtype, total, *[next(dev) for _ in bs])
-                for f, bs in zip(self.schema.fields, names)]
+        cols = [Column.from_buffers(f.dtype, total, dev) for f in fields]
         return DeviceBatch(Table(self.schema.names, cols), total,
                            device=ctx.device)
 
@@ -358,30 +357,51 @@ def range_key_ok(dtype) -> bool:
 
 
 def _nbytes(cols) -> int:
-    return sum(a.nbytes for c in cols for a in c.values())
+    return sum(_tree_nbytes(c) for c in cols)
+
+
+def _tree_nbytes(col: dict) -> int:
+    return sum(v.nbytes for k, v in col.items() if k != "children") \
+        + sum(_tree_nbytes(c) for c in col.get("children", ()))
 
 
 def _slice(col: dict, lo: int, hi: int) -> dict:
-    """Rows [lo, hi) of one column's host buffers (views; a string
-    column's offsets stay absolute into its bytes)."""
-    out = {"data": col["data"][lo:hi], "validity": col["validity"][lo:hi]}
+    """Rows [lo, hi) of one column's host buffer tree (views). String
+    and list offsets stay absolute; the bytes (elements) below are
+    sliced to the rows' range, recursively."""
+    out = {"data": col["data"], "validity": col["validity"][lo:hi]}
+    kids = col.get("children")
     if "offsets" in col:
         off = col["offsets"][lo:hi + 1]
         out["offsets"] = off
-        out["data"] = col["data"][off[0]:off[-1]]
+        if kids:
+            out["children"] = [_slice(kids[0], int(off[0]), int(off[-1]))]
+        else:
+            out["data"] = col["data"][off[0]:off[-1]]
+    elif kids:
+        out["children"] = [_slice(c, lo, hi) for c in kids]
+    else:
+        out["data"] = col["data"][lo:hi]
     return out
 
 
-def _concat(parts, names):
-    """One column's pieces joined on the host, in `names` order; string
-    offsets rebased onto the joined bytes."""
-    joined = {b: np.concatenate([p[b] for p in parts])
-              for b in ("data", "validity")}
-    if "offsets" in names:
+def _concat(parts) -> dict:
+    """One column's pieces joined on the host into one buffer tree;
+    string and list offsets rebased onto the joined bytes (elements)."""
+    p0 = parts[0]
+    out = {"data": p0["data"],
+           "validity": np.concatenate([p["validity"] for p in parts])}
+    kids = p0.get("children")
+    if "offsets" in p0:
         offs, base = [np.zeros(1, np.int32)], 0
         for p in parts:
             off = p["offsets"]
             offs.append(off[1:] - off[0] + base)
             base += int(off[-1] - off[0])
-        joined["offsets"] = np.concatenate(offs).astype(np.int32)
-    return [joined[b] for b in names]
+        out["offsets"] = np.concatenate(offs).astype(np.int32)
+    if kids:
+        out["children"] = [_concat([p["children"][j] for p in parts])
+                           for j in range(len(kids))]
+    else:
+        out["data"] = np.concatenate([p["data"] for p in parts])
+    return out

@@ -77,6 +77,7 @@ abandoned.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import List, Optional, Sequence
 
@@ -93,7 +94,7 @@ from ..ops import sortkeys as sk
 from ..ops.concat import concat_cvs, concat_masks
 from ..ops.gather import gather_cols, gather_groups, row_of_unit
 from ..ops.hash import partition_ids
-from ..ops.kernel_utils import CV
+from ..ops.kernel_utils import CV, null_cv
 from ..utils import transfer
 from ..utils.transfer import fetch_int, fetch_ints
 from .base import ExecContext, TpuExec
@@ -109,18 +110,7 @@ _I64_MIN = -(1 << 63)
 
 def _null_cvs(fields, n: int, device) -> List[CV]:
     """All-null columns of n rows (the outer joins' missing side)."""
-    out = []
-    for f in fields:
-        valid = torch.zeros(n, dtype=torch.bool, device=device)
-        if f.dtype.is_variable_width:
-            out.append(CV(torch.zeros(0, dtype=torch.uint8, device=device),
-                          valid, torch.zeros(n + 1, dtype=torch.int32,
-                                             device=device)))
-        else:
-            out.append(CV(torch.zeros(dt.alloc_shape(f.dtype, n),
-                                      dtype=dt.torch_dtype(f.dtype),
-                                      device=device), valid))
-    return out
+    return [null_cv(f.dtype, n, device) for f in fields]
 
 
 def _live_rows(mask: torch.Tensor) -> torch.Tensor:
@@ -389,7 +379,7 @@ class HashJoinExec(TpuExec):
         n = int(unmatched.shape[0])
         out_cvs = _null_cvs(self.children[0].schema.fields, n,
                             unmatched.device)
-        out_cvs += [CV(cv.data, cv.validity & unmatched, cv.offsets)
+        out_cvs += [dataclasses.replace(cv, validity=cv.validity & unmatched)
                     for cv in bcvs]
         ctx.add_metric(self._op_id, "numOutputBatches", 1)
         return DeviceBatch(make_table(self.schema, out_cvs, n), n,

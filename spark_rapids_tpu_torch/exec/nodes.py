@@ -19,7 +19,7 @@ from typing import Iterator, List, Optional, Sequence
 import torch
 
 from ..columnar import dtypes as dt
-from ..columnar.column import Column, buffer_names
+from ..columnar.column import Column, tree_from_flat
 from ..columnar.table import Schema, Table
 from ..config import (MULTITHREADED_READ_THREADS, PARQUET_COALESCING_TARGET,
                       PARQUET_DEVICE_DECODE, PARQUET_DEVICE_SNAPPY,
@@ -33,14 +33,13 @@ from ..utils import transfer
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, _torch_dtype, to_host
 
-__all__ = ["InMemoryScanExec", "ParquetScanExec", "ProjectExec",
-           "FilterExec", "LimitExec", "collect_to_arrow", "make_table",
-           "prune_row_groups"]
+__all__ = ["InMemoryScanExec", "CachedScanExec", "ParquetScanExec",
+           "ProjectExec", "FilterExec", "LimitExec", "UnionExec",
+           "collect_to_arrow", "make_table", "prune_row_groups"]
 
 
 def make_table(schema: Schema, cvs: Sequence[CV], num_rows: int) -> Table:
-    return Table(schema.names, [Column(f.dtype, num_rows, cv.data,
-                                       cv.validity, cv.offsets)
+    return Table(schema.names, [Column.from_cv(f.dtype, num_rows, cv)
                                 for f, cv in zip(schema.fields, cvs)])
 
 
@@ -80,6 +79,25 @@ class InMemoryScanExec(TpuExec):
         if n <= 0 and pid > 0:
             return
         yield _upload(ctx, self._op_id, self.arrow.slice(start, max(n, 0)))
+
+
+class CachedScanExec(TpuExec):
+    """Serves device-resident batches (`DataFrame.cache`) as they are,
+    one a partition (GpuInMemoryTableScan analog). Like the JAX class it
+    holds plain device batches, outside the device budget (ROADMAP A.5
+    records the choice). It shares the logical node's batch list, so
+    `DataFrame.uncache` frees them from every plan at once."""
+
+    def __init__(self, batches, schema: Schema):
+        super().__init__([], schema)
+        self.batches = batches
+
+    def num_partitions(self, ctx):
+        return max(1, len(self.batches))
+
+    def execute_partition(self, ctx, pid):
+        if pid < len(self.batches):
+            yield self.batches[pid]
 
 
 def _rg_survives(stats, op: str, value) -> bool:
@@ -614,6 +632,25 @@ class LimitExec(TpuExec):
                 yield batch
 
 
+class UnionExec(TpuExec):
+    """UNION ALL: the children's partitions, one after another; a child
+    batch's columns take the union's names by position."""
+
+    def num_partitions(self, ctx):
+        return sum(c.num_partitions(ctx) for c in self.children)
+
+    def execute_partition(self, ctx, pid):
+        for c in self.children:
+            n = c.num_partitions(ctx)
+            if pid < n:
+                for b in c.execute_partition(ctx, pid):
+                    yield DeviceBatch(Table(self.schema.names,
+                                            b.table.columns),
+                                      b.num_rows, b.row_mask)
+                return
+            pid -= n
+
+
 # ----------------------------------------------------------------------
 def _batch_to_arrow(batch: DeviceBatch):
     import pyarrow as pa
@@ -622,9 +659,9 @@ def _batch_to_arrow(batch: DeviceBatch):
                    + [batch.row_mask])
     mask = host[-1][:batch.num_rows]
     it = iter(host)
-    arrs = [Column.arrow_from_host(
-        c.dtype, c.length, {k: next(it) for k in buffer_names(c.dtype)})
-        for c in cols]
+    arrs = [Column.arrow_from_host(c.dtype, c.length,
+                                   tree_from_flat(c.dtype, it))
+            for c in cols]
     at = (pa.Table.from_arrays(arrs, names=list(batch.table.names))
           if arrs else pa.table({}))
     if at.num_rows == 0 and batch.num_rows > 0:

@@ -53,7 +53,8 @@ from .expressions import Expression, UnsupportedExpr
 __all__ = ["AggExpr", "Sum", "Count", "CountStar", "Avg", "Min", "Max",
            "CountDistinct", "First", "Last", "Variance", "Stddev",
            "ApproxCountDistinct", "Percentile", "ApproxPercentile",
-           "Median", "seg_sum", "seg_any", "seg_min_max", "float_key"]
+           "Median", "CollectList", "CollectSet", "seg_sum", "seg_any",
+           "seg_min_max", "float_key"]
 
 
 def seg_sum(x: torch.Tensor, seg_ids: torch.Tensor,
@@ -353,7 +354,7 @@ class _MinMax(AggExpr):
 
     def _resolve_type(self):
         ct = self.child.dtype
-        if ct.is_variable_width:
+        if ct.is_variable_width or ct.is_nested:
             raise UnsupportedExpr(f"min/max({ct}) round-1")
         self._d128_in = isinstance(ct, dt.DecimalType) and ct.is_decimal128
         self.state_reducers = (("custom",) if self._d128_in else
@@ -449,12 +450,43 @@ class CountDistinct(AggExpr):
     is_collect = True
 
     def _resolve_type(self):
-        if isinstance(self.child.dtype, dt.NestedType):
+        if self.child.dtype.is_nested:
             raise UnsupportedExpr("count distinct over nested input")
         self.dtype = dt.INT64
 
     def __repr__(self):
         return f"count(DISTINCT {self.child})"
+
+
+class _Collect(AggExpr):
+    """collect_list / collect_set on `CollectAggExec`'s sort path (JAX
+    `expr/aggregates.py:568-600`): one stable sort by the keys makes each
+    group's values contiguous, in input order, and the kept values are
+    the list child. collect_set keeps each value's first occurrence (a
+    second sort by value finds it), in that same order. Nulls are
+    skipped; an empty group gives an empty list."""
+
+    state_reducers = None
+    is_collect = True
+    is_set = False
+
+    def _resolve_type(self):
+        if self.child.dtype.is_nested:
+            raise UnsupportedExpr(
+                f"{type(self).__name__.lower()} over nested input")
+        self.dtype = dt.ArrayType(self.child.dtype, contains_null=False)
+
+
+class CollectList(_Collect):
+    def __repr__(self):
+        return f"collect_list({self.child})"
+
+
+class CollectSet(_Collect):
+    is_set = True
+
+    def __repr__(self):
+        return f"collect_set({self.child})"
 
 
 # ----------------------------------------------------------------------
@@ -502,7 +534,7 @@ class _FirstLast(AggExpr):
 
     def _resolve_type(self):
         ct = self.child.dtype
-        if isinstance(ct, dt.NestedType):
+        if ct.is_nested:
             raise UnsupportedExpr("first/last on nested input")
         if ct.is_variable_width:
             self.is_collect = True
@@ -716,7 +748,7 @@ class ApproxCountDistinct(AggExpr):
 
     def bind(self, schema):
         bc = self.child.bind(schema)
-        if isinstance(bc.dtype, dt.NestedType):
+        if bc.dtype.is_nested:
             raise UnsupportedExpr("approx_count_distinct over nested")
         b = type(self)(_HllHash(bc), self.rsd)
         b._resolve_type()
@@ -797,18 +829,12 @@ class ApproxCountDistinct(AggExpr):
 # ----------------------------------------------------------------------
 # percentile, median (the sort path) and percentile_approx (t-digest)
 # ----------------------------------------------------------------------
-def _refuse_array(kind: str):
-    from ..errors import NotPorted
-    raise NotPorted(f"{kind} over a list of percentages (an ArrayType "
-                    f"result, ROADMAP A.5)")
-
-
 class Percentile(AggExpr):
     """percentile / median over `CollectAggExec`'s value sort: each
     group's values lie contiguous and ordered, so a percentile is a rank
     selection, linearly interpolated (Spark's percentile). Exact, and
     the accuracy argument is accepted and ignored. A list of
-    percentages returns an ArrayType, which waits for A.5."""
+    percentages returns an array of doubles, one element a percentage."""
 
     is_collect = True
     state_reducers = None
@@ -834,12 +860,23 @@ class Percentile(AggExpr):
         ct = self.child.dtype
         if not ct.is_numeric or isinstance(ct, dt.DecimalType):
             raise UnsupportedExpr(f"percentile over {ct}")
-        if not self.scalar_out:
-            _refuse_array(repr(self).split("(")[0])
-        self.dtype = dt.FLOAT64
+        self.dtype = (dt.FLOAT64 if self.scalar_out
+                      else dt.ArrayType(dt.FLOAT64))
 
     def __repr__(self):
         return f"percentile({self.child}, {self.percentages})"
+
+
+def percentile_list(values, ok) -> CV:
+    """Per-percentage value columns [n] as a list column of n rows, each
+    holding one element a percentage, row-major; the rows' validity is
+    `ok`, their elements' too."""
+    n, k = ok.shape[0], len(values)
+    data = torch.stack(values, dim=1).reshape(-1)
+    off = torch.arange(n + 1, dtype=torch.int32, device=ok.device) * k
+    child = CV(data, ok.repeat_interleave(k))
+    return CV(torch.zeros(0, dtype=torch.int8, device=ok.device), ok, off,
+              (child,))
 
 
 class Median(Percentile):
@@ -1022,25 +1059,32 @@ class ApproxPercentile(Percentile):
         totw = cw.sum(dim=1)
         mid = torch.where(cw > 0, torch.cumsum(cw, 1) - cw / 2,
                           float("inf"))
-        t = self.percentages[0] * totw
-        j = (mid <= t[:, None]).sum(dim=1)
-        jl = (j - 1).clamp(0, C - 1)[:, None]
-        jr = j.clamp(0, C - 1)[:, None]
-        lm = torch.where(j > 0, torch.gather(cm, 1, jl)[:, 0], vmin)
-        lr = torch.where(j > 0, torch.gather(mid, 1, jl)[:, 0], 0.0)
-        rm = torch.where(j < nc, torch.gather(cm, 1, jr)[:, 0], vmax)
-        rr = torch.where(j < nc, torch.gather(mid, 1, jr)[:, 0], totw)
-        frac = ((t - lr) / (rr - lr).clamp(min=1e-300)).clamp(0.0, 1.0)
-        # a NaN neighbour must not poison an answer at frac 0 or 1; an
-        # interior frac with a NaN right neighbour keeps the left
-        # centroid, so NaN comes back only from the NaN centroid's own
-        # midpoint on (docs/compatibility.md)
-        mid_v = lm + frac * (rm - lm)
-        mid_v = torch.where(torch.isnan(rm) & ~torch.isnan(lm), lm, mid_v)
-        v = torch.where(frac <= 0.0, lm, torch.where(frac >= 1.0, rm,
-                                                     mid_v))
+        outs = []
+        for pq in self.percentages:
+            t = pq * totw
+            j = (mid <= t[:, None]).sum(dim=1)
+            jl = (j - 1).clamp(0, C - 1)[:, None]
+            jr = j.clamp(0, C - 1)[:, None]
+            lm = torch.where(j > 0, torch.gather(cm, 1, jl)[:, 0], vmin)
+            lr = torch.where(j > 0, torch.gather(mid, 1, jl)[:, 0], 0.0)
+            rm = torch.where(j < nc, torch.gather(cm, 1, jr)[:, 0], vmax)
+            rr = torch.where(j < nc, torch.gather(mid, 1, jr)[:, 0], totw)
+            frac = ((t - lr) / (rr - lr).clamp(min=1e-300)).clamp(0.0, 1.0)
+            # a NaN neighbour must not poison an answer at frac 0 or 1;
+            # an interior frac with a NaN right neighbour keeps the left
+            # centroid, so NaN comes back only from the NaN centroid's
+            # own midpoint on (docs/compatibility.md)
+            mid_v = lm + frac * (rm - lm)
+            mid_v = torch.where(torch.isnan(rm) & ~torch.isnan(lm), lm,
+                                mid_v)
+            outs.append(torch.where(frac <= 0.0, lm, torch.where(
+                frac >= 1.0, rm, mid_v)))
         ok = totw > 0
-        return (v[0], ok[0]) if ungrouped else (v, ok)
+        if self.scalar_out:
+            v = outs[0]
+            return (v[0], ok[0]) if ungrouped else (v, ok)
+        v = percentile_list(outs, torch.ones_like(ok))
+        return (v, ok[0]) if ungrouped else (v, ok)
 
     def __repr__(self):
         return f"percentile_approx({self.child}, {self.percentages})"

@@ -31,7 +31,6 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.table import Schema
-from ..errors import NotPorted
 from ..ops import elementwise as ew
 from ..ops.kernel_utils import CV
 
@@ -60,6 +59,9 @@ class EmitCtx:
         self.cvs = list(cvs)
         self.capacity = capacity
         self.device = device
+        # the values of bound lambda variables (`collection_exprs.py`'s
+        # higher-order functions): variable id -> element-domain CV
+        self.lambda_vals = {}
 
 
 class Expression:
@@ -175,6 +177,20 @@ class Expression:
     def substr(self, start, length=None):
         from .string_exprs import Substring
         return Substring(self, start, length)
+
+    # the collection surface (collection_exprs imports this module)
+    def getItem(self, key):
+        from .collection_exprs import GetArrayItem
+        return GetArrayItem(self, _wrap(key))
+
+    def getField(self, name: str):
+        from .collection_exprs import GetStructField
+        return GetStructField(self, name)
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return self.getField(key)
+        return self.getItem(key)
 
 
 def _wrap(v) -> Expression:
@@ -383,12 +399,6 @@ def _coerce_decimal(l, r):
         return (Cast.bound(l, dt.FLOAT64), Cast.bound(r, dt.FLOAT64),
                 dt.FLOAT64)
     return as_dec(l), as_dec(r), None
-
-
-def _reject_d128(*dtypes):
-    for t in dtypes:
-        if isinstance(t, dt.DecimalType) and t.is_decimal128:
-            raise NotPorted(f"decimal arithmetic at precision > 18 ({t})")
 
 
 def _refuse_d128(dtype, what: str):
@@ -774,25 +784,28 @@ class Ge(_Comparison):
 
 
 class EqNullSafe(_Comparison):
-    """<=>: null <=> null is true; never null."""
+    """<=>: null <=> null is true, null <=> a value false; never null.
+    Strings compare by bytes, decimal128 by both words (at one scale)."""
     symbol = "<=>"
     kernel = staticmethod(ew.eq_null_safe)
-
-    def _resolve_type(self):
-        super()._resolve_type()
-        if not any(isinstance(c.dtype, dt.NullType)
-                   for c in (self.left, self.right)):
-            _reject_d128(self.left.dtype, self.right.dtype)
 
     def emit(self, ctx):
         null = self._null_side(ctx)
         if null is not None:
             return null
-        if not _is_str(self.left.dtype):
+        lt_, rt = self.left.dtype, self.right.dtype
+        d128 = isinstance(lt_, dt.DecimalType) and (
+            lt_.is_decimal128 or rt.is_decimal128)
+        if not (_is_str(lt_) or d128):
             return super().emit(ctx)
-        from ..ops import strings as ops_str
         l, r = self.left.emit(ctx), self.right.emit(ctx)
-        c = ops_str.compare(l, r)
+        if d128:
+            from ..ops.decimal128 import dec_cmp_scaled
+            c = dec_cmp_scaled(_as_dec128(l, lt_).data, lt_.scale,
+                               _as_dec128(r, rt).data, rt.scale)
+        else:
+            from ..ops import strings as ops_str
+            c = ops_str.compare(l, r)
         out = (~l.validity & ~r.validity) | (l.validity & r.validity
                                              & (c == 0))
         return CV(out, torch.ones_like(out))

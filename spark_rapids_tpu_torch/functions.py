@@ -4,17 +4,18 @@ naming.
 
 Every public name of the JAX module is here. The aggregates, the null,
 condition and math functions, the string functions, the hash functions,
-the date and time functions and the time-zone conversions build the
-port's expressions. The rest raise NotPorted naming the ROADMAP item
-that ports them: regex, JSON and parse_url (A.10); arrays, structs,
-maps, explode, the higher-order functions, collect_list / collect_set
-and grouping_id (A.5); the window functions (A.6); bloom_filter_agg and
-might_contain (A.9); udf and df_udf (A.12).
+the date and time functions, the time-zone conversions, the array,
+struct and map functions, explode, the higher-order functions,
+collect_list / collect_set and grouping_id build the port's expressions.
+The rest raise NotPorted naming the ROADMAP item that ports them: regex,
+JSON and parse_url (A.10); the window functions (A.6); bloom_filter_agg
+and might_contain (A.9); udf and df_udf (A.12).
 """
 from __future__ import annotations
 
 from .errors import NotPorted
 from .expr import aggregates as _agg
+from .expr import collection_exprs as _ce
 from .expr import datetime_exprs as _de
 from .expr import string_exprs as _se
 from .expr.expressions import (Abs, CaseWhen, Cast, Coalesce,  # noqa: F401
@@ -38,7 +39,11 @@ __all__ = [
     "year", "month", "dayofmonth", "dayofweek", "dayofyear", "quarter",
     "hour", "minute", "second", "date_add", "date_sub", "datediff",
     "last_day", "to_date", "to_timestamp", "from_utc_timestamp",
-    "to_utc_timestamp",
+    "to_utc_timestamp", "array", "struct", "named_struct", "get_field",
+    "size", "element_at", "array_contains", "array_min", "array_max",
+    "sort_array", "map_keys", "map_values", "explode", "explode_outer",
+    "posexplode", "posexplode_outer", "transform", "filter", "exists",
+    "forall", "aggregate", "collect_list", "collect_set", "grouping_id",
 ]
 
 
@@ -400,15 +405,133 @@ def to_utc_timestamp(e, tz: str):
 
 
 # ----------------------------------------------------------------------
+# arrays, structs and maps
+# ----------------------------------------------------------------------
+def array(*es):
+    return _ce.CreateArray([_to_expr(e) for e in es])
+
+
+def struct(*es):
+    """A struct of the given columns: a field is named by its alias or
+    column name, else col<i>."""
+    from .expr.expressions import Alias
+    names, children = [], []
+    for i, e in enumerate(es):
+        ex = _to_expr(e)
+        if isinstance(ex, Alias):
+            names.append(ex.name)
+            children.append(ex.child)
+        elif isinstance(ex, ColumnRef):
+            names.append(ex.name)
+            children.append(ex)
+        else:
+            names.append(f"col{i + 1}")
+            children.append(ex)
+    return _ce.CreateNamedStruct(names, children)
+
+
+def named_struct(*pairs):
+    names = [pairs[i] for i in range(0, len(pairs), 2)]
+    children = [_to_expr(pairs[i]) for i in range(1, len(pairs), 2)]
+    return _ce.CreateNamedStruct(names, children)
+
+
+def get_field(e, name: str):
+    return _ce.GetStructField(_to_expr(e), name)
+
+
+def size(e):
+    return _ce.Size(_to_expr(e))
+
+
+def element_at(e, key):
+    return _ce.ElementAt(_to_expr(e), key)
+
+
+def array_contains(e, value):
+    return _ce.ArrayContains(_to_expr(e), value)
+
+
+def array_min(e):
+    return _ce.ArrayMin(_to_expr(e))
+
+
+def array_max(e):
+    return _ce.ArrayMax(_to_expr(e))
+
+
+def sort_array(e, asc: bool = True):
+    return _ce.SortArray(_to_expr(e), asc)
+
+
+def map_keys(e):
+    return _ce.MapKeys(_to_expr(e))
+
+
+def map_values(e):
+    return _ce.MapValues(_to_expr(e))
+
+
+def explode(e):
+    return _ce.Explode(_to_expr(e))
+
+
+def explode_outer(e):
+    g = _ce.Explode(_to_expr(e))
+    g.outer = True
+    return g
+
+
+def posexplode(e):
+    return _ce.PosExplode(_to_expr(e))
+
+
+def posexplode_outer(e):
+    g = _ce.PosExplode(_to_expr(e))
+    g.outer = True
+    return g
+
+
+def transform(e, fn):
+    return _ce.ArrayTransform(_to_expr(e), fn)
+
+
+def filter(e, fn):  # noqa: A001 - pyspark naming
+    return _ce.ArrayFilter(_to_expr(e), fn)
+
+
+def exists(e, fn):
+    return _ce.ArrayExists(_to_expr(e), fn)
+
+
+def forall(e, fn):
+    return _ce.ArrayForAll(_to_expr(e), fn)
+
+
+def aggregate(e, zero, merge):
+    return _ce.ArrayAggregate(_to_expr(e), zero, merge)
+
+
+def collect_list(e):
+    return _agg.CollectList(_to_expr(e))
+
+
+def collect_set(e):
+    return _agg.CollectSet(_to_expr(e))
+
+
+def grouping_id():
+    """Marker for a rollup / cube / grouping_sets agg list: the row's
+    grouping-set id column."""
+    from .session import GroupingID
+    return GroupingID()
+
+
+# ----------------------------------------------------------------------
 # The JAX module's other entries: each raises NotPorted naming the
 # ROADMAP item that ports it.
 # ----------------------------------------------------------------------
 _NOT_PORTED = {
-    "A.5": ("array struct named_struct get_field size element_at "
-            "array_contains array_min array_max sort_array map_keys "
-            "map_values explode explode_outer posexplode posexplode_outer "
-            "transform filter exists forall aggregate collect_list "
-            "collect_set grouping_id"),
     "A.6": ("row_number rank dense_rank percent_rank cume_dist ntile lag "
             "lead first_value last_value nth_value"),
     "A.9": "bloom_filter_agg might_contain",

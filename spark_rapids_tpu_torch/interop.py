@@ -6,7 +6,9 @@ and `np.asarray(batch.row_mask)`), padding rows and the [n, 2] decimal128
 layout included; a string or binary column adds its int32 offsets
 (`np.asarray(cv.offsets)`, capacity + 1 of them) after the validity, and
 its data is the byte buffer, which may run past the last offset (the
-JAX package pads it). `batch_to_numpy` is its inverse. Only numpy
+JAX package pads it). A nested column's buffers are a flat tuple in the
+port's `buffer_names` order (its own data, validity and offsets, then
+each child's, depth first). `batch_to_numpy` is its inverse. Only numpy
 crosses, so neither package imports the other.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from .columnar import dtypes as dt
-from .columnar.column import Column
+from .columnar.column import Column, buffer_names
 from .columnar.table import Schema, Table
 from .exec.batch import DeviceBatch, to_device, to_host
 from .session import _resolve_device
@@ -34,8 +36,14 @@ def batch_from_numpy(schema: Schema,
     as a session's does."""
     dev = _resolve_device(device)
     cap = len(row_mask)
-    flat, widths = [], []
+    flat = []
     for f, bufs in zip(schema.fields, buffers):
+        if f.dtype.is_nested:
+            if len(bufs) != len(buffer_names(f.dtype)) or len(bufs[1]) != cap:
+                raise ValueError(f"column {f.name}: {len(bufs)} buffers do "
+                                 f"not match {f.dtype} at capacity {cap}")
+            flat += [np.asarray(b) for b in bufs]
+            continue
         var = f.dtype.is_variable_width
         data, valid = bufs[0], bufs[1]
         data = np.asarray(data, dtype=f.dtype.np_dtype)
@@ -54,12 +62,10 @@ def batch_from_numpy(schema: Schema,
                              f"capacity {cap} of {f.dtype}")
         flat += [data, np.asarray(valid, dtype=np.bool_)] \
             + ([off] if var else [])
-        widths.append(3 if var else 2)
     dev_bufs = to_device(flat + [np.asarray(row_mask, np.bool_)], dev)
-    cols, i = [], 0
-    for f, w in zip(schema.fields, widths):
-        cols.append(Column(f.dtype, num_rows, *dev_bufs[i:i + w]))
-        i += w
+    it = iter(dev_bufs[:-1])
+    cols = [Column.from_buffers(f.dtype, num_rows, it)
+            for f in schema.fields]
     return DeviceBatch(Table(schema.names, cols), num_rows, dev_bufs[-1])
 
 

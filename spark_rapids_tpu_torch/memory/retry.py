@@ -117,16 +117,18 @@ def split_batch_in_half(batch):
     column's half is a view of its rows, a string column's half a view
     of its rows' byte range of the shared buffer, its offsets rebased
     (one host read of the ranges' ends for all string columns), so a
-    gather over a half sizes its output by the half's bytes. The halves
-    need not be of equal or power-of-two length."""
+    gather over a half sizes its output by the half's bytes. A nested
+    column's half is gathered (one more host read, for its sizes). The
+    halves need not be of equal or power-of-two length."""
     from ..exec.batch import DeviceBatch
+    from ..ops.gather import gather_cols
     from ..utils.transfer import fetch_ints
     cap = batch.capacity
     if cap < 2:
         raise OutOfCoreError("cannot split a batch of one row")
     half = cap // 2
     cols = batch.table.columns
-    strs = [c for c in cols if c.offsets is not None]
+    strs = [c for c in cols if c.offsets is not None and not c.children]
     ends = iter(fetch_ints([c.offsets[i] for c in strs
                             for i in (0, half, cap)]))
     bounds = {id(c): (next(ends), next(ends), next(ends)) for c in strs}
@@ -135,6 +137,11 @@ def split_batch_in_half(batch):
         halves = []
         for c in cols:
             n = max(0, min(c.length, hi) - lo)
+            if c.children:
+                idx = torch.arange(lo, hi, device=c.validity.device)
+                halves.append(Column.from_cv(
+                    c.dtype, n, gather_cols([c.cv()], idx, None)[0]))
+                continue
             if c.offsets is None:
                 halves.append(Column(c.dtype, n, c.data[lo:hi],
                                      c.validity[lo:hi]))

@@ -9,8 +9,8 @@ pressure, and `materialize()` brings it back to the device. Lower
 priority values spill first, then bigger handles.
 
 A handle copies every buffer of its batch (each column's data,
-validity and string offsets, decimal128 `[n, 2]` limbs included, and the
-row mask) into ONE pageable host buffer, each buffer at a 16 B aligned
+validity and string or list offsets, decimal128 `[n, 2]` limbs included,
+a nested column's children depth first, and the row mask) into ONE pageable host buffer, each buffer at a 16 B aligned
 offset, so the round trip is byte for byte and the way back is one
 copy and views. The copies never allocate pinned memory: the CUDA
 pinned-host cache keeps every pinned block it ever made, and a spill
@@ -92,7 +92,7 @@ class SpillableBatchHandle:
         self._disk_path: Optional[str] = None
         cols = batch.table.columns
         self._meta = (list(batch.table.names),
-                      [(c.dtype, c.length, len(c.buffers())) for c in cols],
+                      [(c.dtype, c.length) for c in cols],
                       batch.num_rows)
         self._pinned = 0
         self._host_reserved = False
@@ -184,9 +184,8 @@ class SpillableBatchHandle:
                                          self.device))
                     names, cols, num_rows = self._meta
                     table = Table(names, [
-                        Column(dtype, length,
-                               *[next(it) for _ in range(nb)])
-                        for dtype, length, nb in cols])
+                        Column.from_buffers(dtype, length, it)
+                        for dtype, length in cols])
                     self._batch = DeviceBatch(table, num_rows, next(it))
                 except BaseException:
                     self.store.dm.release(self.nbytes)

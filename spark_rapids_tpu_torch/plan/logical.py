@@ -1,8 +1,9 @@
 """Logical plan nodes built by the DataFrame API: the ported subset.
 
-Scans (in-memory Arrow, Parquet), Project, Filter, Aggregate (grouped
-or not), Join (every `how` of the JAX package; the planner raises on
-`cross` and on a `condition`), Sort, Limit and Repartition. Expressions bind against the child schema when a node is
+Scans (in-memory Arrow, Parquet, cached device batches), Project,
+Filter, Aggregate (grouped or not), Expand (grouping sets), Join (every
+`how` of the JAX package), Sort, Limit, Union, Generate (explode) and
+Repartition. Expressions bind against the child schema when a node is
 built, as in the JAX package; an expression the port cannot evaluate
 raises there (NotPorted or UnsupportedExpr) instead of planning a host
 fallback.
@@ -11,13 +12,14 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+from ..columnar import dtypes as dt
 from ..columnar.table import Field, Schema
 from ..expr import aggregates as agg
 from ..expr.expressions import Expression
 
-__all__ = ["LogicalPlan", "InMemoryScan", "ParquetScan", "Project",
-           "Filter", "Aggregate", "Join", "SortOrder", "Sort", "Limit",
-           "Repartition"]
+__all__ = ["LogicalPlan", "InMemoryScan", "CachedScan", "ParquetScan",
+           "Project", "Filter", "Aggregate", "Expand", "Join", "SortOrder",
+           "Sort", "Limit", "Union", "Generate", "Repartition"]
 
 
 class LogicalPlan:
@@ -29,6 +31,9 @@ class LogicalPlan:
 
     def node_name(self) -> str:
         return type(self).__name__
+
+    def describe(self) -> str:
+        return self.node_name()
 
 
 class InMemoryScan(LogicalPlan):
@@ -42,6 +47,32 @@ class InMemoryScan(LogicalPlan):
     @property
     def schema(self):
         return self._schema
+
+    def describe(self):
+        return f"InMemoryScan[rows={self.arrow.num_rows}] {self._schema}"
+
+
+class CachedScan(LogicalPlan):
+    """Scan over device-resident batches (`DataFrame.cache`), the
+    analog of the reference's GpuInMemoryTableScanExec: a query over it
+    skips the host decode and the copy to the device. Once released
+    (`DataFrame.uncache`) a query plans `source`, the plan it cached."""
+
+    def __init__(self, batches, schema: Schema,
+                 source: Optional[LogicalPlan] = None):
+        self.batches = list(batches)
+        self._schema = schema
+        self.source = source
+        self.released = False
+        self.children = []
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return (f"CachedScan[{len(self.batches)} device batches] "
+                f"{self._schema}")
 
 
 class ParquetScan(LogicalPlan):
@@ -65,6 +96,9 @@ class ParquetScan(LogicalPlan):
     def schema(self):
         return self._schema
 
+    def describe(self):
+        return f"ParquetScan[{len(self.paths)} files] {self._schema}"
+
 
 class Project(LogicalPlan):
     def __init__(self, child: LogicalPlan, exprs: Sequence[Expression]):
@@ -79,6 +113,9 @@ class Project(LogicalPlan):
     def schema(self):
         return self._schema
 
+    def describe(self):
+        return f"Project[{', '.join(map(repr, self.exprs))}]"
+
 
 class Filter(LogicalPlan):
     def __init__(self, child: LogicalPlan, condition: Expression):
@@ -90,6 +127,9 @@ class Filter(LogicalPlan):
     @property
     def schema(self):
         return self.child.schema
+
+    def describe(self):
+        return f"Filter[{self.condition!r}]"
 
 
 class Aggregate(LogicalPlan):
@@ -112,6 +152,39 @@ class Aggregate(LogicalPlan):
     @property
     def schema(self):
         return self._schema
+
+    def describe(self):
+        return (f"Aggregate[keys={[repr(k) for k in self.keys]}, "
+                f"aggs={[n for n, _ in self.aggs]}]")
+
+
+class Expand(LogicalPlan):
+    """The grouping-sets expansion under an Aggregate (reference:
+    GpuExpandExec.scala): the child's columns, then the grouping keys
+    (null where a set excludes the key), then the grouping id."""
+
+    def __init__(self, child: LogicalPlan, key_exprs: Sequence[Expression],
+                 key_names: Sequence[str], include_masks, gid_name: str):
+        self.child = child
+        self.children = [child]
+        self.key_exprs = list(key_exprs)
+        self.key_names = list(key_names)
+        self.include_masks = [tuple(m) for m in include_masks]
+        self.gid_name = gid_name
+        self.bound_keys = [k.bind(child.schema) for k in self.key_exprs]
+        fields = list(child.schema.fields)
+        fields += [Field(n, k.dtype)
+                   for n, k in zip(self.key_names, self.bound_keys)]
+        fields.append(Field(gid_name, dt.INT64))
+        self._schema = Schema(fields)
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return (f"Expand[{len(self.include_masks)} sets, "
+                f"keys={self.key_names}]")
 
 
 class Join(LogicalPlan):
@@ -149,6 +222,10 @@ class Join(LogicalPlan):
     def schema(self):
         return self._schema
 
+    def describe(self):
+        return (f"Join[{self.how}, "
+                f"on={list(zip(self.left_keys, self.right_keys))}]")
+
 
 class SortOrder:
     def __init__(self, expr: Expression, ascending: bool = True,
@@ -179,6 +256,9 @@ class Sort(LogicalPlan):
     def schema(self):
         return self.child.schema
 
+    def describe(self):
+        return f"Sort[{self.orders}]"
+
 
 class Limit(LogicalPlan):
     def __init__(self, child: LogicalPlan, n: int):
@@ -189,6 +269,56 @@ class Limit(LogicalPlan):
     @property
     def schema(self):
         return self.child.schema
+
+    def describe(self):
+        return f"Limit[{self.n}]"
+
+
+class Union(LogicalPlan):
+    """UNION ALL by position: the children's column types must agree;
+    the names are the first child's."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self.children = list(children)
+        s0 = self.children[0].schema
+        for c in self.children[1:]:
+            if [f.dtype for f in c.schema.fields] != \
+                    [f.dtype for f in s0.fields]:
+                raise ValueError("UNION schema mismatch")
+        self._schema = s0
+
+    @property
+    def schema(self):
+        return self._schema
+
+
+class Generate(LogicalPlan):
+    """explode / posexplode: the child's columns, then [pos], then the
+    element (col) or a map entry's key and value; one output row per
+    element."""
+
+    def __init__(self, child: LogicalPlan, generator, out_names):
+        self.child = child
+        self.children = [child]
+        self.generator = generator              # unbound Explode
+        self.bound = generator.bind(child.schema)
+        self.out_names = list(out_names)
+        gen_fields = []
+        if self.bound.with_position:
+            gen_fields.append(Field(self.out_names[0], dt.INT32))
+        if isinstance(self.bound.child.dtype, dt.MapType):
+            for f, nm in zip(self.bound.dtype.fields, self.out_names[-2:]):
+                gen_fields.append(Field(nm, f.dtype))
+        else:
+            gen_fields.append(Field(self.out_names[-1], self.bound.dtype))
+        self._schema = Schema(list(child.schema.fields) + gen_fields)
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"Generate[{self.generator!r}]"
 
 
 class Repartition(LogicalPlan):
@@ -204,3 +334,6 @@ class Repartition(LogicalPlan):
     @property
     def schema(self):
         return self.child.schema
+
+    def describe(self):
+        return f"Repartition[{self.num_partitions}]"

@@ -12,7 +12,11 @@ turns count(DISTINCT x) into two hash aggregates (on by
 `sql.optimizer.distinctAggRewrite.enabled`); then `plan/cbo.py`
 `reorder_joins` reorders inner equi-join chains by cost (on by
 `sql.optimizer.joinReorder.enabled`). Without a conf, `optimize` runs
-neither.
+neither. As in the JAX package, pruning stops at a Union (each child
+keeps its columns, since a union is by position), at a cached scan
+(its batches are on the device already) and at an Expand or a Generate
+(the subtree below is left as it is); a filter moves through none of
+them.
 """
 from __future__ import annotations
 
@@ -62,6 +66,8 @@ def prune(plan: L.LogicalPlan,
             names = [n for n in plan.arrow.schema.names if n in required]
             if len(names) < len(plan.arrow.schema.names):
                 return L.InMemoryScan(plan.arrow.select(names))
+        return plan
+    if isinstance(plan, L.CachedScan):
         return plan
     if isinstance(plan, L.ParquetScan):
         if required is not None:
@@ -121,6 +127,8 @@ def prune(plan: L.LogicalPlan,
         return L.Join(prune(plan.left, lreq), prune(plan.right, rreq),
                       plan.left_keys, plan.right_keys, plan.how,
                       condition=plan.condition)
+    if isinstance(plan, L.Union):
+        return L.Union([prune(c, None) for c in plan.children])
     if isinstance(plan, L.Repartition):
         return L.Repartition(prune(plan.child, None), plan.num_partitions,
                              plan.keys)
@@ -139,6 +147,8 @@ def _rebuild(plan: L.LogicalPlan, kids) -> L.LogicalPlan:
         return L.Sort(kids[0], plan.orders)
     if isinstance(plan, L.Limit):
         return L.Limit(kids[0], plan.n)
+    if isinstance(plan, L.Union):
+        return L.Union(kids)
     if isinstance(plan, L.Join):
         return L.Join(kids[0], kids[1], plan.left_keys, plan.right_keys,
                       plan.how, condition=plan.condition)

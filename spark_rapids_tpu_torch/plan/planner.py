@@ -31,6 +31,14 @@ the root as `exchange_reuse_hits`. Stage fusion
 (`sql.exec.stageFusion.enabled`) is not ported: each operator runs its
 own ops.
 
+A cached scan serves its device batches (`CachedScanExec`; once
+released, its source plan is planned instead); an aggregate over a chain
+of one-child nodes down to a cached scan of at most 2^21 rows takes the
+whole-input (complete) aggregate, as in the JAX planner. Expand, Generate
+and Union become `ExpandExec`, `GenerateExec` and `UnionExec`. A nested
+group, sort or join key is refused (UnsupportedExpr), as the JAX planner
+refuses it.
+
 A cross join without a condition is a broadcast hash join whatever the
 threshold (`how="cross"`); a condition with no equi keys is a
 `NestedLoopJoinExec`; any other condition rides the hash join. The
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Type
 
+from ..columnar import dtypes as dt
 from ..config import (ADAPTIVE_CALIBRATION, ADAPTIVE_COALESCE_ENABLED,
                       ADAPTIVE_ENABLED, ADAPTIVE_SKEW_ENABLED,
                       ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_MIN_BYTES,
@@ -80,6 +89,13 @@ def _rule(cls):
 @_rule(L.InMemoryScan)
 def _scan(node, conv, conf) -> TpuExec:
     return x.InMemoryScanExec(node.arrow, node.schema)
+
+
+@_rule(L.CachedScan)
+def _cached(node, conv, conf):
+    if node.released:
+        return conv(node.source)
+    return x.CachedScanExec(node.batches, node.schema)
 
 
 @_rule(L.ParquetScan)
@@ -135,8 +151,46 @@ def _aqe_wrap(exchange, conf, allow_split=False, plan=None,
     return AQEShuffleReadExec(exchange, plan, role), plan
 
 
+@_rule(L.Expand)
+def _expand(node, conv, conf):
+    from ..exec.expand import ExpandExec
+    return ExpandExec(conv(node.child), node.bound_keys,
+                      node.include_masks, node.schema)
+
+
+@_rule(L.Generate)
+def _generate(node, conv, conf):
+    from ..exec.generate import GenerateExec
+    return GenerateExec(conv(node.child), node.bound, node.schema)
+
+
+@_rule(L.Union)
+def _union(node, conv, conf):
+    return x.UnionExec([conv(c) for c in node.children], node.schema)
+
+
+def _refuse_nested(keys, what: str):
+    """A nested group, join or sort key is refused, as the JAX planner
+    refuses it."""
+    for k in keys:
+        if k.dtype.is_nested:
+            raise UnsupportedExpr(f"{what} {k!r} has nested type {k.dtype}")
+
+
+def _small_cached_input(child: TpuExec) -> bool:
+    """A chain of one-child nodes over a CachedScanExec of at most 2^21
+    rows: the whole-input (complete) aggregate takes it in one pass (JAX
+    `planner.py:255-270`)."""
+    base = child
+    while len(base.children) == 1:
+        base = base.children[0]
+    return isinstance(base, x.CachedScanExec) and \
+        sum(b.capacity for b in base.batches) <= (1 << 21)
+
+
 @_rule(L.Aggregate)
 def _agg(node, conv, conf):
+    _refuse_nested(node.bound_keys, "group-by key")
     child = conv(node.child)
     names = [n for n, _ in node.bound_aggs]
     aggs = [a for _, a in node.bound_aggs]
@@ -149,7 +203,7 @@ def _agg(node, conv, conf):
     key_names = [k.name for k in node.keys]
     nparts = conf.get(SHUFFLE_PARTITIONS)
     if conf.get(MESH_DEVICES) > 1:
-        raise NotPorted("mesh exchange (MeshExchangeExec)")
+        raise NotPorted("mesh exchange (MeshExchangeExec, ROADMAP A.14)")
     multi_input = child.num_partitions(
         ExecContext(conf, None, planning=True)) > 1 and nparts > 1
     if has_collect:
@@ -164,7 +218,7 @@ def _agg(node, conv, conf):
                                   aggs, node.schema, per_partition=True)
         return CollectAggExec(child, key_names, node.bound_keys, names,
                               aggs, node.schema)
-    if multi_input:
+    if multi_input and not _small_cached_input(child):
         # partial per input partition (rows shrink to the group count),
         # exchange of the states on the keys, final merge per partition
         partial = HashAggregateExec(child, key_names, node.bound_keys,
@@ -185,6 +239,7 @@ def _agg(node, conv, conf):
 
 @_rule(L.Sort)
 def _sort(node, conv, conf):
+    _refuse_nested([o.expr for o in node.bound_orders], "sort key")
     return SortExec(conv(node.child), node.bound_orders, node.schema)
 
 
@@ -198,6 +253,10 @@ def _estimate_rows(node: L.LogicalPlan):
     decision's input; the JAX planner's, node for node)."""
     if isinstance(node, L.InMemoryScan):
         return node.arrow.num_rows
+    if isinstance(node, L.CachedScan):
+        if node.released:
+            return _estimate_rows(node.source)
+        return sum(b.num_rows for b in node.batches)
     if isinstance(node, L.ParquetScan):
         cached = getattr(node, "_est_rows_cache", False)
         if cached is not False:
@@ -217,13 +276,17 @@ def _estimate_rows(node: L.LogicalPlan):
     if isinstance(node, L.Limit):
         child = _estimate_rows(node.children[0])
         return node.n if child is None else min(node.n, child)
+    if isinstance(node, L.Union):
+        parts = [_estimate_rows(c) for c in node.children]
+        return None if any(p is None for p in parts) else sum(parts)
     return None
 
 
 def _row_width_bytes(schema) -> int:
     w = 1  # validity
     for f in schema.fields:
-        if f.dtype.is_variable_width:
+        if f.dtype.is_variable_width or isinstance(
+                f.dtype, (dt.ArrayType, dt.MapType)):
             w += 24
         elif getattr(f.dtype, "is_decimal128", False):
             w += 16
@@ -241,9 +304,11 @@ def _estimate_bytes(node: L.LogicalPlan):
 
 @_rule(L.Join)
 def _join(node, conv, conf):
+    _refuse_nested(list(node.bound_left_keys) + list(node.bound_right_keys),
+                   "join key")
     left, right = conv(node.left), conv(node.right)
     if conf.get(MESH_DEVICES) > 1:
-        raise NotPorted("mesh exchange (MeshExchangeExec)")
+        raise NotPorted("mesh exchange (MeshExchangeExec, ROADMAP A.14)")
     thr = conf.get(BROADCAST_THRESHOLD)
     est = _estimate_bytes(node.right)
     broadcast_ok = thr >= 0 and est is not None and est <= thr
@@ -288,7 +353,7 @@ def _join(node, conv, conf):
 def _repart(node, conv, conf):
     if node.bound_keys and conf.get(MESH_DEVICES) == node.num_partitions \
             and node.num_partitions > 1:
-        raise NotPorted("mesh exchange (MeshExchangeExec)")
+        raise NotPorted("mesh exchange (MeshExchangeExec, ROADMAP A.14)")
     return ShuffleExchangeExec(conv(node.child), node.num_partitions,
                                node.bound_keys, node.schema)
 

@@ -122,6 +122,11 @@ def _card_fp(node: L.LogicalPlan):
         return ("A", exprs_fp(node.keys), logical_fp(node.children[0]))
     if isinstance(node, L.Limit):
         return ("L", int(node.n), logical_fp(node.children[0]))
+    if isinstance(node, L.Union):
+        return ("U",) + tuple(logical_fp(c) for c in node.children)
+    if isinstance(node, L.Expand):
+        return ("X", "Expand", len(node.include_masks),
+                logical_fp(node.children[0]))
     if isinstance(node, L.InMemoryScan):
         return ("S", "mem", id(node.arrow))
     if isinstance(node, L.ParquetScan):
@@ -251,11 +256,21 @@ def _chao1(counts, sample_n: int, total_rows: float) -> float:
 
 
 def _sample_arrow_column(node: L.LogicalPlan, name: str):
-    """The first SAMPLE_ROWS of an in-memory scan's column, or None."""
+    """The first SAMPLE_ROWS of an in-memory scan's column, or of a
+    cached scan's first batch (copied to the host once), or None."""
     if isinstance(node, L.InMemoryScan):
         if name not in node.arrow.schema.names:
             return None
         return node.arrow.column(name).slice(0, SAMPLE_ROWS)
+    if isinstance(node, L.CachedScan):
+        if not node.batches or name not in node.schema.names:
+            return None
+        at = getattr(node, "_stats_sample_cache", None)
+        if at is None:
+            from ..exec.nodes import _batch_to_arrow
+            at = _batch_to_arrow(node.batches[0]).slice(0, SAMPLE_ROWS)
+            node._stats_sample_cache = at
+        return at.column(name) if name in at.schema.names else None
     return None
 
 
@@ -342,7 +357,7 @@ def _compute_stats_raw(node: L.LogicalPlan) -> Stats:
     from .cbo import _selectivity
     from .planner import _estimate_rows
 
-    if isinstance(node, (L.InMemoryScan, L.ParquetScan)):
+    if isinstance(node, (L.InMemoryScan, L.CachedScan, L.ParquetScan)):
         rows = _estimate_rows(node)
         return Stats(None if rows is None else float(rows),
                      lambda n, _nd=node: scan_column_ndv(_nd, n))
@@ -398,6 +413,12 @@ def _compute_stats_raw(node: L.LogicalPlan) -> Stats:
         rows = (node.n if cs.rows is None
                 else min(float(node.n), cs.rows))
         return Stats(float(rows), cs._ndv_of)
+
+    if isinstance(node, L.Union):
+        parts = [compute_stats(c) for c in node.children]
+        if any(p.rows is None for p in parts):
+            return Stats(None)
+        return Stats(sum(p.rows for p in parts))
 
     if isinstance(node, (L.Sort, L.Repartition)):
         cs = compute_stats(node.children[0])

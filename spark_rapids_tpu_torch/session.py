@@ -1,10 +1,13 @@
 """Session and DataFrame: the entry points of the port.
 
 The same surface as the JAX package's `TpuSession` for the ported slice:
-`create_dataframe`, `read.parquet`, and `filter`, `select`,
-`with_column`, `agg`, `group_by(...).agg`, `join` (equi-keys by name,
-an expression `on`, a non-equi `condition`, cross), `sort`, `limit`, `repartition`, `to_arrow` and `collect` on a
-DataFrame. A session runs on
+`create_dataframe`, `read.parquet`, and `filter`, `select` (an explode
+lifted into a Generate node), `with_column`, `agg`, `group_by(...).agg`
+and `.count()`, `rollup`, `cube` and `grouping_sets` (an Expand under
+the aggregate, with `grouping_id`), `join` (equi-keys by name, an
+expression `on`, a non-equi `condition`, cross), `sort`, `limit`,
+`union`, `repartition`, `cache` / `uncache`, `schema`, `explain`,
+`to_arrow`, `to_pydict`, `collect` and `count` on a DataFrame. A session runs on
 one torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device: first the
 adaptive stage driver (`plan/aqe.py`), which materializes the shuffle
@@ -19,13 +22,16 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from .columnar import dtypes as dt
 from .columnar.table import Schema
 from .config import TpuConf
+from .errors import NotPorted
 from .exec.base import ExecContext
 from .exec.nodes import collect_to_arrow
-from .expr.aggregates import AggExpr
-from .expr.expressions import (Alias, BoundRef, Coalesce, Expression,
-                               col)
+from .expr.aggregates import AggExpr, CountStar
+from .expr.collection_exprs import Explode
+from .expr.expressions import (Alias, BoundRef, Coalesce, ColumnRef,
+                               Expression, col)
 from .functions import _to_expr
 from .memory.device import device_manager
 from .memory.semaphore import TpuSemaphore
@@ -157,22 +163,80 @@ class DataFrameReader:
                          L.ParquetScan(expanded, columns=columns))
 
 
+class GroupingID:
+    """Marker accepted in a rollup / cube / grouping_sets agg list: the
+    grouping id of the row's set (`functions.grouping_id`)."""
+
+    name = "grouping_id()"
+
+    def alias(self, name):
+        return Alias(self, name)
+
+
 class GroupedData:
-    def __init__(self, df: "DataFrame", keys: Sequence[Expression]):
+    def __init__(self, df: "DataFrame", keys: Sequence[Expression],
+                 grouping_sets=None):
         self._df = df
         self._keys = list(keys)
+        # one include mask (a bool a key) per grouping set, or None for
+        # a plain GROUP BY
+        self._grouping_sets = grouping_sets
 
     def agg(self, *aggs) -> "DataFrame":
-        pairs = []
+        pairs, gid_cols = [], []
         for a in aggs:
             name, inner = a.name, a
             if isinstance(a, Alias):
                 name, inner = a._name, a.child
+            if isinstance(inner, GroupingID):
+                gid_cols.append(name)
+                continue
             if not isinstance(inner, AggExpr):
                 raise TypeError(f"not an aggregate: {a!r}")
             pairs.append((name, inner))
-        return DataFrame(self._df._session,
-                         L.Aggregate(self._df._plan, self._keys, pairs))
+        if self._grouping_sets is None:
+            if gid_cols:
+                raise ValueError("grouping_id() requires rollup/cube/"
+                                 "grouping_sets")
+            return DataFrame(self._df._session,
+                             L.Aggregate(self._df._plan, self._keys, pairs))
+        return self._agg_grouping_sets(pairs, gid_cols)
+
+    def _agg_grouping_sets(self, pairs, gid_cols) -> "DataFrame":
+        """ROLLUP / CUBE / GROUPING SETS: an Expand (one copy of the rows
+        a set, the excluded keys null, and the grouping id), an aggregate
+        by the keys and the id, then the user's columns."""
+        knames = [f"#gset_k{i}" for i in range(len(self._keys))]
+        gid = "#gset_gid"
+        expand = L.Expand(self._df._plan, self._keys, knames,
+                          self._grouping_sets, gid)
+        gkeys = [ColumnRef(kn) for kn in knames] + [ColumnRef(gid)]
+        agg_node = L.Aggregate(expand, gkeys, pairs)
+        out = [Alias(ColumnRef(kn), k.name)
+               for k, kn in zip(self._keys, knames)]
+        out += [ColumnRef(nm) for nm, _ in pairs]
+        out += [Alias(ColumnRef(gid), nm) for nm in gid_cols]
+        return DataFrame(self._df._session, L.Project(agg_node, out))
+
+    def count(self) -> "DataFrame":
+        return self.agg(CountStar().alias("count"))
+
+
+def _cache_batches(root, ctx) -> List:
+    from .exec.batch import maybe_compact
+    from .exec.coalesce import concat_batches
+    target = max(1, ctx.conf.batch_size_rows)
+    out, pending, rows = [], [], 0
+    for b in root.execute_all(ctx):
+        b = maybe_compact(b, root.schema)
+        if pending and rows + b.num_rows > target:
+            out.append(concat_batches(pending, root.schema))
+            pending, rows = [], 0
+        pending.append(b)
+        rows += b.num_rows
+    if pending:
+        out.append(concat_batches(pending, root.schema))
+    return out
 
 
 class DataFrame:
@@ -181,12 +245,41 @@ class DataFrame:
         self._plan = plan
 
     @property
+    def schema(self) -> Schema:
+        return self._plan.schema
+
+    @property
     def columns(self) -> List[str]:
         return list(self._plan.schema.names)
 
     def select(self, *exprs) -> "DataFrame":
+        es = [_to_expr(e) for e in exprs]
+        # an explode / posexplode becomes a Generate node under the
+        # projection (the reference's GenerateExec planning)
+        gens = [(i, e.child if isinstance(e, Alias) else e, e)
+                for i, e in enumerate(es)
+                if isinstance(e.child if isinstance(e, Alias) else e,
+                              Explode)]
+        if not gens:
+            return DataFrame(self._session, L.Project(self._plan, es))
+        if len(gens) > 1:
+            raise ValueError("only one explode per select")
+        i, gen, orig = gens[0]
+        bound_child = gen.child.bind(self._plan.schema)
+        if isinstance(bound_child.dtype, dt.MapType):
+            names = ["key", "value"]
+        else:
+            names = [orig._name if isinstance(orig, Alias) else "col"]
+        if gen.with_position:
+            names = ["pos"] + names
+        # the generated columns take internal names in the Generate node
+        # (an input column called col, key or pos would shadow them),
+        # then the user's names above it
+        internal = [f"#gen{id(gen) & 0xFFFF:04x}_{n}" for n in names]
+        gplan = L.Generate(self._plan, gen, internal)
+        repl = [Alias(ColumnRef(ii), n) for ii, n in zip(internal, names)]
         return DataFrame(self._session,
-                         L.Project(self._plan, [_to_expr(e) for e in exprs]))
+                         L.Project(gplan, es[:i] + repl + es[i + 1:]))
 
     def with_column(self, name: str, e) -> "DataFrame":
         es = [col(n) for n in self.columns if n != name]
@@ -312,6 +405,36 @@ class DataFrame:
 
     groupBy = group_by
 
+    def rollup(self, *keys) -> GroupedData:
+        """GROUP BY ROLLUP: (k1..kn), (k1..kn-1), ..., ()."""
+        ks = [_to_expr(k) for k in keys]
+        n = len(ks)
+        sets = [[i < j for i in range(n)] for j in range(n, -1, -1)]
+        return GroupedData(self, ks, grouping_sets=sets)
+
+    def cube(self, *keys) -> GroupedData:
+        """GROUP BY CUBE: all 2^n subsets of the keys."""
+        ks = [_to_expr(k) for k in keys]
+        n = len(ks)
+        sets = [[not (m >> (n - 1 - i)) & 1 == 1 for i in range(n)]
+                for m in range(1 << n)]
+        return GroupedData(self, ks, grouping_sets=sets)
+
+    def grouping_sets(self, keys, sets) -> GroupedData:
+        """Explicit GROUPING SETS: `sets` is a list of key-name lists,
+        each a subset of `keys`."""
+        ks = [_to_expr(k) for k in keys]
+        names = [k.name for k in ks]
+        masks = []
+        for s_ in sets:
+            want = set(s_)
+            unknown = want - set(names)
+            if unknown:
+                raise ValueError(f"grouping set refers to unknown keys "
+                                 f"{sorted(unknown)}")
+            masks.append([nm in want for nm in names])
+        return GroupedData(self, ks, grouping_sets=masks)
+
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
 
@@ -333,6 +456,39 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, L.Limit(self._plan, n))
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position; the column types must agree."""
+        return DataFrame(self._session, L.Union([self._plan, other._plan]))
+
+    def cache(self) -> "DataFrame":
+        """This DataFrame's result as device-resident batches: a new
+        DataFrame over a CachedScan, whose queries skip the host decode
+        and the copy to the device. The batches live outside the device
+        budget, as in the JAX package, until `uncache`. Unlike the JAX
+        package's, a sparse batch (a filter's mask) keeps only its live
+        rows (`maybe_compact`), and consecutive small batches concatenate
+        up to `sql.batchSizeRows`, so a query over the cache runs over
+        fewer, dense batches."""
+        batches = self._run(_cache_batches)
+        node = L.CachedScan(batches, self._plan.schema, source=self._plan)
+        self._cached_node = node
+        out = DataFrame(self._session, node)
+        out._cached_node = node
+        return out
+
+    def uncache(self) -> "DataFrame":
+        """Free the device batches of this DataFrame's cache (made by
+        `cache`, on this DataFrame or the one it returned). Every
+        DataFrame over the cache shares its batch list, so they go at
+        once; the next action over the cache plans the cached DataFrame's
+        own plan again."""
+        node = getattr(self, "_cached_node", None)
+        if node is not None:
+            node.batches.clear()
+            node.released = True
+            self._cached_node = None
+        return self
+
     def repartition(self, n: int, *keys) -> "DataFrame":
         ks = [_to_expr(k) for k in keys] or None
         return DataFrame(self._session, L.Repartition(self._plan, n, ks))
@@ -343,6 +499,52 @@ class DataFrame:
         s = self._session
         return Planner(s.conf).plan(self._plan), ExecContext(
             s.conf, s.device, session=s)
+
+    def explain(self, mode: str = "ALL") -> str:
+        """Print and return the plan: ALL gives the optimized logical
+        tree (each node runs on the device: `*`) and the physical tree;
+        NOT_ON_TPU only the nodes that would not run on the device, none
+        in the port, which refuses such a plan (NotPorted) instead. The
+        plan auditor (VALIDATE) and the profiler (ANALYZE) are not
+        ported."""
+        mode_u = str(mode).upper()
+        if mode_u == "VALIDATE":
+            raise NotPorted("explain VALIDATE: the plan auditor "
+                            "(ROADMAP A.7)")
+        if mode_u == "ANALYZE":
+            raise NotPorted("explain ANALYZE: the profiler (ROADMAP A.13)")
+        if mode_u not in ("ALL", "NOT_ON_TPU"):
+            raise ValueError(f"unknown explain mode {mode!r}")
+        from .plan.optimizer import optimize
+        root, _ = self.physical_plan()
+        lines = []
+        if mode_u == "ALL":
+            def logical(node, depth):
+                lines.append(f"{'  ' * depth}* {node.describe()}")
+                for c in node.children:
+                    logical(c, depth + 1)
+
+            def physical(node, depth):
+                desc = getattr(node, "describe", None)
+                lines.append("  " * depth + (desc() if desc
+                                             else type(node).__name__))
+                for c in node.children:
+                    physical(c, depth + 1)
+            logical(optimize(self._plan, self._session.conf), 0)
+            lines.append("== Physical Plan ==")
+            physical(root, 0)
+        for line in lines:
+            print(line)
+        return "\n".join(lines)
+
+    def _run(self, body):
+        """Plan afresh, run the stage driver, then `body(root, ctx)`."""
+        root, ctx = self.physical_plan()
+        try:
+            run_stage_driver(root, ctx, self._session.conf)
+            return body(root, ctx)
+        finally:
+            ctx.close()
 
     def to_arrow(self):
         root, ctx = self.physical_plan()
@@ -402,3 +604,11 @@ class DataFrame:
         at = self.to_arrow()
         cols = [at.column(i).to_pylist() for i in range(at.num_columns)]
         return list(zip(*cols)) if cols else []
+
+    def to_pydict(self) -> Dict[str, list]:
+        return self.to_arrow().to_pydict()
+
+    def count(self) -> int:
+        df = DataFrame(self._session, L.Aggregate(
+            self._plan, [], [("count", CountStar())]))
+        return df.collect()[0][0]

@@ -1126,3 +1126,84 @@ def test_numpy_hash_twins_equal_the_jax_package():
             [py(w) for w in words]
     assert np.asarray(jh.hive_hash_row_hash([scv], [jdt.STRING])).tolist() \
         == [chip_smoke.py_hive_hash_bytes(w) for w in words]
+
+
+# ----------------------------------------------------------------------
+# Slice 13: nested columns, grouping sets, the DataFrame surface
+# ----------------------------------------------------------------------
+def test_nested_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """Slice 13's phases at sf 0.01 in 4096-row batches: collect_list /
+    collect_set per customer with the collection functions over them and
+    explode by date, a map column exploded by position, rollup and cube,
+    and a cached year counted, grouped and unioned, each against numpy;
+    no kernel launch off the card."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    launches = chip_smoke.nested_phases(s, tpch_small)
+    none = {"all": 0, "vector": 0, "scalar": 0}
+    assert launches == {"collect_explode": none, "map_explode": none}
+    phases = {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    ce = phases["collect_explode"]
+    orders = tpch_small["orders"]
+    assert ce["elements"] == ce["explode_rows"] == orders.num_rows
+    assert "GenerateExec" in ce["explode_plan"]
+    assert ce["explode_plan"][2] == "ShuffleExchangeExec"
+    me = phases["map_explode"]
+    assert me["entries"] == tpch_small["lineitem"].num_rows
+    assert me["functions"]["entries"] == me["entries"]
+    rc = phases["rollup_cube"]
+    assert rc["rollup"]["rows_out"] == 10 and rc["cube"]["rows_out"] == 24
+    assert "ExpandExec" in rc["rollup"]["plan"]
+    uc = phases["union_cache_count"]
+    assert uc["plan"][-1] == "CachedScanExec"
+    assert uc["explain_names_cached_scan"]
+
+
+def test_nested_checks_reject_a_wrong_row(tpch_small):
+    """Each check of the nested phases fails on one wrong value: a
+    customer's last date, one date's exploded count, one position's sum,
+    one rollup cell."""
+    import numpy as np
+    import pyarrow as pa
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    orders, li = tpch_small["orders"], tpch_small["lineitem"]
+    expect = chip_smoke.collect_reference(orders)
+    collected = chip_smoke.collected_query(s, orders)
+    out = chip_smoke.collection_query(collected).to_arrow()
+    chip_smoke.check_collect(out, expect, "ok")
+    i = out.column_names.index("n_from")
+    bad = np.asarray(out.column(i)).copy()
+    bad[7] += 1
+    with pytest.raises(AssertionError, match="n_from differs"):
+        chip_smoke.check_collect(out.set_column(i, "n_from", pa.array(bad)),
+                                 expect, "wrong")
+    counts = chip_smoke.explode_query(collected).to_arrow()
+    chip_smoke.check_date_counts(counts, expect, "ok")
+    c = counts.column("c").to_numpy().copy()
+    c[3] -= 1
+    with pytest.raises(AssertionError, match="exploded counts"):
+        chip_smoke.check_date_counts(counts.set_column(
+            counts.column_names.index("c"), "c", pa.array(c)), expect,
+            "wrong")
+    table, mexpect = chip_smoke.map_table(li)
+    mout = chip_smoke.map_explode_query(s, table).to_arrow()
+    fout = chip_smoke.map_functions_query(s, table).to_arrow()
+    chip_smoke.check_map(mout, fout, mexpect, "ok")
+    wrong = dict(mexpect, sums=mexpect["sums"] + (
+        np.arange(len(mexpect["sums"])) == 2))
+    with pytest.raises(AssertionError, match="by position"):
+        chip_smoke.check_map(mout, fout, wrong, "wrong")
+    g = chip_smoke.grouping_reference(li, orders)
+    rows = chip_smoke.rollup_rows(chip_smoke.rollup_query(s, li).to_arrow())
+    chip_smoke.check_grouping(rows, g["rollup"], 10, "ok")
+    moved = {r[:4] + (r[4] + 1,) + r[5:] if r[5] == 3 else r for r in rows}
+    with pytest.raises(AssertionError, match="differ from numpy"):
+        chip_smoke.check_grouping(moved, g["rollup"], 10, "wrong")

@@ -17,9 +17,9 @@ partition; without keys one `CollectAggExec`. Cases:
     null);
   - the plan: an exchange on the keys under a per-partition
     `CollectAggExec`;
-  - what waits for ArrayType (ROADMAP A.5) raises NotPorted naming it:
-    collect_list, collect_set, percentile and percentile_approx over a
-    list of percentages.
+  - the ArrayType results: collect_list, collect_set, percentile and
+    percentile_approx over a list of percentages, equal to the JAX
+    package (the test keeps the name it had when they raised NotPorted).
 Tolerance: exact (percentile included: the port rounds its interpolation
 once, as the JAX package's compile does), but percentile_approx and
 stddev, within a relative 1e-9.
@@ -34,7 +34,6 @@ import spark_rapids_tpu as st
 import spark_rapids_tpu.functions as JF
 import spark_rapids_tpu_torch as pt
 import spark_rapids_tpu_torch.functions as PF
-from spark_rapids_tpu_torch.errors import NotPorted
 from spark_rapids_tpu_torch.exec.aggregate import CollectAggExec
 from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
 
@@ -208,7 +207,23 @@ def test_empty_input_ungrouped_and_grouped():
     (lambda F: F.percentile_approx("x", [0.1, 0.5]), "percentile_approx"),
 ])
 def test_array_results_raise_not_ported(make, what):
-    df = pt.TpuSession(device="cpu").create_dataframe(_table(n=50))
-    with pytest.raises(NotPorted, match="A.5") as info:
-        df.group_by("k").agg(make(PF)).to_arrow()
-    assert what in str(info.value)
+    """Ported since ROADMAP A.5: each ArrayType result equals the JAX
+    package's, element for element and in order (percentile_approx
+    within a relative 1e-9, as above)."""
+    at = _table(n=50)
+    got = pt.TpuSession(device="cpu").create_dataframe(at).group_by(
+        "k").agg(make(PF).alias("r")).to_arrow().sort_by("k")
+    want = st.TpuSession().create_dataframe(at).group_by("k").agg(
+        make(JF).alias("r")).to_arrow().sort_by("k")
+    assert got.column("r").type == want.column("r").type, what
+    assert got.column("k").to_pylist() == want.column("k").to_pylist()
+    g, w = got.column("r").to_pylist(), want.column("r").to_pylist()
+    if what != "percentile_approx":
+        assert g == w, what
+        return
+    assert [r is None for r in g] == [r is None for r in w]
+    for a, b in zip(g, w):
+        if a is not None:
+            assert len(a) == len(b)
+            assert all(math.isclose(x, y, rel_tol=1e-9)
+                       for x, y in zip(a, b)), (a, b)

@@ -478,9 +478,10 @@ def test_decimal128_casts_and_null_safe_equality_still_raise(build):
     """Above precision 18, + - * /, the six comparisons and every cast
     the JAX package binds are ported (`test_torch_divide_cast.py`; a
     cast named by a type string and a cast to boolean bind to the JAX
-    package's type); <=> still raises NotPorted."""
+    package's type). The name is older than the port of <=>, which now
+    binds to the JAX package's boolean too
+    (`test_torch_eq_null_safe.py` holds its values)."""
     from spark_rapids_tpu.columnar import dtypes as jdt
-    from spark_rapids_tpu_torch import NotPorted
     from spark_rapids_tpu_torch.columnar import dtypes as pdt
     ns = types.SimpleNamespace(col=px.col, Cast=px.Cast,
                                Dec=pdt.DecimalType, INT64=pdt.INT64,
@@ -489,10 +490,6 @@ def test_decimal128_casts_and_null_safe_equality_still_raise(build):
                                 Dec=jdt.DecimalType, INT64=jdt.INT64,
                                 BOOL=jdt.BOOL, EqNullSafe=jx.EqNullSafe)
     port = build(ns)
-    if isinstance(port, px.EqNullSafe):
-        with pytest.raises(NotPorted):
-            port.bind(PSchema.from_arrow(CMP_SCHEMA))
-        return
     want = build(jns).bind(JSchema.from_arrow(CMP_SCHEMA)).dtype
     assert repr(port.bind(PSchema.from_arrow(CMP_SCHEMA)).dtype) == \
         repr(want)
