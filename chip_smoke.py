@@ -14,17 +14,16 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      with CUDA events, L2 flushed clean, beside the bound (the least time
      the card could take: bytes over the memory rate or instructions over
      the issue rate, whichever is larger);
-  4. Q6 over `create_dataframe` (every batch tensor must lie on CUDA);
+  4. Q6 over `create_dataframe`, one reading (every batch tensor must
+     lie on CUDA);
   5. Q6 over `read.parquet` of the same table written as 16 files;
   6. the repartition path: `select(...).repartition(200, "l_shipdate")`
      and Q6 on top, with the kernel launch counts set to 0 just before
      and read just after (every launch must be the vector variant), and
      the pinned-host allocator's counters around the map side;
-  7. the same query under torch.profiler: device busy share, device time
-     by kernel, and the partition kernel's share of the map side's device
-     time (the other profiled phases read only the trace's device events,
-     `device_entries`); then, on a 1M-row sample, every row of reduce partition p must
-     hash to p by the plain version on the CPU;
+  7. on a 1M-row sample, every row of reduce partition p must hash to p
+     by the plain version on the CPU (the profiled phases below read only
+     the trace's device events, `device_entries`);
   8. TPC-H Q1 (`tpch.q1(df).sort("l_returnflag", "l_linestatus")`) over
      `create_dataframe` and over the 16 Parquet files: the
      grouped hash aggregate, partial -> exchange on the two string keys
@@ -34,9 +33,8 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      partition kernel runs under an aggregation (every launch must be
      the vector variant), with the pinned-host counters around the map
      side;
- 10. Q1 under torch.profiler: device busy share, device time by group
-     (sort, scatter/index_add, gathers, elementwise, H2D, D2H, partition
-     kernel), kernel launches and host syncs per input batch;
+ 10. (no profile of Q1: phase 8 prints its layers and host syncs per
+     input batch; Q3, Q5 and Q13 are profiled below);
  11. TPC-H Q3 (`tpch.q3(customer, orders, lineitem)`) over
      `create_dataframe` of customer (1.5M rows), orders (15M) and the
      lineitem table, twice, at the default conf: both joins planned
@@ -186,6 +184,29 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      counted, the explain naming CachedScanExec, every number exact; after
      `uncache` the device's allocated bytes back within 1 MiB of their
      level before the cache;
+ 38k. `window_running`: orders (15M rows) per customer by date under the
+     default frame: rank, dense_rank, row_number, count / sum / min /
+     max of o_totalprice (the sum a decimal(25,2)) and the sum and
+     average of its double cast, read three times: at the default conf
+     (over `sql.window.chunkRows`, so through the sort and the chunked
+     path), streamed in several chunks (the sort's out-of-core threshold
+     at WINDOW_SORT_BYTES) and in core (`chunkRows` 0); each exact
+     against numpy (row_number a permutation of each peer group's
+     positions, the doubles within a relative 1e-9 of each customer's
+     sequential sum), the three bit-equal, with each reading's wall, the
+     window's opTime and chunks, host syncs and peak device bytes;
+ 38l. `window_frames`: orders with three specs in one select (a chain of
+     three WindowExecs): per customer by (date, key) lag, lead with a
+     default, ROWS -2..0 sum / min / max and the max of a decimal(30,2)
+     cast, ROWS -3..3 first / last / nth_value, ntile(4), percent_rank,
+     cume_dist, row_number; per customer RANGE -90..0 days the double
+     sum and count; per priority (a string key, 3M-row partitions) rank
+     and the running average; every row exact against numpy (doubles
+     1e-9);
+ 38m. `daily_revenue_window`: lineitem's revenue per ship date (the
+     exchange on the date runs the partition kernel: its launches
+     counted), then over the dates a ROWS -6..0 sum and average and the
+     rank by revenue descending, exact against numpy;
  39-60. the written plans: all 22 queries over the same tables, once
      each, with `WRITTEN_CONF` (the four features off: joins in the
      written order, fixed partitions, no reuse, each build before its
@@ -201,9 +222,7 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      count, the staging pool's hits and misses, peak device memory, and
      with the decode on, a chunk decoded on the card in every file and
      every chunk read either decoded there or counted under a fallback
-     reason that the files' footers bear out; Q6 under torch.profiler
-     with the decode on (busy share, `cummax`'s share, the largest
-     device groups, launches per row group); then two of the files read
+     reason that the files' footers bear out; then two of the files read
      whole, every column, through both paths, equal as Arrow tables;
  62. the memory runtime, over the same tables, the pinned-host cache
      released first: the sort of l_shipdate, l_orderkey, l_linenumber,
@@ -707,28 +726,18 @@ def timed_q6(df, tpch, device):
     return out, time.perf_counter() - t0, metric_totals(q)
 
 
-MAP_RANGE = "exchange.map_batch"
 PINNED_KEYS = ("num_host_alloc", "num_host_free", "allocations.current",
                "allocated_bytes.current", "active_requests.allocated",
                "active_bytes.allocated", "host_alloc_time.total")
-KERNEL_GROUPS = (("partition_kernel", r"partition_ids"),
-                 ("argsort", r"[Ss]ort|[Rr]adix"),
-                 ("bincount", r"[Hh]istogram|bincount"),
-                 ("gather", r"[Ii]ndex|[Gg]ather"),
-                 ("d2h", r"DtoH"), ("h2d", r"HtoD"))
-
-
 class MapSideProbe:
     """Around ShuffleExchangeExec's map side: the pinned-host allocator's
     counters (torch.cuda.host_memory_stats) are read before and after the
     whole map side, and `host` gets their differences, one dict per
-    exchange; with `ranged`, for a profiled run, each map batch also runs
-    under a profiler range named MAP_RANGE."""
+    exchange."""
 
-    def __init__(self, exchange_cls, ranged=False):
+    def __init__(self, exchange_cls):
         self.cls = exchange_cls
-        self.orig = (exchange_cls._map_batch, exchange_cls._ensure_shuffled)
-        self.ranged = ranged
+        self.orig = exchange_cls._ensure_shuffled
         self.host = []
 
     @staticmethod
@@ -739,13 +748,8 @@ class MapSideProbe:
         return torch.cuda.host_memory_stats()
 
     def __enter__(self):
-        from torch.profiler import record_function
-        map_batch, ensure = self.orig
+        ensure = self.orig
         probe = self
-
-        def ranged(exch, batch):
-            with record_function(MAP_RANGE):
-                return map_batch(exch, batch)
 
         def counted(exch, ctx):
             if exch._pieces is not None:
@@ -756,12 +760,10 @@ class MapSideProbe:
             probe.host.append({k: after[k] - before[k] for k in PINNED_KEYS
                                if k in before and k in after})
         self.cls._ensure_shuffled = counted
-        if self.ranged:
-            self.cls._map_batch = ranged
         return self
 
     def __exit__(self, *exc):
-        self.cls._map_batch, self.cls._ensure_shuffled = self.orig
+        self.cls._ensure_shuffled = self.orig
 
 
 def device_us(e):
@@ -785,73 +787,6 @@ def device_entries(prof) -> list:
         t[0] += us
         t[1] += 1
     return [(name, us, n) for name, (us, n) in tot.items()]
-
-
-def kernels_under(evt):
-    """The device kernels and copies launched inside a profiled CPU
-    event, its children's included (not the range's own annotation)."""
-    out = [k for k in evt.kernels if k.name != evt.name]
-    for ch in evt.cpu_children:
-        out += kernels_under(ch)
-    return out
-
-
-def group_of(name: str) -> str:
-    for group, pattern in KERNEL_GROUPS:
-        if re.search(pattern, name):
-            return group
-    return "other"
-
-
-def profiled_q6(df, tpch, device):
-    """Q6 over `df` under torch.profiler: the device's busy time (the
-    device-side entries only, kernels and copies: a host op that launched
-    them carries the same time again) and its share of the wall time,
-    device time by kernel name and by group; where the plan has an
-    exchange, the map side's device time (every kernel and copy launched
-    inside a map batch) by group, and the partition kernel's share of
-    it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with MapSideProbe(ShuffleExchangeExec, ranged=True) as probe, \
-            profile(activities=acts) as prof:
-        out, wall, layers = timed_q6(df, tpch, device)
-    ka = [e for e in prof.key_averages()
-          if e.device_type != DeviceType.CPU and device_us(e) > 0
-          and e.key != MAP_RANGE]
-    busy_us = sum(device_us(e) for e in ka)
-    by_group = collections.Counter()
-    for e in ka:
-        by_group[group_of(e.key)] += device_us(e)
-    ranges = [e for e in prof.events()
-              if e.name == MAP_RANGE and e.device_type == DeviceType.CPU]
-    map_group = collections.Counter()
-    for r in ranges:
-        for k in kernels_under(r):
-            map_group[group_of(k.name)] += k.duration
-    # the profiler links a kernel to the torch op that launched it, and a
-    # ctypes launch is no torch op, so the partition kernel is not found
-    # under the ranges; it runs on the map side only, so its whole time is
-    map_group["partition_kernel"] = by_group["partition_kernel"]
-    map_us = sum(map_group.values())
-    top = sorted(ka, key=device_us, reverse=True)[:12]
-    return out, {
-        "wall_s": wall, "device_busy_s": busy_us / 1e6,
-        "device_busy_share": busy_us / 1e6 / wall,
-        "device_entries": len(ka), "layers_s": layers,
-        "device_us_by_group": dict(by_group),
-        "top_device_us": {e.key[:80]: device_us(e) for e in top},
-        "map_batches_profiled": len(ranges),
-        "map_side_device_us": map_us,
-        "map_side_device_us_by_group": dict(map_group),
-        "partition_kernel_share_of_map_side":
-            map_group["partition_kernel"] / map_us if map_us else None,
-        "pinned_host_over_map_side": probe.host}
 
 
 def check_revenue(out, expect, what):
@@ -1114,8 +1049,7 @@ def q1_phases(session, lineitem, parquet_dir, q1_expect,
         check_q1(out, q1_expect, what)
 
     # ---- Q1 over create_dataframe ------------------------------------
-    # one reading (a second went to make room for the nested phases; the
-    # profiled run below reads Q1 again)
+    # one reading (a second went to make room for the nested phases)
     res, got = counted(
         lambda: sorted_q1(tpch, session.create_dataframe(lineitem)),
         q1_check, "create_dataframe")
@@ -1154,12 +1088,6 @@ def q1_phases(session, lineitem, parquet_dir, q1_expect,
           "plan": plan_chain(grouped_shipdate(
               session.create_dataframe(lineitem))), **res})
 
-    # ---- Q1 profiled --------------------------------------------------
-    q = sorted_q1(tpch, session.create_dataframe(lineitem))
-    batches = -(-rows // session.conf.batch_size_rows)
-    out, prof = profiled_query(q, dev, batches)
-    check_q1(out, q1_expect, "create_dataframe (profiled)")
-    emit({"phase": "q1_profiled", **prof})
     return launches
 
 
@@ -1196,13 +1124,11 @@ def _path_phases(session, lineitem, expect, q1_expect, shipdate_expect,
     tpch.q6(session.create_dataframe(lineitem.slice(0, 100_000))).to_arrow()
 
     # ---- Q6 over create_dataframe ------------------------------------
+    # one reading, unprofiled: the script stays well inside its limit
     res = q6_runs(lambda: session.create_dataframe(lineitem), tpch, dev,
-                  expect, "create_dataframe")
+                  expect, "create_dataframe", runs=1)
     emit({"phase": "q6_create_dataframe", "rows": rows, **res,
           "rows_per_s": [rows / w for w in res["wall_s"]]})
-    out, prof = profiled_q6(session.create_dataframe(lineitem), tpch, dev)
-    check_revenue(out, expect, "create_dataframe (profiled)")
-    emit({"phase": "q6_create_dataframe_profiled", **prof})
 
     # ---- Q6 over read.parquet (16 files) -----------------------------
     t0 = time.perf_counter()
@@ -1252,10 +1178,6 @@ def _path_phases(session, lineitem, expect, q1_expect, shipdate_expect,
           "map_batches": map_batches, "partition_kernel_launches": launches,
           "pinned_host_over_map_side": probe.host,
           "batch_tensors_by_device": dict(devs.seen)})
-
-    out, prof = profiled_q6(repartitioned(), tpch, dev)
-    check_revenue(out, expect, "repartition (profiled)")
-    emit({"phase": "q6_over_repartition_profiled", **prof})
 
     # every row of reduce partition p hashes to p (plain version, CPU)
     sample = session.create_dataframe(lineitem.slice(0, BATCH_ROWS)) \
@@ -3041,10 +2963,6 @@ DECODE_COUNTS = ("deviceDecodedChunks", "deviceDecodeFallback.type",
                  "uploadedBytes", "decompressedBytes", "stagingPoolHits",
                  "stagingPoolMisses", "stagingPoolHeldBytes",
                  "numOutputBatches", "skippedRowGroups")
-#: the decode's device groups: cummax (row_of_unit) and cumsum apart
-PARQUET_GROUPS = (("cummax", r"cummax|with_indices"),
-                  ("cumsum", r"cumsum|[Ss]can"),
-                  ("byte_gather", r"[Ii]ndex.*OpaqueType<1>")) + Q1_GROUPS
 #: the rules by which the JAX package (io/parquet_device.py _classify)
 #: deems a chunk eligible, restated here to count what the scan must do
 _ELIGIBLE_CODECS = {"UNCOMPRESSED", "SNAPPY"}
@@ -3288,19 +3206,6 @@ def _parquet_decode_phases(device, conf, lineitem, q6_expect, q1_expect,
             emit({"phase": f"parquet_device_decode_{name}_{mode}",
                   "nvidia_smi": smi, "files": len(paths),
                   "columns": scan_of(q)._cols(), "runs": out_runs})
-
-    # ---- Q6 profiled, decode on --------------------------------------
-    q = tpch.q6(sessions["on"].read.parquet(d))
-    torch_peak_reset(device)
-    out, prof = profiled_query(q, device, census["row_groups"],
-                               PARQUET_GROUPS)
-    check_revenue(out, q6_expect, "Spark-layout Parquet (profiled)")
-    by_group = prof["device_us_by_group"]
-    emit({"phase": "parquet_device_decode_q6_profiled", "nvidia_smi": smi,
-          "peak_device_bytes": torch_peak(device),
-          "cummax_share_of_device_time":
-              by_group.get("cummax", 0) / max(sum(by_group.values()), 1),
-          **prof})
 
     # ---- two whole files, every column: device decode == host --------
     same = {}
@@ -5364,6 +5269,517 @@ def nested_phases(session, tables, expects=None) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# Slice 14: window functions
+# ----------------------------------------------------------------------
+#: window_running's streamed reading: the out-of-core sort's threshold
+#: below orders' three columns (about 330 MB), so the sort emits several
+#: key ranges and the window streams as many chunks
+WINDOW_SORT_BYTES = 64 << 20
+WINDOW_RANGE_DAYS = 90
+WINDOW_METRICS = ("opTime", "numChunks", "numOutputBatches")
+RUNNING_COLUMNS = ("o_custkey", "o_orderdate", "o_totalprice")
+FRAMES_COLUMNS = ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice",
+                  "o_orderpriority")
+
+
+def _runs(*keys):
+    """(first row, last row) of each row's run, and the runs' starts and
+    lengths, over rows sorted by `keys` (most significant first)."""
+    import numpy as np
+    n = len(keys[0])
+    b = np.zeros(n, bool)
+    if n:
+        b[0] = True
+    for k in keys:
+        b[1:] |= k[1:] != k[:-1]
+    starts = np.flatnonzero(b)
+    lens = np.diff(np.append(starts, n))
+    return (np.repeat(starts, lens), np.repeat(starts + lens - 1, lens),
+            starts, lens)
+
+
+def _packed(*keys):
+    """Non-negative integer keys (most significant first) packed into one
+    int64 that orders as the tuple does."""
+    import numpy as np
+    out = np.zeros(len(keys[0]), np.int64)
+    bits = 0
+    for k in keys:
+        k = np.asarray(k, np.int64)
+        if len(k) and k.min() < 0:
+            raise AssertionError("a negative sort key")
+        w = int(k.max()).bit_length() if len(k) else 1
+        bits += w
+        if bits > 63:
+            raise AssertionError("sort keys wider than 63 bits")
+        out = (out << w) | k
+    return out
+
+
+def _order(*keys):
+    """The permutation sorting rows by `keys` (one packed int64 argsort;
+    ties in any order)."""
+    import numpy as np
+    return np.argsort(_packed(*keys))
+
+
+def _seq_scan(x, starts, lens, op):
+    """A running `op` (np.add, np.minimum, np.maximum) over each run, one
+    position at a time from its first row: for np.add, each partition's
+    sequential sum."""
+    acc = x.copy()
+    for k in range(1, int(lens.max()) if len(lens) else 0):
+        sel = starts[lens > k] + k
+        acc[sel] = op(acc[sel - 1], x[sel])
+    return acc
+
+
+def _frame_sum(c, lo, hi):
+    """Sums over rows [lo, hi] from an inclusive prefix `c`."""
+    import numpy as np
+    return c[hi] - np.where(lo > 0, c[np.maximum(lo - 1, 0)], 0)
+
+
+def _check_rel(got, want, what, name):
+    import numpy as np
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    worst = float(rel.max()) if len(rel) else 0.0
+    if not worst <= TPCH_RTOL:
+        raise AssertionError(f"{what}: {name} off by a relative {worst}")
+    return worst
+
+
+def _check_exact(got, want, what, name):
+    import numpy as np
+    bad = np.flatnonzero(np.asarray(got) != np.asarray(want))
+    if len(bad):
+        i = int(bad[0])
+        raise AssertionError(f"{what}: {name} differs at {len(bad)} rows, "
+                             f"first {got[i]} != {want[i]}")
+
+
+def _np(at, name):
+    return at.column(name).to_numpy(zero_copy_only=False)
+
+
+def _dec(at, name):
+    """(unscaled values, validity) of a decimal column (a decimal128's low
+    word, its high word the sign extension)."""
+    import numpy as np
+    from spark_rapids_tpu_torch.columnar.column import Column
+    bufs = Column.host_from_arrow(at.column(name))[2]
+    u = bufs["data"]
+    if u.ndim == 2:
+        lo, hi = u[:, 0], u[:, 1]
+        if ((hi != np.where(lo < 0, -1, 0)) & bufs["validity"]).any():
+            raise AssertionError(f"{name}: a value past 64 bits")
+        u = lo
+    return u, bufs["validity"]
+
+
+def window_running_query(session, orders):
+    """Each customer's orders by date under the default frame (RANGE
+    UNBOUNDED PRECEDING .. CURRENT ROW): rank, dense_rank, row_number,
+    count / sum / min / max of o_totalprice and sum / avg of its double
+    cast."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.window import (Window, win_avg, win_count,
+                                               win_max, win_min, win_sum)
+    w = Window.partition_by("o_custkey").order_by("o_orderdate")
+    p = F.col("o_totalprice")
+    d = p.cast("double")
+    return session.create_dataframe(orders.select(list(RUNNING_COLUMNS))) \
+        .select("o_custkey", "o_orderdate",
+                F.rank().over(w).alias("rk"),
+                F.dense_rank().over(w).alias("dr"),
+                F.row_number().over(w).alias("rn"),
+                win_count(p).over(w).alias("n"),
+                win_sum(p).over(w).alias("s"),
+                win_min(p).over(w).alias("lo"),
+                win_max(p).over(w).alias("hi"),
+                win_sum(d).over(w).alias("ds"),
+                win_avg(d).over(w).alias("da"))
+
+
+def window_running_reference(orders) -> dict:
+    """window_running's columns in (o_custkey, o_orderdate) order, from
+    numpy: ranks from the run boundaries, int64 cents prefix sums, the
+    running min / max and the double sum position by position within
+    each customer (the sequential sum)."""
+    import numpy as np
+    ck = _np(orders, "o_custkey")
+    od = _np(orders, "o_orderdate")
+    tp = unscaled(orders, "o_totalprice")
+    o = _order(ck, od)
+    ck, od, tp = ck[o], od[o], tp[o]
+    n = len(ck)
+    pos = np.arange(n)
+    seg0, _, starts, lens = _runs(ck)
+    peer0, peer1, _, _ = _runs(ck, od)
+    ob = np.zeros(n, np.int64)
+    ob[peer0 == pos] = 1
+    dense = np.cumsum(ob)
+    c = np.cumsum(tp)
+    ds = _seq_scan(tp / 100.0, starts, lens, np.add)[peer1]
+    cnt = peer1 - seg0 + 1
+    return {"ck": ck, "od": od, "rk": peer0 - seg0 + 1,
+            "dr": dense - dense[seg0] + 1, "rn": pos - seg0 + 1,
+            "n": cnt, "s": _frame_sum(c, seg0, peer1),
+            "lo": _seq_scan(tp, starts, lens, np.minimum)[peer1],
+            "hi": _seq_scan(tp, starts, lens, np.maximum)[peer1],
+            "ds": ds, "da": ds / cnt, "customers": len(starts),
+            "longest": int(lens.max())}
+
+
+def sorted_running(out):
+    """window_running's result in (o_custkey, o_orderdate, row_number)
+    order: within a peer group every column but row_number is the
+    group's, so two readings compare row for row."""
+    import numpy as np
+    key = _packed(_np(out, "o_custkey"), _np(out, "o_orderdate"),
+                  _np(out, "rn"))
+    if (key[1:] >= key[:-1]).all():     # the window's own output order
+        return out
+    return out.take(np.argsort(key))
+
+
+def check_window_running(out, ref, what) -> dict:
+    """Every column exact (row_number a permutation of each peer group's
+    positions), the doubles within a relative 1e-9 of the sequential
+    sums."""
+    s = sorted_running(out)
+    for name, key in (("o_custkey", "ck"), ("o_orderdate", "od"),
+                      ("rk", "rk"), ("dr", "dr"), ("rn", "rn"),
+                      ("n", "n")):
+        _check_exact(_np(s, name), ref[key], what, name)
+    for name in ("s", "lo", "hi"):
+        u, valid = _dec(s, name)
+        if not valid.all():
+            raise AssertionError(f"{what}: {name} has nulls")
+        _check_exact(u, ref[name], what, name)
+    return {"ds_worst_rel": _check_rel(_np(s, "ds"), ref["ds"], what, "ds"),
+            "da_worst_rel": _check_rel(_np(s, "da"), ref["da"], what, "da")}
+
+
+def window_frames_query(session, orders):
+    """Three specs in one select, a chain of three WindowExecs: (a) per
+    customer by (date, key): lag, lead with a default, ROWS -2..0 sum /
+    min / max (and max of a decimal(30,2) cast), ROWS -3..3 first /
+    last / nth_value of the date, ntile(4), percent_rank, cume_dist,
+    row_number; (b) per customer by date, RANGE -90..0 days: the double
+    sum and the count; (c) per priority (a string key) by date: rank and
+    the running average."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.window import (Window, win_avg, win_count,
+                                               win_max, win_min, win_sum)
+    wa = Window.partition_by("o_custkey").order_by("o_orderdate",
+                                                   "o_orderkey")
+    r2, r3 = wa.rows_between(-2, 0), wa.rows_between(-3, 3)
+    wb = Window.partition_by("o_custkey").order_by("o_orderdate") \
+        .range_between(-WINDOW_RANGE_DAYS, 0)
+    wc = Window.partition_by("o_orderpriority").order_by("o_orderdate")
+    p, od = F.col("o_totalprice"), F.col("o_orderdate")
+    return session.create_dataframe(orders.select(list(FRAMES_COLUMNS))) \
+        .select("o_orderkey",
+                F.lag(p).over(wa).alias("lag_p"),
+                F.lead("o_orderkey", 2, -1).over(wa).alias("lead_k"),
+                win_sum(p).over(r2).alias("s3"),
+                win_min(p).over(r2).alias("n3"),
+                win_max(p).over(r2).alias("x3"),
+                win_max(p.cast("decimal(30,2)")).over(r2).alias("x3w"),
+                F.first_value(od).over(r3).alias("fv"),
+                F.last_value(od).over(r3).alias("lv"),
+                F.nth_value(od, 2).over(r3).alias("nv"),
+                F.ntile(4).over(wa).alias("nt"),
+                F.percent_rank().over(wa).alias("pr"),
+                F.cume_dist().over(wa).alias("cd"),
+                F.row_number().over(wa).alias("rn"),
+                win_sum(p.cast("double")).over(wb).alias("s90"),
+                win_count(p).over(wb).alias("n90"),
+                F.rank().over(wc).alias("rk_p"),
+                win_avg(p).over(wc).alias("avg_p"))
+
+
+def window_frames_reference(orders) -> dict:
+    """window_frames' columns in o_orderkey order, from numpy (a value
+    array and, where the column can be null, its validity): each spec's
+    columns in its own sort order, then gathered into key order."""
+    import numpy as np
+    ok = _np(orders, "o_orderkey")
+    ck = _np(orders, "o_custkey")
+    od = _np(orders, "o_orderdate").astype(np.int64)
+    tp = unscaled(orders, "o_totalprice")
+    pr = orders.column("o_orderpriority").combine_chunks() \
+        .dictionary_encode()
+    rank_of = np.argsort(np.argsort(pr.dictionary.to_pylist()))
+    code = rank_of[pr.indices.to_numpy()]  # codes in the strings' order
+    n = len(ok)
+    pos = np.arange(n)
+    by_key = np.argsort(ok)
+
+    def to_key_order(order):
+        """The gather from rows in `order` to rows in key order."""
+        back = np.empty(n, np.int64)
+        back[order] = pos
+        return back[by_key]
+
+    # (a) and (b): by customer, then date, then key
+    A = _order(ck, od, ok)
+    oks, ods, tps = ok[A], od[A], tp[A]
+    s0, s1, _, _ = _runs(ck[A])
+    _, p1, _, _ = _runs(ck[A], ods)
+    i, cnt = pos - s0, s1 - s0 + 1
+    lo2, lo3, hi3 = np.maximum(pos - 2, s0), np.maximum(pos - 3, s0), \
+        np.minimum(pos + 3, s1)
+    n3, x3 = tps.copy(), tps.copy()
+    for k in (1, 2):
+        has = pos - k >= s0
+        prev = tps[np.maximum(pos - k, 0)]
+        n3 = np.where(has, np.minimum(n3, prev), n3)
+        x3 = np.where(has, np.maximum(x3, prev), x3)
+    q, r = cnt // 4, cnt % 4
+    big = r * (q + 1)
+    c = np.cumsum(tps)
+    key = _packed(ck[A], ods)
+    lo90 = np.searchsorted(key, key - WINDOW_RANGE_DAYS, "left")
+    cols = {
+        "lag_p": np.where(i >= 1, tps[np.maximum(pos - 1, 0)], 0),
+        "lag_p_valid": i >= 1,
+        "lead_k": np.where(pos + 2 <= s1, oks[np.minimum(pos + 2, n - 1)],
+                           -1),
+        "s3": _frame_sum(c, lo2, pos), "n3": n3, "x3": x3, "x3w": x3,
+        "fv": ods[lo3], "lv": ods[hi3],
+        "nv": np.where(lo3 + 1 <= hi3, ods[np.minimum(lo3 + 1, n - 1)], 0),
+        "nv_valid": lo3 + 1 <= hi3,
+        "nt": np.where(i < big, i // (q + 1),
+                       r + (i - big) // np.maximum(q, 1)) + 1,
+        "pr": np.where(cnt > 1, i / np.maximum(cnt - 1, 1), 0.0),
+        "cd": (i + 1) / cnt, "rn": i + 1,
+        "s90": _frame_sum(c, lo90, p1) / 100.0, "n90": p1 - lo90 + 1}
+    ia = to_key_order(A)
+    res = {k: v[ia] for k, v in cols.items()}
+    # (c): by priority, then date
+    B = _order(code, od)
+    t0, _, _, _ = _runs(code[B])
+    first, last, _, _ = _runs(code[B], od[B])
+    ib = to_key_order(B)
+    res["rk_p"] = (first - t0 + 1)[ib]
+    sums = _frame_sum(np.cumsum(tp[B]), t0, last)
+    res["avg_p"] = (sums.astype(np.float64) / (last - t0 + 1) / 100.0)[ib]
+    res["o_orderkey"] = ok[by_key]
+    res["priorities"] = len(pr.dictionary)
+    return res
+
+
+FRAMES_EXACT = ("lead_k", "fv", "lv", "nt", "rn", "n90", "rk_p")
+FRAMES_DECIMAL = ("lag_p", "s3", "n3", "x3", "x3w")
+FRAMES_DOUBLE_EXACT = ("pr", "cd")
+FRAMES_DOUBLE = ("s90", "avg_p")
+
+
+def check_window_frames(out, ref, what) -> dict:
+    """Every column exact, nulls where the reference has them; the
+    double sums and averages within a relative 1e-9."""
+    import numpy as np
+    perm = np.argsort(_np(out, "o_orderkey"))
+    _check_exact(_np(out, "o_orderkey")[perm], ref["o_orderkey"], what,
+                 "o_orderkey")
+    for name in FRAMES_EXACT + FRAMES_DOUBLE_EXACT:
+        _check_exact(_np(out, name)[perm], ref[name], what, name)
+    for name in FRAMES_DECIMAL:
+        u, valid = _dec(out, name)
+        u, valid = u[perm], valid[perm]
+        want_valid = ref.get(name + "_valid", np.ones(len(u), bool))
+        _check_exact(valid, want_valid, what, name + " validity")
+        _check_exact(np.where(valid, u, 0),
+                     np.where(want_valid, ref[name], 0), what, name)
+    nv = out.column("nv")
+    _check_exact(nv.is_valid().to_numpy(zero_copy_only=False)[perm],
+                 ref["nv_valid"], what, "nv validity")
+    _check_exact(nv.fill_null(0).to_numpy(zero_copy_only=False)[perm],
+                 ref["nv"], what, "nv")
+    return {f"{name}_worst_rel": _check_rel(_np(out, name)[perm], ref[name],
+                                            what, name)
+            for name in FRAMES_DOUBLE}
+
+
+def daily_revenue_query(session, lineitem):
+    """Revenue a ship date (the exchange on the date runs the partition
+    kernel), then over the dates: the 7-day ROWS sum and average, and
+    the rank by revenue, descending."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.plan.logical import SortOrder
+    from spark_rapids_tpu_torch.window import Window, win_avg, win_sum
+    g = session.create_dataframe(lineitem.select(
+        ["l_shipdate", "l_extendedprice", "l_discount"])) \
+        .group_by("l_shipdate").agg(
+            F.sum(F.col("l_extendedprice") * (1 - F.col("l_discount")))
+            .alias("rev"))
+    w = Window.order_by("l_shipdate").rows_between(-6, 0)
+    wr = Window.order_by(SortOrder(F.col("rev"), ascending=False))
+    rev = F.col("rev")
+    return g.select("l_shipdate", "rev",
+                    win_sum(rev).over(w).alias("rev7"),
+                    win_avg(rev).over(w).alias("avg7"),
+                    F.rank().over(wr).alias("rk"))
+
+
+def daily_revenue_reference(lineitem) -> dict:
+    """Per ship date, in date order: the revenue (int64 at scale 4), its
+    7-row sum and average, and its rank by revenue descending."""
+    import numpy as np
+    d = _np(lineitem, "l_shipdate")
+    rev_row = unscaled(lineitem, "l_extendedprice") \
+        * (100 - unscaled(lineitem, "l_discount"))
+    d0 = int(d.min())
+    seen = np.bincount(d - d0)
+    dates = np.flatnonzero(seen) + d0
+    inv = (np.cumsum(seen > 0) - 1)[d - d0]
+    if len(rev_row) and (rev_row.min() < 0 or rev_row.max() >= 1 << 40):
+        raise AssertionError("a line's revenue outside 0..2^40")
+    # exact in float64: each half's per-date sum stays below 2^53
+    parts = [np.bincount(inv, (rev_row >> sh) & 0xFFFFF, len(dates))
+             for sh in (0, 20)]
+    rev = parts[0].astype(np.int64) + (parts[1].astype(np.int64) << 20)
+    pos = np.arange(len(dates))
+    lo = np.maximum(pos - 6, 0)
+    rev7 = _frame_sum(np.cumsum(rev), lo, pos)
+    desc = np.sort(rev)[::-1]
+    rank = np.searchsorted(-desc, -rev, "left") + 1
+    return {"dates": dates, "rev": rev, "rev7": rev7,
+            "avg7": rev7.astype(np.float64) / (pos - lo + 1) / 1e4,
+            "rk": rank}
+
+
+def check_daily_revenue(out, ref, what) -> dict:
+    import numpy as np
+    s = out.take(np.argsort(_np(out, "l_shipdate")))
+    _check_exact(_np(s, "l_shipdate"), ref["dates"], what, "l_shipdate")
+    for name in ("rev", "rev7"):
+        u, valid = _dec(s, name)
+        if not valid.all():
+            raise AssertionError(f"{what}: {name} has nulls")
+        _check_exact(u, ref[name], what, name)
+    _check_exact(_np(s, "rk"), ref["rk"], what, "rk")
+    return {"avg7_worst_rel": _check_rel(_np(s, "avg7"), ref["avg7"], what,
+                                         "avg7")}
+
+
+def window_metrics(q) -> dict:
+    """The window operators' opTime, numChunks and output batches, summed
+    over the plan's WindowExecs, and how many there are."""
+    out = dict.fromkeys(WINDOW_METRICS, 0)
+    execs = 0
+    for op, m in q.last_metrics().items():
+        if op.startswith("WindowExec@"):
+            execs += 1
+            for k in WINDOW_METRICS:
+                out[k] += m.get(k, 0)
+    out["window_execs"] = execs
+    return out
+
+
+def window_run(q, dev, what):
+    """(result, the run's numbers): wall, the window layer, host syncs and
+    peak device bytes."""
+    torch_peak_reset(dev)
+    out, wall, layers, syncs = timed_query(q, dev)
+    return out, {"wall_s": wall, "rows": out.num_rows,
+                 "window": window_metrics(q), "host_syncs": syncs,
+                 "peak_device_bytes": torch_peak(dev),
+                 "plan": plan_chain(q)}
+
+
+def window_phases(session, tables, expects=None, stream_conf=None) -> dict:
+    """The three phases of slice 14 over gen_all's tables at the session's
+    conf; returns the partition kernel's launches on
+    `daily_revenue_window`. `expects`, where given, holds the
+    "window_running", "window_frames" and "daily_revenue" references
+    (`PHASE_REFERENCES`), else each is made here, timed. window_running
+    reads its query three times: at the session's conf, streamed in
+    several chunks (`stream_conf`, by default the out-of-core sort under
+    WINDOW_SORT_BYTES), and in core (`sql.window.chunkRows` 0); the
+    three results must be equal bit for bit."""
+    from spark_rapids_tpu_torch.config import (SORT_OOC_THRESHOLD,
+                                               WINDOW_CHUNK_ROWS)
+    if stream_conf is None:
+        stream_conf = {SORT_OOC_THRESHOLD.key: WINDOW_SORT_BYTES}
+    dev = session.device
+    li, orders = tables["lineitem"], tables["orders"]
+    made = {"window_running": lambda: window_running_reference(orders),
+            "window_frames": lambda: window_frames_reference(orders),
+            "daily_revenue": lambda: daily_revenue_reference(li)}
+
+    def reference(name):
+        if expects is not None:
+            return expects[name], None
+        t0 = time.perf_counter()
+        return made[name](), time.perf_counter() - t0
+
+    # ---- window_running ----------------------------------------------
+    expect, ref_s = reference("window_running")
+    readings = {}
+    outs = {}
+    for label, conf in (
+            ("default", {}),
+            ("streamed", stream_conf),
+            ("in_core", {WINDOW_CHUNK_ROWS.key: 0})):
+        q = window_running_query(session_with(session, conf), orders)
+        out, run = window_run(q, dev, "window_running")
+        run.update(check_window_running(out, expect, f"window_running "
+                                        f"({label})"))
+        readings[label] = run
+        outs[label] = sorted_running(out)
+        del out
+    if readings["streamed"]["window"]["numChunks"] < 2 or \
+            readings["in_core"]["window"]["numChunks"] != 0:
+        raise AssertionError(f"window_running: chunks "
+                             f"{ {k: v['window'] for k, v in readings.items()} }")
+    same = {k: same_bits(outs["in_core"], outs[k])
+            for k in ("default", "streamed")}
+    if not all(same.values()):
+        raise AssertionError(f"window_running: chunked and in-core rows "
+                             f"differ: {same}")
+    del outs
+    emit({"phase": "window_running", "nvidia_smi": card_line(dev),
+          "rows": orders.num_rows, "customers": expect["customers"],
+          "longest_partition": expect["longest"], "readings": readings,
+          "bit_equal_to_in_core": same, "reference_s": ref_s,
+          "check": "exact; doubles 1e-9",
+          "elapsed_s": time.perf_counter() - _START})
+
+    # ---- window_frames -----------------------------------------------
+    expect, ref_s = reference("window_frames")
+    q = window_frames_query(session, orders)
+    out, run = window_run(q, dev, "window_frames")
+    run.update(check_window_frames(out, expect, "window_frames"))
+    if run["window"]["window_execs"] != 3:
+        raise AssertionError(f"window_frames: {run['window']}")
+    del out
+    emit({"phase": "window_frames", "nvidia_smi": card_line(dev),
+          "rows": orders.num_rows, "priorities": expect["priorities"],
+          **run, "reference_s": ref_s, "check": "exact; doubles 1e-9",
+          "elapsed_s": time.perf_counter() - _START})
+
+    # ---- daily_revenue_window ----------------------------------------
+    expect, ref_s = reference("daily_revenue")
+    q = daily_revenue_query(session, li)
+    torch_peak_reset(dev)
+    out, wall, layers, syncs, got, batches = counted_query(
+        q, dev, "daily_revenue_window")
+    worst = check_daily_revenue(out, expect, "daily_revenue_window")
+    emit({"phase": "daily_revenue_window", "nvidia_smi": card_line(dev),
+          "rows": li.num_rows, "dates": out.num_rows, "wall_s": wall,
+          "layers_s": layers, "window": window_metrics(q),
+          "host_syncs": syncs, "peak_device_bytes": torch_peak(dev),
+          "plan": plan_chain(q), "map_batches": batches,
+          "partition_kernel_launches": got, **worst,
+          "reference_s": ref_s, "check": "exact; doubles 1e-9",
+          "elapsed_s": time.perf_counter() - _START})
+    return {"daily_revenue_window": got}
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -5382,7 +5798,8 @@ def torch_peak(device):
 REFERENCE_THREADS = 8
 #: the references that took longest alone on the card's machine, started
 #: first so that none is left running alone at the end
-LONG_REFERENCES = ("map", "stats", "strings", "q21", "q1", "shipdate",
+LONG_REFERENCES = ("window_frames", "map", "stats", "strings", "q21",
+                   "q1", "window_running", "shipdate",
                    "q17", "collect", "dates", "q3", "q8", "q19", "q12",
                    "q5", "q7")
 
@@ -5498,6 +5915,9 @@ PHASE_REFERENCES = {
     "map": lambda t: map_table(t["lineitem"]),
     "grouping": lambda t: grouping_reference(t["lineitem"], t["orders"]),
     "cache": lambda t: cache_reference(t["lineitem"]),
+    "window_running": lambda t: window_running_reference(t["orders"]),
+    "window_frames": lambda t: window_frames_reference(t["orders"]),
+    "daily_revenue": lambda t: daily_revenue_reference(t["lineitem"]),
 }
 
 
@@ -5633,6 +6053,8 @@ def main() -> int:
     release_pinned_cache("the nested phases")
     by_path.update(nested_phases(session, tpch_tables, refs))
     del refs["map"]
+    release_pinned_cache("the window phases")
+    by_path.update(window_phases(session, tpch_tables, refs))
     release_pinned_cache("the written-plan pass")
     by_path.update(tpch_phases(
         written_session(session), tpch_tables,

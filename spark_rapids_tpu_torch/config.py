@@ -29,7 +29,7 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "EXCHANGE_BROADCAST_TIMEOUT", "CONCURRENT_TASKS",
            "HBM_POOL_FRACTION", "HBM_POOL_BYTES", "HOST_SPILL_LIMIT",
            "SPILL_DIR", "OOM_MAX_RETRIES", "SORT_OOC_ENABLED",
-           "SORT_OOC_THRESHOLD"]
+           "SORT_OOC_THRESHOLD", "WINDOW_CHUNK_ROWS"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -96,6 +96,13 @@ SORT_OOC_THRESHOLD = _conf(
     "sql.sort.outOfCore.thresholdBytes", 2 << 30,
     "Device bytes of sort input above which the out-of-core path "
     "activates.", int)
+WINDOW_CHUNK_ROWS = _conf(
+    "sql.window.chunkRows", 1 << 22,
+    "Row count above which chunkable window specs (running frames and "
+    "ranking over fixed-width keys) stream chunk by chunk through the "
+    "out-of-core sort with carried per-partition state, so a window "
+    "partition need not fit device memory (reference: "
+    "GpuRunningWindowExec batched running windows). 0 disables.", int)
 PARQUET_READER_TYPE = _conf(
     "sql.format.parquet.reader.type", "AUTO",
     "AUTO|PERFILE|COALESCING|MULTITHREADED. AUTO picks COALESCING when "

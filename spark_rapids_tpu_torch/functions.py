@@ -6,10 +6,11 @@ Every public name of the JAX module is here. The aggregates, the null,
 condition and math functions, the string functions, the hash functions,
 the date and time functions, the time-zone conversions, the array,
 struct and map functions, explode, the higher-order functions,
-collect_list / collect_set and grouping_id build the port's expressions.
-The rest raise NotPorted naming the ROADMAP item that ports them: regex,
-JSON and parse_url (A.10); the window functions (A.6); bloom_filter_agg
-and might_contain (A.9); udf and df_udf (A.12).
+collect_list / collect_set, grouping_id and the window functions (to
+call `.over(spec)` on, `window.py`) build the port's expressions. The
+rest raise NotPorted naming the ROADMAP item that ports them: regex,
+JSON and parse_url (A.10); bloom_filter_agg and might_contain (A.9); udf
+and df_udf (A.12).
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ __all__ = [
     "sort_array", "map_keys", "map_values", "explode", "explode_outer",
     "posexplode", "posexplode_outer", "transform", "filter", "exists",
     "forall", "aggregate", "collect_list", "collect_set", "grouping_id",
+    "row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
+    "ntile", "lag", "lead", "first_value", "last_value", "nth_value",
 ]
 
 
@@ -527,13 +530,67 @@ def grouping_id():
     return GroupingID()
 
 
+# -- window functions (pyspark-style re-exports of `window.py`) --------
+def row_number():
+    from . import window as _w
+    return _w.row_number()
+
+
+def rank():
+    from . import window as _w
+    return _w.rank()
+
+
+def dense_rank():
+    from . import window as _w
+    return _w.dense_rank()
+
+
+def percent_rank():
+    from . import window as _w
+    return _w.percent_rank()
+
+
+def cume_dist():
+    from . import window as _w
+    return _w.cume_dist()
+
+
+def ntile(n: int):
+    from . import window as _w
+    return _w.ntile(n)
+
+
+def lag(e, offset: int = 1, default=None):
+    from . import window as _w
+    return _w.lag(_to_expr(e), offset, default)
+
+
+def lead(e, offset: int = 1, default=None):
+    from . import window as _w
+    return _w.lead(_to_expr(e), offset, default)
+
+
+def first_value(e):
+    from . import window as _w
+    return _w.first_value(_to_expr(e))
+
+
+def last_value(e):
+    from . import window as _w
+    return _w.last_value(_to_expr(e))
+
+
+def nth_value(e, n: int):
+    from . import window as _w
+    return _w.nth_value(_to_expr(e), n)
+
+
 # ----------------------------------------------------------------------
 # The JAX module's other entries: each raises NotPorted naming the
 # ROADMAP item that ports it.
 # ----------------------------------------------------------------------
 _NOT_PORTED = {
-    "A.6": ("row_number rank dense_rank percent_rank cume_dist ntile lag "
-            "lead first_value last_value nth_value"),
     "A.9": "bloom_filter_agg might_contain",
     "A.10": ("rlike regexp_extract regexp_replace get_json_object "
              "from_json to_json parse_url"),

@@ -2,11 +2,11 @@
 
 Scans (in-memory Arrow, Parquet, cached device batches), Project,
 Filter, Aggregate (grouped or not), Expand (grouping sets), Join (every
-`how` of the JAX package), Sort, Limit, Union, Generate (explode) and
-Repartition. Expressions bind against the child schema when a node is
-built, as in the JAX package; an expression the port cannot evaluate
-raises there (NotPorted or UnsupportedExpr) instead of planning a host
-fallback.
+`how` of the JAX package), Sort, Limit, Union, Generate (explode),
+WindowOp and Repartition. Expressions bind against the child schema
+when a node is built, as in the JAX package; an expression the port
+cannot evaluate raises there (NotPorted or UnsupportedExpr) instead of
+planning a host fallback.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from ..expr.expressions import Expression
 
 __all__ = ["LogicalPlan", "InMemoryScan", "CachedScan", "ParquetScan",
            "Project", "Filter", "Aggregate", "Expand", "Join", "SortOrder",
-           "Sort", "Limit", "Union", "Generate", "Repartition"]
+           "Sort", "Limit", "Union", "Generate", "WindowOp",
+           "Repartition"]
 
 
 class LogicalPlan:
@@ -319,6 +320,29 @@ class Generate(LogicalPlan):
 
     def describe(self):
         return f"Generate[{self.generator!r}]"
+
+
+class WindowOp(LogicalPlan):
+    """The child's columns, then one column a window expression
+    (reference: GpuWindowExec planning in GpuWindowExecMeta.scala).
+    `wcols` are (name, unbound WindowExpr) pairs; binding refuses an
+    input type the window cannot take (UnsupportedExpr), where the JAX
+    node asks its plan-time type signatures."""
+
+    def __init__(self, child: LogicalPlan, wcols):
+        self.child = child
+        self.children = [child]
+        self.wcols = list(wcols)
+        self.bound = [(n, w.bind(child.schema)) for n, w in self.wcols]
+        self._schema = Schema(list(child.schema.fields)
+                              + [Field(n, w.dtype) for n, w in self.bound])
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"WindowOp[{[n for n, _ in self.wcols]}]"
 
 
 class Repartition(LogicalPlan):

@@ -14,9 +14,10 @@ turns count(DISTINCT x) into two hash aggregates (on by
 `sql.optimizer.joinReorder.enabled`). Without a conf, `optimize` runs
 neither. As in the JAX package, pruning stops at a Union (each child
 keeps its columns, since a union is by position), at a cached scan
-(its batches are on the device already) and at an Expand or a Generate
-(the subtree below is left as it is); a filter moves through none of
-them.
+(its batches are on the device already), at an Expand or a Generate
+(the subtree below is left as it is), and at a WindowOp, which keeps all
+its child's columns (JAX `optimizer.py:137-138`); a filter moves
+through none of them.
 """
 from __future__ import annotations
 
@@ -129,6 +130,8 @@ def prune(plan: L.LogicalPlan,
                       condition=plan.condition)
     if isinstance(plan, L.Union):
         return L.Union([prune(c, None) for c in plan.children])
+    if isinstance(plan, L.WindowOp):
+        return L.WindowOp(prune(plan.child, None), plan.wcols)
     if isinstance(plan, L.Repartition):
         return L.Repartition(prune(plan.child, None), plan.num_partitions,
                              plan.keys)
@@ -152,6 +155,8 @@ def _rebuild(plan: L.LogicalPlan, kids) -> L.LogicalPlan:
     if isinstance(plan, L.Join):
         return L.Join(kids[0], kids[1], plan.left_keys, plan.right_keys,
                       plan.how, condition=plan.condition)
+    if isinstance(plan, L.WindowOp):
+        return L.WindowOp(kids[0], plan.wcols)
     if isinstance(plan, L.Repartition):
         return L.Repartition(kids[0], plan.num_partitions, plan.keys)
     return plan

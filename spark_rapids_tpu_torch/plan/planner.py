@@ -35,7 +35,9 @@ A cached scan serves its device batches (`CachedScanExec`; once
 released, its source plan is planned instead); an aggregate over a chain
 of one-child nodes down to a cached scan of at most 2^21 rows takes the
 whole-input (complete) aggregate, as in the JAX planner. Expand, Generate
-and Union become `ExpandExec`, `GenerateExec` and `UnionExec`. A nested
+and Union become `ExpandExec`, `GenerateExec` and `UnionExec`; a WindowOp
+one `WindowExec` per distinct (partition, order) spec, chained, under a
+projection that restores the requested column order. A nested
 group, sort or join key is refused (UnsupportedExpr), as the JAX planner
 refuses it.
 
@@ -164,6 +166,42 @@ def _generate(node, conv, conf):
     return GenerateExec(conv(node.child), node.bound, node.schema)
 
 
+@_rule(L.WindowOp)
+def _window(node, conv, conf):
+    """One WindowExec per distinct (partition, order) spec, chained, each
+    appending its columns; a projection above restores the requested
+    column order (JAX `planner.py:482-516`; the reference splits the
+    same way, GpuWindowExecMeta.scala:182)."""
+    from ..columnar.table import Field, Schema
+    from ..exec.window import WindowExec, spec_signature
+    _refuse_nested([k for _, w in node.bound for k in
+                    list(w.spec.partition_keys)
+                    + [o.expr for o in w.spec.orders]], "window key")
+    groups = {}
+    for nm, w in node.bound:
+        groups.setdefault(spec_signature(w.spec), []).append((nm, w))
+    child = conv(node.child)
+    if len(groups) == 1:
+        return WindowExec(child, [nm for nm, _ in node.bound],
+                          [w for _, w in node.bound], node.schema)
+    cur = child
+    cur_fields = list(node.child.schema.fields)
+    nchild = len(cur_fields)
+    appended = {}
+    for cols in groups.values():
+        out_fields = cur_fields + [Field(nm, w.dtype) for nm, w in cols]
+        for j, (nm, _) in enumerate(cols):
+            appended[nm] = len(cur_fields) + j
+        cur = WindowExec(cur, [nm for nm, _ in cols], [w for _, w in cols],
+                         Schema(out_fields))
+        cur_fields = out_fields
+    refs = ([BoundRef(i, f.dtype, f.name)
+             for i, f in enumerate(node.schema.fields[:nchild])]
+            + [BoundRef(appended[f.name], f.dtype, f.name)
+               for f in node.schema.fields[nchild:]])
+    return x.ProjectExec(cur, refs, node.schema)
+
+
 @_rule(L.Union)
 def _union(node, conv, conf):
     return x.UnionExec([conv(c) for c in node.children], node.schema)
@@ -270,7 +308,7 @@ def _estimate_rows(node: L.LogicalPlan):
         node._est_rows_cache = rows
         return rows
     if isinstance(node, (L.Project, L.Filter, L.Sort, L.Repartition,
-                         L.Aggregate)):
+                         L.Aggregate, L.WindowOp)):
         # a filter keeps the upper bound (a conservative broadcast choice)
         return _estimate_rows(node.children[0])
     if isinstance(node, L.Limit):

@@ -95,9 +95,9 @@ def logical_fp(node: L.LogicalPlan):
     Row counts do not depend on projections or column pruning, so the
     fingerprint hashes only the cardinality skeleton (scans, filter
     conditions, join how and keys, grouping keys, limits) and sees
-    through row-preserving Project, Sort and Repartition: lookups fire
-    at the join-reorder stage (before pruning) while harvest keys come
-    from the converted tree (after it)."""
+    through row-preserving Project, Sort, Repartition and WindowOp:
+    lookups fire at the join-reorder stage (before pruning) while
+    harvest keys come from the converted tree (after it)."""
     fp = getattr(node, "_calib_fp_cache", None)
     if fp is None:
         fp = node._calib_fp_cache = _card_fp(node)
@@ -106,7 +106,7 @@ def logical_fp(node: L.LogicalPlan):
 
 def _card_fp(node: L.LogicalPlan):
     from .fingerprint import expr_fp, exprs_fp
-    if isinstance(node, (L.Project, L.Sort, L.Repartition)):
+    if isinstance(node, (L.Project, L.Sort, L.Repartition, L.WindowOp)):
         return logical_fp(node.children[0])   # row-preserving
     if isinstance(node, L.Filter):
         return ("F", expr_fp(node.condition),
@@ -420,7 +420,7 @@ def _compute_stats_raw(node: L.LogicalPlan) -> Stats:
             return Stats(None)
         return Stats(sum(p.rows for p in parts))
 
-    if isinstance(node, (L.Sort, L.Repartition)):
+    if isinstance(node, (L.Sort, L.Repartition, L.WindowOp)):
         cs = compute_stats(node.children[0])
         return Stats(cs.rows, cs._ndv_of)
 

@@ -2,7 +2,8 @@
 
 The same surface as the JAX package's `TpuSession` for the ported slice:
 `create_dataframe`, `read.parquet`, and `filter`, `select` (an explode
-lifted into a Generate node), `with_column`, `agg`, `group_by(...).agg`
+lifted into a Generate node, window expressions into a WindowOp node),
+`with_column` (through `select`), `agg`, `group_by(...).agg`
 and `.count()`, `rollup`, `cube` and `grouping_sets` (an Expand under
 the aggregate, with `grouping_id`), `join` (equi-keys by name, an
 expression `on`, a non-equi `condition`, cross), `sort`, `limit`,
@@ -261,7 +262,7 @@ class DataFrame:
                 if isinstance(e.child if isinstance(e, Alias) else e,
                               Explode)]
         if not gens:
-            return DataFrame(self._session, L.Project(self._plan, es))
+            return self._select_windows(es)
         if len(gens) > 1:
             raise ValueError("only one explode per select")
         i, gen, orig = gens[0]
@@ -280,6 +281,24 @@ class DataFrame:
         repl = [Alias(ColumnRef(ii), n) for ii, n in zip(internal, names)]
         return DataFrame(self._session,
                          L.Project(gplan, es[:i] + repl + es[i + 1:]))
+
+    def _select_windows(self, es) -> "DataFrame":
+        """A projection; window expressions among `es` first become the
+        columns of a WindowOp node under it (the planner's split of the
+        reference's GpuWindowExecMeta)."""
+        from .window import WindowExpr
+        wcols, plain = [], []
+        for e in es:
+            inner = e.child if isinstance(e, Alias) else e
+            if isinstance(inner, WindowExpr):
+                name = e._name if isinstance(e, Alias) else \
+                    f"_w{len(wcols)}"
+                wcols.append((name, inner))
+                plain.append(ColumnRef(name))
+            else:
+                plain.append(e)
+        plan = L.WindowOp(self._plan, wcols) if wcols else self._plan
+        return DataFrame(self._session, L.Project(plan, plain))
 
     def with_column(self, name: str, e) -> "DataFrame":
         es = [col(n) for n in self.columns if n != name]

@@ -1207,3 +1207,81 @@ def test_nested_checks_reject_a_wrong_row(tpch_small):
     moved = {r[:4] + (r[4] + 1,) + r[5:] if r[5] == 3 else r for r in rows}
     with pytest.raises(AssertionError, match="differ from numpy"):
         chip_smoke.check_grouping(moved, g["rollup"], 10, "wrong")
+
+
+WINDOW_STREAM = {"spark.rapids.tpu.sql.window.chunkRows": 1024,
+                 "spark.rapids.tpu.sql.sort.outOfCore.thresholdBytes":
+                 64 << 10}
+
+
+def test_window_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """Slice 14's phases at sf 0.01 in 4096-row batches: the running
+    window read at the session's conf, streamed in chunks and in core,
+    bit-equal; three specs chained; the daily revenue's window over a
+    grouped exchange on the date. No kernel launch off the card."""
+    import json
+
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    launches = chip_smoke.window_phases(s, tpch_small,
+                                        stream_conf=WINDOW_STREAM)
+    assert launches == {"daily_revenue_window": {"all": 0, "vector": 0,
+                                                 "scalar": 0}}
+    phases = {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+    wr = phases["window_running"]
+    assert wr["readings"]["streamed"]["window"]["numChunks"] > 2
+    assert wr["bit_equal_to_in_core"] == {"default": True, "streamed": True}
+    assert wr["rows"] == tpch_small["orders"].num_rows
+    wf = phases["window_frames"]
+    assert wf["window"]["window_execs"] == 3
+    assert wf["plan"].count("WindowExec") == 3
+    dr = phases["daily_revenue_window"]
+    assert dr["window"]["window_execs"] == 2
+    assert "ShuffleExchangeExec" in dr["plan"]
+
+
+def _set(at, name, values):
+    import pyarrow as pa
+    i = at.column_names.index(name)
+    return at.set_column(i, name, pa.array(values, at.schema.field(i).type))
+
+
+def test_window_checks_reject_a_wrong_row(tpch_small):
+    """Each window check accepts the port's rows and fails on one wrong
+    value: a running rank, a frame's lag (a null made a value), the
+    7-day revenue sum, a running double sum past 1e-9."""
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    orders, li = tpch_small["orders"], tpch_small["lineitem"]
+    ref = chip_smoke.window_running_reference(orders)
+    out = chip_smoke.window_running_query(s, orders).to_arrow()
+    chip_smoke.check_window_running(out, ref, "ok")
+    rk = out.column("rk").to_pylist()
+    rk[5] += 1
+    with pytest.raises(AssertionError, match="rk differs"):
+        chip_smoke.check_window_running(_set(out, "rk", rk), ref, "wrong")
+    ds = out.column("ds").to_pylist()
+    ds[9] *= 1 + 1e-8
+    with pytest.raises(AssertionError, match="ds off"):
+        chip_smoke.check_window_running(_set(out, "ds", ds), ref, "wrong")
+
+    ref = chip_smoke.window_frames_reference(orders)
+    out = chip_smoke.window_frames_query(s, orders).to_arrow()
+    chip_smoke.check_window_frames(out, ref, "ok")
+    lag = out.column("lag_p").to_pylist()
+    lag[lag.index(None)] = next(v for v in lag if v is not None)
+    with pytest.raises(AssertionError, match="lag_p validity"):
+        chip_smoke.check_window_frames(_set(out, "lag_p", lag), ref,
+                                       "wrong")
+
+    ref = chip_smoke.daily_revenue_reference(li)
+    out = chip_smoke.daily_revenue_query(s, li).to_arrow()
+    chip_smoke.check_daily_revenue(out, ref, "ok")
+    r7 = out.column("rev7").to_pylist()
+    r7[3] += type(r7[3])("0.0001")
+    with pytest.raises(AssertionError, match="rev7 differs"):
+        chip_smoke.check_daily_revenue(_set(out, "rev7", r7), ref, "wrong")

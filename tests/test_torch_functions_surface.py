@@ -3,9 +3,9 @@
 without raising; each that the port does not implement yet raises
 NotPorted, and its message names the ROADMAP item that ports it. The
 array, struct and map functions, explode, the higher-order functions,
-collect_list / collect_set and grouping_id (ROADMAP A.5) build since
-they were ported: their cases moved from WAITING to the building side,
-one case a name as before.
+collect_list / collect_set and grouping_id (ROADMAP A.5), and the window
+functions (A.6) build since they were ported: their cases moved from
+WAITING to the building side, one case a name as before.
 """
 import inspect
 import re
@@ -22,9 +22,6 @@ PUBLIC = sorted(n for n in dir(JF) if not n.startswith("_")
 
 #: the entries that wait, by ROADMAP item
 WAITING = {
-    "A.6": ["row_number", "rank", "dense_rank", "percent_rank",
-            "cume_dist", "ntile", "lag", "lead", "first_value",
-            "last_value", "nth_value"],
     "A.9": ["bloom_filter_agg", "might_contain"],
     "A.10": ["rlike", "regexp_extract", "regexp_replace",
              "get_json_object", "from_json", "to_json", "parse_url"],
@@ -46,7 +43,9 @@ ARGS = {"round": ("x", 2), "lpad": ("x", 5, "*"), "rpad": ("x", 5),
         "filter": ("x", lambda v: v > 0),
         "exists": ("x", lambda v: v > 0),
         "forall": ("x", lambda v: v > 0),
-        "aggregate": ("x", 0, lambda acc, v: acc + v)}
+        "aggregate": ("x", 0, lambda acc, v: acc + v),
+        "ntile": (4,), "nth_value": ("x", 2), "lag": ("x",),
+        "lead": ("x",)}
 
 
 def test_every_public_name_exists():
