@@ -96,8 +96,8 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      bit-equal when their signatures agree, and where calibration changed
      the second run's plan a third run must repeat it and the second
      run's bits;
- 35. Q5, the longest join chain, and Q13 (LIKE over o_comment, a left
-     join, two aggregates) under torch.profiler;
+ 35. (no profile of Q5 nor Q13 since PR 15: Q3's profiled run above is
+     the script's device-busy reading);
  36. a skewed join: lineitem's l_orderkey, l_partkey and
      l_extendedprice, l_partkey set to 1 on every even l_orderkey (about
      30M rows on one key, one reduce partition several times the
@@ -207,6 +207,24 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      exchange on the date runs the partition kernel: its launches
      counted), then over the dates a ROWS -6..0 sum and average and the
      rank by revenue descending, exact against numpy;
+ 38n. `sql_surface`: gen_all's eight tables as temp views
+     (`create_or_replace_temp_view`), then through `session.sql`: Q6
+     (`Q6_SQL`), exact against `q6_numpy_baseline`; `SHIPDATE_SQL`, the
+     per-date count and sum of l_quantity, exact against
+     `shipdate_reference` (its date exchange runs the partition kernel:
+     its launches counted, every one the vector variant); Q17 with its
+     correlated scalar subquery (`Q17_SQL`), within 1e-9 of
+     `q17_reference`; and EXPLAIN of the Q6 SQL, every node `*`;
+ 38o. `host_fallback`: supplier (100,000 rows) through a projection the
+     device cannot run (IN of strings over a long, contains with a
+     column pattern: a `HostProjectExec`) and a filter (LIKE with an
+     escape: a `HostFilterExec`), nation (25 rows) under
+     `sql.optimizer.cbo.enabled` (both nodes `!cpu` with a "CBO: ..."
+     reason), and a device FilterExec over supplier in 32,768-row
+     batches with one injected device failure (one batch recovered on
+     the host, no event) and then two (the node pinned to the host, a
+     `degrade_to_host` event); every result exact against pyarrow /
+     Python, every batch built on the card;
  39-60. the written plans: all 22 queries over the same tables, once
      each, with `WRITTEN_CONF` (the four features off: joins in the
      written order, fixed partitions, no reuse, each build before its
@@ -267,6 +285,11 @@ decimals and counts exact, a double within a relative 1e-9; the
 conditional and nested-loop joins numpy's rows exactly. The
 partition kernel's launches are counted on every path that runs it,
 each path with the counts set to 0 just before it and read just after.
+The batches recovered on the host over the whole run (`exec/degrade.py`
+`degradations`) must equal the failures `host_fallback` injected
+(DEGRADE_INJECTED): any other degrade fails the run. The window phases'
+references run on a thread of their own from the data phase on
+(DEFERRED_REFERENCES), the other references on REFERENCE_THREADS.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last is the kernels table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -4118,28 +4141,31 @@ def check_placement(q, key_word, what) -> dict:
     reduce partition p must hash to p. Returns the rows and the pieces
     (the key is column 0 of the exchange's schema)."""
     import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
     root, ctx = q.physical_plan()
     ex = _exchange_of(root)
     ex.stage_stats(ctx)
-    rows = pieces = 0
+
+    def placed(rp):
+        subs = ex._pieces[rp]
+        if not subs:
+            return 0, 0
+        data = np.concatenate([cols[0]["data"] for cols, _, _ in subs])
+        valid = np.concatenate([cols[0]["validity"]
+                                for cols, _, _ in subs]).astype(bool)
+        if not (np_partition_ids(key_word(data), valid, ex.n) == rp).all():
+            raise AssertionError(f"{what}: reduce partition {rp} holds "
+                                 f"rows of another")
+        return len(valid), len(subs)
     try:
-        for rp, subs in enumerate(ex._pieces):
-            if not subs:
-                continue
-            data = np.concatenate([cols[0]["data"] for cols, _, _ in subs])
-            valid = np.concatenate([cols[0]["validity"]
-                                    for cols, _, _ in subs]).astype(bool)
-            if not (np_partition_ids(key_word(data), valid,
-                                     ex.n) == rp).all():
-                raise AssertionError(f"{what}: reduce partition {rp} "
-                                     f"holds rows of another")
-            rows += len(valid)
-            pieces += len(subs)
+        # numpy releases the GIL over these arrays: a partition a thread
+        with ThreadPoolExecutor(REFERENCE_THREADS) as pool:
+            counts = list(pool.map(placed, range(len(ex._pieces))))
     finally:
         ex.release()
         ctx.close()
-    return {"rows_placed": rows, "pieces": pieces,
-            "num_partitions": ex.n}
+    return {"rows_placed": sum(r for r, _ in counts),
+            "pieces": sum(p for _, p in counts), "num_partitions": ex.n}
 
 
 def grouping_phases(session, lineitem, expects=None) -> dict:
@@ -5780,6 +5806,283 @@ def window_phases(session, tables, expects=None, stream_conf=None) -> dict:
     return {"daily_revenue_window": got}
 
 
+# ----------------------------------------------------------------------
+# Slice 15: the SQL frontend, the host fallback, degrade-to-host
+# ----------------------------------------------------------------------
+#: TPC-H Q6 in the parser's SQL (the DataFrame `tpch.q6`'s filter: days
+#: since the epoch, the discount between 0.05 and 0.07)
+Q6_SQL = ("SELECT sum(l_extendedprice * l_discount) AS revenue "
+          "FROM lineitem WHERE l_shipdate >= 8766 AND l_shipdate < 9131 "
+          "AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24")
+SHIPDATE_SQL = ("SELECT l_shipdate, count(*), sum(l_quantity) "
+                "FROM lineitem GROUP BY l_shipdate ORDER BY l_shipdate")
+#: TPC-H Q17 with its correlated scalar subquery (decorrelated into a
+#: grouped-aggregate LEFT join by the parser). The part predicates sit in
+#: a derived table: in the spec's form (WHERE over lineitem JOIN part)
+#: they stay above the decorrelation's LEFT join, which neither
+#: package's optimizer pushes a filter through, and all 60M joined rows
+#: cross it (52.8 s in run 15b)
+Q17_SQL = ("SELECT sum(l_extendedprice) / 7.0 AS avg_yearly "
+           "FROM lineitem JOIN (SELECT p_partkey FROM part "
+           "WHERE p_brand = 'Brand#23' AND p_container = 'MED BOX') p "
+           "ON l_partkey = p_partkey "
+           "WHERE l_quantity < (SELECT 0.2 * avg(l_quantity) FROM lineitem "
+           "WHERE l_partkey = p_partkey)")
+#: a LIKE with an escape (`\S` is a plain S): the device LIKE refuses
+#: escapes, so the filter runs on the host interpreter
+FALLBACK_LIKE = "\\Supplier#%1"
+#: batches of the degrade runs over supplier (100,000 rows at SF10: 4)
+DEGRADE_BATCH_ROWS = 1 << 15
+#: device failures the host_fallback phase injects on purpose, one run
+#: with one, one with FAILURE_THRESHOLD; the degradations counter must
+#: end the script at exactly this
+DEGRADE_INJECTED = (1, 2)
+
+
+def sql_views(session, tables):
+    """Register every table as a temp view of the session."""
+    for name, t in tables.items():
+        session.create_dataframe(t).create_or_replace_temp_view(name)
+
+
+def quiet(fn):
+    """fn() with its stdout swallowed (explain prints its plan)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def sql_surface_phase(session, tables, q6_expect, shipdate_expect,
+                      q17_expect) -> dict:
+    """Q6, the per-date group-by and Q17 written in SQL over the tables
+    as temp views, each exact against its reference (Q17 within
+    TPCH_RTOL), and EXPLAIN of the Q6 SQL with no host node. Returns
+    the partition kernel's launches on the group-by (its date exchange,
+    counted)."""
+    import numpy as np
+    dev = session.device
+    sql_views(session, tables)
+    q6 = session.sql(Q6_SQL)
+    out, wall6, layers6, syncs6 = timed_query(q6, dev)
+    check_revenue(out, q6_expect, "SQL")
+    q = session.sql(SHIPDATE_SQL)
+    out, wall, layers, syncs, got, batches = counted_query(
+        q, dev, "sql_group_by_shipdate")
+    if out.column_names != ["l_shipdate", "count(*)", "sum(l_quantity)"]:
+        raise AssertionError(f"SQL group-by columns {out.column_names}")
+    days = out.column("l_shipdate").cast("int32").to_numpy()
+    if not (np.diff(days) > 0).all():
+        raise AssertionError("SQL group-by: ORDER BY l_shipdate broken")
+    check_shipdate(out.rename_columns(["l_shipdate", "c", "q"]),
+                   shipdate_expect, "SQL")
+    q17 = session.sql(Q17_SQL)
+    out17, wall17, layers17, syncs17 = timed_query(q17, dev)
+    got17 = out17.column("avg_yearly")[0].as_py()
+    want17 = q17_expect[0][0]
+    if got17 is None or abs(got17 - want17) > TPCH_RTOL * abs(want17):
+        raise AssertionError(f"Q17 in SQL: {got17} != {want17}")
+    text = quiet(lambda: session.sql("EXPLAIN " + Q6_SQL).to_arrow()
+                 .column("plan")[0].as_py())
+    tags = [ln.split()[0] for ln in text.split("== Physical Plan ==")[0]
+            .splitlines() if ln.strip()]
+    if not tags or set(tags) != {"*"}:
+        raise AssertionError(f"EXPLAIN of the Q6 SQL: tags {tags}")
+    emit({"phase": "sql_surface", "nvidia_smi": card_line(dev),
+          "q6": {"wall_s": wall6, "layers_s": layers6,
+                 "host_syncs": syncs6, "plan": plan_chain(q6)},
+          "group_by_shipdate": {"wall_s": wall, "dates": out.num_rows,
+                                "layers_s": layers, "host_syncs": syncs,
+                                "plan": plan_chain(q), "map_batches":
+                                batches, "partition_kernel_launches": got},
+          "q17": {"wall_s": wall17, "layers_s": layers17,
+                  "host_syncs": syncs17, "avg_yearly": got17,
+                  "rel_err": abs(got17 - want17) / abs(want17)},
+          "explain_tags": sorted(set(tags)),
+          "check": "exact; Q17 1e-9", "elapsed_s":
+          time.perf_counter() - _START})
+    return {"sql_group_by_shipdate": got}
+
+
+def fallback_project(F, df):
+    """A projection the device cannot run: IN of strings over a long, a
+    contains whose pattern is a column; with them, the whole node runs
+    on the host interpreter."""
+    return df.select("s_suppkey",
+                     F.col("s_suppkey").isin("1", "7").alias("in_str"),
+                     F.contains(F.col("s_comment"), F.col("s_name"))
+                     .alias("has_name"),
+                     F.contains(F.col("s_name"), F.col("s_name"))
+                     .alias("self"))
+
+
+def fallback_filter(F, df):
+    return df.filter(F.like(F.col("s_name"), FALLBACK_LIKE)).select(
+        "s_suppkey", "s_name")
+
+
+def cbo_query(F, df):
+    """A filter and a projection over nation: 25 rows, under
+    `sql.optimizer.cbo.enabled` both go to the host."""
+    return df.filter(F.col("n_regionkey") == 1).select("n_nationkey",
+                                                       "n_name")
+
+
+def degrade_query(F, df):
+    return df.filter((F.col("s_nationkey") < 10)
+                     & (F.col("s_suppkey") != 7))
+
+
+class InjectDeviceFailures:
+    """The next `n` device evaluations of every FilterExec raise a
+    RuntimeError (neither an OOM nor a CUDA error: degrade-to-host
+    recovers it)."""
+
+    def __init__(self, n):
+        import threading
+        from spark_rapids_tpu_torch.exec.nodes import FilterExec
+        self.cls = FilterExec
+        self.left = n
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        orig = self.orig = self.cls.fusable_stage
+        inj = self
+
+        def fusable_stage(node):
+            fn = orig(node)
+
+            def wrapped(cvs, mask):
+                with inj.lock:
+                    fire = inj.left > 0
+                    inj.left -= fire
+                if fire:
+                    raise RuntimeError("injected device failure")
+                return fn(cvs, mask)
+            return wrapped
+        self.cls.fusable_stage = fusable_stage
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fusable_stage = self.orig
+
+
+def _host_nodes(q) -> list:
+    return [type(n).__name__ for n in plan_nodes(q.physical_plan()[0])
+            if type(n).__name__.startswith("Host")]
+
+
+def host_fallback_phase(session, tables,
+                        degrade_batch_rows=DEGRADE_BATCH_ROWS) -> dict:
+    """The host fallback over supplier and nation: a Project and a
+    Filter the device cannot run (`!cpu`), nation's tiny Filter and
+    Project placed on the host by the CBO, and FilterExec's
+    degrade-to-host under injected device failures (DEGRADE_INJECTED, in
+    batches of `degrade_batch_rows`: at least two a run); every result
+    exact against pyarrow / Python, every batch on the session's
+    device."""
+    import numpy as np
+    import pyarrow.compute as pc
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.config import CBO_ENABLED
+    from spark_rapids_tpu_torch.exec.batch import DeviceBatch
+    dev = session.device
+    sup, nation = tables["supplier"], tables["nation"]
+    keys = sup.column("s_suppkey").to_pylist()
+    names = sup.column("s_name").to_pylist()
+    comments = sup.column("s_comment").to_pylist()
+    runs = {}
+
+    def run(label, q, want_hosts, check):
+        hosts = _host_nodes(q)
+        if hosts != want_hosts:
+            raise AssertionError(f"{label}: host nodes {hosts}")
+        tags = quiet(lambda: q.explain("NOT_ON_TPU"))
+        with BatchDevices(DeviceBatch) as devs:
+            out, wall, layers, syncs = timed_query(q, dev)
+        check_devices(devs, dev)
+        check(out)
+        runs[label] = {"wall_s": wall, "rows": out.num_rows,
+                       "hostEvalTime": layers.get("hostEvalTime", 0.0),
+                       "host_syncs": syncs, "host_nodes": hosts,
+                       "not_on_tpu": tags.splitlines()[:2]}
+        return tags
+
+    def check_project(out):
+        want = {"s_suppkey": keys, "in_str": [False] * len(keys),
+                "has_name": [n in c for n, c in zip(names, comments)],
+                "self": [True] * len(keys)}
+        if out.to_pydict() != want:
+            raise AssertionError("host_fallback: the projection differs "
+                                 "from Python's")
+
+    def check_filter(out):
+        want = [(k, n) for k, n in zip(keys, names)
+                if n.startswith("Supplier#") and n.endswith("1")]
+        got = list(zip(out.column("s_suppkey").to_pylist(),
+                       out.column("s_name").to_pylist()))
+        if sorted(got) != want or not want:
+            raise AssertionError("host_fallback: the LIKE filter differs "
+                                 "from Python's")
+
+    df = session.create_dataframe(sup)
+    run("project", fallback_project(F, df), ["HostProjectExec"],
+        check_project)
+    run("filter", fallback_filter(F, df), ["HostFilterExec"], check_filter)
+
+    cbo = session_with(session, {CBO_ENABLED.key: True})
+    region1 = nation.filter(pc.equal(nation.column("n_regionkey"), 1))
+
+    def check_cbo(out):
+        if out.to_pydict() != region1.select(["n_nationkey",
+                                              "n_name"]).to_pydict():
+            raise AssertionError("host_fallback: the CBO query differs")
+    tags = run("cbo_nation", cbo_query(F, cbo.create_dataframe(nation)),
+               ["HostProjectExec", "HostFilterExec"], check_cbo)
+    # the tagged tree's lines (the audit's findings follow them)
+    cbo_lines = [ln for ln in tags.splitlines()
+                 if ln.lstrip().split(" ", 1)[0] in ("*", "!cpu", "!")]
+    if len(cbo_lines) != 2 or not all(
+            ln.lstrip().startswith("!cpu") and "because CBO: ~" in ln
+            for ln in cbo_lines):
+        raise AssertionError(f"host_fallback: CBO tags {cbo_lines}")
+
+    # ---- degrade-to-host: injected device failures on a FilterExec ----
+    from spark_rapids_tpu_torch.exec import degrade
+    dsess = session_with(session, {"spark.rapids.tpu.sql.batchSizeRows":
+                                   degrade_batch_rows})
+    nk = sup.column("s_nationkey").to_numpy()
+    sk = np.asarray(keys)
+    want_keys = sorted(sk[(nk < 10) & (sk != 7)].tolist())
+    for n in DEGRADE_INJECTED:
+        q = degrade_query(F, dsess.create_dataframe(sup))
+        before = degrade.degradations()
+        with InjectDeviceFailures(n) as inj, BatchDevices(DeviceBatch) \
+                as devs:
+            out, wall, _, _ = timed_query(q, dev)
+        check_devices(devs, dev)
+        recovered = metric_totals(q).get("degradedToHost", 0)
+        events = q.last_events()
+        pinned = n >= degrade.FAILURE_THRESHOLD
+        if inj.left != 0 or degrade.degradations() - before != n \
+                or sorted(out.column("s_suppkey").to_pylist()) != want_keys \
+                or (recovered != n if not pinned else recovered < n) \
+                or [e["event"] for e in events] != \
+                (["degrade_to_host"] if pinned else []):
+            raise AssertionError(f"degrade with {n} failure(s): recovered "
+                                 f"{recovered}, events {events}")
+        runs[f"degrade_{n}"] = {"wall_s": wall, "rows": out.num_rows,
+                                "degradedToHost": recovered,
+                                "hostEvalTime": metric_totals(q).get(
+                                    "hostEvalTime", 0.0),
+                                "events": [e["event"] for e in events]}
+    emit({"phase": "host_fallback", "nvidia_smi": card_line(dev),
+          "rows": {"supplier": sup.num_rows, "nation": nation.num_rows},
+          "runs": runs, "check": "exact",
+          "elapsed_s": time.perf_counter() - _START})
+    return runs
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -5828,7 +6131,7 @@ def generate(name, sf, seed):
 
 
 def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY, extra=None,
-              threads=REFERENCE_THREADS, procs=0):
+              threads=REFERENCE_THREADS, procs=0, deferred=()):
     """(gen_all's tables, reference rows per query), printing each table's
     rows and generation seconds and each reference's seconds. The tables
     are gen_all's, made one generator call at a time to time each (with
@@ -5836,7 +6139,10 @@ def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY, extra=None,
     references run on `threads` threads (numpy and Arrow release the GIL
     for most of their work), the longest first; `extra` maps a name to
     a function of the tables whose result joins the returned references
-    under that name."""
+    under that name. The `extra` references named in `deferred` run on
+    one more thread that outlives this call: each is returned as a
+    Future of (result, seconds), for a phase that comes later
+    (`resolve_deferred`)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
     t0 = time.perf_counter()
@@ -5868,26 +6174,48 @@ def tpch_data(sf, seed=TPCH_SEED, qty=TPCH_Q18_QTY, extra=None,
     def timed(name):
         t0 = time.perf_counter()
         return jobs[name](), time.perf_counter() - t0
-    order = sorted(jobs, key=lambda k: LONG_REFERENCES.index(k)
+    later = [k for k in jobs if k in deferred]
+    order = sorted((k for k in jobs if k not in later),
+                   key=lambda k: LONG_REFERENCES.index(k)
                    if k in LONG_REFERENCES else len(LONG_REFERENCES))
     t0 = time.perf_counter()
+    futures = {}
+    if later:
+        bg = ThreadPoolExecutor(1, thread_name_prefix="deferred-reference")
+        futures = {k: bg.submit(timed, k) for k in later}
+        bg.shutdown(wait=False)
     with HostRss() as rss, ThreadPoolExecutor(threads) as ex:
         done = dict(zip(order, ex.map(timed, order)))
     wall = time.perf_counter() - t0
     q18_all = done["q18"][0]
     expects = {n: done[f"q{n}"][0] for n in TPCH_QUERIES}
     expects[18] = q18_all[:100]
-    expects.update({k: done[k][0] for k in extra or {}})
+    expects.update({k: done[k][0] for k in extra or {} if k in done})
+    expects.update(futures)
     emit({"phase": "tpch_data", "sf": sf, "seed": seed,
           "rows": {k: v.num_rows for k, v in tables.items()},
           "gen_s": gen_s, "gen_processes": procs, "gen_wall_s": gen_wall,
-          "reference_s": {k: done[k][1] for k in jobs},
+          "reference_s": {k: done[k][1] for k in done},
+          "deferred_references": later,
           "reference_threads": threads, "references_wall_s": wall,
           "references_peak_host_rss_bytes": rss.peak,
           "result_rows": {f"q{n}": len(expects[n]) for n in TPCH_QUERIES},
           "q18_qty": qty, "q18_orders_over_qty": len(q18_all),
           "q11_fraction": tpch_kw(11, tables)["fraction"], **notes})
     return tables, expects
+
+
+def resolve_deferred(refs, names):
+    """Replace the deferred references among `refs` (Futures from
+    `tpch_data`) with their results, printing their seconds and how long
+    this call waited for them."""
+    t0 = time.perf_counter()
+    secs = {}
+    for k in names:
+        refs[k], secs[k] = refs[k].result()
+    emit({"phase": "deferred_references", "reference_s": secs,
+          "waited_s": time.perf_counter() - t0,
+          "elapsed_s": time.perf_counter() - _START})
 
 
 def _q6_reference(tables):
@@ -5921,6 +6249,11 @@ PHASE_REFERENCES = {
 }
 
 
+#: the references of the window phases, which come late: made on a
+#: thread of their own while the opening phases run
+DEFERRED_REFERENCES = ("window_frames", "window_running", "daily_revenue")
+
+
 def pool_ab_offset(argv, started: float) -> int:
     """The adaptive pass's A/B order (`tpch_phases`' `ab_offset`):
     `--pool-ab-offset=0` or `=1` sets it; by default the parity of the
@@ -5938,11 +6271,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.exec import degrade
     from spark_rapids_tpu_torch.ops import cuda_build
     from spark_rapids_tpu_torch.ops import partition_kernels as pk
     from spark_rapids_tpu_torch.workloads import tpch
 
     torch.cuda.set_device(0)
+    # every batch recovered on the host counts here: only the
+    # host_fallback phase's injected failures may
+    degrade.reset_degradations()
     smi = nvidia_smi_line()
     print(smi, flush=True)
     started = time.time()
@@ -6006,7 +6343,8 @@ def main() -> int:
     # lineitem (its columns of `gen_lineitem`'s short form), customer and
     # orders, and the TPC-H phases over all eight
     tpch_tables, tpch_expects = tpch_data(SF, extra=PHASE_REFERENCES,
-                                          procs=GEN_PROCESSES)
+                                          procs=GEN_PROCESSES,
+                                          deferred=DEFERRED_REFERENCES)
     refs = {k: tpch_expects.pop(k) for k in PHASE_REFERENCES}
     li = tpch_tables["lineitem"]
     lineitem = li.select(tpch.gen_lineitem(0.0001, seed=0).column_names)
@@ -6043,7 +6381,8 @@ def main() -> int:
     # A/B, in the order this run's offset gives
     by_path.update(tpch_phases(session, tpch_tables, tpch_expects,
                                keep=defaults, ab_threads=1,
-                               ab_offset=ab_offset, ab_queries=AB_QUERIES))
+                               ab_offset=ab_offset, ab_queries=AB_QUERIES,
+                               profile=False))
     by_path.update(skew_join_phase(session, tpch_tables))
     by_path.update(join_condition_phases(session, tpch_tables))
     release_pinned_cache("the grouping phases")
@@ -6054,7 +6393,12 @@ def main() -> int:
     by_path.update(nested_phases(session, tpch_tables, refs))
     del refs["map"]
     release_pinned_cache("the window phases")
+    resolve_deferred(refs, DEFERRED_REFERENCES)
     by_path.update(window_phases(session, tpch_tables, refs))
+    release_pinned_cache("the SQL and host-fallback phases")
+    by_path.update(sql_surface_phase(session, tpch_tables, expect,
+                                     shipdate_expect, tpch_expects[17]))
+    host_fallback_phase(session, tpch_tables)
     release_pinned_cache("the written-plan pass")
     by_path.update(tpch_phases(
         written_session(session), tpch_tables,
@@ -6066,6 +6410,13 @@ def main() -> int:
                                            "batchSizeRows": BATCH_ROWS},
                           li, expect, q1_expect, runs=1)
     memory_runtime_phases(session, tpch_tables, tpch_expects, defaults)
+    degraded = degrade.degradations()
+    emit({"phase": "degradations", "batches_recovered_on_host": degraded,
+          "injected": sum(DEGRADE_INJECTED)})
+    if degraded != sum(DEGRADE_INJECTED):
+        raise AssertionError(f"{degraded} batches degraded to the host; "
+                             f"{sum(DEGRADE_INJECTED)} failures were "
+                             f"injected")
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

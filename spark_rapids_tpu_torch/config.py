@@ -29,7 +29,9 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "EXCHANGE_BROADCAST_TIMEOUT", "CONCURRENT_TASKS",
            "HBM_POOL_FRACTION", "HBM_POOL_BYTES", "HOST_SPILL_LIMIT",
            "SPILL_DIR", "OOM_MAX_RETRIES", "SORT_OOC_ENABLED",
-           "SORT_OOC_THRESHOLD", "WINDOW_CHUNK_ROWS"]
+           "SORT_OOC_THRESHOLD", "WINDOW_CHUNK_ROWS", "ALLOW_CPU_FALLBACK",
+           "EXPLAIN", "AUDIT_STRICT", "CBO_ENABLED", "CBO_SMALL_INPUT_ROWS",
+           "DEGRADE_TO_HOST"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -300,6 +302,47 @@ EXCHANGE_BROADCAST_TIMEOUT = _conf(
     "(never two at once) and counts broadcastTimeoutFallbacks. 0 = "
     "wait forever.", float)
 
+ALLOW_CPU_FALLBACK = _conf(
+    "sql.allowCpuFallback", True,
+    "Allow operators that cannot run on TPU to fall back to the host CPU "
+    "path instead of failing. In the port: a Project or Filter whose "
+    "expression the device cannot run evaluates on the host interpreter "
+    "(exec/host_fallback.py).", bool)
+EXPLAIN = _conf(
+    "sql.explain", "NONE",
+    "Explain TPU planning: NONE|NOT_ON_TPU|ALL|VALIDATE "
+    "(analog of spark.rapids.sql.explain). NOT_ON_TPU/ALL print the "
+    "tagged plan plus static-audit findings; VALIDATE prints the full "
+    "plan-audit verdict tree (ok / will_fallback / will_not_work per "
+    "node; the port never issues recompile_risk).", str)
+AUDIT_STRICT = _conf(
+    "sql.audit.strict", False,
+    "Fail at PLAN time when the static plan auditor finds a "
+    "will_not_work verdict (unregistered expression, dtype the device "
+    "kernels cannot actually run): raises UnsupportedExpr carrying the "
+    "node path of every blocked site. will_fallback verdicts never fail "
+    "the plan.", bool)
+CBO_ENABLED = _conf(
+    "sql.optimizer.cbo.enabled", False,
+    "Cost-based device-vs-host placement: tiny Project/Filter inputs "
+    "the host interpreter covers run on the CPU bridge instead of "
+    "paying a device dispatch (reference: CostBasedOptimizer.scala + "
+    "GpuCostModel, also default-off). Decisions show in explain as "
+    "'CBO: ...'.", bool)
+CBO_SMALL_INPUT_ROWS = _conf(
+    "sql.optimizer.cbo.smallInputRows", 64,
+    "CBO small-input bound: estimated input rows at or below this run "
+    "host-side when coverable.", int)
+DEGRADE_TO_HOST = _conf(
+    "sql.exec.degradeToHost.enabled", True,
+    "Graceful device->host degradation: a ProjectExec or FilterExec "
+    "whose device evaluation raises an error that is neither an OOM "
+    "(split-and-retry's) nor a CUDA runtime error re-evaluates the batch "
+    "on the host interpreter, and after two device failures on the "
+    "same operator stops dispatching to the device for the rest of the "
+    "query (counted as degradedToHost, recorded as a degrade_to_host "
+    "event).", bool)
+
 
 class TpuConf:
     """Snapshot of settings, resolved against the registry."""
@@ -322,3 +365,17 @@ class TpuConf:
     @property
     def concurrent_tasks(self) -> int:
         return self.get(CONCURRENT_TASKS)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
+
+    @property
+    def allow_cpu_fallback(self) -> bool:
+        return self.get(ALLOW_CPU_FALLBACK)
+
+    def set(self, key: str, value) -> "TpuConf":
+        """A copy with one setting changed."""
+        s = dict(self._settings)
+        s[key] = value
+        return TpuConf(s)

@@ -41,6 +41,12 @@ class ExecContext:
         self.metrics: Dict[str, Dict[str, float]] = {}
         self._lock = threading.Lock()
         self._handles: List = []
+        # device->host degradation state (exec/degrade.py): device
+        # failures a node, the nodes pinned to the host for the rest of
+        # the query, and the degrade_to_host events
+        self.device_failures: Dict[str, int] = {}
+        self.degraded: Dict[str, bool] = {}
+        self.pending_events: List[dict] = []
 
     @property
     def device_manager(self):

@@ -30,6 +30,7 @@ from ..io.file_cache import cached_local_path
 from ..memory.host import staging_pool
 from ..ops.kernel_utils import CV
 from ..utils import transfer
+from . import degrade
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, _torch_dtype, to_host
 
@@ -560,10 +561,25 @@ class ProjectExec(TpuExec):
 
     def execute_partition(self, ctx, pid):
         stage = self.fusable_stage()
+        m = ctx.metrics_for(self._op_id)
         for batch in self.children[0].execute_partition(ctx, pid):
-            cvs, _ = stage(batch.cvs(), batch.row_mask)
-            yield DeviceBatch(make_table(self.schema, cvs, batch.num_rows),
-                              batch.num_rows, batch.row_mask)
+            if self._op_id not in ctx.degraded:
+                try:
+                    cvs, _ = stage(batch.cvs(), batch.row_mask)
+                except Exception as e:  # noqa: BLE001 - classified below
+                    if not degrade.should_degrade(ctx, self, e):
+                        raise
+                else:
+                    yield DeviceBatch(make_table(self.schema, cvs,
+                                                 batch.num_rows),
+                                      batch.num_rows, batch.row_mask)
+                    continue
+            # degraded, or this batch's device evaluation just failed: the
+            # host interpreter evaluates the same bound expressions
+            with m.timer("hostEvalTime"):
+                hb = degrade.host_project_batch(self, batch, ctx.device)
+            m.add("degradedToHost", 1)
+            yield hb
 
 
 class FilterExec(TpuExec):
@@ -583,9 +599,24 @@ class FilterExec(TpuExec):
 
     def execute_partition(self, ctx, pid):
         stage = self.fusable_stage()
+        m = ctx.metrics_for(self._op_id)
         for batch in self.children[0].execute_partition(ctx, pid):
-            _, mask = stage(batch.cvs(), batch.row_mask)
-            yield DeviceBatch(batch.table, batch.num_rows, mask)
+            if self._op_id not in ctx.degraded:
+                try:
+                    _, mask = stage(batch.cvs(), batch.row_mask)
+                except Exception as e:  # noqa: BLE001 - classified below
+                    if not degrade.should_degrade(ctx, self, e):
+                        raise
+                else:
+                    yield DeviceBatch(batch.table, batch.num_rows, mask)
+                    continue
+            # degraded, or this batch's device evaluation just failed:
+            # the host evaluates the predicate over the same batch
+            with m.timer("hostEvalTime"):
+                hb = degrade.host_filter_batch(self, batch, ctx.device)
+            m.add("degradedToHost", 1)
+            if hb is not None:
+                yield hb
 
 
 class LimitExec(TpuExec):

@@ -129,7 +129,7 @@ class _LiteralPatternPredicate(Expression):
         if not isinstance(p, Literal) or not isinstance(p.value,
                                                         (str, bytes)):
             raise UnsupportedExpr(
-                f"{type(self).__name__} requires a literal pattern")
+                f"{type(self).__name__} requires a literal pattern round-1")
         b = type(self)(c, p)
         b.dtype = dt.BOOL
         return b

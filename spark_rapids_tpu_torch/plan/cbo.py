@@ -14,9 +14,16 @@ Each emitted join puts the smaller estimated side on the right (the
 build side). The written order is kept unless the modeled win is at
 least `_REWRITE_MIN_RATIO`; observed cardinalities from the calibration
 table replace the model only when they show it off by
-`_CALIBRATION_ERROR_FACTOR` or more. The JAX module's device-vs-host
-placement pass (`apply_cbo`, `sql.optimizer.cbo.enabled`, off by
-default) is not ported.
+`_CALIBRATION_ERROR_FACTOR` or more.
+
+The device-vs-host placement pass (`apply_cbo`, conf
+`sql.optimizer.cbo.enabled`, off by default like the reference's
+CostBasedOptimizer.scala + GpuCostModel): a tiny Project or Filter
+whose expressions the host interpreter covers is tagged for the host
+fallback, visible in explain as "CBO: ...". The bound is the JAX
+package's `sql.optimizer.cbo.smallInputRows` (64), kept so that both
+packages place alike; the port has not measured where a CUDA launch
+stops being cheaper than the host interpreter.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 from . import logical as L
 
-__all__ = ["reorder_joins"]
+__all__ = ["apply_cbo", "estimate_rows_selective", "reorder_joins"]
 
 # rough per-conjunct selectivities (reference: spark CBO FilterEstimation)
 _SEL = {"Eq": 0.05, "EqNullSafe": 0.05, "In": 0.1,
@@ -45,6 +52,61 @@ def _selectivity(e) -> float:
     if name == "Not":
         return max(0.0, 1.0 - _selectivity(e.children[0]))
     return _SEL.get(name, 0.5)
+
+
+def estimate_rows_selective(node: L.LogicalPlan):
+    """Row estimate WITH filter selectivities applied (the planner's
+    broadcast input stays an upper bound; the CBO wants the expected
+    size)."""
+    from .planner import _estimate_rows
+    if isinstance(node, L.Filter):
+        child = estimate_rows_selective(node.children[0])
+        if child is None:
+            return None
+        return child * _selectivity(node.condition)
+    if isinstance(node, (L.Project, L.Sort, L.Repartition, L.WindowOp)):
+        return estimate_rows_selective(node.children[0])
+    return _estimate_rows(node)
+
+
+def _host_covers(exprs) -> bool:
+    from ..expr.host_eval import _RULES
+
+    def covered(e):
+        if e is None:
+            return False
+        if type(e).__name__ not in _RULES:
+            return False
+        return all(covered(c) for c in e.children if c is not None)
+
+    return all(covered(e) for e in exprs)
+
+
+def apply_cbo(meta, conf):
+    """Walk the tagged PlanMeta tree; tag tiny host-coverable
+    Project/Filter nodes for the host fallback. Mutates meta in place.
+    A no-op when the fallback is off: a CBO tag must never turn a valid
+    device plan into a failure."""
+    from ..config import CBO_SMALL_INPUT_ROWS
+    if not conf.allow_cpu_fallback:
+        return
+    _walk(meta, conf.get(CBO_SMALL_INPUT_ROWS))
+
+
+def _walk(meta, small: int):
+    node = meta.node
+    if isinstance(node, (L.Project, L.Filter)) \
+            and not meta.reasons and not meta.host_reasons:
+        est = estimate_rows_selective(node.children[0])
+        exprs = ([node.bound] if isinstance(node, L.Filter)
+                 else list(node.exprs))
+        if est is not None and est <= small and _host_covers(
+                [e for e in exprs if e is not None]):
+            meta.will_use_host(
+                f"CBO: ~{int(est)} input rows <= {small}; host "
+                f"interpreter beats device dispatch at this size")
+    for c in meta.children:
+        _walk(c, small)
 
 
 # ======================================================================

@@ -4,9 +4,12 @@ Scans (in-memory Arrow, Parquet, cached device batches), Project,
 Filter, Aggregate (grouped or not), Expand (grouping sets), Join (every
 `how` of the JAX package), Sort, Limit, Union, Generate (explode),
 WindowOp and Repartition. Expressions bind against the child schema
-when a node is built, as in the JAX package; an expression the port
-cannot evaluate raises there (NotPorted or UnsupportedExpr) instead of
-planning a host fallback.
+when a node is built, as in the JAX package, and each bound tree passes
+the type-signature gate (`typesig.check_tree`) at the JAX package's bind
+sites. A Project or Filter whose expression the device cannot run keeps
+the unbound tree and its bind error (and a Project the output type the
+host interpreter gives it), for the planner's host fallback; anywhere
+else such an expression raises UnsupportedExpr (or NotPorted) here.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ from typing import List, Optional, Sequence, Tuple
 from ..columnar import dtypes as dt
 from ..columnar.table import Field, Schema
 from ..expr import aggregates as agg
-from ..expr.expressions import Expression
+from ..expr.expressions import Expression, UnsupportedExpr
+from ..expr.host_eval import host_output_dtype
+from .typesig import check_tree as _tsig
 
 __all__ = ["LogicalPlan", "InMemoryScan", "CachedScan", "ParquetScan",
            "Project", "Filter", "Aggregate", "Expand", "Join", "SortOrder",
@@ -102,13 +107,33 @@ class ParquetScan(LogicalPlan):
 
 
 class Project(LogicalPlan):
+    """A projection. An expression the device cannot run (its bind or
+    its type signature refuses it) keeps its unbound tree: `bound[i]` is
+    None, `bind_errors[i]` the refusal, and the output type is the host
+    interpreter's (`host_output_dtype`); without one it raises."""
+
     def __init__(self, child: LogicalPlan, exprs: Sequence[Expression]):
         self.child = child
         self.children = [child]
         self.exprs = list(exprs)
-        self.bound = [e.bind(child.schema) for e in self.exprs]
-        self._schema = Schema([Field(e.name, b.dtype)
-                               for e, b in zip(self.exprs, self.bound)])
+        self.bound: List[Optional[Expression]] = []
+        self.bind_errors: List[Optional[str]] = []
+        fields = []
+        for e in self.exprs:
+            try:
+                b = _tsig(e.bind(child.schema),
+                          where=f"Project expr {e.name!r}")
+                self.bound.append(b)
+                self.bind_errors.append(None)
+                fields.append(Field(e.name, b.dtype))
+            except UnsupportedExpr as err:
+                hd = host_output_dtype(e)
+                if hd is None:
+                    raise
+                self.bound.append(None)
+                self.bind_errors.append(str(err))
+                fields.append(Field(e.name, hd))
+        self._schema = Schema(fields)
 
     @property
     def schema(self):
@@ -119,11 +144,20 @@ class Project(LogicalPlan):
 
 
 class Filter(LogicalPlan):
+    """A filter; a condition the device cannot run leaves `bound` None
+    and its refusal in `bind_error`, for the host fallback."""
+
     def __init__(self, child: LogicalPlan, condition: Expression):
         self.child = child
         self.children = [child]
         self.condition = condition
-        self.bound = condition.bind(child.schema)
+        self.bind_error: Optional[str] = None
+        try:
+            self.bound = _tsig(condition.bind(child.schema),
+                               where="Filter condition")
+        except UnsupportedExpr as err:
+            self.bound = None
+            self.bind_error = str(err)
 
     @property
     def schema(self):
@@ -143,8 +177,12 @@ class Aggregate(LogicalPlan):
         self.children = [child]
         self.keys = list(keys)
         self.aggs = list(aggs)
-        self.bound_keys = [k.bind(child.schema) for k in self.keys]
-        self.bound_aggs = [(n, a.bind(child.schema)) for n, a in self.aggs]
+        self.bound_keys = [_tsig(k.bind(child.schema),
+                                 where=f"Aggregate key {k.name!r}")
+                           for k in self.keys]
+        self.bound_aggs = [(n, _tsig(a.bind(child.schema),
+                                     where=f"Aggregate agg {n!r}"))
+                           for n, a in self.aggs]
         fields = [Field(k.name, bk.dtype)
                   for k, bk in zip(self.keys, self.bound_keys)]
         fields += [Field(n, a.dtype) for n, a in self.bound_aggs]
@@ -172,7 +210,9 @@ class Expand(LogicalPlan):
         self.key_names = list(key_names)
         self.include_masks = [tuple(m) for m in include_masks]
         self.gid_name = gid_name
-        self.bound_keys = [k.bind(child.schema) for k in self.key_exprs]
+        self.bound_keys = [_tsig(k.bind(child.schema),
+                                 where=f"Expand key {k.name!r}")
+                           for k in self.key_exprs]
         fields = list(child.schema.fields)
         fields += [Field(n, k.dtype)
                    for n, k in zip(self.key_names, self.bound_keys)]
@@ -208,13 +248,17 @@ class Join(LogicalPlan):
         self.how = how
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
-        self.bound_left_keys = [k.bind(left.schema) for k in self.left_keys]
-        self.bound_right_keys = [k.bind(right.schema)
+        self.bound_left_keys = [_tsig(k.bind(left.schema),
+                                      where=f"Join left key {k.name!r}")
+                                for k in self.left_keys]
+        self.bound_right_keys = [_tsig(k.bind(right.schema),
+                                       where=f"Join right key {k.name!r}")
                                  for k in self.right_keys]
         lf = list(left.schema.fields)
         rf = list(right.schema.fields)
         self.condition = condition
-        self.bound_condition = (condition.bind(Schema(lf + rf))
+        self.bound_condition = (_tsig(condition.bind(Schema(lf + rf)),
+                                      where="Join condition")
                                 if condition is not None else None)
         self._schema = Schema(lf if how in ("left_semi", "left_anti")
                               else lf + rf)
@@ -249,9 +293,9 @@ class Sort(LogicalPlan):
         self.child = child
         self.children = [child]
         self.orders = list(orders)
-        self.bound_orders = [SortOrder(o.expr.bind(child.schema),
-                                       o.ascending, o.nulls_first)
-                             for o in self.orders]
+        self.bound_orders = [SortOrder(
+            _tsig(o.expr.bind(child.schema), where=f"Sort key {o.expr!r}"),
+            o.ascending, o.nulls_first) for o in self.orders]
 
     @property
     def schema(self):
@@ -302,7 +346,8 @@ class Generate(LogicalPlan):
         self.child = child
         self.children = [child]
         self.generator = generator              # unbound Explode
-        self.bound = generator.bind(child.schema)
+        self.bound = _tsig(generator.bind(child.schema),
+                           where="Generate generator")
         self.out_names = list(out_names)
         gen_fields = []
         if self.bound.with_position:
@@ -325,15 +370,17 @@ class Generate(LogicalPlan):
 class WindowOp(LogicalPlan):
     """The child's columns, then one column a window expression
     (reference: GpuWindowExec planning in GpuWindowExecMeta.scala).
-    `wcols` are (name, unbound WindowExpr) pairs; binding refuses an
-    input type the window cannot take (UnsupportedExpr), where the JAX
-    node asks its plan-time type signatures."""
+    `wcols` are (name, unbound WindowExpr) pairs; each window function's
+    input passes the type-signature gate."""
 
     def __init__(self, child: LogicalPlan, wcols):
         self.child = child
         self.children = [child]
         self.wcols = list(wcols)
         self.bound = [(n, w.bind(child.schema)) for n, w in self.wcols]
+        for n, w in self.bound:
+            if getattr(w, "child", None) is not None:
+                _tsig(w.child, where=f"WindowOp column {n!r}")
         self._schema = Schema(list(child.schema.fields)
                               + [Field(n, w.dtype) for n, w in self.bound])
 
@@ -352,7 +399,9 @@ class Repartition(LogicalPlan):
         self.children = [child]
         self.num_partitions = num_partitions
         self.keys = list(keys) if keys else None
-        self.bound_keys = ([k.bind(child.schema) for k in self.keys]
+        self.bound_keys = ([_tsig(k.bind(child.schema),
+                                  where=f"Repartition key {k.name!r}")
+                            for k in self.keys]
                            if self.keys else None)
 
     @property

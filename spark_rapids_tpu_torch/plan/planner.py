@@ -46,19 +46,32 @@ threshold (`how="cross"`); a condition with no equi keys is a
 `NestedLoopJoinExec`; any other condition rides the hash join. The
 bloom-filter prefilter of a shuffled join is off by default in JAX and
 not ported. A mesh exchange and any node without a rule raise
-NotPorted; nothing falls back to another engine.
+NotPorted.
+
+Placement has the JAX planner's three states (`PlanMeta`): `_tag` marks
+a Project or Filter whose expression the device cannot run `!cpu`
+under `sql.allowCpuFallback` (the default), and it becomes a
+`HostProjectExec` / `HostFilterExec` (`exec/host_fallback.py`); with
+the fallback off it is `!` and conversion raises UnsupportedExpr. Under
+`sql.optimizer.cbo.enabled` a tiny Project or Filter the host
+interpreter covers is tagged `!cpu` too (`plan/cbo.py` `apply_cbo`).
+The plan audit (`analysis/audit.py`) runs after conversion and rides
+the root as `audit_report`; `sql.explain` prints the tagged tree (ALL,
+NOT_ON_TPU) or the audit (VALIDATE), and `sql.audit.strict` fails a
+plan with a will_not_work verdict.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Type
+from typing import Callable, Dict, List, Type
 
+from ..analysis.audit import audit_plan
 from ..columnar import dtypes as dt
 from ..config import (ADAPTIVE_CALIBRATION, ADAPTIVE_COALESCE_ENABLED,
                       ADAPTIVE_ENABLED, ADAPTIVE_SKEW_ENABLED,
                       ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_MIN_BYTES,
-                      ADAPTIVE_TARGET_BYTES, BATCH_SIZE_ROWS,
-                      BROADCAST_THRESHOLD, MESH_DEVICES, SHUFFLE_PARTITIONS,
-                      TpuConf)
+                      ADAPTIVE_TARGET_BYTES, AUDIT_STRICT, BATCH_SIZE_ROWS,
+                      BROADCAST_THRESHOLD, CBO_ENABLED, MESH_DEVICES,
+                      SHUFFLE_PARTITIONS, TpuConf)
 from ..errors import NotPorted
 from ..exec import nodes as x
 from ..exec.aggregate import (CollectAggExec, HashAggregateExec,
@@ -69,14 +82,61 @@ from ..exec.broadcast import BroadcastExchangeExec
 from ..exec.join import HashJoinExec, NestedLoopJoinExec
 from ..exec.coalesce import CoalesceBatchesExec
 from ..exec.exchange import ShuffleExchangeExec
+from ..exec.host_fallback import HostFilterExec, HostProjectExec
 from ..exec.sort import SortExec
 from ..expr.expressions import BoundRef, UnsupportedExpr
 from . import logical as L
+from .cbo import apply_cbo
 from .optimizer import optimize
 from .reuse import reuse_exchanges
 from .stats import attach_calibration_fps, calibration_scope
 
-__all__ = ["Planner"]
+__all__ = ["Planner", "PlanMeta"]
+
+
+class PlanMeta:
+    """A logical node's placement (the RapidsMeta analog, JAX
+    `planner.py:27-71`): it runs on the device (`*`), on the host CPU
+    through the fallback interpreter (`!cpu`: the query still
+    succeeds), or not at all (`!`: the query fails at conversion). A
+    released cache's source plan is its child."""
+
+    def __init__(self, node: L.LogicalPlan):
+        self.node = node
+        kids = list(node.children)
+        if isinstance(node, L.CachedScan) and node.released:
+            kids = [node.source]
+        self.children = [PlanMeta(c) for c in kids]
+        self.reasons: List[str] = []
+        self.host_reasons: List[str] = []
+
+    def will_not_work(self, reason: str):
+        self.reasons.append(reason)
+
+    def will_use_host(self, reason: str):
+        self.host_reasons.append(reason)
+
+    @property
+    def can_run_on_tpu(self) -> bool:
+        return not self.reasons
+
+    def explain_lines(self, only_not_on_tpu: bool, indent=0) -> List[str]:
+        lines = []
+        tag = ("!cpu" if self.host_reasons and not self.reasons
+               else "*" if self.can_run_on_tpu else "!")
+        desc = f"{'  ' * indent}{tag} {self.node.describe()}"
+        if self.reasons:
+            desc += "  <-- cannot run on TPU because " + "; ".join(
+                self.reasons)
+        elif self.host_reasons:
+            desc += ("  <-- will run on CPU because "
+                     + "; ".join(self.host_reasons))
+        if not only_not_on_tpu or self.reasons or self.host_reasons:
+            lines.append(desc)
+        for c in self.children:
+            lines.extend(c.explain_lines(only_not_on_tpu, indent + 1))
+        return lines
+
 
 _RULES: Dict[Type[L.LogicalPlan], Callable] = {}
 
@@ -89,19 +149,22 @@ def _rule(cls):
 
 
 @_rule(L.InMemoryScan)
-def _scan(node, conv, conf) -> TpuExec:
+def _scan(meta, conv, conf) -> TpuExec:
+    node = meta.node
     return x.InMemoryScanExec(node.arrow, node.schema)
 
 
 @_rule(L.CachedScan)
-def _cached(node, conv, conf):
+def _cached(meta, conv, conf):
+    node = meta.node
     if node.released:
-        return conv(node.source)
+        return conv(meta.children[0])
     return x.CachedScanExec(node.batches, node.schema)
 
 
 @_rule(L.ParquetScan)
-def _pq(node, conv, conf):
+def _pq(meta, conv, conf):
+    node = meta.node
     scan = x.ParquetScanExec(node.paths, node.schema, node.columns,
                              filters=node.filters)
     if len(node.paths) > 1:
@@ -122,13 +185,31 @@ def _pq(node, conv, conf):
 
 
 @_rule(L.Project)
-def _project(node, conv, conf):
-    return x.ProjectExec(conv(node.child), node.bound, node.schema)
+def _project(meta, conv, conf):
+    node = meta.node
+    child = conv(meta.children[0])
+    if any(b is None for b in node.bound) or meta.host_reasons:
+        # _tag copied the bind errors into host_reasons: dedupe
+        reason = "; ".join(dict.fromkeys(
+            [e for e in node.bind_errors if e] + meta.host_reasons))
+        if not conf.allow_cpu_fallback:
+            raise UnsupportedExpr(reason)
+        return HostProjectExec(child, node.exprs, node.schema, reason)
+    return x.ProjectExec(child, node.bound, node.schema)
 
 
 @_rule(L.Filter)
-def _filter(node, conv, conf):
-    return x.FilterExec(conv(node.child), node.bound)
+def _filter(meta, conv, conf):
+    node = meta.node
+    child = conv(meta.children[0])
+    if node.bound is None or meta.host_reasons:
+        reason = "; ".join(dict.fromkeys(
+            ([node.bind_error] if node.bind_error else [])
+            + meta.host_reasons))
+        if not conf.allow_cpu_fallback:
+            raise UnsupportedExpr(reason)
+        return HostFilterExec(child, node.condition, reason)
+    return x.FilterExec(child, node.bound)
 
 
 def _aqe_wrap(exchange, conf, allow_split=False, plan=None,
@@ -154,24 +235,27 @@ def _aqe_wrap(exchange, conf, allow_split=False, plan=None,
 
 
 @_rule(L.Expand)
-def _expand(node, conv, conf):
+def _expand(meta, conv, conf):
+    node = meta.node
     from ..exec.expand import ExpandExec
-    return ExpandExec(conv(node.child), node.bound_keys,
+    return ExpandExec(conv(meta.children[0]), node.bound_keys,
                       node.include_masks, node.schema)
 
 
 @_rule(L.Generate)
-def _generate(node, conv, conf):
+def _generate(meta, conv, conf):
+    node = meta.node
     from ..exec.generate import GenerateExec
-    return GenerateExec(conv(node.child), node.bound, node.schema)
+    return GenerateExec(conv(meta.children[0]), node.bound, node.schema)
 
 
 @_rule(L.WindowOp)
-def _window(node, conv, conf):
+def _window(meta, conv, conf):
     """One WindowExec per distinct (partition, order) spec, chained, each
     appending its columns; a projection above restores the requested
     column order (JAX `planner.py:482-516`; the reference splits the
     same way, GpuWindowExecMeta.scala:182)."""
+    node = meta.node
     from ..columnar.table import Field, Schema
     from ..exec.window import WindowExec, spec_signature
     _refuse_nested([k for _, w in node.bound for k in
@@ -180,7 +264,7 @@ def _window(node, conv, conf):
     groups = {}
     for nm, w in node.bound:
         groups.setdefault(spec_signature(w.spec), []).append((nm, w))
-    child = conv(node.child)
+    child = conv(meta.children[0])
     if len(groups) == 1:
         return WindowExec(child, [nm for nm, _ in node.bound],
                           [w for _, w in node.bound], node.schema)
@@ -203,8 +287,9 @@ def _window(node, conv, conf):
 
 
 @_rule(L.Union)
-def _union(node, conv, conf):
-    return x.UnionExec([conv(c) for c in node.children], node.schema)
+def _union(meta, conv, conf):
+    node = meta.node
+    return x.UnionExec([conv(c) for c in meta.children], node.schema)
 
 
 def _refuse_nested(keys, what: str):
@@ -227,9 +312,10 @@ def _small_cached_input(child: TpuExec) -> bool:
 
 
 @_rule(L.Aggregate)
-def _agg(node, conv, conf):
+def _agg(meta, conv, conf):
+    node = meta.node
     _refuse_nested(node.bound_keys, "group-by key")
-    child = conv(node.child)
+    child = conv(meta.children[0])
     names = [n for n, _ in node.bound_aggs]
     aggs = [a for _, a in node.bound_aggs]
     has_collect = any(getattr(a, "is_collect", False) for a in aggs)
@@ -276,14 +362,16 @@ def _agg(node, conv, conf):
 
 
 @_rule(L.Sort)
-def _sort(node, conv, conf):
+def _sort(meta, conv, conf):
+    node = meta.node
     _refuse_nested([o.expr for o in node.bound_orders], "sort key")
-    return SortExec(conv(node.child), node.bound_orders, node.schema)
+    return SortExec(conv(meta.children[0]), node.bound_orders, node.schema)
 
 
 @_rule(L.Limit)
-def _limit(node, conv, conf):
-    return x.LimitExec(conv(node.child), node.n)
+def _limit(meta, conv, conf):
+    node = meta.node
+    return x.LimitExec(conv(meta.children[0]), node.n)
 
 
 def _estimate_rows(node: L.LogicalPlan):
@@ -341,10 +429,11 @@ def _estimate_bytes(node: L.LogicalPlan):
 
 
 @_rule(L.Join)
-def _join(node, conv, conf):
+def _join(meta, conv, conf):
+    node = meta.node
     _refuse_nested(list(node.bound_left_keys) + list(node.bound_right_keys),
                    "join key")
-    left, right = conv(node.left), conv(node.right)
+    left, right = conv(meta.children[0]), conv(meta.children[1])
     if conf.get(MESH_DEVICES) > 1:
         raise NotPorted("mesh exchange (MeshExchangeExec, ROADMAP A.14)")
     thr = conf.get(BROADCAST_THRESHOLD)
@@ -388,17 +477,24 @@ def _join(node, conv, conf):
 
 
 @_rule(L.Repartition)
-def _repart(node, conv, conf):
+def _repart(meta, conv, conf):
+    node = meta.node
     if node.bound_keys and conf.get(MESH_DEVICES) == node.num_partitions \
             and node.num_partitions > 1:
         raise NotPorted("mesh exchange (MeshExchangeExec, ROADMAP A.14)")
-    return ShuffleExchangeExec(conv(node.child), node.num_partitions,
+    return ShuffleExchangeExec(conv(meta.children[0]), node.num_partitions,
                                node.bound_keys, node.schema)
 
 
 class Planner:
+    """Optimize, tag, place, convert, audit (JAX `planner.py:585-723`).
+    `last_explain` holds the lines the `sql.explain` mode asked for (and
+    printed), `last_audit` the plan audit of the last `plan()`."""
+
     def __init__(self, conf: TpuConf):
         self.conf = conf
+        self.last_explain: List[str] = []
+        self.last_audit = None
 
     def plan(self, root: L.LogicalPlan) -> TpuExec:
         # calibration lookups (observed cardinalities of earlier runs)
@@ -406,17 +502,71 @@ class Planner:
         # and only there (JAX `planner.py:595-605`)
         with calibration_scope(self.conf.get(ADAPTIVE_ENABLED)
                                and self.conf.get(ADAPTIVE_CALIBRATION)):
-            root_exec = self._convert(optimize(root, self.conf))
-        # duplicate exchange subtrees collapse to ReusedExchange nodes
-        root_exec, hits = reuse_exchanges(root_exec, self.conf)
-        root_exec.exchange_reuse_hits = hits
+            return self._plan_scoped(root)
+
+    def _plan_scoped(self, root: L.LogicalPlan) -> TpuExec:
+        meta = PlanMeta(optimize(root, self.conf))
+        self._tag(meta)
+        if self.conf.get(CBO_ENABLED):
+            apply_cbo(meta, self.conf)
+        # a conversion failure still audits and prints the tagged tree,
+        # then re-raises
+        root_exec, conv_err = None, None
+        try:
+            root_exec = self._convert(meta)
+        except UnsupportedExpr as e:
+            conv_err = e
+        report = audit_plan(meta, self.conf)
+        self.last_audit = report
+        if root_exec is not None:
+            # duplicate exchange subtrees collapse to ReusedExchange nodes
+            root_exec, hits = reuse_exchanges(root_exec, self.conf)
+            root_exec.exchange_reuse_hits = hits
+            root_exec.audit_report = report
+        mode = self.conf.explain
+        self.last_explain = []
+        if mode in ("ALL", "NOT_ON_TPU", "VALIDATE"):
+            if mode == "VALIDATE":
+                self.last_explain = report.lines()
+            else:
+                self.last_explain = meta.explain_lines(mode == "NOT_ON_TPU")
+                self.last_explain.extend(v.describe()
+                                         for v in report.findings)
+            for line in self.last_explain:
+                print(line)
+        if conv_err is not None:
+            raise conv_err
+        if self.conf.get(AUDIT_STRICT):
+            report.raise_if_blocked()
         return root_exec
 
-    def _convert(self, node: L.LogicalPlan) -> TpuExec:
-        rule = _RULES.get(type(node))
+    def _tag(self, meta: PlanMeta):
+        node = meta.node
+        if type(node) not in _RULES:
+            meta.will_not_work(
+                f"no TPU replacement rule for {node.node_name()}")
+        if isinstance(node, L.Filter) and node.bound is None:
+            if self.conf.allow_cpu_fallback:
+                meta.will_use_host(node.bind_error)
+            else:
+                meta.will_not_work(node.bind_error)
+        if isinstance(node, L.Project) and any(b is None
+                                               for b in node.bound):
+            reason = "; ".join(e for e in node.bind_errors if e)
+            if self.conf.allow_cpu_fallback:
+                meta.will_use_host(reason)
+            else:
+                meta.will_not_work(reason)
+        for c in meta.children:
+            self._tag(c)
+
+    def _convert(self, meta: PlanMeta) -> TpuExec:
+        rule = _RULES.get(type(meta.node))
         if rule is None:
-            raise NotPorted(f"plan node {node.node_name()}")
-        out = rule(node, self._convert, self.conf)
+            raise NotPorted(f"plan node {meta.node.node_name()}")
+        if not meta.can_run_on_tpu:
+            raise UnsupportedExpr("; ".join(meta.reasons))
+        out = rule(meta, self._convert, self.conf)
         # the harvest after the run keys observed rows by these
-        attach_calibration_fps(node, out)
+        attach_calibration_fps(meta.node, out)
         return out

@@ -7,13 +7,18 @@ lifted into a Generate node, window expressions into a WindowOp node),
 and `.count()`, `rollup`, `cube` and `grouping_sets` (an Expand under
 the aggregate, with `grouping_id`), `join` (equi-keys by name, an
 expression `on`, a non-equi `condition`, cross), `sort`, `limit`,
-`union`, `repartition`, `cache` / `uncache`, `schema`, `explain`,
-`to_arrow`, `to_pydict`, `collect` and `count` on a DataFrame. A session runs on
-one torch device: CUDA unless the caller asks for another. Every action
+`union`, `repartition`, `cache` / `uncache`, `schema`, `explain`
+(ALL, NOT_ON_TPU, VALIDATE), `create_or_replace_temp_view`, `to_arrow`,
+`to_pydict`, `collect` and `count` on a DataFrame, and `TpuSession.sql`
+(`sql/parser.py`) over the session's temp views. A session runs on one
+torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device: first the
 adaptive stage driver (`plan/aqe.py`), which materializes the shuffle
 stages and re-plans them, then the consumer; after it, the observed
-cardinalities go into the calibration table (`plan/stats.py`).
+cardinalities go into the calibration table (`plan/stats.py`). What the
+device cannot evaluate in a Project or Filter runs on the host
+interpreter (`sql.allowCpuFallback`, on by default, as in the JAX
+package), and its output returns to the session's device.
 """
 from __future__ import annotations
 
@@ -142,6 +147,13 @@ class TpuSession:
             raise TypeError(
                 "create_dataframe expects a pyarrow Table or dict")
         return DataFrame(self, L.InMemoryScan(at))
+
+    def sql(self, query: str) -> "DataFrame":
+        """A DataFrame of one SQL statement over this session's temp
+        views (`sql/parser.py`: SELECT with joins, WHERE, GROUP BY,
+        HAVING, ORDER BY, LIMIT, CTEs, subqueries; EXPLAIN)."""
+        from .sql.parser import parse_sql
+        return parse_sql(self, query)
 
 
 class DataFrameReader:
@@ -464,6 +476,14 @@ class DataFrame:
 
     orderBy = sort
 
+    def create_or_replace_temp_view(self, name: str):
+        """Register this DataFrame under `name` (case-insensitive) for
+        `TpuSession.sql`."""
+        from .sql.parser import register_view
+        register_view(self._session, name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
+
     def distinct(self) -> "DataFrame":
         """The distinct rows: an aggregate keyed on every column, with no
         aggregate functions."""
@@ -520,40 +540,36 @@ class DataFrame:
             s.conf, s.device, session=s)
 
     def explain(self, mode: str = "ALL") -> str:
-        """Print and return the plan: ALL gives the optimized logical
-        tree (each node runs on the device: `*`) and the physical tree;
-        NOT_ON_TPU only the nodes that would not run on the device, none
-        in the port, which refuses such a plan (NotPorted) instead. The
-        plan auditor (VALIDATE) and the profiler (ANALYZE) are not
-        ported."""
+        """Print and return the plan, planned with `sql.explain` at
+        `mode` (JAX `session.py:1262-1277`): ALL gives the tagged tree of
+        the optimized plan (`*` on the device, `!cpu` on the host
+        fallback, `!` nowhere) and the audit's findings, then the
+        physical tree; NOT_ON_TPU only the nodes that do not run on the
+        device, and the findings; VALIDATE the plan audit
+        (`report.lines()`). A plan that cannot run prints its tags, then
+        raises. The profiler (ANALYZE) is not ported."""
         mode_u = str(mode).upper()
-        if mode_u == "VALIDATE":
-            raise NotPorted("explain VALIDATE: the plan auditor "
-                            "(ROADMAP A.7)")
         if mode_u == "ANALYZE":
             raise NotPorted("explain ANALYZE: the profiler (ROADMAP A.13)")
-        if mode_u not in ("ALL", "NOT_ON_TPU"):
+        if mode_u not in ("ALL", "NOT_ON_TPU", "VALIDATE"):
             raise ValueError(f"unknown explain mode {mode!r}")
-        from .plan.optimizer import optimize
-        root, _ = self.physical_plan()
-        lines = []
+        planner = Planner(self._session.conf.set(
+            "spark.rapids.tpu.sql.explain", mode_u))
+        root = planner.plan(self._plan)
+        lines = list(planner.last_explain)
         if mode_u == "ALL":
-            def logical(node, depth):
-                lines.append(f"{'  ' * depth}* {node.describe()}")
-                for c in node.children:
-                    logical(c, depth + 1)
+            phys = ["== Physical Plan =="]
 
             def physical(node, depth):
                 desc = getattr(node, "describe", None)
-                lines.append("  " * depth + (desc() if desc
-                                             else type(node).__name__))
+                phys.append("  " * depth + (desc() if desc
+                                            else type(node).__name__))
                 for c in node.children:
                     physical(c, depth + 1)
-            logical(optimize(self._plan, self._session.conf), 0)
-            lines.append("== Physical Plan ==")
             physical(root, 0)
-        for line in lines:
-            print(line)
+            for line in phys:
+                print(line)
+            lines += phys
         return "\n".join(lines)
 
     def _run(self, body):
@@ -581,6 +597,7 @@ class DataFrame:
         finally:
             # spill handles a failed or abandoned operator left open
             ctx.close()
+            self._last_events = list(ctx.pending_events)
         # the observed cardinalities close the adaptive loop; advisory,
         # it never fails the query (JAX `session.py:1050-1069`)
         try:
@@ -604,6 +621,12 @@ class DataFrame:
         and one `demote_broadcast_join` record per demoted join (its
         build bytes and the threshold)."""
         return getattr(self, "_last_aqe_decisions", [])
+
+    def last_events(self) -> List[Dict]:
+        """The events of this DataFrame's most recent action: one
+        `degrade_to_host` record an operator pinned to the host
+        (`exec/degrade.py`)."""
+        return getattr(self, "_last_events", [])
 
     def last_metrics(self) -> Dict[str, Dict[str, float]]:
         """Per-operator metrics of this DataFrame's most recent action:

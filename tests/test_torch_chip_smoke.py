@@ -1285,3 +1285,122 @@ def test_window_checks_reject_a_wrong_row(tpch_small):
     r7[3] += type(r7[3])("0.0001")
     with pytest.raises(AssertionError, match="rev7 differs"):
         chip_smoke.check_daily_revenue(_set(out, "rev7", r7), ref, "wrong")
+
+
+# ----------------------------------------------------------------------
+# Slice 15: the SQL frontend, the host fallback, degrade-to-host
+# ----------------------------------------------------------------------
+def _phase_lines(capsys):
+    import json
+    return {p["phase"]: p for p in (
+        json.loads(x) for x in capsys.readouterr().out.splitlines()
+        if x.startswith("{"))}
+
+
+def test_sql_surface_phase_rehearses_on_the_cpu(tpch_small, capsys):
+    """Q6, the per-date group-by and Q17 in SQL over the tables as views,
+    each held to its reference; EXPLAIN all `*`. No kernel launch off the
+    card; the group-by's exchange on the date is counted."""
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    li = tpch_small["lineitem"]
+    launches = chip_smoke.sql_surface_phase(
+        s, tpch_small, chip_smoke._q6_reference(tpch_small),
+        chip_smoke.shipdate_reference(li),
+        chip_smoke.q17_reference(tpch_small))
+    assert launches == {"sql_group_by_shipdate": {"all": 0, "vector": 0,
+                                                  "scalar": 0}}
+    line = _phase_lines(capsys)["sql_surface"]
+    assert line["explain_tags"] == ["*"]
+    assert line["group_by_shipdate"]["dates"] == len(
+        chip_smoke.shipdate_reference(li)[0])
+    assert "ShuffleExchangeExec" in line["group_by_shipdate"]["plan"]
+    assert line["q17"]["rel_err"] <= chip_smoke.TPCH_RTOL
+    with pytest.raises(AssertionError, match="revenue differs"):
+        chip_smoke.sql_surface_phase(
+            s, tpch_small, chip_smoke._q6_reference(tpch_small) + 1,
+            chip_smoke.shipdate_reference(li),
+            chip_smoke.q17_reference(tpch_small))
+
+
+def test_host_fallback_phase_rehearses_on_the_cpu(tpch_small, capsys):
+    """The host Project and Filter over supplier, nation under the CBO,
+    and the degrade runs (batches of 25 rows at sf 0.01): every check
+    exact, and the degradations counter at the injected count."""
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.exec import degrade
+    from spark_rapids_tpu_torch.exec.nodes import FilterExec
+    orig = FilterExec.fusable_stage
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    degrade.reset_degradations()
+    runs = chip_smoke.host_fallback_phase(s, tpch_small,
+                                          degrade_batch_rows=25)
+    assert degrade.degradations() == sum(chip_smoke.DEGRADE_INJECTED)
+    assert FilterExec.fusable_stage is orig
+    assert runs["project"]["host_nodes"] == ["HostProjectExec"]
+    assert runs["filter"]["rows"] > 0
+    assert runs["cbo_nation"]["rows"] == 5
+    assert runs["degrade_1"]["degradedToHost"] == 1
+    assert runs["degrade_1"]["events"] == []
+    assert runs["degrade_2"]["events"] == ["degrade_to_host"]
+    assert runs["degrade_2"]["degradedToHost"] >= 2
+    assert _phase_lines(capsys)["host_fallback"]["check"] == "exact"
+
+
+@pytest.mark.parametrize("build,conf", [
+    ("fallback_project", {}), ("fallback_filter", {}),
+    ("cbo_query", {"spark.rapids.tpu.sql.optimizer.cbo.enabled": True})])
+def test_host_fallback_queries_are_cpu_in_both_planners(tpch_small, build,
+                                                        conf):
+    """The JAX planner tags the phase's queries `!cpu` on the same
+    schema, with the same reasons as the port, and answers alike."""
+    import contextlib
+    import io
+    import re
+
+    import spark_rapids_tpu as st
+    import spark_rapids_tpu.functions as JF
+    import spark_rapids_tpu_torch as pt
+    import spark_rapids_tpu_torch.functions as PF
+    table = tpch_small["nation" if build == "cbo_query" else "supplier"]
+    make = getattr(chip_smoke, build)
+    outs, tags = [], []
+    for s, F in ((st.TpuSession(dict(conf)), JF),
+                 (pt.TpuSession(dict(conf), device="cpu"), PF)):
+        q = make(F, s.create_dataframe(table))
+        with contextlib.redirect_stdout(io.StringIO()):
+            text = q.explain("NOT_ON_TPU")
+        tags.append([(ln.split(" [")[0].split("[")[0].strip(),
+                      ln.partition("  <-- ")[2])
+                     for ln in re.sub(r" \[loreId=\d+\]", "",
+                                      text).splitlines()])
+        outs.append(q.to_arrow())
+    assert tags[1] == tags[0]
+    assert any(t.startswith("!cpu") for t, _ in tags[1])
+    assert outs[1].equals(outs[0])
+
+
+def test_tpch_data_defers_the_named_references(capsys):
+    """The deferred references come back as Futures, made on their own
+    thread, equal to the ones made alone once resolved."""
+    import pickle
+
+    from spark_rapids_tpu_torch.workloads import tpch
+    extra = {k: chip_smoke.PHASE_REFERENCES[k]
+             for k in ("q6",) + chip_smoke.DEFERRED_REFERENCES}
+    tables, expects = chip_smoke.tpch_data(
+        0.002, seed=3, qty=150, extra=extra,
+        deferred=chip_smoke.DEFERRED_REFERENCES)
+    line = _phase_lines(capsys)["tpch_data"]
+    assert line["deferred_references"] == list(
+        chip_smoke.DEFERRED_REFERENCES)
+    assert "q6" in line["reference_s"] and not any(
+        k in line["reference_s"] for k in chip_smoke.DEFERRED_REFERENCES)
+    refs = {k: expects.pop(k) for k in extra}
+    chip_smoke.resolve_deferred(refs, chip_smoke.DEFERRED_REFERENCES)
+    exp = tpch.gen_all(0.002, seed=3)
+    for k, fn in extra.items():
+        assert pickle.dumps(refs[k]) == pickle.dumps(fn(exp)), k
+    assert _phase_lines(capsys)["deferred_references"]["waited_s"] >= 0

@@ -125,8 +125,18 @@ def test_cache_uncache():
         want.to_pylist()
 
 
-def test_explain_modes():
-    _, ps = sessions(SMALL)
+@pytest.mark.parametrize("fallback", ["off", "on"])
+def test_explain_modes(fallback):
+    """ALL, NOT_ON_TPU and VALIDATE with the host fallback off (the
+    parity sessions) and on (the default): a plan that runs on the
+    device reads the same either way, and its VALIDATE equals the JAX
+    package's but for the JAX lore ids and fused stages (ROADMAP C.28,
+    A.11)."""
+    import re
+    conf = dict(SMALL)
+    if fallback == "on":
+        conf["spark.rapids.tpu.sql.allowCpuFallback"] = True
+    js, ps = sessions(conf)
     d = ps.create_dataframe(_table()).group_by("k").agg(
         PF.sum("v").alias("sv"))
     text = d.explain()
@@ -136,7 +146,13 @@ def test_explain_modes():
     assert "== Physical Plan ==" in lines
     assert any("HashAggregateExec" in ln for ln in lines)
     assert d.explain("NOT_ON_TPU") == ""
-    with pytest.raises(NotPorted, match=r"ROADMAP A\.7"):
-        d.explain("VALIDATE")
+    audit = d.explain("VALIDATE").splitlines()
+    assert audit[0] == "== PLAN AUDIT =="
+    assert audit[-1] == "-- no findings: plan runs fully on TPU --"
+    jd = js.create_dataframe(_table()).group_by("k").agg(
+        JF.sum("v").alias("sv"))
+    want = re.sub(r" \[loreId=\d+\]", "", jd.explain("VALIDATE"))
+    want = want.split("\n-- fused stages --")[0].splitlines()
+    assert audit == want
     with pytest.raises(NotPorted, match=r"ROADMAP A\.13"):
         d.explain("ANALYZE")

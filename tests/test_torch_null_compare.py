@@ -78,10 +78,31 @@ def test_the_inputs_once_refused():
         .column("r").to_pylist() == [None, None, None]
 
 
-def test_int_column_against_a_string_literal_stays_refused():
-    """`col(int).isin("1")`: the JAX package answers on its host path
-    (and departs from Spark there); the port still refuses (ROADMAP C.1,
-    left for A.7)."""
-    df = pt.TpuSession(device="cpu").create_dataframe(TABLES["int"])
-    with pytest.raises(px.UnsupportedExpr):
-        df.select(px.col("s").isin("1").alias("r")).to_arrow()
+OFF = {"spark.rapids.tpu.sql.allowCpuFallback": False,
+       "spark.rapids.tpu.sql.exec.degradeToHost.enabled": False}
+
+
+@pytest.mark.parametrize("fallback", ["off", "on"])
+def test_int_column_against_a_string_literal_stays_refused(fallback):
+    """`col(int).isin("1")`: both device paths refuse it (ROADMAP C.1).
+    With the host fallback off the port refuses it as the JAX package
+    does; with it on (the default) both answer on the host, alike (and
+    depart from Spark there: an int never equals a string)."""
+    conf = OFF if fallback == "off" else {}
+    q = {}
+    for name, s, E in (("jax", st.TpuSession(dict(conf)), JAX),
+                       ("port", pt.TpuSession(dict(conf), device="cpu"),
+                        PORT)):
+        q[name] = s.create_dataframe(TABLES["int"]).select(
+            E.col("s").isin("1").alias("r"))
+    if fallback == "off":
+        with pytest.raises(jx.UnsupportedExpr) as je:
+            q["jax"].to_arrow()
+        with pytest.raises(px.UnsupportedExpr) as pe:
+            q["port"].to_arrow()
+        assert str(pe.value) == str(je.value)
+    else:
+        got = q["port"].to_arrow()
+        assert got.equals(q["jax"].to_arrow())
+        assert got.column("r").to_pylist() == [False, False, None, False,
+                                               False]

@@ -21,8 +21,8 @@ import pyarrow as pa
 import pytest
 
 from spark_rapids_tpu_torch.expr.expressions import UnsupportedExpr
-from torch_parity import (I32_MAX, I32_MIN, I64_MAX, I64_MIN, assert_same,
-                          project, ulps)
+from torch_parity import (I32_MAX, I32_MIN, I64_MAX, I64_MIN, JAX_CONF,
+                          assert_same, project, ulps)
 
 N = 96
 SEED = 12
@@ -201,6 +201,7 @@ def test_refused_alike(make):
         project(data, lambda F: [make(F)])
     import spark_rapids_tpu_torch as pt
     import spark_rapids_tpu_torch.functions as PF
-    s = pt.TpuSession({}, device="cpu")
+    # the device path (the host fallback off, as on the JAX side)
+    s = pt.TpuSession(JAX_CONF, device="cpu")
     with pytest.raises(UnsupportedExpr):
         s.create_dataframe(data).select(make(PF).alias("x")).to_arrow()

@@ -179,17 +179,41 @@ def test_substring_lengths_sum_to_the_last_offset():
         assert not out.data[o[-1]:].any()
 
 
+OFF = {"spark.rapids.tpu.sql.allowCpuFallback": False,
+       "spark.rapids.tpu.sql.exec.degradeToHost.enabled": False}
+
+
+@pytest.mark.parametrize("fallback", ["off", "on"])
 @pytest.mark.parametrize("build", [
     lambda E: E.F.like(E.col("s"), "a\\%"),
     lambda E: E.F.contains(E.col("s"), E.col("s")),
     lambda E: E.F.startswith(E.col("k"), "a"),
 ])
-def test_refused_like_the_jax_package(table, build):
-    """The JAX package's device expressions refuse these at bind (its
-    session then answers them on the host, which the port does not
-    have: ROADMAP A.7); the port refuses them at bind."""
+def test_refused_like_the_jax_package(table, build, fallback):
+    """The device expressions of both packages refuse these at bind.
+    With the host fallback off the port refuses the query as the JAX
+    package does; with it on (the default) both answer on the host
+    alike: the escape and the column pattern exactly, and startswith
+    over an int with the same AttributeError of the reference's host
+    rule (ROADMAP C.29)."""
     with pytest.raises(jx.UnsupportedExpr):
         build(JAX).bind(st.TpuSession().create_dataframe(table)._plan.schema)
-    with pytest.raises(px.UnsupportedExpr):
-        pt.TpuSession(device="cpu").create_dataframe(table).select(
-            build(PORT).alias("r")).to_arrow()
+    conf = OFF if fallback == "off" else {}
+    jq = st.TpuSession(dict(conf)).create_dataframe(table).select(
+        build(JAX).alias("r"))
+    pq = pt.TpuSession(dict(conf), device="cpu").create_dataframe(
+        table).select(build(PORT).alias("r"))
+    if fallback == "off":
+        with pytest.raises(jx.UnsupportedExpr) as je:
+            jq.to_arrow()
+        with pytest.raises(px.UnsupportedExpr) as pe:
+            pq.to_arrow()
+        assert str(pe.value) == str(je.value)
+        return
+    try:
+        want = jq.to_arrow()
+    except AttributeError as e:
+        with pytest.raises(AttributeError, match=str(e)):
+            pq.to_arrow()
+        return
+    assert pq.to_arrow().equals(want)

@@ -9,10 +9,12 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
+import spark_rapids_tpu as st
+import spark_rapids_tpu.functions as JF
 import spark_rapids_tpu_torch as pt
 import spark_rapids_tpu_torch.functions as PF
 from spark_rapids_tpu_torch.expr.expressions import UnsupportedExpr
-from torch_parity import assert_same_column, project
+from torch_parity import JAX_CONF, assert_same_column, project
 
 TYPES = {"boolean": pa.bool_(), "tinyint": pa.int8(),
          "smallint": pa.int16(), "int": pa.int32(), "bigint": pa.int64(),
@@ -104,7 +106,8 @@ REFERENCE_BREAKS = {
         None if v is None else v != 0 for v in col.to_pylist()],
 }
 #: decimal128 -> string: the JAX device path fails (only its host
-#: fallback answers); the port refuses it at bind (C.17)
+#: fallback answers); the port refuses it at bind (C.17) and, with the
+#: fallback on, answers on the host as the JAX package does (C.29)
 PORT_REFUSES = {("decimal(30,4)", "string")}
 
 #: double results of a division by a power of ten (C.3)
@@ -140,14 +143,20 @@ def check_matrix(fr):
     for i, to in enumerate(direct):
         assert_same_column(jt.column(i), ptab.column(i), f"{fr} -> {to}",
                            1 if (fr, to) in ONE_ULP else 0)
-    s = pt.TpuSession({}, device="cpu")
+    # the device path: the host fallback off, as on the JAX side
+    s = pt.TpuSession(JAX_CONF, device="cpu")
     for to in pairs:
-        def run():
-            return s.create_dataframe({"x": col}).select(
+        def run(session=s):
+            return session.create_dataframe({"x": col}).select(
                 PF.col("x").cast(to).alias("y")).to_arrow()
         if (fr, to) in PORT_REFUSES:
             with pytest.raises(UnsupportedExpr):
                 run()
+            # with the fallback on (both packages' default) each answers
+            # on its host interpreter, alike
+            want = st.TpuSession().create_dataframe({"x": col}).select(
+                JF.col("x").cast(to).alias("y")).to_arrow()
+            assert run(pt.TpuSession(device="cpu")).equals(want), (fr, to)
         elif (fr, to) in REFERENCE_BREAKS:
             assert run().column(0).to_pylist() == \
                 REFERENCE_BREAKS[(fr, to)](col), (fr, to)
@@ -155,8 +164,8 @@ def check_matrix(fr):
 
 def check_refused(fr):
     """Every pair from `fr` that the JAX `Cast` refuses, the port refuses
-    with UnsupportedExpr."""
-    s = pt.TpuSession({}, device="cpu")
+    with UnsupportedExpr on its device path (the host fallback off)."""
+    s = pt.TpuSession(JAX_CONF, device="cpu")
     for to in TYPES:
         if _accepted(fr, to):
             continue

@@ -3,9 +3,9 @@ run one projection through the JAX package and through the port on the
 CPU, over the same Arrow columns, and compare the outputs column by
 column.
 
-The JAX side runs with its host fallback and its degrade-to-host off, so
-what is compared is its device path (jnp under XLA's CPU compile), never
-its host interpreter. Exact equality is the rule; a double may be given
+Both sides run with the host fallback and degrade-to-host off, so what
+is compared is each package's device path (jnp under XLA's CPU compile,
+torch ops), never a host interpreter. Exact equality is the rule; a double may be given
 a budget in units in the last place (ulps) where a test says why.
 """
 import numpy as np
@@ -26,7 +26,7 @@ I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
 def sessions(conf=None):
     conf = dict(conf or {})
     return st.TpuSession({**JAX_CONF, **conf}), \
-        pt.TpuSession(conf, device="cpu")
+        pt.TpuSession({**JAX_CONF, **conf}, device="cpu")
 
 
 def project(data, make, conf=None):
