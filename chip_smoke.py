@@ -225,6 +225,32 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      the host, no event) and then two (the node pinned to the host, a
      `degrade_to_host` event); every result exact against pyarrow /
      Python, every batch built on the card;
+ 38p. `runtime_bloom`: lineitem (l_partkey, l_quantity) joined with the
+     parts under Q17's predicates (p_brand Brand#23, p_container MED BOX:
+     about 2,000 of 2M) on l_partkey = p_partkey, inner and left semi,
+     then the count and the l_quantity sum, each with
+     `sql.join.bloomFilter.enabled` on and then off and
+     `autoBroadcastJoinThreshold` at 1 (never broadcast): each exact
+     against numpy's `np.isin`, the four equal; the stream rows into the
+     exchange (its host pieces) all of lineitem's with the conf off, at
+     least the matching rows and under a tenth of lineitem's with it on;
+     the filter's bits (2^24, from part's 2M-row estimate),
+     `bloomBuildTime`, `bloomProbeTime`, each wall; 0 partition-kernel
+     launches (int64 keys), counted;
+ 38q. `regex_surface`: Q13 with `NOT o_comment RLIKE 'special.*requests'`
+     for its NOT LIKE, row for row against Q13's reference;
+     regexp_extract of the number in c_name (`Customer#([0-9]+)`) and of
+     the country code in c_phone (`([0-9]+)-`), both margin groups, cast
+     to bigint, equal to c_custkey and 10 + c_nationkey over customer's
+     1.5M rows; regexp_replace(o_comment, '[aeiou]+', '') over orders'
+     15M rows, equal to pyarrow's `replace_substring_regex` with its byte
+     total and sha256;
+ 38r. `json_url`: a JSON document a customer row (built with pyarrow),
+     get_json_object of $.custkey and $.phone on the device path under
+     torch.profiler (the device time of the cummax / cummin scans
+     beside the rest), equal to the source columns; then to_json of
+     from_json and parse_url(.., "QUERY", "nation") over supplier's
+     100,000 rows on the host bridge (one `HostProjectExec`), exact;
  39-60. the written plans: all 22 queries over the same tables, once
      each, with `WRITTEN_CONF` (the four features off: joins in the
      written order, fixed partitions, no reuse, each build before its
@@ -245,7 +271,8 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
  62. the memory runtime, over the same tables, the pinned-host cache
      released first: the sort of l_shipdate, l_orderkey, l_linenumber,
      l_extendedprice and an appended l_comment (`with_comment`: gen_all
-     has none) by the first three at the default conf, which is over
+     has none) over lineitem's first OOC_SORT_ROWS rows (40M) by the
+     first three at the default conf, which is over
      `sql.sort.outOfCore.thresholdBytes` and so runs out of core
      (`oocRangePartitions` > 0), checked against numpy (the keys in
      order, the row count, the (l_orderkey, l_linenumber) pairs, the
@@ -288,8 +315,9 @@ each path with the counts set to 0 just before it and read just after.
 The batches recovered on the host over the whole run (`exec/degrade.py`
 `degradations`) must equal the failures `host_fallback` injected
 (DEGRADE_INJECTED): any other degrade fails the run. The window phases'
-references run on a thread of their own from the data phase on
-(DEFERRED_REFERENCES), the other references on REFERENCE_THREADS.
+and the bloom, regex and JSON phases' references run on a thread of
+their own from the data phase on (DEFERRED_REFERENCES), the other
+references on REFERENCE_THREADS.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last is the kernels table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -3260,6 +3288,10 @@ def _parquet_decode_phases(device, conf, lineitem, q6_expect, q1_expect,
 OOC_SORT_COLUMNS = ("l_shipdate", "l_orderkey", "l_linenumber",
                     "l_extendedprice", "l_comment")
 OOC_SORT_KEYS = ("l_shipdate", "l_orderkey", "l_linenumber")
+#: the sort's rows: about two thirds of SF10's lineitem, 2.42 GB on the
+#: card with l_comment, still over the 2 GiB out-of-core threshold
+#: (all 60,012,150 rows before the bloom, regex and JSON phases came)
+OOC_SORT_ROWS = 40_000_000
 CONSTRAINED_QUERIES = (9, 18, 21)
 #: phase 2: far more data than these budgets hold. "1gib" is the conf
 #: the slice was specified with; at SF10 the most the port parks at once
@@ -3822,8 +3854,9 @@ def memory_runtime_phases(session, tables, expects, defaults, sort_conf=None,
     rehearsal passes a smaller threshold, a scaled conf and an injected
     cap)."""
     release_pinned_cache("the memory runtime phases")
-    return {"ooc_sort": ooc_sort_phase(session, tables["lineitem"],
-                                       sort_conf),
+    return {"ooc_sort": ooc_sort_phase(
+                session, tables["lineitem"].slice(0, OOC_SORT_ROWS),
+                sort_conf),
             "constrained": constrained_phase(session, tables, expects,
                                              defaults, constrained_confs),
             "real_oom": real_oom_phase(session, tables, expects,
@@ -6083,6 +6116,336 @@ def host_fallback_phase(session, tables,
     return runs
 
 
+# ---- the runtime bloom filter, regex, JSON and parse_url ----
+BLOOM_KEY = "spark.rapids.tpu.sql.join.bloomFilter.enabled"
+#: neither the planner nor the demotion broadcasts the build
+BLOOM_CONF = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 1}
+#: Q17's part predicates: about 2,000 of SF10's 2M parts
+BLOOM_PART = ("Brand#23", "MED BOX")
+BLOOM_HOWS = ("inner", "left_semi")
+#: Q13's NOT LIKE '%special%requests%' as a regex
+Q13_REGEX = "special.*requests"
+REPLACE_PATTERN = "[aeiou]+"
+#: get_json_object's device groups: torch's cummax / cummin kernels
+#: (the escape and whitespace scans) apart from the other scans
+JSON_GROUPS = (("cummax_cummin", r"scan_innermost|scan_outer"),) + Q1_GROUPS
+
+
+def _part_ok(part):
+    import pyarrow.compute as pc
+    return (_bools(pc.equal(part.column("p_brand"), BLOOM_PART[0]))
+            & _bools(pc.equal(part.column("p_container"), BLOOM_PART[1])))
+
+
+def runtime_bloom_reference(t) -> dict:
+    """The lineitem rows whose l_partkey is one of the parts under Q17's
+    predicates (`np.isin`): their count and unscaled l_quantity sum."""
+    import numpy as np
+    li, part = t["lineitem"], t["part"]
+    keys = _col(part, "p_partkey")[_part_ok(part)]
+    m = np.isin(_col(li, "l_partkey"), keys)
+    return {"parts": int(len(keys)), "rows": int(m.sum()),
+            "quantity": int(np.asarray(unscaled(li, "l_quantity"))[m].sum()),
+            "lineitem_rows": li.num_rows, "bits": bloom_bits(part.num_rows)}
+
+
+def bloom_bits(estimated_rows: int) -> int:
+    """The filter's bits from the build's row estimate (part's rows: the
+    filter keeps the upper bound): 8 a row, up to a power of two, at
+    least 64 (2^24 at SF10's 2M parts)."""
+    return 1 << max(6, (max(64, estimated_rows) * 8 - 1).bit_length())
+
+
+def bloom_query(session, tables, how):
+    """lineitem joined with Q17's parts on l_partkey = p_partkey (`how`),
+    then the count and the sum of l_quantity."""
+    import spark_rapids_tpu_torch.functions as F
+    li = session.create_dataframe(tables["lineitem"]).select(
+        "l_partkey", "l_quantity")
+    part = session.create_dataframe(tables["part"]).filter(
+        (F.col("p_brand") == BLOOM_PART[0])
+        & (F.col("p_container") == BLOOM_PART[1])).select("p_partkey")
+    return li.join(part, on=F.col("l_partkey") == F.col("p_partkey"),
+                   how=how).agg(F.count("*").alias("n"),
+                                F.sum("l_quantity").alias("q"))
+
+
+def stream_rows(q) -> int:
+    """The rows the stream side's exchange of the plan's shuffled join
+    took in (its host pieces): lineitem's, or the bloom filter's
+    output."""
+    for node in plan_nodes(q.last_plan()):
+        if type(node).__name__ == "HashJoinExec" and node.per_partition:
+            ex = node.children[0]
+            while type(ex).__name__ != "ShuffleExchangeExec":
+                ex = ex.children[0]
+            return sum(p[1] for subs in ex._pieces for p in subs)
+    raise AssertionError("no shuffled join in the plan")
+
+
+def runtime_bloom_phase(session, tables, expect) -> dict:
+    """Phase: the bloom-filtered shuffled join, inner and left semi, with
+    `sql.join.bloomFilter.enabled` on and then off, the build never
+    broadcast (BLOOM_CONF): each exact against numpy and equal to each
+    other; the stream rows into the exchange all of lineitem's with the
+    conf off, at least the matching rows and far fewer with it on; the
+    filter's bits, its build and probe seconds. The join keys are int64:
+    the partition kernel runs 0 times (counted)."""
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    dev = session.device
+    runs, got_launches = {}, 0
+    for how in BLOOM_HOWS:
+        for flag in (True, False):
+            sess = session_with(session, {**BLOOM_CONF, BLOOM_KEY: flag})
+            q = bloom_query(sess, tables, how)
+            pk.launches = pk.vector_launches = pk.scalar_launches = 0
+            out, wall, layers, syncs = timed_query(q, dev)
+            got_launches += pk.launches
+            n = out.column("n")[0].as_py()
+            qty = _one_unscaled(out, "q")
+            kept = stream_rows(q)
+            blooms = [x for x in plan_nodes(q.last_plan())
+                      if type(x).__name__ == "RuntimeBloomFilterExec"]
+            label = f"{how}_{'on' if flag else 'off'}"
+            if (n, qty) != (expect["rows"], expect["quantity"]):
+                raise AssertionError(f"runtime_bloom {label}: {n} rows, "
+                                     f"quantity {qty}; want {expect}")
+            if len(blooms) != int(flag):
+                raise AssertionError(f"runtime_bloom {label}: "
+                                     f"{len(blooms)} bloom filters")
+            if flag and not (expect["rows"] <= kept
+                             < expect["lineitem_rows"] // 10):
+                raise AssertionError(f"runtime_bloom {label}: {kept} "
+                                     f"stream rows into the exchange")
+            if not flag and kept != expect["lineitem_rows"]:
+                raise AssertionError(f"runtime_bloom {label}: {kept} "
+                                     f"stream rows, want all of lineitem")
+            if flag and blooms[0].num_bits != expect["bits"]:
+                raise AssertionError(f"runtime_bloom: {blooms[0].num_bits}"
+                                     f" bits, want {expect['bits']}")
+            runs[label] = {"wall_s": wall, "rows": n, "stream_rows": kept,
+                           "num_bits": blooms[0].num_bits if flag else None,
+                           "bloomBuildTime": layers.get("bloomBuildTime"),
+                           "bloomProbeTime": layers.get("bloomProbeTime"),
+                           "mapTime": layers.get("mapTime"),
+                           "stageDriverTime": layers.get("stageDriverTime"),
+                           "host_syncs": syncs}
+    if got_launches:
+        raise AssertionError(f"runtime_bloom: {got_launches} partition "
+                             f"kernel launches on int64 keys")
+    emit({"phase": "runtime_bloom", "nvidia_smi": card_line(dev),
+          "parts": expect["parts"], "matching_rows": expect["rows"],
+          "lineitem_rows": expect["lineitem_rows"], "runs": runs,
+          "partition_kernel_launches": got_launches, "check": "exact",
+          "elapsed_s": time.perf_counter() - _START})
+    return {"runtime_bloom": {"all": 0, "vector": 0, "scalar": 0}}
+
+
+def _sha256_strings(arr) -> str:
+    """sha256 of a string column's bytes and its offsets (rebased)."""
+    import hashlib
+
+    import numpy as np
+    a = arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr
+    off = np.frombuffer(a.buffers()[1], np.int32)[a.offset:
+                                                  a.offset + len(a) + 1]
+    data = np.frombuffer(a.buffers()[2], np.uint8)[off[0]:off[-1]] \
+        if a.buffers()[2] is not None else np.zeros(0, np.uint8)
+    return hashlib.sha256(data.tobytes()
+                          + (off - off[0]).tobytes()).hexdigest()
+
+
+def regex_reference(t) -> dict:
+    """regexp_replace(o_comment, REPLACE_PATTERN, '') by pyarrow's RE2 in
+    o_orderkey order: the column, its bytes and its hash."""
+    import pyarrow.compute as pc
+    o = t["orders"]
+    order = pc.sort_indices(o.column("o_orderkey"))
+    want = pc.replace_substring_regex(o.column("o_comment"),
+                                      REPLACE_PATTERN, "").take(order)
+    want = want.combine_chunks()
+    return {"replaced": want,
+            "bytes": int(pc.sum(pc.binary_length(want)).as_py()),
+            "sha256": _sha256_strings(want)}
+
+
+def q13_rlike(session, tables):
+    """TPC-H Q13 with `NOT o_comment RLIKE 'special.*requests'` in place
+    of its NOT LIKE."""
+    import spark_rapids_tpu_torch.functions as F
+    t = {k: session.create_dataframe(tables[k])
+         for k in ("customer", "orders")}
+    kept = t["orders"].filter(~F.col("o_comment").rlike(Q13_REGEX))
+    per_cust = (t["customer"].select(F.col("c_custkey"))
+                .with_column("o_custkey", F.col("c_custkey"))
+                .join(kept.select(F.col("o_custkey"), F.col("o_orderkey")),
+                      on=["o_custkey"], how="left")
+                .group_by("c_custkey")
+                .agg(F.count(F.col("o_orderkey")).alias("c_count")))
+    return per_cust.group_by("c_count").agg(
+        F.count("*").alias("custdist")).sort("custdist", "c_count",
+                                             ascending=False)
+
+
+def regex_surface_phase(session, tables, q13_expect, expect) -> dict:
+    """Phase: Q13 through rlike, row for row against Q13's reference (no
+    TPC-H comment holds a newline); the numbers in c_name and c_phone by
+    regexp_extract with a margin group, equal to c_custkey and 10 +
+    c_nationkey over customer's rows; regexp_replace of o_comment,
+    exact against pyarrow."""
+    import numpy as np
+    import pyarrow.compute as pc
+    import spark_rapids_tpu_torch.functions as F
+    dev = session.device
+    runs = {}
+    q = q13_rlike(session, tables)
+    out, wall, layers, syncs = timed_query(q, dev)
+    check_tpch(13, out, q13_expect, "rlike")
+    runs["q13_rlike"] = {"wall_s": wall, "rows": out.num_rows,
+                         "layers_s": layers, "host_syncs": syncs}
+
+    cust = tables["customer"]
+    q = session.create_dataframe(cust.select(
+        ["c_custkey", "c_name", "c_phone", "c_nationkey"])).select(
+        "c_custkey", "c_nationkey",
+        F.regexp_extract(F.col("c_name"), "Customer#([0-9]+)", 1)
+        .cast("bigint").alias("k"),
+        F.regexp_extract(F.col("c_phone"), "([0-9]+)-", 1)
+        .cast("bigint").alias("cc"))
+    out, wall, layers, syncs = timed_query(q, dev)
+    if not (np.array_equal(_col(out, "k"), _col(out, "c_custkey"))
+            and np.array_equal(_col(out, "cc"),
+                               _col(out, "c_nationkey") + 10)
+            and out.num_rows == cust.num_rows):
+        raise AssertionError("regexp_extract: the keys differ")
+    runs["extract_customer"] = {"wall_s": wall, "rows": out.num_rows,
+                                "layers_s": layers, "host_syncs": syncs}
+
+    orders = tables["orders"]
+    q = session.create_dataframe(orders.select(
+        ["o_orderkey", "o_comment"])).select(
+        "o_orderkey", F.regexp_replace(F.col("o_comment"), REPLACE_PATTERN,
+                                       "").alias("r"))
+    out, wall, layers, syncs = timed_query(q, dev)
+    got = out.column("r").take(pc.sort_indices(out.column("o_orderkey")))
+    got = got.combine_chunks()
+    nbytes = int(pc.sum(pc.binary_length(got)).as_py())
+    digest = _sha256_strings(got)
+    if not (got.equals(expect["replaced"]) and nbytes == expect["bytes"]
+            and digest == expect["sha256"]):
+        raise AssertionError("regexp_replace differs from pyarrow's")
+    runs["replace_orders"] = {"wall_s": wall, "rows": out.num_rows,
+                              "bytes_in": int(pc.sum(pc.binary_length(
+                                  orders.column("o_comment"))).as_py()),
+                              "bytes_out": nbytes, "sha256": digest,
+                              "layers_s": layers, "host_syncs": syncs}
+    emit({"phase": "regex_surface", "nvidia_smi": card_line(dev),
+          "runs": runs, "check": "exact",
+          "elapsed_s": time.perf_counter() - _START})
+    return runs
+
+
+def json_tables(tables):
+    """(customer with a JSON document a row, supplier with a compact JSON
+    document and a URL a row), built with pyarrow."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    def s(col):
+        return pc.cast(col, pa.string())
+    c, sup = tables["customer"], tables["supplier"]
+    cdoc = pc.binary_join_element_wise(
+        '{"custkey": ', s(c.column("c_custkey")), ', "phone": "',
+        c.column("c_phone"), '", "nation": ', s(c.column("c_nationkey")),
+        ', "name": "', c.column("c_name"), '"}', "")
+    sdoc = pc.binary_join_element_wise(
+        '{"suppkey":', s(sup.column("s_suppkey")), ',"name":"',
+        sup.column("s_name"), '","nation":', s(sup.column("s_nationkey")),
+        '}', "")
+    url = pc.binary_join_element_wise(
+        "https://tpch.example/supplier/", s(sup.column("s_suppkey")),
+        "?nation=", s(sup.column("s_nationkey")), "&phone=",
+        sup.column("s_phone"), "")
+    return (pa.table({"c_custkey": c.column("c_custkey"),
+                      "c_phone": c.column("c_phone"), "j": cdoc}),
+            pa.table({"s_suppkey": sup.column("s_suppkey"),
+                      "s_nationkey": sup.column("s_nationkey"), "j": sdoc,
+                      "u": url}))
+
+
+def json_url_phase(session, tables) -> dict:
+    """Phase: get_json_object of $.custkey and $.phone over a JSON
+    document a customer row on the device path (profiled: the device
+    time of torch's cummax / cummin scans beside the rest), equal to the
+    source columns; then from_json / to_json and parse_url(.., "QUERY",
+    "nation") over supplier's rows on the host bridge, exact."""
+    import pyarrow.compute as pc
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    dev = session.device
+    cdocs, sdocs = json_tables(tables)
+    runs = {}
+    q = session.create_dataframe(cdocs).select(
+        "c_custkey", "c_phone",
+        F.get_json_object(F.col("j"), "$.custkey").alias("k"),
+        F.get_json_object(F.col("j"), "$.phone").alias("p"))
+    if _host_nodes(q):
+        raise AssertionError("get_json_object: a host node on the device "
+                             "path")
+    out, prof = profiled_query(q, dev, -(-cdocs.num_rows // BATCH_ROWS),
+                               groups=JSON_GROUPS)
+    if not (out.column("k").equals(pc.cast(out.column("c_custkey"),
+                                           "string"))
+            and out.column("p").equals(out.column("c_phone"))
+            and out.num_rows == cdocs.num_rows):
+        raise AssertionError("get_json_object differs from the columns")
+    busy = prof["device_busy_s"] or 1.0
+    runs["get_json_object_customer"] = {
+        **{k: prof[k] for k in ("wall_s", "device_busy_s",
+                                "device_busy_share", "device_us_by_group",
+                                "device_launches", "host_syncs",
+                                "layers_s")},
+        "cummax_cummin_share_of_device": prof["device_us_by_group"].get(
+            "cummax_cummin", 0.0) / 1e6 / busy}
+
+    schema = dt.StructType((dt.StructField("suppkey", dt.INT64),
+                            dt.StructField("name", dt.STRING),
+                            dt.StructField("nation", dt.INT64)))
+    parsed = F.from_json(F.col("j"), schema)
+    q = session.create_dataframe(sdocs).select(
+        "s_nationkey", "j", F.to_json(parsed).alias("rt"),
+        F.parse_url(F.col("u"), "QUERY", "nation").alias("n"))
+    hosts = _host_nodes(q)
+    if hosts != ["HostProjectExec"]:
+        raise AssertionError(f"json_url: host nodes {hosts}")
+    out, wall, layers, syncs = timed_query(q, dev)
+    # the documents are compact JSON: the round trip gives them back
+    if not (out.column("rt").equals(out.column("j"))
+            and out.column("n").equals(pc.cast(out.column("s_nationkey"),
+                                               "string"))
+            and out.num_rows == sdocs.num_rows):
+        raise AssertionError("json_url: the host bridge differs")
+    runs["host_bridge_supplier"] = {
+        "wall_s": wall, "rows": out.num_rows,
+        "hostEvalTime": layers.get("hostEvalTime", 0.0),
+        "host_syncs": syncs}
+    emit({"phase": "json_url", "nvidia_smi": card_line(dev),
+          "rows": {"customer": cdocs.num_rows, "supplier": sdocs.num_rows},
+          "runs": runs, "check": "exact",
+          "elapsed_s": time.perf_counter() - _START})
+    return runs
+
+
+def bloom_regex_json_phases(session, tables, q13_expect, refs) -> dict:
+    """The three phases of the runtime bloom filter, regex, JSON and
+    parse_url over gen_all's tables; returns the partition
+    kernel's launches by path (0: no exchange on an int32 key)."""
+    by_path = runtime_bloom_phase(session, tables, refs["runtime_bloom"])
+    regex_surface_phase(session, tables, q13_expect, refs["regex"])
+    json_url_phase(session, tables)
+    return by_path
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -6246,12 +6609,16 @@ PHASE_REFERENCES = {
     "window_running": lambda t: window_running_reference(t["orders"]),
     "window_frames": lambda t: window_frames_reference(t["orders"]),
     "daily_revenue": lambda t: daily_revenue_reference(t["lineitem"]),
+    "runtime_bloom": runtime_bloom_reference,
+    "regex": regex_reference,
 }
 
 
-#: the references of the window phases, which come late: made on a
-#: thread of their own while the opening phases run
-DEFERRED_REFERENCES = ("window_frames", "window_running", "daily_revenue")
+#: the references of the window phases and of the bloom, regex and JSON
+#: phases, which come late:
+#: made on a thread of their own while the opening phases run
+DEFERRED_REFERENCES = ("window_frames", "window_running", "daily_revenue",
+                       "runtime_bloom", "regex")
 
 
 def pool_ab_offset(argv, started: float) -> int:
@@ -6399,6 +6766,9 @@ def main() -> int:
     by_path.update(sql_surface_phase(session, tpch_tables, expect,
                                      shipdate_expect, tpch_expects[17]))
     host_fallback_phase(session, tpch_tables)
+    release_pinned_cache("the bloom filter, regex and JSON phases")
+    by_path.update(bloom_regex_json_phases(session, tpch_tables,
+                                           tpch_expects[13], refs))
     release_pinned_cache("the written-plan pass")
     by_path.update(tpch_phases(
         written_session(session), tpch_tables,

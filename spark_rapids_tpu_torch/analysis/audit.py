@@ -21,10 +21,11 @@ tags every node with a structured verdict:
 Surfaced through `df.explain("VALIDATE")` and the ALL / NOT_ON_TPU
 explain modes. The JAX auditor's lore ids, its `plan_audit` event-log
 record (ROADMAP A.13) and its fusion groups (A.11) are not ported:
-`Verdict.lore_id` is always None and `fusion_groups` stays empty. Its
-will_fallback verdict for the expressions that bind on the device but
-evaluate on the CPU bridge (FromJson, ToJson, ParseUrl) comes with those
-classes (A.10), as do its python-exec verdicts with A.12.
+`Verdict.lore_id` is always None and `fusion_groups` stays empty. The
+JAX auditor's will_fallback verdict for the CPU-bridge expressions
+(FromJson, ToJson, ParseUrl: `_HOST_BRIDGE`) is here too; those
+expressions never bind, so their node carries the host fallback's
+verdict, as in the JAX package. Its python-exec verdicts come with A.12.
 """
 from __future__ import annotations
 
@@ -47,6 +48,10 @@ _TAG = {OK: "*", RECOMPILE_RISK: "~", WILL_FALLBACK: "!cpu",
 
 # bound-tree infrastructure nodes that deliberately carry no signature
 _INFRA = {"BoundRef", "NamedLambdaVariable", "Alias"}
+
+# expressions that evaluate on the host CPU bridge (their registry notes
+# say "runs via CPU bridge")
+_HOST_BRIDGE = {"FromJson", "ToJson", "ParseUrl"}
 
 
 class Verdict:
@@ -152,6 +157,10 @@ def _audit_expr(expr, role: str, add: Callable[[str, str], None],
     reason = typesig.audit_check(name, cdt)
     if reason is not None:
         add(WILL_NOT_WORK, f"{name} in {role} over {cdt}: {reason}")
+    if name in _HOST_BRIDGE:
+        add(WILL_FALLBACK,
+            f"{name} in {role} runs via the CPU bridge (host row "
+            f"interpreter)")
     for c in kids:
         _audit_expr(c, role, add, seen_ids)
     # a bound WindowExpr carries bound partition keys / sort orders in

@@ -31,7 +31,8 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "SPILL_DIR", "OOM_MAX_RETRIES", "SORT_OOC_ENABLED",
            "SORT_OOC_THRESHOLD", "WINDOW_CHUNK_ROWS", "ALLOW_CPU_FALLBACK",
            "EXPLAIN", "AUDIT_STRICT", "CBO_ENABLED", "CBO_SMALL_INPUT_ROWS",
-           "DEGRADE_TO_HOST"]
+           "DEGRADE_TO_HOST", "JOIN_BLOOM_ENABLED",
+           "JOIN_BLOOM_MAX_BUILD_ROWS"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -207,6 +208,19 @@ BROADCAST_THRESHOLD = _conf(
     "hash join (build collected once, no exchange); larger builds "
     "shuffle both sides on the join keys and join per partition. -1 "
     "disables broadcast.", int)
+JOIN_BLOOM_ENABLED = _conf(
+    "sql.join.bloomFilter.enabled", False,
+    "Runtime bloom-filter join pruning: shuffled inner/left_semi/right "
+    "equi-joins with a small scan-shaped build side run the build once "
+    "into a device bloom filter and mask the stream side BEFORE its "
+    "exchange (reference: GpuBloomFilterAggregate + "
+    "GpuBloomFilterMightContain via InSubqueryExec runtime filters). "
+    "Off by default pending broader production soak.", bool)
+JOIN_BLOOM_MAX_BUILD_ROWS = _conf(
+    "sql.join.bloomFilter.maxBuildRows", 4_000_000,
+    "Upper bound on the ESTIMATED build-side rows for runtime "
+    "bloom-filter creation (filter memory is ~1 byte/bit at 8 "
+    "bits/row).", int)
 DISTINCT_AGG_REWRITE = _conf(
     "sql.optimizer.distinctAggRewrite.enabled", True,
     "Rewrite count(DISTINCT x) into a two-level hash aggregation (the "

@@ -7,7 +7,10 @@ run's memory resources: the device manager and spill store of its conf
 and device (the session's), the session (for its semaphore), and the
 spill handles operators registered, which `close()` closes when the run
 ends (an operator closes its own handles as it goes; the registry
-catches a generator abandoned mid-stream).
+catches a generator abandoned mid-stream), and the run's shared
+materializations (`shared_handles`: a SharedBuildExec's parked batches,
+which several consumers read, so none of them closes them), which
+`close()` closes too (JAX `exec/base.py:56`, `:72-79`).
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ class ExecContext:
         self.metrics: Dict[str, Dict[str, float]] = {}
         self._lock = threading.Lock()
         self._handles: List = []
+        # SharedBuildExec's per-run materialization cache:
+        # {id(node): {pid: [spill handles]}}, closed by close()
+        self.shared_handles: Dict[int, dict] = {}
         # device->host degradation state (exec/degrade.py): device
         # failures a node, the nodes pinned to the host for the rest of
         # the query, and the degrade_to_host events
@@ -66,9 +72,14 @@ class ExecContext:
 
     def close(self):
         """Release the run's resources: every registered spill handle
-        still open closes (close is idempotent)."""
+        still open and every shared materialization closes (close is
+        idempotent)."""
         with self._lock:
             handles, self._handles = self._handles, []
+            shared, self.shared_handles = self.shared_handles, {}
+        for per_node in shared.values():
+            for hs in per_node.values():
+                handles.extend(hs)
         for h in handles:
             h.close()
 

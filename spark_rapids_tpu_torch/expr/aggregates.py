@@ -8,7 +8,9 @@ two-level rewrite, `plan/optimizer.py` `rewrite_distinct_aggs`, or
 `CollectAggExec`), Percentile and Median are `is_collect`: they run on
 `CollectAggExec`'s sort path, as a string's First / Last does. Not
 ported: CollectList, CollectSet and percentiles over a list (ArrayType,
-ROADMAP A.5), BloomFilterAggregate (A.9). Ungrouped states
+ROADMAP A.5). BloomFilterAggregate builds one filter, ungrouped only,
+as in the JAX package; `parse_bloom_filter` reads its payload back.
+Ungrouped states
 are tuples of 0-d tensors; grouped states (`g_update`) are tuples of
 [num_segments] tensors, one per entry of `state_reducers`, which names
 how the grouped merge combines each ("sum", "or", "min" or "max"), and
@@ -53,8 +55,9 @@ from .expressions import Expression, UnsupportedExpr
 __all__ = ["AggExpr", "Sum", "Count", "CountStar", "Avg", "Min", "Max",
            "CountDistinct", "First", "Last", "Variance", "Stddev",
            "ApproxCountDistinct", "Percentile", "ApproxPercentile",
-           "Median", "CollectList", "CollectSet", "seg_sum", "seg_any",
-           "seg_min_max", "float_key"]
+           "Median", "CollectList", "CollectSet", "BloomFilterAggregate",
+           "parse_bloom_filter", "seg_sum", "seg_any", "seg_min_max",
+           "float_key"]
 
 
 def seg_sum(x: torch.Tensor, seg_ids: torch.Tensor,
@@ -824,6 +827,86 @@ class ApproxCountDistinct(AggExpr):
 
     def __repr__(self):
         return f"approx_count_distinct({self.child}, rsd={self.rsd})"
+
+
+# ----------------------------------------------------------------------
+# bloom_filter_agg
+# ----------------------------------------------------------------------
+class BloomFilterAggregate(AggExpr):
+    """bloom_filter_agg: an m-bit Bloom filter over the input (JAX
+    `expr/aggregates.py:809`; reference: GpuBloomFilterAggregate.scala).
+
+    The filter lives as ONE device bool vector of num_bits (update is an
+    index fill of k = 5 positions a row, `ops/hash.py` `bloom_positions`);
+    finalize packs it into little-endian bytes behind a 'BF1|k|num_bits|'
+    header, one BinaryType value, byte for byte the JAX package's.
+    Ungrouped only, matching Spark (the agg returns ONE filter for the
+    build side)."""
+
+    state_reducers = None            # grouped path unsupported
+
+    def __init__(self, child, estimated_items: int = 1_000_000,
+                 num_bits: int = None):
+        super().__init__(child)
+        if num_bits is None:
+            # Spark default sizing: ~8 bits/item
+            num_bits = max(64, int(estimated_items) * 8)
+        # cap below 2^31, as the JAX package does (its positions are
+        # int32 on the device)
+        num_bits = min(int(num_bits), 1 << 30)
+        self.num_bits = 1 << max(6, int(num_bits - 1).bit_length())
+        self.k = 5
+
+    def bind(self, schema):
+        b = type(self)(self.child.bind(schema), num_bits=self.num_bits)
+        b._resolve_type()
+        return b
+
+    def _resolve_type(self):
+        if self.child.dtype.is_nested:
+            raise UnsupportedExpr("bloom_filter_agg over nested input")
+        self.dtype = dt.BINARY
+
+    def update(self, cv: CV, mask):
+        from ..ops.hash import bloom_positions
+        masked = CV(cv.data, mask & cv.validity, cv.offsets, cv.children)
+        # dead rows route to a SACRIFICIAL slot (num_bits), dropped below
+        bits = torch.zeros(self.num_bits + 1, dtype=torch.bool,
+                           device=mask.device)
+        for p in bloom_positions(masked, self.child.dtype, self.k,
+                                 self.num_bits):
+            bits.index_fill_(0, torch.where(p >= 0, p, self.num_bits),
+                             True)
+        return (bits[:self.num_bits],)
+
+    def merge(self, s1, s2):
+        return (s1[0] | s2[0],)
+
+    def finalize(self, s):
+        bits = s[0].reshape(-1, 8).to(torch.uint8)
+        shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+        packed = (bits << shifts).sum(dim=1).to(torch.uint8)
+        head = torch.tensor(list(f"BF1|{self.k}|{self.num_bits}|".encode()),
+                            dtype=torch.uint8, device=bits.device)
+        data = torch.cat([head, packed])
+        off = torch.tensor([0, data.shape[0]], dtype=torch.int32,
+                           device=bits.device)
+        ok = torch.ones((), dtype=torch.bool, device=bits.device)
+        return CV(data, ok.reshape(1), off), ok
+
+    def __repr__(self):
+        return f"bloom_filter_agg({self.child}, bits={self.num_bits})"
+
+
+def parse_bloom_filter(blob: bytes):
+    """'BF1|k|num_bits|'-prefixed packed filter -> (k, num_bits, numpy
+    bool bit vector)."""
+    import numpy as np
+    if not blob.startswith(b"BF1|"):
+        raise ValueError("not a bloom filter payload")
+    _, k, m, rest = blob.split(b"|", 3)
+    bits = np.unpackbits(np.frombuffer(rest, np.uint8), bitorder="little")
+    return int(k), int(m), bits.astype(bool)
 
 
 # ----------------------------------------------------------------------

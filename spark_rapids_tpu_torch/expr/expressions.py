@@ -174,6 +174,10 @@ class Expression:
         from .string_exprs import Like
         return Like(self, pattern)
 
+    def rlike(self, pattern: str):
+        from .regex_exprs import RLike
+        return RLike(self, pattern)
+
     def substr(self, start, length=None):
         from .string_exprs import Substring
         return Substring(self, start, length)

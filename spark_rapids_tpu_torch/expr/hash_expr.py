@@ -1,8 +1,9 @@
 """The hash expressions: hash (Spark's murmur3 row hash, seed 42,
 int32), xxhash64 (seed 42, int64) and hive_hash (int32), the port's
 copy of the JAX package's `expr/hash_expr.py` over `ops/hash.py`. None
-of them is ever null. might_contain waits for the bloom filter
-(ROADMAP A.9) and raises NotPorted.
+of them is ever null. might_contain probes a bloom_filter_agg payload
+(`expr/aggregates.py` `BloomFilterAggregate`) with the same
+`bloom_positions`.
 """
 from __future__ import annotations
 
@@ -11,9 +12,8 @@ from typing import List
 import torch
 
 from ..columnar import dtypes as dt
-from ..errors import NotPorted
-from ..ops.hash import (hive_hash_row_hash, murmur3_row_hash, to_signed32,
-                        xxhash64_row_hash)
+from ..ops.hash import (bloom_positions, hive_hash_row_hash,
+                        murmur3_row_hash, to_signed32, xxhash64_row_hash)
 from ..ops.kernel_utils import CV
 from .expressions import Expression
 
@@ -22,8 +22,50 @@ __all__ = ["Murmur3Hash", "XxHash64", "HiveHash",
 
 
 class BloomFilterMightContain(Expression):
+    """might_contain(filter, value): membership probe against a
+    bloom_filter_agg result (JAX `expr/hash_expr.py:19`; reference:
+    GpuBloomFilterMightContain.scala). The filter must be FOLDABLE (a
+    binary literal, like Spark's scalar-subquery result): its bit vector
+    unpacks once at bind and goes to the batch's device on first use; a
+    row might be in the set when all k positions are set. A null value
+    gives null."""
+
     def __init__(self, filter_expr: Expression, value: Expression):
-        raise NotPorted("might_contain (the bloom filter, ROADMAP A.9)")
+        self.filter_expr = filter_expr
+        self.value = value
+        self.children = [filter_expr, value]
+
+    def bind(self, schema):
+        from .aggregates import parse_bloom_filter
+        from .expressions import Literal, UnsupportedExpr
+        f = self.filter_expr.bind(schema)
+        v = self.value.bind(schema)
+        if not isinstance(f, Literal) or not isinstance(f.value, bytes):
+            raise UnsupportedExpr(
+                "might_contain requires a foldable binary filter "
+                "(collect bloom_filter_agg first)")
+        b = BloomFilterMightContain(f, v)
+        b._k, b._m, bits = parse_bloom_filter(f.value)
+        b._bits = {"cpu": torch.from_numpy(bits)}
+        b.dtype = dt.BOOL
+        return b
+
+    def _bits_on(self, device):
+        key = str(device)
+        if key not in self._bits:
+            self._bits[key] = self._bits["cpu"].to(device)
+        return self._bits[key]
+
+    def emit(self, ctx):
+        cv = self.value.emit(ctx)
+        bits = self._bits_on(cv.validity.device)
+        hit = torch.ones_like(cv.validity)
+        for pos in bloom_positions(cv, self.value.dtype, self._k, self._m):
+            hit = hit & bits[pos.clamp(0, self._m - 1)]
+        return CV(hit, cv.validity)
+
+    def __repr__(self):
+        return f"might_contain(<filter>, {self.value})"
 
 
 class _RowHash(Expression):

@@ -13,10 +13,11 @@ Slow by design. Integers ride as width-typed numpy scalars (see
 wraps as Java's does; decimals arrive as Python `Decimal` and dates as
 `datetime.date`, from Arrow. Each rule is the JAX package's, even where
 it departs from Spark (the Cast rule's `str` of a double, its
-truncating string -> int). The rules for RLike, RegexpExtract,
-RegexpReplace, GetJsonObject, FromJson, ToJson and ParseUrl come with
-their expression classes (ROADMAP A.10); an expression with no host
-rule raises UnsupportedExpr.
+truncating string -> int). RLike, RegexpExtract and RegexpReplace run
+through Python `re` (a Java replacement's `$n` and `\\X` translated by
+`_java_repl_to_py`); GetJsonObject, FromJson, ToJson and ParseUrl
+through `json` and `urllib.parse`. An expression with no host rule
+raises UnsupportedExpr.
 """
 from __future__ import annotations
 
@@ -50,6 +51,27 @@ def _java_like_to_re(pattern: str, escape: str = "\\"):
             out.append(_re.escape(c))
         i += 1
     return _re.compile("(?s)^" + "".join(out) + "$")
+
+
+@functools.lru_cache(maxsize=256)
+def _java_repl_to_py(repl: str) -> str:
+    """Java regexp_replace replacement dialect -> Python re.sub template:
+    \\X = literal X, $n = group reference, all else literal."""
+    out = []
+    i = 0
+    while i < len(repl):
+        c = repl[i]
+        if c == "\\" and i + 1 < len(repl):
+            nxt = repl[i + 1]
+            out.append("\\\\" if nxt == "\\" else nxt)
+            i += 2
+        elif c == "$" and i + 1 < len(repl) and repl[i + 1].isdigit():
+            out.append("\\" + repl[i + 1])
+            i += 2
+        else:
+            out.append("\\\\" if c == "\\" else c)
+            i += 1
+    return "".join(out)
 
 
 # Each rule: fn(expr, child_values: list, row_env) -> value (None = null)
@@ -266,6 +288,34 @@ def _like(e, cv_or_child, env):
     return _java_like_to_re(e.pattern).match(s) is not None
 
 
+@_rule("RLike")
+def _rlike(e, cv, env):
+    s = cv[0]
+    if s is None:
+        return None
+    return _re.search(e.pattern, s) is not None
+
+
+@_rule("RegexpExtract")
+def _regexp_extract(e, cv, env):
+    s = cv[0]
+    if s is None:
+        return None
+    m = _re.search(e.pattern, s)
+    if not m or e.idx > (m.re.groups):
+        return ""
+    g = m.group(e.idx)
+    return g if g is not None else ""
+
+
+@_rule("RegexpReplace")
+def _regexp_replace(e, cv, env):
+    s = cv[0]
+    if s is None:
+        return None
+    return _re.sub(e.pattern, _java_repl_to_py(e.replacement), s)
+
+
 # ---------------------------------------------------------------------
 def _eval_one(e: Expression, env) -> Any:
     name = type(e).__name__
@@ -291,12 +341,13 @@ def host_eval_rows(expr: Expression, rows: List[dict]) -> List[Any]:
 
 # output dtype WITHOUT capability checks, for planning around fallbacks
 _DTYPE_HINTS = {
-    "Like": dt.BOOL, "Contains": dt.BOOL,
+    "RLike": dt.BOOL, "Like": dt.BOOL, "Contains": dt.BOOL,
     "StartsWith": dt.BOOL, "EndsWith": dt.BOOL, "And": dt.BOOL,
     "Or": dt.BOOL, "Not": dt.BOOL, "Eq": dt.BOOL, "Ne": dt.BOOL,
     "Lt": dt.BOOL, "Le": dt.BOOL, "Gt": dt.BOOL, "Ge": dt.BOOL,
     "EqNullSafe": dt.BOOL, "IsNull": dt.BOOL, "IsNotNull": dt.BOOL,
     "In": dt.BOOL,
+    "RegexpExtract": dt.STRING, "RegexpReplace": dt.STRING,
     "Upper": dt.STRING, "Lower": dt.STRING, "ConcatStr": dt.STRING,
     "Length": dt.INT32,
 }
@@ -312,6 +363,137 @@ def host_output_dtype(expr: Expression) -> Optional[dt.DataType]:
     if name == "Cast":
         return expr.to
     return _DTYPE_HINTS.get(name)
+
+
+# -- JSON / URL expressions (expr/json_exprs.py) -----------------------
+import json as _json  # noqa: E402
+
+
+@_rule("GetJsonObject")
+def _get_json_object(e, cv, env):
+    s = cv[0]
+    if s is None:
+        return None
+    from .json_exprs import render_json_value, walk_json_path
+    try:
+        obj = _json.loads(s)
+    except (ValueError, TypeError):
+        return None
+    matches = walk_json_path(obj, e.steps)
+    if not matches:
+        return None
+    if len(matches) == 1:
+        return render_json_value(matches[0])
+    return _json.dumps(matches, separators=(",", ":"))
+
+
+def _coerce_json(v, dtype):
+    if v is None:
+        return None
+    if isinstance(dtype, dt.StructType):
+        if not isinstance(v, dict):
+            return None
+        return {f.name: _coerce_json(v.get(f.name), f.dtype)
+                for f in dtype.fields}
+    if isinstance(dtype, dt.ArrayType):
+        if not isinstance(v, list):
+            return None
+        return [_coerce_json(x, dtype.element) for x in v]
+    if isinstance(dtype, dt.MapType):
+        if not isinstance(v, dict):
+            return None
+        return {str(k): _coerce_json(x, dtype.value)
+                for k, x in v.items()}
+    try:
+        if isinstance(dtype, dt.StringType):
+            return v if isinstance(v, str) else _json.dumps(v)
+        if isinstance(dtype, dt.BooleanType):
+            return v if isinstance(v, bool) else None
+        if isinstance(dtype, (dt.ByteType, dt.ShortType, dt.IntegerType,
+                              dt.LongType)):
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                return None
+            return int(v)
+        if isinstance(dtype, (dt.FloatType, dt.DoubleType)):
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                return None
+            return float(v)
+    except (ValueError, TypeError, OverflowError):
+        return None
+    return None
+
+
+@_rule("FromJson")
+def _from_json(e, cv, env):
+    s = cv[0]
+    if s is None:
+        return None
+    try:
+        obj = _json.loads(s)
+    except (ValueError, TypeError):
+        return None
+    return _coerce_json(obj, e.host_dtype)
+
+
+def _jsonable(v):
+    import datetime
+    import decimal
+    if isinstance(v, dict):
+        return {k: _jsonable(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, decimal.Decimal):
+        return float(v)
+    if isinstance(v, (datetime.date, datetime.datetime)):
+        return v.isoformat()
+    return v
+
+
+@_rule("ToJson")
+def _to_json(e, cv, env):
+    v = cv[0]
+    if v is None:
+        return None
+    return _json.dumps(_jsonable(v), separators=(",", ":"))
+
+
+@_rule("ParseUrl")
+def _parse_url(e, cv, env):
+    s = cv[0]
+    if s is None:
+        return None
+    from urllib.parse import urlparse
+    try:
+        u = urlparse(s)
+    except ValueError:
+        return None
+    part = e.part
+    if part == "QUERY" and e.key is not None:
+        # Spark extracts the RAW value with (&|^)key=([^&]*): no URL
+        # decoding, empty string preserved
+        mt = _re.search(r"(?:^|&)" + _re.escape(e.key) + r"=([^&]*)",
+                        u.query)
+        return mt.group(1) if mt else None
+    if part == "HOST":
+        return u.hostname
+    if part == "PATH":
+        return u.path or ""
+    if part == "QUERY":
+        return u.query or None
+    if part == "REF":
+        return u.fragment or None
+    if part == "PROTOCOL":
+        return u.scheme or None
+    if part == "FILE":
+        return (u.path or "") + (f"?{u.query}" if u.query else "")
+    if part == "AUTHORITY":
+        return u.netloc or None
+    if part == "USERINFO":
+        if u.username is None and u.password is None:
+            return None
+        return (u.username or "") + (f":{u.password}"
+                                     if u.password is not None else "")
+    return None
 
 
 @_rule("Cast")

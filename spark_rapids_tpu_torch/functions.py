@@ -6,11 +6,11 @@ Every public name of the JAX module is here. The aggregates, the null,
 condition and math functions, the string functions, the hash functions,
 the date and time functions, the time-zone conversions, the array,
 struct and map functions, explode, the higher-order functions,
-collect_list / collect_set, grouping_id and the window functions (to
-call `.over(spec)` on, `window.py`) build the port's expressions. The
-rest raise NotPorted naming the ROADMAP item that ports them: regex,
-JSON and parse_url (A.10); bloom_filter_agg and might_contain (A.9); udf
-and df_udf (A.12).
+collect_list / collect_set, grouping_id, the window functions (to call
+`.over(spec)` on, `window.py`), bloom_filter_agg and might_contain, and
+the regex, JSON and URL functions build the port's expressions. The
+rest, udf and df_udf, raise NotPorted naming the ROADMAP item that
+ports them (A.12).
 """
 from __future__ import annotations
 
@@ -47,6 +47,9 @@ __all__ = [
     "forall", "aggregate", "collect_list", "collect_set", "grouping_id",
     "row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
     "ntile", "lag", "lead", "first_value", "last_value", "nth_value",
+    "bloom_filter_agg", "might_contain", "rlike", "regexp_extract",
+    "regexp_replace", "get_json_object", "from_json", "to_json",
+    "parse_url",
 ]
 
 
@@ -587,13 +590,67 @@ def nth_value(e, n: int):
 
 
 # ----------------------------------------------------------------------
+# the bloom filter (ROADMAP A.9)
+# ----------------------------------------------------------------------
+def bloom_filter_agg(e, estimated_items: int = 1_000_000,
+                     num_bits: int = None):
+    """A Bloom filter over the column (reference:
+    GpuBloomFilterAggregate); returns BinaryType. Probe with
+    might_contain."""
+    return _agg.BloomFilterAggregate(_to_expr(e), estimated_items,
+                                     num_bits)
+
+
+def might_contain(filter_e, value_e):
+    """Membership probe against a bloom_filter_agg result (reference:
+    GpuBloomFilterMightContain)."""
+    from .expr.hash_expr import BloomFilterMightContain
+    return BloomFilterMightContain(_to_expr(filter_e), _to_expr(value_e))
+
+
+# ----------------------------------------------------------------------
+# regex, JSON and URL (ROADMAP A.10)
+# ----------------------------------------------------------------------
+def rlike(e, pattern: str):
+    from .expr.regex_exprs import RLike
+    return RLike(_to_expr(e), pattern)
+
+
+def regexp_extract(e, pattern: str, idx: int = 0):
+    from .expr.regex_exprs import RegexpExtract
+    return RegexpExtract(_to_expr(e), pattern, idx)
+
+
+def regexp_replace(e, pattern: str, replacement: str):
+    from .expr.regex_exprs import RegexpReplace
+    return RegexpReplace(_to_expr(e), pattern, replacement)
+
+
+def get_json_object(e, path: str):
+    from .expr.json_exprs import GetJsonObject
+    return GetJsonObject(_to_expr(e), path)
+
+
+def from_json(e, schema):
+    from .expr.json_exprs import FromJson
+    return FromJson(_to_expr(e), schema)
+
+
+def to_json(e):
+    from .expr.json_exprs import ToJson
+    return ToJson(_to_expr(e))
+
+
+def parse_url(e, part: str, key=None):
+    from .expr.json_exprs import ParseUrl
+    return ParseUrl(_to_expr(e), part, key)
+
+
+# ----------------------------------------------------------------------
 # The JAX module's other entries: each raises NotPorted naming the
 # ROADMAP item that ports it.
 # ----------------------------------------------------------------------
 _NOT_PORTED = {
-    "A.9": "bloom_filter_agg might_contain",
-    "A.10": ("rlike regexp_extract regexp_replace get_json_object "
-             "from_json to_json parse_url"),
     "A.12": "udf df_udf",
 }
 

@@ -16,8 +16,9 @@ to the JAX functions otherwise. The Spark-facing xxhash64 (seed 42,
 Spark's XXH64 hashInt / hashLong / hashUnsafeBytes schedule, with the
 JAX package's 64-byte string bound and fold) and hive_hash (Hive's
 31-polynomial row hashCode) follow, with the same float and double
-inputs as murmur3. The bloom filter's positions wait for the runtime
-filter (ROADMAP A.9).
+inputs as murmur3. Last, `bloom_positions`: the k bit positions of the
+bloom filter, which the aggregate that builds it, the probe and the
+runtime join filter share.
 
 torch has no unsigned 32-bit arithmetic on every build, and `>>` on
 int64 is arithmetic. So every 32-bit word here lives in an int64 tensor
@@ -36,7 +37,8 @@ from .kernel_utils import CV
 __all__ = ["hash_int32", "hash_int64", "murmur3_cv", "murmur3_row_hash",
            "partition_ids", "to_signed32", "fold64", "avalanche32",
            "hash_once_rows", "xxhash64_cv", "xxhash64_row_hash",
-           "hive_hash_cv", "hive_hash_row_hash"]
+           "hive_hash_cv", "hive_hash_row_hash", "BLOOM_SEED1",
+           "BLOOM_SEED2", "bloom_positions"]
 
 _M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
@@ -507,3 +509,29 @@ def hive_hash_row_hash(cvs, dtypes):
     for cv, dtp in zip(cvs, dtypes):
         h = (h * 31 + hive_hash_cv(cv, dtp)) & _M32
     return to_signed32(h)
+
+
+# bloom-filter hash scheme shared by BloomFilterAggregate (build),
+# BloomFilterMightContain (foldable probe), and RuntimeBloomFilterExec
+# (runtime join filter): TWO murmur3 passes combined as h1 + i*h2 over
+# a power-of-two bit count. ONE definition — a drifted copy would
+# build and probe mismatched positions (silent false negatives).
+BLOOM_SEED1 = 0
+BLOOM_SEED2 = -1749833076
+
+
+def bloom_positions(cv: CV, dtype: dt.DataType, k: int, num_bits: int):
+    """Per-row bloom bit positions: k int64 tensors; invalid rows get
+    -1 in every position. (h1 + i*h2) wraps at 32 bits before the
+    modulo, as the JAX package's uint32 arithmetic does."""
+    n = cv.validity.shape[0]
+    dev = cv.validity.device
+    h1 = murmur3_cv(cv, dtype, torch.full((n,), BLOOM_SEED1 & _M32,
+                                          dtype=torch.int64, device=dev))
+    h2 = murmur3_cv(cv, dtype, torch.full((n,), BLOOM_SEED2 & _M32,
+                                          dtype=torch.int64, device=dev))
+    out = []
+    for i in range(k):
+        p = ((h1 + i * h2) & _M32) % num_bits
+        out.append(torch.where(cv.validity, p, -1))
+    return out

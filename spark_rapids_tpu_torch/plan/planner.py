@@ -14,7 +14,12 @@ the build side's estimated bytes are at most
 `sql.autoBroadcastJoinThreshold`, else a shuffled hash join (both sides
 hash-exchanged on their keys, joined per partition); the estimate is the
 JAX planner's, from the scans' row counts and a fixed width per type, so
-the choice is the same.
+the choice is the same. Under `sql.join.bloomFilter.enabled` (off by
+default, as in JAX) a shuffled single-key inner, left semi or right join
+whose build estimate is at most `sql.join.bloomFilter.maxBuildRows`
+masks its stream side before the exchange with a bloom filter of the
+build's keys (`exec/runtime_filter.py`), the build materialized once for
+the filter and the build exchange.
 
 At the JAX package's defaults the plan is adaptive, as there
 (`sql.adaptive.enabled`): the exchange under a final aggregate and both
@@ -43,10 +48,8 @@ refuses it.
 
 A cross join without a condition is a broadcast hash join whatever the
 threshold (`how="cross"`); a condition with no equi keys is a
-`NestedLoopJoinExec`; any other condition rides the hash join. The
-bloom-filter prefilter of a shuffled join is off by default in JAX and
-not ported. A mesh exchange and any node without a rule raise
-NotPorted.
+`NestedLoopJoinExec`; any other condition rides the hash join. A mesh
+exchange and any node without a rule raise NotPorted.
 
 Placement has the JAX planner's three states (`PlanMeta`): `_tag` marks
 a Project or Filter whose expression the device cannot run `!cpu`
@@ -70,7 +73,8 @@ from ..config import (ADAPTIVE_CALIBRATION, ADAPTIVE_COALESCE_ENABLED,
                       ADAPTIVE_ENABLED, ADAPTIVE_SKEW_ENABLED,
                       ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_MIN_BYTES,
                       ADAPTIVE_TARGET_BYTES, AUDIT_STRICT, BATCH_SIZE_ROWS,
-                      BROADCAST_THRESHOLD, CBO_ENABLED, MESH_DEVICES,
+                      BROADCAST_THRESHOLD, CBO_ENABLED, JOIN_BLOOM_ENABLED,
+                      JOIN_BLOOM_MAX_BUILD_ROWS, MESH_DEVICES,
                       SHUFFLE_PARTITIONS, TpuConf)
 from ..errors import NotPorted
 from ..exec import nodes as x
@@ -83,6 +87,7 @@ from ..exec.join import HashJoinExec, NestedLoopJoinExec
 from ..exec.coalesce import CoalesceBatchesExec
 from ..exec.exchange import ShuffleExchangeExec
 from ..exec.host_fallback import HostFilterExec, HostProjectExec
+from ..exec.runtime_filter import RuntimeBloomFilterExec, SharedBuildExec
 from ..exec.sort import SortExec
 from ..expr.expressions import BoundRef, UnsupportedExpr
 from . import logical as L
@@ -457,6 +462,7 @@ def _join(meta, conv, conf):
     if equi and not broadcast_ok and est is not None and nparts > 1:
         # a big build: hash-exchange both sides on the join keys, so
         # each partition joins its own slice of the build
+        left, right = _maybe_bloom_prefilter(left, right, node, meta, conf)
         lex = ShuffleExchangeExec(left, nparts, node.bound_left_keys,
                                   left.schema)
         rex = ShuffleExchangeExec(right, nparts, node.bound_right_keys,
@@ -474,6 +480,37 @@ def _join(meta, conv, conf):
     return HashJoinExec(left, BroadcastExchangeExec(right, right.schema),
                         node.bound_left_keys, node.bound_right_keys,
                         node.how, node.schema, condition=cond)
+
+
+def _maybe_bloom_prefilter(left, right, n, meta, conf):
+    """Wrap the stream (left) side of a shuffled equi-join in a runtime
+    bloom filter built from the join's OWN build side, so non-matching
+    rows never reach the exchange (JAX `plan/planner.py:445-479`;
+    reference: GpuBloomFilter* runtime filters via InSubqueryExec). The
+    build subtree is wrapped in SharedBuildExec so the filter and the
+    join's build exchange consume ONE materialization. Only for join
+    types where an unmatched stream row contributes nothing. Returns
+    (left', right')."""
+    if not conf.get(JOIN_BLOOM_ENABLED):
+        return left, right
+    if n.how not in ("inner", "left_semi", "right"):
+        return left, right
+    if len(n.bound_left_keys or []) != 1:
+        return left, right               # single-key filters only
+    if n.bound_left_keys[0].dtype != n.bound_right_keys[0].dtype:
+        # murmur3 hashes int32/int64 representations of equal values
+        # differently: a mixed-width equi-join through the bloom filter
+        # would silently drop matching stream rows
+        return left, right
+    est_rows = _estimate_rows(meta.children[1].node)
+    if est_rows is None or est_rows > conf.get(JOIN_BLOOM_MAX_BUILD_ROWS):
+        # no estimate: a filter sized blind can saturate and charge k
+        # probes a stream row for no pruning
+        return left, right
+    shared = SharedBuildExec(right)
+    return RuntimeBloomFilterExec(left, shared, n.bound_left_keys[0],
+                                  n.bound_right_keys[0],
+                                  max(64, int(est_rows))), shared
 
 
 @_rule(L.Repartition)

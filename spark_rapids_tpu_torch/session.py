@@ -9,8 +9,9 @@ the aggregate, with `grouping_id`), `join` (equi-keys by name, an
 expression `on`, a non-equi `condition`, cross), `sort`, `limit`,
 `union`, `repartition`, `cache` / `uncache`, `schema`, `explain`
 (ALL, NOT_ON_TPU, VALIDATE), `create_or_replace_temp_view`, `to_arrow`,
-`to_pydict`, `collect` and `count` on a DataFrame, and `TpuSession.sql`
-(`sql/parser.py`) over the session's temp views. A session runs on one
+`to_pydict`, `collect` and `count` on a DataFrame, `TpuSession.sql`
+(`sql/parser.py`) over the session's temp views, `set_conf` and
+`builder_get_or_create`. A session runs on one
 torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device: first the
 adaptive stage driver (`plan/aqe.py`), which materializes the shuffle
@@ -119,11 +120,31 @@ class TpuSession:
     (`memory/device.py` `device_manager`, `memory/spill.py`
     `spill_store`: sessions of one budget share them)."""
 
+    #: the session made last, which `builder_get_or_create` returns
+    _active: Optional["TpuSession"] = None
+
     def __init__(self, conf: Optional[Dict] = None, device=None):
         self.conf = TpuConf(conf)
         self.device = _resolve_device(device)
         self.read = DataFrameReader(self)
         self.semaphore = TpuSemaphore(self.conf.concurrent_tasks)
+        TpuSession._active = self
+
+    @staticmethod
+    def builder_get_or_create(conf: Optional[Dict] = None,
+                              device=None) -> "TpuSession":
+        """The session made last, or a new one from `conf` (and `device`)
+        when none was made yet; an existing session keeps its conf, as
+        in the JAX package."""
+        if TpuSession._active is None:
+            TpuSession(conf, device)
+        return TpuSession._active
+
+    def set_conf(self, key, value):
+        """Set one key for the actions planned from now on (the conf is
+        a fresh snapshot; a running action keeps its own). The semaphore
+        keeps the permits it was made with."""
+        self.conf = self.conf.set(key, value)
 
     @property
     def device_manager(self):

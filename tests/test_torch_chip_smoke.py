@@ -1404,3 +1404,59 @@ def test_tpch_data_defers_the_named_references(capsys):
     for k, fn in extra.items():
         assert pickle.dumps(refs[k]) == pickle.dumps(fn(exp)), k
     assert _phase_lines(capsys)["deferred_references"]["waited_s"] >= 0
+
+
+def _bloom_regex_refs(tables):
+    return {k: chip_smoke.PHASE_REFERENCES[k](tables)
+            for k in ("runtime_bloom", "regex")}
+
+
+def test_bloom_regex_json_phases_rehearse_on_the_cpu(tpch_small, capsys):
+    """runtime_bloom, regex_surface and json_url over gen_all(0.01): every
+    check exact, the bloom runs' stream rows held, no kernel launch."""
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    refs = _bloom_regex_refs(tpch_small)
+    by_path = chip_smoke.bloom_regex_json_phases(
+        s, tpch_small, chip_smoke.tpch_reference(13, tpch_small), refs)
+    assert by_path == {"runtime_bloom": {"all": 0, "vector": 0,
+                                         "scalar": 0}}
+    lines = _phase_lines(capsys)
+    assert {lines[p]["check"] for p in ("runtime_bloom", "regex_surface",
+                                        "json_url")} == {"exact"}
+    runs = lines["runtime_bloom"]["runs"]
+    li = tpch_small["lineitem"].num_rows
+    for how in chip_smoke.BLOOM_HOWS:
+        assert runs[f"{how}_off"]["stream_rows"] == li
+        assert runs[f"{how}_on"]["stream_rows"] < li // 10
+        assert runs[f"{how}_on"]["num_bits"] == refs["runtime_bloom"]["bits"]
+    assert lines["json_url"]["runs"]["host_bridge_supplier"]["rows"] == \
+        tpch_small["supplier"].num_rows
+
+
+@pytest.mark.parametrize("what", ["bloom_rows", "replace_hash"])
+def test_bloom_regex_checks_reject_a_wrong_reference(tpch_small, what):
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    refs = _bloom_regex_refs(tpch_small)
+    with pytest.raises(AssertionError):
+        if what == "bloom_rows":
+            refs["runtime_bloom"]["rows"] += 1
+            chip_smoke.runtime_bloom_phase(s, tpch_small,
+                                           refs["runtime_bloom"])
+        else:
+            refs["regex"]["sha256"] = "0" * 64
+            chip_smoke.regex_surface_phase(
+                s, tpch_small, chip_smoke.tpch_reference(13, tpch_small),
+                refs["regex"])
+
+
+@pytest.mark.parametrize("rows", [1, 63, 64, 2000, 2_000_000, 4_000_000])
+def test_bloom_bits_follow_the_aggregate(rows):
+    from spark_rapids_tpu_torch.expr.aggregates import BloomFilterAggregate
+    from spark_rapids_tpu_torch.expr.expressions import col
+    assert chip_smoke.bloom_bits(rows) == BloomFilterAggregate(
+        col("k"), estimated_items=max(64, rows)).num_bits
+    assert chip_smoke.bloom_bits(2_000_000) == 1 << 24

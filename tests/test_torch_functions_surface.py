@@ -3,9 +3,10 @@
 without raising; each that the port does not implement yet raises
 NotPorted, and its message names the ROADMAP item that ports it. The
 array, struct and map functions, explode, the higher-order functions,
-collect_list / collect_set and grouping_id (ROADMAP A.5), and the window
-functions (A.6) build since they were ported: their cases moved from
-WAITING to the building side, one case a name as before.
+collect_list / collect_set and grouping_id (ROADMAP A.5), the window
+functions (A.6), bloom_filter_agg and might_contain (A.9), and the regex,
+JSON and URL functions (A.10) build since they were ported: their cases
+moved from WAITING to the building side, one case a name as before.
 """
 import inspect
 import re
@@ -14,6 +15,7 @@ import pytest
 
 import spark_rapids_tpu.functions as JF
 import spark_rapids_tpu_torch.functions as PF
+from spark_rapids_tpu_torch.columnar import dtypes as pdt
 from spark_rapids_tpu_torch.errors import NotPorted
 
 PUBLIC = sorted(n for n in dir(JF) if not n.startswith("_")
@@ -22,9 +24,6 @@ PUBLIC = sorted(n for n in dir(JF) if not n.startswith("_")
 
 #: the entries that wait, by ROADMAP item
 WAITING = {
-    "A.9": ["bloom_filter_agg", "might_contain"],
-    "A.10": ["rlike", "regexp_extract", "regexp_replace",
-             "get_json_object", "from_json", "to_json", "parse_url"],
     "A.12": ["udf", "df_udf"],
 }
 ITEM_OF = {n: item for item, names in WAITING.items() for n in names}
@@ -45,7 +44,12 @@ ARGS = {"round": ("x", 2), "lpad": ("x", 5, "*"), "rpad": ("x", 5),
         "forall": ("x", lambda v: v > 0),
         "aggregate": ("x", 0, lambda acc, v: acc + v),
         "ntile": (4,), "nth_value": ("x", 2), "lag": ("x",),
-        "lead": ("x",)}
+        "lead": ("x",), "regexp_replace": ("x", "a+", "b"),
+        "regexp_extract": ("x", "(a)b", 1), "get_json_object": ("x", "$.a"),
+        "from_json": ("x", pdt.StructType((pdt.StructField("a",
+                                                          pdt.INT64),))),
+        "parse_url": ("x", "QUERY", "k"),
+        "bloom_filter_agg": ("x", 1000)}
 
 
 def test_every_public_name_exists():
