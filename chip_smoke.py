@@ -169,22 +169,24 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      the partition kernel (one launch a map batch, counted), the counts
      equal to orders grouped by o_orderdate;
  38h. `map_explode`: one map a lineitem order key (each line's position in
-     its order to its l_quantity, built with pyarrow from lineitem sorted
-     by l_orderkey: 60,012,150 entries), exploded and grouped by the
+     its order to its l_quantity, built with pyarrow from lineitem's rows
+     with l_orderkey below MAP_ORDER_KEYS sorted by l_orderkey: about
+     20,000,000 entries), exploded and grouped by the
      position (an int32 key: the partition kernel, counted), the sums and
      counts exact; the sums of element_at(m, 1), size(map_keys(m)) and
      array_max(map_values(m)) exact;
- 38i. `rollup_cube`: rollup(l_returnflag, l_linestatus) over lineitem (3
-     sets, 10 rows) with two decimal sums, a count and grouping_id, and
-     cube(o_orderstatus, o_orderpriority) over orders (4 sets, 24 rows),
-     exact against numpy;
+ 38i. `rollup_cube`: rollup(l_returnflag, l_linestatus) over lineitem's
+     first ROLLUP_ROWS (30M) rows (3 sets, 10 rows) with two decimal
+     sums, a count and grouping_id, and cube(o_orderstatus,
+     o_orderpriority) over orders (4 sets, 24 rows), exact against numpy;
  38j. `union_cache_count`: lineitem shipped in 1995 cached on the device,
      counted and grouped by l_returnflag twice over the cache (a
      CachedScanExec and no scan in the plan), unioned with 1996 and
      counted, the explain naming CachedScanExec, every number exact; after
      `uncache` the device's allocated bytes back within 1 MiB of their
      level before the cache;
- 38k. `window_running`: orders (15M rows) per customer by date under the
+ 38k. `window_running`: the orders of customers up to WINDOW_CUSTKEYS
+     (750,000: about 7.5M rows) per customer by date under the
      default frame: rank, dense_rank, row_number, count / sum / min /
      max of o_totalprice (the sum a decimal(25,2)) and the sum and
      average of its double cast, read three times: at the default conf
@@ -195,14 +197,14 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      positions, the doubles within a relative 1e-9 of each customer's
      sequential sum), the three bit-equal, with each reading's wall, the
      window's opTime and chunks, host syncs and peak device bytes;
- 38l. `window_frames`: orders with three specs in one select (a chain of
-     three WindowExecs): per customer by (date, key) lag, lead with a
-     default, ROWS -2..0 sum / min / max and the max of a decimal(30,2)
-     cast, ROWS -3..3 first / last / nth_value, ntile(4), percent_rank,
-     cume_dist, row_number; per customer RANGE -90..0 days the double
-     sum and count; per priority (a string key, 3M-row partitions) rank
-     and the running average; every row exact against numpy (doubles
-     1e-9);
+ 38l. `window_frames`: the same orders (WINDOW_CUSTKEYS) with three
+     specs in one select (a chain of three WindowExecs): per customer by
+     (date, key) lag, lead with a default, ROWS -2..0 sum / min / max and
+     the max of a decimal(30,2) cast, ROWS -3..3 first / last /
+     nth_value, ntile(4), percent_rank, cume_dist, row_number; per
+     customer RANGE -90..0 days the double sum and count; per priority
+     (a string key, 1.5M-row partitions) rank and the running average;
+     every row exact against numpy (doubles 1e-9);
  38m. `daily_revenue_window`: lineitem's revenue per ship date (the
      exchange on the date runs the partition kernel: its launches
      counted), then over the dates a ROWS -6..0 sum and average and the
@@ -251,6 +253,28 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      beside the rest), equal to the source columns; then to_json of
      from_json and parse_url(.., "QUERY", "nation") over supplier's
      100,000 rows on the host bridge (one `HostProjectExec`), exact;
+ 38s. `file_formats` (FILE_REPARTITION_N, FILE_YEARS): orders (15M rows,
+     o_orderdate as a date) with o_year = year(o_orderdate),
+     `repartition(7, "o_year")` (the int32 exchange runs the partition
+     kernel: one launch a map batch, counted) and
+     `.write.mode("overwrite").partitionBy("o_year").parquet`, then
+     `read.parquet` of each `o_year=Y` directory (1992-1998): per year
+     the count and the unscaled o_totalprice sum; customer (1.5M rows)
+     through `write.orc` / `read.orc` grouped by c_mktsegment and
+     `write.csv` / `read.csv(schema=...)` (equal to customer); supplier
+     (100,000 rows) through `write.json` and `write.hive_text` (the
+     bytes equal Python's formatting) and `read.json` with s_acctbal as
+     a string (equal to pyarrow.json), and `write_avro` (deflate, the
+     decimal as its unscaled long) / `read.avro` (equal); a Delta table
+     of customer (v0 the keys up to half, v1 the rest, v2 DELETE of
+     AUTOMOBILE with deletion vectors, v3 UPDATE c_acctbal = 0 where
+     c_nationkey = 0, v4 MERGE of 10,000 rows on c_custkey, 5,000
+     matched, v5 OPTIMIZE z-ordered by (c_nationkey, c_custkey)), every
+     version read by time travel; an Iceberg table of customer (the
+     first half, then an append), the first and the current snapshot;
+     every count and sum exact against `file_formats_reference`, each
+     piece's wall ending in a device sync, in a temporary directory the
+     phase removes;
  39-60. the written plans: all 22 queries over the same tables, once
      each, with `WRITTEN_CONF` (the four features off: joins in the
      written order, fixed partitions, no reuse, each build before its
@@ -4951,6 +4975,20 @@ def check_date_counts(out, expect, what):
     return int(got.sum())
 
 
+#: map_explode's order keys: those below this (a third of SF10's 15M, so
+#: about 20M of lineitem's 60,012,150 rows in 5M maps), cut to pay for
+#: the file_formats phase
+MAP_ORDER_KEYS = 5_000_000
+
+
+def map_lineitem(lineitem):
+    """lineitem's rows whose l_orderkey is below MAP_ORDER_KEYS: whole
+    orders, the map table's input."""
+    import pyarrow.compute as pc
+    return lineitem.filter(pc.less(lineitem.column("l_orderkey"),
+                                   MAP_ORDER_KEYS))
+
+
 def map_table(lineitem):
     """(one row a order key with its map: the position of each of its
     lines, 1, 2, ..., to the line's l_quantity, from lineitem sorted by
@@ -5026,6 +5064,16 @@ def _one_unscaled(at, name) -> int:
     u = np.asarray(unscaled(at, name))
     return int(u[0, 0]) + (int(u[0, 1]) << 64) if u.ndim == 2 \
         else int(u[0])
+
+
+#: rollup_cube's lineitem rows: the first this many, cut from all
+#: 60,012,150 to pay for the file_formats phase
+ROLLUP_ROWS = 30_000_000
+
+
+def rollup_lineitem(lineitem):
+    """lineitem's first ROLLUP_ROWS rows, the rollup's input."""
+    return lineitem.slice(0, ROLLUP_ROWS)
 
 
 def rollup_query(session, lineitem):
@@ -5249,8 +5297,9 @@ def nested_phases(session, tables, expects=None) -> dict:
     dev = session.device
     li, orders = tables["lineitem"], tables["orders"]
     made = {"collect": lambda: collect_reference(orders),
-            "map": lambda: map_table(li),
-            "grouping": lambda: grouping_reference(li, orders),
+            "map": lambda: map_table(map_lineitem(li)),
+            "grouping": lambda: grouping_reference(rollup_lineitem(li),
+                                                   orders),
             "cache": lambda: cache_reference(li)}
 
     def reference(name):
@@ -5303,14 +5352,15 @@ def nested_phases(session, tables, expects=None) -> dict:
 
     # ---- rollup_cube -------------------------------------------------
     expect, ref_s = reference("grouping")
-    rq = rollup_query(session, li)
+    rolled = rollup_lineitem(li)
+    rq = rollup_query(session, rolled)
     rout, rwall, rlayers, _ = timed_query(rq, dev)
     check_grouping(rollup_rows(rout), expect["rollup"], 10, "rollup")
     cq = cube_query(session, orders)
     cout, cwall, clayers, _ = timed_query(cq, dev)
     check_grouping(cube_rows(cout), expect["cube"], 24, "cube")
     emit({"phase": "rollup_cube", "nvidia_smi": card_line(dev),
-          "rollup": {"rows": li.num_rows, "sets": 3,
+          "rollup": {"rows": rolled.num_rows, "sets": 3,
                      "rows_out": rout.num_rows, "wall_s": rwall,
                      "layers_s": rlayers, "plan": plan_chain(rq)},
           "cube": {"rows": orders.num_rows, "sets": 4,
@@ -5519,6 +5569,20 @@ def check_window_running(out, ref, what) -> dict:
         _check_exact(u, ref[name], what, name)
     return {"ds_worst_rel": _check_rel(_np(s, "ds"), ref["ds"], what, "ds"),
             "da_worst_rel": _check_rel(_np(s, "da"), ref["da"], what, "da")}
+
+
+#: window_running's and window_frames' customers: those with o_custkey
+#: up to this (half of SF10's 1.5M, so about 7.5M of its 15M orders),
+#: cut to pay for the file_formats phase
+WINDOW_CUSTKEYS = 750_000
+
+
+def window_orders(orders):
+    """orders of the customers with o_custkey up to WINDOW_CUSTKEYS:
+    whole per-customer partitions, the two window phases' input."""
+    import pyarrow.compute as pc
+    return orders.filter(pc.less_equal(orders.column("o_custkey"),
+                                       WINDOW_CUSTKEYS))
 
 
 def window_frames_query(session, orders):
@@ -5766,8 +5830,9 @@ def window_phases(session, tables, expects=None, stream_conf=None) -> dict:
         stream_conf = {SORT_OOC_THRESHOLD.key: WINDOW_SORT_BYTES}
     dev = session.device
     li, orders = tables["lineitem"], tables["orders"]
-    made = {"window_running": lambda: window_running_reference(orders),
-            "window_frames": lambda: window_frames_reference(orders),
+    windowed = window_orders(orders)
+    made = {"window_running": lambda: window_running_reference(windowed),
+            "window_frames": lambda: window_frames_reference(windowed),
             "daily_revenue": lambda: daily_revenue_reference(li)}
 
     def reference(name):
@@ -5784,7 +5849,7 @@ def window_phases(session, tables, expects=None, stream_conf=None) -> dict:
             ("default", {}),
             ("streamed", stream_conf),
             ("in_core", {WINDOW_CHUNK_ROWS.key: 0})):
-        q = window_running_query(session_with(session, conf), orders)
+        q = window_running_query(session_with(session, conf), windowed)
         out, run = window_run(q, dev, "window_running")
         run.update(check_window_running(out, expect, f"window_running "
                                         f"({label})"))
@@ -5802,7 +5867,7 @@ def window_phases(session, tables, expects=None, stream_conf=None) -> dict:
                              f"differ: {same}")
     del outs
     emit({"phase": "window_running", "nvidia_smi": card_line(dev),
-          "rows": orders.num_rows, "customers": expect["customers"],
+          "rows": windowed.num_rows, "customers": expect["customers"],
           "longest_partition": expect["longest"], "readings": readings,
           "bit_equal_to_in_core": same, "reference_s": ref_s,
           "check": "exact; doubles 1e-9",
@@ -5810,14 +5875,14 @@ def window_phases(session, tables, expects=None, stream_conf=None) -> dict:
 
     # ---- window_frames -----------------------------------------------
     expect, ref_s = reference("window_frames")
-    q = window_frames_query(session, orders)
+    q = window_frames_query(session, windowed)
     out, run = window_run(q, dev, "window_frames")
     run.update(check_window_frames(out, expect, "window_frames"))
     if run["window"]["window_execs"] != 3:
         raise AssertionError(f"window_frames: {run['window']}")
     del out
     emit({"phase": "window_frames", "nvidia_smi": card_line(dev),
-          "rows": orders.num_rows, "priorities": expect["priorities"],
+          "rows": windowed.num_rows, "priorities": expect["priorities"],
           **run, "reference_s": ref_s, "check": "exact; doubles 1e-9",
           "elapsed_s": time.perf_counter() - _START})
 
@@ -6446,6 +6511,357 @@ def bloom_regex_json_phases(session, tables, q13_expect, refs) -> dict:
     return by_path
 
 
+#: the partitioned write's partitions and the years they hold
+FILE_REPARTITION_N = 7
+FILE_YEARS = tuple(range(1992, 1999))
+#: the Delta MERGE's source: this many customer rows that exist and as
+#: many new ones
+DELTA_MERGE_HALF = 5_000
+DV_KEY = "spark.rapids.tpu.delta.deletionVectors.enabled"
+DELTA_DELETED_SEGMENT = "AUTOMOBILE"
+ZORDER_BY = ("c_nationkey", "c_custkey")
+
+
+def orders_dated(orders):
+    """Every column of orders, o_orderdate viewed as date32 (no copy)."""
+    import pyarrow as pa
+    od = orders.column("o_orderdate")
+    dated = pa.chunked_array([c.view(pa.date32()) for c in od.chunks],
+                             pa.date32())
+    return orders.set_column(orders.schema.get_field_index("o_orderdate"),
+                             "o_orderdate", dated)
+
+
+def delta_split(customer) -> int:
+    """The last c_custkey of the Delta table's first version: half of
+    customer's keys (750,000 at SF10)."""
+    return customer.num_rows // 2
+
+
+def delta_merge_source(customer):
+    """The MERGE's source: DELTA_MERGE_HALF rows whose key the table
+    holds at version 3 (every k-th key outside the deleted segment, its
+    c_acctbal replaced) and as many rows with new keys past the last
+    one; at most half of the live rows each way on a small table."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.workloads import tpch
+    live = customer.filter(pc.invert(pc.equal(
+        customer.column("c_mktsegment"), DELTA_DELETED_SEGMENT)))
+    half = min(DELTA_MERGE_HALF, live.num_rows // 2)
+    step = live.num_rows // half
+    matched = live.take(pa.array(np.arange(half, dtype=np.int64) * step))
+    fresh = customer.slice(0, half)
+    last = int(pc.max(customer.column("c_custkey")).as_py())
+    fresh = fresh.set_column(
+        customer.schema.get_field_index("c_custkey"), "c_custkey",
+        pa.array(np.arange(last + 1, last + 1 + half, dtype=np.int64)))
+    src = pa.concat_tables([matched, fresh])
+    bal = (np.arange(src.num_rows, dtype=np.int64) * 37) % 1_000_000 - 99_999
+    i = src.schema.get_field_index("c_acctbal")
+    return src.set_column(i, "c_acctbal", tpch.dec_from_unscaled(
+        bal, 12, 2).cast(customer.schema.field("c_acctbal").type))
+
+
+def delta_versions_reference(customer) -> list:
+    """(count, unscaled c_acctbal sum) of the Delta table at each version
+    the phase commits: v0 the keys up to `delta_split`, v1 all, v2
+    without DELTA_DELETED_SEGMENT, v3 c_acctbal 0 where c_nationkey = 0,
+    v4 the MERGE (matched rows take the source's c_acctbal, the new rows
+    join), v5 the OPTIMIZE (the same rows)."""
+    import numpy as np
+    import pyarrow.compute as pc
+    key = _col(customer, "c_custkey")
+    bal = np.asarray(unscaled(customer, "c_acctbal"), np.int64)
+    seg = _bools(pc.equal(customer.column("c_mktsegment"),
+                          DELTA_DELETED_SEGMENT))
+    nation = _col(customer, "c_nationkey")
+    out = []
+    first = key <= delta_split(customer)
+    out.append((int(first.sum()), int(bal[first].sum())))
+    out.append((len(key), int(bal.sum())))
+    live = ~seg
+    out.append((int(live.sum()), int(bal[live].sum())))
+    bal3 = np.where(nation == 0, 0, bal)
+    out.append((int(live.sum()), int(bal3[live].sum())))
+    src = delta_merge_source(customer)
+    skey = _col(src, "c_custkey")
+    sbal = np.asarray(unscaled(src, "c_acctbal"), np.int64)
+    hit = np.isin(key, skey) & live
+    new = ~np.isin(skey, key[live])
+    by_key = dict(zip(skey.tolist(), sbal.tolist()))
+    merged = int(bal3[live & ~hit].sum()) + sum(
+        by_key[k] for k in key[hit].tolist()) + int(sbal[new].sum())
+    out.append((int(live.sum()) + int(new.sum()), merged))
+    out.append(out[-1])
+    return out
+
+
+def file_formats_reference(t) -> dict:
+    """The file_formats phase's exact expectations from gen_all's
+    tables: per order year the count and unscaled o_totalprice sum; per
+    customer segment the count and unscaled c_acctbal sum; the Delta
+    versions (`delta_versions_reference`); the Iceberg snapshots (the
+    first half of customer, then all); supplier's JSON lines and Hive
+    text as Python formats them."""
+    import json as _json
+
+    import numpy as np
+    import pyarrow.compute as pc
+    o, c, s = t["orders"], t["customer"], t["supplier"]
+    years = _order_years(_col(o, "o_orderdate"))
+    price = np.asarray(unscaled(o, "o_totalprice"), np.int64)
+    by_year = {}
+    for y in FILE_YEARS:
+        m = years == y
+        by_year[y] = (int(m.sum()), int(price[m].sum()))
+    enc = pc.dictionary_encode(c.column("c_mktsegment").combine_chunks())
+    codes = np.asarray(enc.indices, np.int64)
+    bal = np.asarray(unscaled(c, "c_acctbal"), np.int64)
+    sums = np.zeros(len(enc.dictionary), np.int64)
+    np.add.at(sums, codes, bal)
+    counts = np.bincount(codes, minlength=len(enc.dictionary))
+    by_segment = {seg: (int(n), int(x)) for seg, n, x in zip(
+        enc.dictionary.to_pylist(), counts, sums)}
+    half = _col(c, "c_custkey") <= delta_split(c)
+    rows = s.to_pylist()
+    return {"orders_rows": o.num_rows, "by_year": by_year,
+            "customer_rows": c.num_rows, "by_segment": by_segment,
+            "delta": delta_versions_reference(c),
+            "iceberg": [(int(half.sum()), int(bal[half].sum())),
+                        (c.num_rows, int(bal.sum()))],
+            "supplier_rows": s.num_rows,
+            "json": "".join(_json.dumps(r, default=str) + "\n"
+                            for r in rows).encode(),
+            "hive_text": "".join("\x01".join(
+                "\\N" if v is None else str(v) for v in r.values()) + "\n"
+                for r in rows).encode()}
+
+
+def partition_dirs(root, column="o_year") -> dict:
+    """{value: its directory} of a partitioned write's `column=value`
+    directories under `root`, each holding at least one part file;
+    anything else under `root` but the `_SUCCESS` marker fails."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name)
+        if name == "_SUCCESS":
+            continue
+        if not (os.path.isdir(path) and name.startswith(column + "=")):
+            raise AssertionError(f"partitioned write: {name} under {root}")
+        parts = [f for f in os.listdir(path) if f.startswith("part-")]
+        if not parts or len(parts) != len(os.listdir(path)):
+            raise AssertionError(f"partitioned write: {name} holds "
+                                 f"{sorted(os.listdir(path))}")
+        out[int(name.split("=", 1)[1])] = path
+    return out
+
+
+def _count_sum(df, name):
+    """(count, unscaled sum of `name`) of a DataFrame, on the engine."""
+    import spark_rapids_tpu_torch.functions as F
+    out = df.agg(F.count("*").alias("n"), F.sum(name).alias("s")).to_arrow()
+    return out.column("n")[0].as_py(), _one_unscaled(out, "s")
+
+
+def _text_bytes(root, ext) -> bytes:
+    """The part files of a flat write, concatenated in part order."""
+    names = sorted(f for f in os.listdir(root) if f.endswith("." + ext))
+    return b"".join(open(os.path.join(root, f), "rb").read()
+                    for f in names)
+
+
+def file_formats_phase(session, tables, expect) -> dict:
+    """Phase: the file writers and scans, Delta and Iceberg over
+    gen_all's tables, into a temporary directory the phase removes; each
+    piece's wall ends in a device sync and each is exact against
+    `file_formats_reference`. Returns the partition kernel's launches on
+    the partitioned write (its int32 exchange on the order year: one a
+    map batch on the card, every one the vector variant)."""
+    import shutil
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.json as pj
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.io import delta
+    from spark_rapids_tpu_torch.io.avro import write_avro
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    dev = session.device
+    walls, runs = {}, {}
+    root = tempfile.mkdtemp(prefix="srtpu-file-formats-")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        # ---- the partitioned Parquet write --------------------------
+        pdir = os.path.join(root, "orders")
+        q = session.create_dataframe(orders_dated(tables["orders"])) \
+            .with_column("o_year", F.year(F.col("o_orderdate"))) \
+            .repartition(FILE_REPARTITION_N, "o_year")
+        pk.launches = pk.vector_launches = pk.scalar_launches = 0
+        stats = timed("parquet_partitioned_write", lambda: q.write.mode(
+            "overwrite").partitionBy("o_year").parquet(pdir))
+        got = {"all": pk.launches, "vector": pk.vector_launches,
+               "scalar": pk.scalar_launches}
+        root_exec, metrics = q.last_plan(), q.last_metrics()
+        batches = sum(int(metrics.get(x._op_id, {}).get("mapBatches", 0))
+                      for x in plan_nodes(root_exec)
+                      if type(x).__name__ == "ShuffleExchangeExec")
+        want = batches if dev.type == "cuda" else 0
+        if int32_exchanges(root_exec) != 1 or got != {
+                "all": want, "vector": want, "scalar": 0}:
+            raise AssertionError(f"file_formats: partition kernel "
+                                 f"launches {got}, map batches {batches}")
+        if stats.num_rows != expect["orders_rows"]:
+            raise AssertionError(f"file_formats: WriteStats {stats}")
+        dirs = partition_dirs(pdir)
+        if tuple(dirs) != FILE_YEARS:
+            raise AssertionError(f"file_formats: directories {list(dirs)}")
+        by_year = timed("parquet_read_years", lambda: {
+            y: _count_sum(session.read.parquet(d), "o_totalprice")
+            for y, d in dirs.items()})
+        if by_year != expect["by_year"]:
+            raise AssertionError(f"file_formats: per year {by_year}, want "
+                                 f"{expect['by_year']}")
+        runs["parquet_partitioned"] = {
+            "files": stats.num_files, "rows": stats.num_rows,
+            "bytes": stats.num_bytes, "directories": len(dirs),
+            "map_batches": batches, "launches": got,
+            "stageDriverTime": metrics.get(root_exec._op_id, {}).get(
+                "stageDriverTime"),
+            "collectTime": metrics.get(root_exec._op_id, {}).get(
+                "collectTime")}
+
+        # ---- ORC, CSV over customer ---------------------------------
+        cust = tables["customer"]
+        cdf = session.create_dataframe(cust)
+        odir, cdir = os.path.join(root, "orc"), os.path.join(root, "csv")
+        timed("orc_write", lambda: cdf.write.mode("overwrite").orc(odir))
+        seg = timed("orc_read_grouped", lambda: session.read.orc(
+            *sorted(os.path.join(odir, f) for f in os.listdir(odir)
+                    if f.endswith(".orc"))).group_by("c_mktsegment").agg(
+            F.count("*").alias("n"), F.sum("c_acctbal").alias("s"))
+            .to_arrow())
+        got_seg = {k: (n, _one_unscaled(seg.slice(i, 1), "s"))
+                   for i, (k, n) in enumerate(zip(
+                       seg.column("c_mktsegment").to_pylist(),
+                       seg.column("n").to_pylist()))}
+        if got_seg != expect["by_segment"]:
+            raise AssertionError(f"file_formats: ORC per segment {got_seg}")
+        timed("csv_write", lambda: cdf.write.mode("overwrite").csv(cdir))
+        back = timed("csv_read", lambda: session.read.csv(
+            *sorted(os.path.join(cdir, f) for f in os.listdir(cdir)
+                    if f.endswith(".csv")), schema=cust.schema).to_arrow())
+        if not back.sort_by("c_custkey").equals(cust.sort_by("c_custkey")):
+            raise AssertionError("file_formats: the CSV read back differs "
+                                 "from customer")
+
+        # ---- JSON, Hive text, Avro over supplier --------------------
+        sup = tables["supplier"]
+        sdf = session.create_dataframe(sup)
+        jdir, hdir = os.path.join(root, "json"), os.path.join(root, "hive")
+        timed("json_write", lambda: sdf.write.mode("overwrite").json(jdir))
+        timed("hive_text_write", lambda: sdf.write.mode("overwrite")
+              .hive_text(hdir))
+        if _text_bytes(jdir, "json") != expect["json"]:
+            raise AssertionError("file_formats: the JSON lines differ")
+        if _text_bytes(hdir, "txt") != expect["hive_text"]:
+            raise AssertionError("file_formats: the Hive text differs")
+        js = pa.schema([pa.field(f.name, pa.string())
+                        if f.name == "s_acctbal" else f for f in sup.schema])
+        jfiles = sorted(os.path.join(jdir, f) for f in os.listdir(jdir)
+                        if f.endswith(".json"))
+        jback = timed("json_read", lambda: session.read.json(
+            *jfiles, schema=js).to_arrow())
+        popts = pj.ParseOptions(explicit_schema=js)
+        jwant = pa.concat_tables([pj.read_json(f, parse_options=popts)
+                                  for f in jfiles])
+        if not jback.equals(jwant):
+            raise AssertionError("file_formats: read.json differs from "
+                                 "pyarrow.json")
+        # Avro has no decimal here: s_acctbal travels as its unscaled long
+        at = sup.set_column(sup.schema.get_field_index("s_acctbal"),
+                            "s_acctbal", pa.array(np.asarray(
+                                unscaled(sup, "s_acctbal"), np.int64)))
+        avro_schema = {"type": "record", "name": "supplier", "fields": [
+            {"name": f.name, "type": "long" if pa.types.is_integer(f.type)
+             else "string"} for f in at.schema]}
+        apath = os.path.join(root, "supplier.avro")
+        timed("avro_write", lambda: write_avro(apath, avro_schema,
+                                               at.to_pylist()))
+        aback = timed("avro_read", lambda: session.read.avro(apath)
+                      .to_arrow())
+        if not aback.equals(at):
+            raise AssertionError("file_formats: the Avro read differs")
+
+        # ---- Delta over customer ------------------------------------
+        ddir = os.path.join(root, "delta")
+        split = delta_split(cust)
+        dv_session = session_with(session, {DV_KEY: True})
+
+        def delta_steps():
+            cdf.filter(F.col("c_custkey") <= split).write_delta(ddir)
+            cdf.filter(F.col("c_custkey") > split).write_delta(ddir)
+            delta.delete_delta(dv_session, ddir, F.col("c_mktsegment")
+                               == DELTA_DELETED_SEGMENT)
+            delta.update_delta(session, ddir, F.col("c_nationkey") == 0,
+                               {"c_acctbal": 0})
+            delta.merge_delta(session, ddir, session.create_dataframe(
+                delta_merge_source(cust)), on=["c_custkey"])
+            return delta.optimize_delta(session, ddir,
+                                        zorder_by=list(ZORDER_BY))
+        opt = timed("delta_commits", delta_steps)
+        table = delta.DeltaTable(ddir)
+        adds = table.snapshot_adds(2)
+        if not all(a.get("deletionVector") for a in adds):
+            raise AssertionError("file_formats: the DELETE wrote no DVs")
+        versions = timed("delta_time_travel", lambda: [
+            _count_sum(session.read.delta(ddir, version=v), "c_acctbal")
+            for v in range(table.latest_version() + 1)])
+        if versions != expect["delta"]:
+            raise AssertionError(f"file_formats: Delta versions "
+                                 f"{versions}, want {expect['delta']}")
+        runs["delta"] = {"versions": versions,
+                         "operations": [h["operation"]
+                                        for h in table.history()],
+                         "optimize": opt}
+
+        # ---- Iceberg over customer ----------------------------------
+        idir = os.path.join(root, "iceberg")
+        timed("iceberg_commits", lambda: (
+            cdf.filter(F.col("c_custkey") <= split).write.mode(
+                "overwrite").iceberg(idir),
+            cdf.filter(F.col("c_custkey") > split).write.mode(
+                "append").iceberg(idir)))
+        from spark_rapids_tpu_torch.io.iceberg import IcebergTable
+        first = IcebergTable(idir).snapshots()[0]["snapshot-id"]
+        ice = timed("iceberg_reads", lambda: [
+            _count_sum(session.read.iceberg(idir, snapshot_id=first),
+                       "c_acctbal"),
+            _count_sum(session.read.iceberg(idir), "c_acctbal")])
+        if ice != [expect["iceberg"][0], expect["iceberg"][1]]:
+            raise AssertionError(f"file_formats: Iceberg {ice}")
+        runs["iceberg"] = {"snapshots": ice}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "file_formats", "nvidia_smi": card_line(dev),
+          "rows": {"orders": expect["orders_rows"],
+                   "customer": expect["customer_rows"],
+                   "supplier": expect["supplier_rows"]},
+          "wall_s": walls, "total_s": sum(walls.values()), "runs": runs,
+          "check": "exact", "elapsed_s": time.perf_counter() - _START})
+    return {"file_formats": got}
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -6603,22 +7019,26 @@ PHASE_REFERENCES = {
     "strings": lambda t: strings_reference(t["orders"]),
     "timestamps": lambda t: timestamps_reference(t["orders"]),
     "collect": lambda t: collect_reference(t["orders"]),
-    "map": lambda t: map_table(t["lineitem"]),
-    "grouping": lambda t: grouping_reference(t["lineitem"], t["orders"]),
+    "map": lambda t: map_table(map_lineitem(t["lineitem"])),
+    "grouping": lambda t: grouping_reference(rollup_lineitem(t["lineitem"]),
+                                             t["orders"]),
     "cache": lambda t: cache_reference(t["lineitem"]),
-    "window_running": lambda t: window_running_reference(t["orders"]),
-    "window_frames": lambda t: window_frames_reference(t["orders"]),
+    "window_running": lambda t: window_running_reference(
+        window_orders(t["orders"])),
+    "window_frames": lambda t: window_frames_reference(
+        window_orders(t["orders"])),
     "daily_revenue": lambda t: daily_revenue_reference(t["lineitem"]),
     "runtime_bloom": runtime_bloom_reference,
     "regex": regex_reference,
+    "file_formats": file_formats_reference,
 }
 
 
-#: the references of the window phases and of the bloom, regex and JSON
-#: phases, which come late:
+#: the references of the window phases, of the bloom, regex and JSON
+#: phases and of file_formats, which come late:
 #: made on a thread of their own while the opening phases run
 DEFERRED_REFERENCES = ("window_frames", "window_running", "daily_revenue",
-                       "runtime_bloom", "regex")
+                       "runtime_bloom", "regex", "file_formats")
 
 
 def pool_ab_offset(argv, started: float) -> int:
@@ -6769,6 +7189,9 @@ def main() -> int:
     release_pinned_cache("the bloom filter, regex and JSON phases")
     by_path.update(bloom_regex_json_phases(session, tpch_tables,
                                            tpch_expects[13], refs))
+    release_pinned_cache("the file formats")
+    by_path.update(file_formats_phase(session, tpch_tables,
+                                      refs["file_formats"]))
     release_pinned_cache("the written-plan pass")
     by_path.update(tpch_phases(
         written_session(session), tpch_tables,

@@ -32,7 +32,10 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "SORT_OOC_THRESHOLD", "WINDOW_CHUNK_ROWS", "ALLOW_CPU_FALLBACK",
            "EXPLAIN", "AUDIT_STRICT", "CBO_ENABLED", "CBO_SMALL_INPUT_ROWS",
            "DEGRADE_TO_HOST", "JOIN_BLOOM_ENABLED",
-           "JOIN_BLOOM_MAX_BUILD_ROWS"]
+           "JOIN_BLOOM_MAX_BUILD_ROWS", "TEXT_BLOCK_SIZE",
+           "ASYNC_WRITE_ENABLED", "ASYNC_WRITE_MAX_IN_FLIGHT",
+           "ASYNC_WRITE_THREADS", "DELTA_DV_ENABLED",
+           "DELTA_AUTOCOMPACT_MIN_FILES", "DELTA_AUTOCOMPACT_TARGET_BYTES"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -356,6 +359,40 @@ DEGRADE_TO_HOST = _conf(
     "same operator stops dispatching to the device for the rest of the "
     "query (counted as degradedToHost, recorded as a degrade_to_host "
     "event).", bool)
+
+TEXT_BLOCK_SIZE = _conf(
+    "sql.text.blockSize", 32 * 1024 * 1024,
+    "Host decode block size (bytes) for streaming CSV/JSON scans.", int)
+ASYNC_WRITE_ENABLED = _conf(
+    "sql.asyncWrite.enabled", True,
+    "Run file-part encode + disk I/O on a writer pool off the compute "
+    "thread (reference: io/async AsyncOutputStream). The pool does host "
+    "work only: every copy from the device stays on the thread that "
+    "runs the plan.", bool)
+ASYNC_WRITE_MAX_IN_FLIGHT = _conf(
+    "sql.asyncWrite.maxInFlightHostMemoryBytes", 2 << 30,
+    "Upper bound on host bytes held by scheduled-but-unfinished async "
+    "writes; submissions block above it (always admitting one task), "
+    "so a slow disk cannot pile the query's output into host memory "
+    "(reference: TrafficController).", int)
+ASYNC_WRITE_THREADS = _conf(
+    "sql.asyncWrite.numThreads", 4,
+    "Writer-pool threads for the async write path.", int)
+DELTA_DV_ENABLED = _conf(
+    "delta.deletionVectors.enabled", False,
+    "DELETE writes a deletion-vector (roaring bitmap) file marking "
+    "dead rows instead of rewriting the data file (reference: Delta "
+    "DV support in GpuDeltaParquetFileFormat / GpuDeleteCommand). Reads "
+    "apply DVs regardless of this flag.", bool)
+DELTA_AUTOCOMPACT_MIN_FILES = _conf(
+    "delta.autoCompact.minFiles", 0,
+    "When > 0, a Delta append auto-compacts once the table holds at "
+    "least this many live files smaller than half the target size "
+    "(reference: delta auto-compaction). 0 disables.", int)
+DELTA_AUTOCOMPACT_TARGET_BYTES = _conf(
+    "delta.autoCompact.targetBytes", 128 << 20,
+    "Target output file size for Delta OPTIMIZE / auto-compaction.",
+    int)
 
 
 class TpuConf:

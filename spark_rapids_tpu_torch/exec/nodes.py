@@ -27,6 +27,7 @@ from ..config import (MULTITHREADED_READ_THREADS, PARQUET_COALESCING_TARGET,
 from ..expr.expressions import EmitCtx, Expression
 from ..io import parquet_device as pdev
 from ..io.file_cache import cached_local_path
+from ..io.snapshot import verify_snapshot
 from ..memory.host import staging_pool
 from ..ops.kernel_utils import CV
 from ..utils import transfer
@@ -164,16 +165,46 @@ class ParquetScanExec(TpuExec):
       thread decodes ahead of the consumer.
 
     The COALESCING reader always decodes on the host, as the JAX
-    package's does."""
+    package's does.
+
+    A file with a Delta deletion vector (`dv`: {path: (table root,
+    descriptor)}) decodes on the host, never row-group pruned (pruning
+    would shift the file's row positions), and each batch drops its dead
+    rows. The bind-time snapshot (`snapshot`: (path, mtime_ns, size) per
+    file) is checked as each partition starts: a file changed under the
+    running query raises SnapshotMismatch (`scanSnapshotViolations`)."""
 
     def __init__(self, paths: Sequence[str], schema: Schema,
-                 columns: Optional[Sequence[str]] = None, filters=None):
+                 columns: Optional[Sequence[str]] = None, filters=None,
+                 dv=None, snapshot=None, delta_version=None):
         super().__init__([], schema)
         self.paths = list(paths)
         self.columns = list(columns) if columns else None
         self.filters = list(filters) if filters else None
+        # dead-row positions are loaded once a file at execution, never
+        # at plan construction
+        self.dv = dict(dv) if dv else None
+        self.snapshot = tuple(snapshot) if snapshot else None
+        self.delta_version = delta_version
+        self._dv_cache = {}
         self._rt_cache = None
         self._groups_cache = None
+
+    def _dead_positions(self, path):
+        """The sorted dead row positions (int64) of a file with a
+        deletion vector, or None; loaded once a file and shared by the
+        scan's concurrent workers."""
+        if self.dv is None or path not in self.dv:
+            return None
+        got = self._dv_cache.get(path)
+        if got is None:
+            import numpy as np
+
+            from ..io.dv import load_dv_positions
+            root, desc = self.dv[path]
+            got = self._dv_cache.setdefault(path, np.unique(np.asarray(
+                load_dv_positions(root, desc), np.int64)))
+        return got
 
     def _cols(self):
         return (self.columns if self.columns is not None
@@ -380,7 +411,10 @@ class ParquetScanExec(TpuExec):
         per = max(1, ctx.conf.batch_size_rows)
         _, pf = self._open(path, ctx)
         cols = self._cols()
-        if self.filters:
+        dead = self._dead_positions(path)
+        # row-group pruning would shift the file's row positions under a
+        # deletion vector
+        if self.filters and dead is None:
             kept = prune_row_groups(pf, self.filters)
             ctx.add_metric(self._op_id, "skippedRowGroups",
                            pf.metadata.num_row_groups - len(kept))
@@ -390,14 +424,23 @@ class ParquetScanExec(TpuExec):
                                  row_groups=kept)
         else:
             it = pf.iter_batches(batch_size=per, columns=cols)
+        off = 0
         while True:
             with ctx.timer(self._op_id, "decodeTime"):
                 rb = next(it, None)
             if rb is None:
                 return
-            yield pa.table(rb)
+            at = pa.table(rb)
+            if dead is not None:
+                n0 = at.num_rows
+                at = _drop_dead(at, dead, off)
+                off += n0
+                if at.num_rows == 0:
+                    continue
+            yield at
 
     def execute_partition(self, ctx, pid) -> Iterator[DeviceBatch]:
+        verify_snapshot(self, ctx, "parquet")
         reader_type = self._reader_type(ctx)
         if reader_type == "COALESCING":
             yield from self._execute_coalescing(ctx, pid)
@@ -405,7 +448,8 @@ class ParquetScanExec(TpuExec):
         m = ctx.metrics_for(self._op_id)
         path = self.paths[pid]
         depth = min(max(1, ctx.conf.get(MULTITHREADED_READ_THREADS)), 4)
-        if self._device_decode_on(ctx):
+        if self._device_decode_on(ctx) and not (self.dv
+                                                and path in self.dv):
             dev_iter = self._device_decoded_batches(ctx, path, m)
             if dev_iter is not None:
                 # read + decompress + plan + decode dispatch run on a
@@ -438,7 +482,8 @@ class ParquetScanExec(TpuExec):
         with ctx.timer(self._op_id, "decodeTime"):
             for p in group:
                 _, pf = self._open(p, ctx)
-                if self.filters:
+                dead = self._dead_positions(p)
+                if self.filters and dead is None:
                     kept = prune_row_groups(pf, self.filters)
                     ctx.add_metric(self._op_id, "skippedRowGroups",
                                    pf.metadata.num_row_groups - len(kept))
@@ -446,6 +491,8 @@ class ParquetScanExec(TpuExec):
                           if kept else None)
                 else:
                     at = pf.read(columns=cols)
+                    if dead is not None:
+                        at = _drop_dead(at, dead, 0)
                 if at is not None and at.num_rows:
                     tables.append(at)
         if not tables:
@@ -456,6 +503,21 @@ class ParquetScanExec(TpuExec):
         for start in range(0, combined.num_rows, per):
             yield _upload(ctx, self._op_id, combined.slice(
                 start, min(per, combined.num_rows - start)))
+
+
+def _drop_dead(at, dead, off: int):
+    """`at` (the file's rows from position `off` on) without the rows
+    whose positions are in `dead` (sorted int64): one numpy mask, the
+    rows the JAX package's per-row set test keeps."""
+    import numpy as np
+    import pyarrow as pa
+    n = at.num_rows
+    lo, hi = np.searchsorted(dead, [off, off + n])
+    if lo == hi:
+        return at
+    mask = np.ones(n, bool)
+    mask[dead[lo:hi] - off] = False
+    return at.filter(pa.array(mask))
 
 
 _DECOMP_POOL = None

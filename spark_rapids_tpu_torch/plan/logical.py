@@ -1,15 +1,17 @@
 """Logical plan nodes built by the DataFrame API: the ported subset.
 
-Scans (in-memory Arrow, Parquet, cached device batches), Project,
-Filter, Aggregate (grouped or not), Expand (grouping sets), Join (every
-`how` of the JAX package), Sort, Limit, Union, Generate (explode),
-WindowOp and Repartition. Expressions bind against the child schema
-when a node is built, as in the JAX package, and each bound tree passes
-the type-signature gate (`typesig.check_tree`) at the JAX package's bind
-sites. A Project or Filter whose expression the device cannot run keeps
-the unbound tree and its bind error (and a Project the output type the
-host interpreter gives it), for the planner's host fallback; anywhere
-else such an expression raises UnsupportedExpr (or NotPorted) here.
+Scans (in-memory Arrow, Parquet with its bind-time snapshot, Delta
+deletion vectors and version, CSV / JSON / ORC / Avro, cached device
+batches), Project, Filter, Aggregate (grouped or not), Expand (grouping
+sets), Join (every `how` of the JAX package), Sort, Limit, Union,
+Generate (explode), WindowOp and Repartition. Expressions bind against
+the child schema when a node is built, as in the JAX package, and each
+bound tree passes the type-signature gate (`typesig.check_tree`) at the
+JAX package's bind sites. A Project or Filter whose expression the
+device cannot run keeps the unbound tree and its bind error (and a
+Project the output type the host interpreter gives it), for the
+planner's host fallback; anywhere else such an expression raises
+UnsupportedExpr (or NotPorted) here.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from ..expr.host_eval import host_output_dtype
 from .typesig import check_tree as _tsig
 
 __all__ = ["LogicalPlan", "InMemoryScan", "CachedScan", "ParquetScan",
-           "Project", "Filter", "Aggregate", "Expand", "Join", "SortOrder",
-           "Sort", "Limit", "Union", "Generate", "WindowOp",
+           "TextScan", "Project", "Filter", "Aggregate", "Expand", "Join",
+           "SortOrder", "Sort", "Limit", "Union", "Generate", "WindowOp",
            "Repartition"]
 
 
@@ -83,13 +85,25 @@ class CachedScan(LogicalPlan):
 
 class ParquetScan(LogicalPlan):
     def __init__(self, paths: Sequence[str], schema: Optional[Schema] = None,
-                 columns: Optional[Sequence[str]] = None, filters=None):
+                 columns: Optional[Sequence[str]] = None, filters=None,
+                 dv=None, delta_version=None):
         import pyarrow.parquet as pq
+
+        from ..io.snapshot import scan_snapshot
         self.paths = list(paths)
         self.columns = list(columns) if columns is not None else None
         # (name, op, value) conjuncts for row-group pruning, attached by
         # the optimizer from a Filter directly above the scan
         self.filters = list(filters) if filters else None
+        # {path: (table_root, deletionVector descriptor)}: dead-row
+        # masks applied lazily inside the scan (Delta DVs)
+        self.dv = dict(dv) if dv else None
+        # bind-time snapshot: (path, mtime_ns, size) per file, plus the
+        # Delta table version when read through read_delta. Every
+        # action refreshes it before planning (DataFrame.physical_plan);
+        # a file that changes mid-query raises (io/snapshot.py)
+        self.snapshot = scan_snapshot(self.paths)
+        self.delta_version = delta_version
         if schema is None:
             schema = Schema.from_arrow(pq.read_schema(self.paths[0]))
             if self.columns is not None:
@@ -104,6 +118,44 @@ class ParquetScan(LogicalPlan):
 
     def describe(self):
         return f"ParquetScan[{len(self.paths)} files] {self._schema}"
+
+
+class TextScan(LogicalPlan):
+    """Lazy CSV / JSON-lines / ORC / Avro scan (reference: GpuCSVScan,
+    GpuJsonScan, GpuOrcScan, GpuAvroScan). The schema comes from the
+    file's metadata or a first-block sample; decode happens per batch at
+    execution (exec/text_scan.py)."""
+
+    def __init__(self, paths: Sequence[str], fmt: str,
+                 schema: Optional[Schema] = None, columns=None,
+                 options=None):
+        from ..exec.text_scan import infer_text_schema
+        from ..io.snapshot import scan_snapshot
+        self.children = []
+        self.paths = list(paths)
+        self.fmt = fmt
+        self.columns = list(columns) if columns else None
+        self.options = options
+        # bind-time file pinning, the same contract as ParquetScan's
+        self.snapshot = scan_snapshot(self.paths)
+        if schema is not None and not isinstance(schema, Schema):
+            schema = Schema.from_arrow(schema)   # a pyarrow schema
+        self._full_schema = schema or infer_text_schema(
+            self.paths[0], fmt, options)
+        if self.columns is not None:
+            want = set(self.columns)
+            self._schema = Schema([f for f in self._full_schema.fields
+                                   if f.name in want])
+        else:
+            self._schema = self._full_schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        cols = f", columns={self.columns}" if self.columns else ""
+        return f"TextScan[{self.fmt}, {len(self.paths)} files{cols}]"
 
 
 class Project(LogicalPlan):

@@ -75,7 +75,16 @@ def prune(plan: L.LogicalPlan,
             names = [f.name for f in plan.schema.fields
                      if f.name in required]
             if len(names) < len(plan.schema.fields):
-                return L.ParquetScan(plan.paths, columns=names)
+                return L.ParquetScan(plan.paths, columns=names,
+                                     dv=plan.dv)
+        return plan
+    if isinstance(plan, L.TextScan):
+        if required is not None:
+            names = [f.name for f in plan.schema.fields
+                     if f.name in required]
+            if len(names) < len(plan.schema.fields):
+                return L.TextScan(plan.paths, plan.fmt, plan._full_schema,
+                                  names, plan.options)
         return plan
     if isinstance(plan, L.Project):
         exprs = plan.exprs
@@ -97,7 +106,8 @@ def prune(plan: L.LogicalPlan,
             if conj:
                 child = L.ParquetScan(child.paths, child._schema,
                                       child.columns,
-                                      (child.filters or []) + conj)
+                                      (child.filters or []) + conj,
+                                      dv=child.dv)
         return L.Filter(child, plan.condition)
     if isinstance(plan, L.Aggregate):
         creq = _refs_of_all(list(plan.keys) +

@@ -36,10 +36,14 @@ the root as `exchange_reuse_hits`. Stage fusion
 (`sql.exec.stageFusion.enabled`) is not ported: each operator runs its
 own ops.
 
-A cached scan serves its device batches (`CachedScanExec`; once
-released, its source plan is planned instead); an aggregate over a chain
-of one-child nodes down to a cached scan of at most 2^21 rows takes the
-whole-input (complete) aggregate, as in the JAX planner. Expand, Generate
+A Parquet scan carries its logical node's bind-time snapshot, Delta
+deletion vectors and version into `ParquetScanExec`; a CSV, JSON, ORC or
+Avro scan (`L.TextScan`) becomes the matching exec of
+`exec/text_scan.py`. A cached scan serves its device batches
+(`CachedScanExec`; once released, its source plan is planned instead);
+an aggregate over a chain of one-child nodes down to a cached scan of at
+most 2^21 rows takes the whole-input (complete) aggregate, as in the
+JAX planner. Expand, Generate
 and Union become `ExpandExec`, `GenerateExec` and `UnionExec`; a WindowOp
 one `WindowExec` per distinct (partition, order) spec, chained, under a
 projection that restores the requested column order. A nested
@@ -171,7 +175,9 @@ def _cached(meta, conv, conf):
 def _pq(meta, conv, conf):
     node = meta.node
     scan = x.ParquetScanExec(node.paths, node.schema, node.columns,
-                             filters=node.filters)
+                             filters=node.filters, dv=node.dv,
+                             snapshot=node.snapshot,
+                             delta_version=node.delta_version)
     if len(node.paths) > 1:
         # many small files: coalesce toward the batch target, fan-in
         # sized from the files' average row count (footer metadata)
@@ -187,6 +193,17 @@ def _pq(meta, conv, conf):
             fan_in = min(max(1, target // max(avg, 1)), len(node.paths))
             return CoalesceBatchesExec(scan, target, fan_in)
     return scan
+
+
+@_rule(L.TextScan)
+def _textscan(meta, conv, conf):
+    from ..exec.text_scan import (AvroScanExec, CsvScanExec, JsonScanExec,
+                                  OrcScanExec)
+    node = meta.node
+    cls = {"csv": CsvScanExec, "json": JsonScanExec,
+           "orc": OrcScanExec, "avro": AvroScanExec}[node.fmt]
+    return cls(node.paths, node._full_schema, node.columns, node.options,
+               snapshot=node.snapshot)
 
 
 @_rule(L.Project)

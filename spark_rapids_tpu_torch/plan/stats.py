@@ -130,10 +130,14 @@ def _card_fp(node: L.LogicalPlan):
     if isinstance(node, L.InMemoryScan):
         return ("S", "mem", id(node.arrow))
     if isinstance(node, L.ParquetScan):
-        # rows depend on the files and the pushed row-group filters, not
-        # on the projected columns
-        return ("S", "parquet", tuple(node.paths), expr_fp(node.filters))
+        # rows depend on the files, the pushed row-group filters and
+        # the data version, not on the projected columns
+        return ("S", "parquet", tuple(node.paths),
+                expr_fp(node.filters), expr_fp(node.snapshot))
     if not node.children:
+        paths = getattr(node, "paths", None)
+        if paths:
+            return ("S", type(node).__qualname__, tuple(paths))
         return ("S", type(node).__qualname__, id(node))
     return ("X", type(node).__qualname__) + tuple(
         logical_fp(c) for c in node.children)
@@ -357,7 +361,8 @@ def _compute_stats_raw(node: L.LogicalPlan) -> Stats:
     from .cbo import _selectivity
     from .planner import _estimate_rows
 
-    if isinstance(node, (L.InMemoryScan, L.CachedScan, L.ParquetScan)):
+    if isinstance(node, (L.InMemoryScan, L.CachedScan, L.ParquetScan,
+                         L.TextScan)):
         rows = _estimate_rows(node)
         return Stats(None if rows is None else float(rows),
                      lambda n, _nd=node: scan_column_ndv(_nd, n))

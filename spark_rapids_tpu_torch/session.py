@@ -1,7 +1,10 @@
 """Session and DataFrame: the entry points of the port.
 
 The same surface as the JAX package's `TpuSession` for the ported slice:
-`create_dataframe`, `read.parquet`, and `filter`, `select` (an explode
+`create_dataframe`, `read.parquet / csv / json / orc / avro / delta /
+iceberg`, `write` (`io/writer.py`: Parquet, ORC, CSV, JSON, Hive text,
+Delta, Iceberg, each mode, `partitionBy`), `write_parquet` and
+`write_delta`, and `filter`, `select` (an explode
 lifted into a Generate node, window expressions into a WindowOp node),
 `with_column` (through `select`), `agg`, `group_by(...).agg`
 and `.count()`, `rollup`, `cube` and `grouping_sets` (an Expand under
@@ -40,6 +43,7 @@ from .expr.collection_exprs import Explode
 from .expr.expressions import (Alias, BoundRef, Coalesce, ColumnRef,
                                Expression, col)
 from .functions import _to_expr
+from .io.snapshot import refresh_plan_snapshots
 from .memory.device import device_manager
 from .memory.semaphore import TpuSemaphore
 from .memory.spill import spill_store
@@ -195,6 +199,49 @@ class DataFrameReader:
                 expanded.append(p)
         return DataFrame(self._session,
                          L.ParquetScan(expanded, columns=columns))
+
+    def csv(self, *paths: str, header=True, schema=None, delimiter=",",
+            quote='"', escape="\\", comment=None,
+            null_value="") -> "DataFrame":
+        """A lazy streaming CSV scan (reference: GpuCSVScan.scala:57);
+        the schema from a first-block sample unless given."""
+        from .exec.text_scan import CsvOptions
+        opts = CsvOptions(header=header, delimiter=delimiter, quote=quote,
+                          escape=escape, comment=comment,
+                          null_value=null_value)
+        return DataFrame(self._session,
+                         L.TextScan(list(paths), "csv", schema,
+                                    options=opts))
+
+    def orc(self, *paths: str) -> "DataFrame":
+        """A lazy stripe-streaming ORC scan (reference: GpuOrcScan.scala:78
+        PERFILE reader)."""
+        return DataFrame(self._session, L.TextScan(list(paths), "orc"))
+
+    def avro(self, *paths: str) -> "DataFrame":
+        """A lazy block-streaming Avro scan (reference: GpuAvroScan)."""
+        return DataFrame(self._session, L.TextScan(list(paths), "avro"))
+
+    def iceberg(self, path: str, snapshot_id=None,
+                as_of_timestamp=None) -> "DataFrame":
+        """An Iceberg table: metadata json -> manifest list -> manifests
+        -> live Parquet files (reference: GpuIcebergParquetScan), with
+        time travel by snapshot id or timestamp."""
+        from .io.iceberg import read_iceberg
+        return read_iceberg(self._session, path, snapshot_id,
+                            as_of_timestamp)
+
+    def delta(self, path: str, version=None) -> "DataFrame":
+        """A Delta table at its latest version, or at `version`."""
+        from .io.delta import read_delta
+        return read_delta(self._session, path, version)
+
+    def json(self, *paths: str, schema=None) -> "DataFrame":
+        """A lazy block-streaming JSON-lines scan (reference:
+        GpuJsonScan.scala); the schema from a first-block sample unless
+        given."""
+        return DataFrame(self._session,
+                         L.TextScan(list(paths), "json", schema))
 
 
 class GroupingID:
@@ -555,8 +602,11 @@ class DataFrame:
 
     def physical_plan(self):
         """(root exec, its ExecContext): a fresh plan of this DataFrame
-        on the session's device."""
+        on the session's device. The file scans' snapshots are re-statted
+        first (`io/snapshot.py`), so the plan pins the files as they are
+        now and a file rewritten between actions is read anew."""
         s = self._session
+        refresh_plan_snapshots(self._plan)
         return Planner(s.conf).plan(self._plan), ExecContext(
             s.conf, s.device, session=s)
 
@@ -601,6 +651,65 @@ class DataFrame:
             return body(root, ctx)
         finally:
             ctx.close()
+
+    def write_parquet(self, path: str, **kw):
+        """Write the result as Parquet part files, one a physical
+        partition, and a `_SUCCESS` marker (`io/parquet.py`)."""
+        from .io.parquet import write_parquet
+        write_parquet(self, path, **kw)
+
+    def write_delta(self, path: str, mode: str = "append") -> int:
+        """Commit the result to a Delta table; returns the new version."""
+        from .io.delta import write_delta
+        return write_delta(self, path, mode)
+
+    @property
+    def write(self):
+        """The chained writer: `df.write.mode(...).partitionBy(...)
+        .parquet / orc / csv / json / hive_text / delta / iceberg(path)`
+        (`io/writer.py`)."""
+        from .io.writer import DataFrameWriter
+        return DataFrameWriter(self)
+
+    def _iter_partition_tables(self):
+        """The result partition by partition, as compacted host Arrow
+        tables (every file writer's source)."""
+        for _pid, at in self._partition_tables():
+            yield at
+
+    def _partition_tables(self):
+        """(physical partition, its host Arrow table) for each partition
+        that produced a batch, in partition order. Plans afresh, runs the
+        stage driver (every shuffle stage before its consumer), then each
+        partition on this thread: its batches' copies to the host happen
+        here, so a writer pool never touches a device tensor. The
+        context closes when the stream ends or is abandoned."""
+        import pyarrow as pa
+
+        from .exec.nodes import _batch_to_arrow
+        root, ctx = self.physical_plan()
+        try:
+            t0 = time.perf_counter()
+            decisions = run_stage_driver(root, ctx, self._session.conf)
+            ctx.set_metric(root._op_id, "stageDriverTime",
+                           time.perf_counter() - t0)
+            self._last_plan = root
+            self._last_aqe_decisions = decisions
+            for pid in range(root.num_partitions(ctx)):
+                tables = []
+                for b in root.execute_partition(ctx, pid):
+                    with ctx.timer(root._op_id, "collectTime"):
+                        tables.append(_batch_to_arrow(b))
+                if tables:
+                    yield pid, pa.concat_tables(tables)
+        finally:
+            ctx.close()
+            self._last_events = list(ctx.pending_events)
+        try:
+            harvest_calibration(root, ctx)
+        except Exception:
+            pass
+        self._last_metrics = ctx.metrics
 
     def to_arrow(self):
         root, ctx = self.physical_plan()

@@ -2,9 +2,12 @@
 on listings in the formats nvcc's `-Xptxas -v` and `cuobjdump -sass`
 print. They run on the card only inside chip_smoke.py, so they are
 checked here on fixed text."""
+import os
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -1460,3 +1463,110 @@ def test_bloom_bits_follow_the_aggregate(rows):
     assert chip_smoke.bloom_bits(rows) == BloomFilterAggregate(
         col("k"), estimated_items=max(64, rows)).num_bits
     assert chip_smoke.bloom_bits(2_000_000) == 1 << 24
+
+
+def test_file_formats_phase_rehearses_on_the_cpu(tpch_small, capsys,
+                                                 tmp_path, monkeypatch):
+    """file_formats over gen_all(0.01): every piece exact, the seven year
+    directories, the Delta versions and Iceberg snapshots equal numpy's,
+    no kernel launch off the card, the temporary directory removed."""
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    ref = chip_smoke.PHASE_REFERENCES["file_formats"](tpch_small)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    by_path = chip_smoke.file_formats_phase(s, tpch_small, ref)
+    assert by_path == {"file_formats": {"all": 0, "vector": 0,
+                                        "scalar": 0}}
+    line = _phase_lines(capsys)["file_formats"]
+    assert line["check"] == "exact"
+    runs = line["runs"]
+    assert runs["parquet_partitioned"]["directories"] == 7
+    assert runs["parquet_partitioned"]["rows"] == \
+        tpch_small["orders"].num_rows
+    assert runs["parquet_partitioned"]["map_batches"] == 4
+    assert runs["delta"]["operations"] == ["WRITE", "WRITE", "DELETE",
+                                           "UPDATE", "MERGE", "OPTIMIZE"]
+    assert [tuple(v) for v in runs["delta"]["versions"]] == ref["delta"]
+    assert set(line["wall_s"]) >= {"parquet_partitioned_write",
+                                   "delta_commits", "iceberg_reads",
+                                   "avro_read", "json_read", "csv_read"}
+    assert os.listdir(tmp_path) == []       # the phase's directory went
+
+
+def test_file_formats_reference_follows_the_steps():
+    """The Delta references on a tiny customer table, by hand: the
+    split, the deleted segment, the update, the merge's matched and new
+    rows; the years and segments by hand too."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.workloads import tpch
+    cust = pa.table({
+        "c_custkey": pa.array([1, 2, 3, 4, 5, 6], pa.int64()),
+        "c_mktsegment": pa.array(["AUTOMOBILE", "BUILDING", "BUILDING",
+                                  "AUTOMOBILE", "MACHINERY", "BUILDING"]),
+        "c_nationkey": pa.array([0, 0, 1, 2, 0, 3], pa.int64()),
+        "c_acctbal": tpch.dec_from_unscaled(
+            np.array([100, 200, 300, 400, 500, 600], np.int64), 12, 2)})
+    src = chip_smoke.delta_merge_source(cust)
+    # two live rows (of 4) matched, two new keys past 6
+    assert src.column("c_custkey").to_pylist() == [2, 5, 7, 8]
+    sbal = [int(x) for x in chip_smoke.unscaled(src, "c_acctbal")]
+    assert sbal == [-99999, -99962, -99925, -99888]
+    got = chip_smoke.delta_versions_reference(cust)
+    # v2: keys 1 and 4 deleted; v3: keys 2 and 5 (nation 0) at 0; v4:
+    # keys 2 and 5 take the source's balance, 3 and 6 keep 300 + 600,
+    # keys 7 and 8 join
+    assert got == [(3, 600), (6, 2100), (4, 1600), (4, 900),
+                   (6, sum(sbal) + 900), (6, sum(sbal) + 900)]
+    orders = pa.table({
+        "o_orderdate": pa.array([tpch.day("1992-03-01"),
+                                 tpch.day("1998-07-01"),
+                                 tpch.day("1992-12-31")], pa.int32()),
+        "o_totalprice": tpch.dec_from_unscaled(
+            np.array([5, 7, 11], np.int64), 15, 2)})
+    supplier = pa.table({"s_suppkey": pa.array([1, 2], pa.int64()),
+                         "s_name": pa.array(["a", None])})
+    ref = chip_smoke.file_formats_reference(
+        {"orders": orders, "customer": cust, "supplier": supplier})
+    assert ref["by_year"][1992] == (2, 16) and ref["by_year"][1998] == (1, 7)
+    assert ref["by_year"][1995] == (0, 0)
+    assert ref["by_segment"] == {"AUTOMOBILE": (2, 500),
+                                 "BUILDING": (3, 1100),
+                                 "MACHINERY": (1, 500)}
+    assert ref["iceberg"] == [(3, 600), (6, 2100)]
+    assert ref["json"] == (b'{"s_suppkey": 1, "s_name": "a"}\n'
+                           b'{"s_suppkey": 2, "s_name": null}\n')
+    assert ref["hive_text"] == b"1\x01a\n2\x01\\N\n"
+
+
+def test_partition_dirs_reject_a_stray_entry(tmp_path):
+    for y in (1992, 1993):
+        (tmp_path / f"o_year={y}").mkdir()
+        (tmp_path / f"o_year={y}" / "part-00000-abc.parquet").write_bytes(
+            b"x")
+    (tmp_path / "_SUCCESS").write_bytes(b"")
+    assert list(chip_smoke.partition_dirs(str(tmp_path))) == [1992, 1993]
+    (tmp_path / "o_year=1993" / "stray.txt").write_bytes(b"x")
+    with pytest.raises(AssertionError):
+        chip_smoke.partition_dirs(str(tmp_path))
+    (tmp_path / "o_year=1993" / "stray.txt").unlink()
+    (tmp_path / "loose.parquet").write_bytes(b"x")
+    with pytest.raises(AssertionError):
+        chip_smoke.partition_dirs(str(tmp_path))
+
+
+@pytest.mark.parametrize("what", ["year_sum", "delta_version", "json"])
+def test_file_formats_checks_reject_a_wrong_reference(tpch_small, what):
+    import spark_rapids_tpu_torch as pt
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    ref = chip_smoke.file_formats_reference(tpch_small)
+    if what == "year_sum":
+        n, x = ref["by_year"][1995]
+        ref["by_year"][1995] = (n, x + 1)
+    elif what == "delta_version":
+        ref["delta"][3] = (ref["delta"][3][0], ref["delta"][3][1] - 1)
+    else:
+        ref["json"] = ref["json"].replace(b"Supplier", b"Supp1ier", 1)
+    with pytest.raises(AssertionError):
+        chip_smoke.file_formats_phase(s, tpch_small, ref)
