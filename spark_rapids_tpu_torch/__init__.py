@@ -18,8 +18,26 @@ shuffled joins. Anything else raises `NotPorted`.
     import spark_rapids_tpu_torch as st
     s = st.TpuSession()              # CUDA; TpuSession(device="cpu") on CPU
     df = s.read.parquet("lineitem/")
+
+The session (and with it torch) loads at the first use of `TpuSession`
+or `DataFrame`, so a module that needs neither (a python worker's
+`exec/python_worker.py`) imports without torch.
 """
+import importlib
+
 from .errors import NotPorted
-from .session import DataFrame, TpuSession
 
 __all__ = ["TpuSession", "DataFrame", "NotPorted"]
+
+
+def __getattr__(name):
+    if name in ("TpuSession", "DataFrame"):
+        from . import session
+        return getattr(session, name)
+    try:
+        return importlib.import_module(f".{name}", __name__)
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}") from None

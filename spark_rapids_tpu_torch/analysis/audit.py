@@ -18,14 +18,17 @@ tags every node with a structured verdict:
                   eager engine compiles no per-shape program, so the
                   port never issues it (ROADMAP C.28)
 
-Surfaced through `df.explain("VALIDATE")` and the ALL / NOT_ON_TPU
-explain modes. The JAX auditor's lore ids, its `plan_audit` event-log
-record (ROADMAP A.13) and its fusion groups (A.11) are not ported:
-`Verdict.lore_id` is always None and `fusion_groups` stays empty. The
-JAX auditor's will_fallback verdict for the CPU-bridge expressions
-(FromJson, ToJson, ParseUrl: `_HOST_BRIDGE`) is here too; those
-expressions never bind, so their node carries the host fallback's
-verdict, as in the JAX package. Its python-exec verdicts come with A.12.
+Surfaced through `df.explain("VALIDATE")`, the ALL / NOT_ON_TPU
+explain modes and the event log's `plan_audit` record
+(`profiler/event_log.py`); each verdict carries its node's lore id
+(`utils/lore.py`). The JAX auditor's fusion groups (ROADMAP A.11) are
+not ported: `fusion_groups` stays empty. The JAX auditor's
+will_fallback verdicts are all here: the CPU-bridge expressions
+(FromJson, ToJson, ParseUrl: `_HOST_BRIDGE`; those never bind, so
+their node carries the host fallback's verdict, as in the JAX package),
+a python UDF the compiler could not translate (`PyUDF`, a host call per
+batch) and the three pandas nodes (rows cross to a python worker
+process).
 """
 from __future__ import annotations
 
@@ -92,6 +95,10 @@ class AuditReport:
         # the whole-stage fusion groups of the JAX planner; empty until
         # stage fusion is ported (ROADMAP A.11)
         self.fusion_groups: List[str] = []
+
+    def to_events(self) -> List[dict]:
+        """JSON-able findings for the `plan_audit` event-log record."""
+        return [v.to_dict() for v in self.findings]
 
     def of_kind(self, kind: str) -> List[Verdict]:
         return [v for v in self.findings if v.kind == kind]
@@ -161,6 +168,12 @@ def _audit_expr(expr, role: str, add: Callable[[str, str], None],
         add(WILL_FALLBACK,
             f"{name} in {role} runs via the CPU bridge (host row "
             f"interpreter)")
+    if name == "PyUDF":
+        add(WILL_FALLBACK,
+            f"python UDF {getattr(expr, 'name', '?')!r} in {role} was "
+            f"not AST-compiled: evaluates via a host call (each batch's "
+            f"columns copy to the host, the function runs over numpy, "
+            f"its result copies back)")
     for c in kids:
         _audit_expr(c, role, add, seen_ids)
     # a bound WindowExpr carries bound partition keys / sort orders in
@@ -243,7 +256,7 @@ def _audit_node(meta, path: str, depth: int, findings: List[Verdict],
     from ..plan import logical as L
     counter[0] += 1
     node = meta.node
-    lore = None                    # no lore ids until ROADMAP A.13
+    lore = getattr(meta.exec_node, "lore_id", None)
     local: List[Verdict] = []
 
     def add(kind: str, reason: str):
@@ -254,6 +267,12 @@ def _audit_node(meta, path: str, depth: int, findings: List[Verdict],
         add(WILL_NOT_WORK, r)
     for r in meta.host_reasons:
         add(WILL_FALLBACK, f"host fallback: {r}")
+    # operators that are host/python by construction
+    if isinstance(node, (L.MapInPandas, L.GroupedMapInPandas,
+                         L.CoGroupInPandas)):
+        add(WILL_FALLBACK,
+            "python_exec: rows cross to a pooled python worker process "
+            "as Arrow IPC (device pipeline breaks at this node)")
     if isinstance(node, L.ParquetScan):
         _audit_parquet_scan(node, add)
     # every bound expression the node carries

@@ -35,7 +35,11 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "JOIN_BLOOM_MAX_BUILD_ROWS", "TEXT_BLOCK_SIZE",
            "ASYNC_WRITE_ENABLED", "ASYNC_WRITE_MAX_IN_FLIGHT",
            "ASYNC_WRITE_THREADS", "DELTA_DV_ENABLED",
-           "DELTA_AUTOCOMPACT_MIN_FILES", "DELTA_AUTOCOMPACT_TARGET_BYTES"]
+           "DELTA_AUTOCOMPACT_MIN_FILES", "DELTA_AUTOCOMPACT_TARGET_BYTES",
+           "PYTHON_CONCURRENT_WORKERS", "PYTHON_GROUPED_CHUNK_BYTES",
+           "METRICS_LEVEL", "METRICS_SYNC", "EVENT_LOG_ENABLED",
+           "EVENT_LOG_DIR", "TRACE_ENABLED", "TRACE_SAMPLE_RATE",
+           "TELEMETRY_ENABLED", "LORE_DUMP_IDS", "LORE_DUMP_PATH"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -393,6 +397,74 @@ DELTA_AUTOCOMPACT_TARGET_BYTES = _conf(
     "delta.autoCompact.targetBytes", 128 << 20,
     "Target output file size for Delta OPTIMIZE / auto-compaction.",
     int)
+
+PYTHON_CONCURRENT_WORKERS = _conf(
+    "python.concurrentPythonWorkers", 4,
+    "Worker-process slots for pandas transforms (mapInPandas); "
+    "acquisition blocks above it (reference: "
+    "spark.rapids.python.concurrentPythonWorkers, "
+    "PythonWorkerSemaphore).", int)
+PYTHON_GROUPED_CHUNK_BYTES = _conf(
+    "python.groupedChunkBytes", 64 << 20,
+    "applyInPandas/aggregate-in-pandas partitions larger than this "
+    "many host bytes ship to the python worker in chunks cut at GROUP "
+    "boundaries (OOM-safe: a group is never split).", int)
+METRICS_LEVEL = _conf(
+    "sql.metrics.level", "MODERATE",
+    "Metric verbosity: ESSENTIAL|MODERATE|DEBUG.", str)
+METRICS_SYNC = _conf(
+    "sql.metrics.sync", False,
+    "Synchronize the device at the end of every operator timer "
+    "(torch.cuda.synchronize on the query's device; nothing on the "
+    "CPU). OFF by default: CUDA launches are asynchronous, so default "
+    "op-time metrics measure the time to ENQUEUE the work, and its "
+    "execution is attributed to whichever later operator first waits "
+    "(usually the D2H copy at the plan root). Turning this on yields "
+    "per-operator execution times at the cost of pipelining.", bool)
+EVENT_LOG_ENABLED = _conf(
+    "sql.eventLog.enabled", False,
+    "Write a structured per-query JSONL event log (the Spark event-log "
+    "analog): plan with lore ids, per-operator metric snapshots, "
+    "memory watermarks, kernel launch and host-sync counts, trace "
+    "spans. Consumed by EXPLAIN ANALYZE post-processing and the JAX "
+    "package's profiling tool, whose reader parses the same records.",
+    bool)
+EVENT_LOG_DIR = _conf(
+    "sql.eventLog.dir", os.path.join(tempfile.gettempdir(),
+                                     "srtpu-events"),
+    "Directory for per-query event-log JSONL files (default under the "
+    "process's temporary directory).", str)
+TRACE_ENABLED = _conf(
+    "sql.trace.enabled", True,
+    "Open per-query spans (profiler/tracing.py) around planning, the "
+    "adaptive stage decisions, pool map tasks and their admission "
+    "waits, broadcast builds and their waits, and degrade-to-host "
+    "recovery. Spans assemble into one trace per query, written to the "
+    "event log as trace_span records (when sql.eventLog.enabled) and "
+    "reduced to critical-path latency shares "
+    "(profiler/critical_path.py) shown in EXPLAIN ANALYZE's root "
+    "annotation.", bool)
+TRACE_SAMPLE_RATE = _conf(
+    "sql.trace.sampleRate", 1.0,
+    "Fraction of queries traced (0.0-1.0). Sampling is deterministic "
+    "on the query id (crc32 bucket), so every thread of a query agrees "
+    "on the decision.", float)
+TELEMETRY_ENABLED = _conf(
+    "sql.telemetry.enabled", True,
+    "Expose the process-global telemetry registry (profiler/"
+    "telemetry.py: histograms, counters and memory-watermark gauges) "
+    "as a snapshot and a Prometheus text dump. Recording itself is "
+    "always-on and O(1) per observation; this gates the scrape "
+    "surface.", bool)
+LORE_DUMP_IDS = _conf(
+    "sql.lore.idsToDump", None,
+    "LORE ids whose input batches should be dumped for replay "
+    "(analog of spark.rapids.sql.lore.idsToDumpPath).", str)
+LORE_DUMP_PATH = _conf(
+    "sql.lore.dumpPath", os.path.join(tempfile.gettempdir(),
+                                      "srtpu-lore"),
+    "Directory for LORE operator dumps (default under the process's "
+    "temporary directory).", str)
 
 
 class TpuConf:

@@ -156,6 +156,9 @@ class UngroupedAggExec(TpuExec):
         self.aggs = list(bound_aggs)
         self._base, self._stages, _ = collapse_fusable(child)
 
+    def describe(self):
+        return f"UngroupedAggExec[{self.agg_names}]"
+
     def num_partitions(self, ctx):
         return 1
 
@@ -252,6 +255,10 @@ class HashAggregateExec(TpuExec):
         self._hash_disabled = False
         self._wire = self.schema if mode == "partial" \
             else self._partial_schema()
+
+    def describe(self):
+        return (f"HashAggregateExec[{self.mode}, keys={self.key_names}, "
+                f"aggs={self.agg_names}]")
 
     def _partial_schema(self) -> Schema:
         """The partial-state wire schema: the keys, then one column per
@@ -721,6 +728,10 @@ class CollectAggExec(TpuExec):
         self.agg_names = list(agg_names)
         self.aggs = list(bound_aggs)
         self.per_partition = per_partition
+
+    def describe(self):
+        return (f"CollectAggExec[keys={self.key_names}, "
+                f"aggs={self.agg_names}]")
 
     def num_partitions(self, ctx):
         if self.per_partition:

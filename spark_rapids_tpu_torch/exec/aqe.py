@@ -116,6 +116,20 @@ class AQEShuffleReadExec(TpuExec):
         self.plan = plan
         self.role = role
 
+    def describe(self):
+        d = self.plan.decision
+        if d is None:
+            return f"AQEShuffleReadExec[{self.role}]"
+        parts = [self.role]
+        if d["partitions_after"] != d["partitions_before"] \
+                or d["coalesced_away"]:
+            parts.append(f"coalesced {d['partitions_before']}"
+                         f"→{d['partitions_after']}")
+        if d["split_slices"]:
+            parts.append(f"skewSplits={d['skewed_partitions']}"
+                         f"→{d['split_slices']}")
+        return f"AQEShuffleReadExec[{', '.join(parts)}]"
+
     def num_partitions(self, ctx: ExecContext):
         if getattr(ctx, "planning", False):
             # a planner's probe: the static count, without running the

@@ -10,7 +10,10 @@ ends (an operator closes its own handles as it goes; the registry
 catches a generator abandoned mid-stream), and the run's shared
 materializations (`shared_handles`: a SharedBuildExec's parked batches,
 which several consumers read, so none of them closes them), which
-`close()` closes too (JAX `exec/base.py:56`, `:72-79`).
+`close()` closes too (JAX `exec/base.py:56`, `:72-79`). It also
+carries the metric level and the `sql.metrics.sync` barrier of its conf
+(`utils/metrics.py`), and the query's trace context (`trace`, None when
+tracing is off; `profiler/tracing.py`).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Dict, Iterator, List
 import torch
 
 from ..columnar.table import Schema
-from ..config import TpuConf
+from ..config import METRICS_LEVEL, METRICS_SYNC, TpuConf
+from ..utils.metrics import parse_level, stream_barrier
 from .batch import DeviceBatch
 
 __all__ = ["TpuExec", "ExecContext", "OpMetrics", "collapse_fusable"]
@@ -53,6 +57,16 @@ class ExecContext:
         self.device_failures: Dict[str, int] = {}
         self.degraded: Dict[str, bool] = {}
         self.pending_events: List[dict] = []
+        # metric verbosity and the conf-gated device barrier in timers
+        # (utils/metrics.py on the asynchronous-launch timer skew)
+        self.metrics_level = parse_level(conf.get(METRICS_LEVEL))
+        self.metrics_sync = bool(conf.get(METRICS_SYNC))
+        # the query's trace (profiler/tracing.py): its context, the
+        # root span the session opened and, once finished, the
+        # critical-path summary; None when tracing is off
+        self.trace = None
+        self._root_span = None
+        self.trace_summary = None
 
     @property
     def device_manager(self):
@@ -99,11 +113,15 @@ class ExecContext:
     def timer(self, op_id: str, name: str):
         """Adds the host seconds spent in the block to a metric. Device
         work is asynchronous: a block that ends in a host sync (a D2H
-        copy) also absorbs the device work queued before it."""
+        copy) also absorbs the device work queued before it; under
+        `sql.metrics.sync` every timer waits for the device before it
+        stops."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
+            if self.metrics_sync:
+                stream_barrier(self.device)
             self.add_metric(op_id, name, time.perf_counter() - t0)
 
 
@@ -136,6 +154,12 @@ class TpuExec:
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def node_name(self) -> str:
+        return type(self).__name__
+
+    def describe(self) -> str:
+        return self.node_name()
 
     def num_partitions(self, ctx: ExecContext) -> int:
         if self.children:

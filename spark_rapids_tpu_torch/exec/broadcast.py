@@ -18,7 +18,9 @@ build returns. An exception raised in the build reaches the caller of
 started, runs it) under the instance lock: the build never runs twice
 at once. A build whose subtree holds another broadcast join runs that
 nested build inline (`on_build_pool`): waiting on the pool from one of
-its own workers could park every worker behind itself.
+its own workers could park every worker behind itself. The build is a
+`broadcast.build` span of the query's trace, and a join's wait for it
+a back-dated `broadcast.await_build` span (kind `pool_wait`).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import List, Optional
 
 import torch
 
+from ..profiler import tracing
 from .base import ExecContext, TpuExec
 
 __all__ = ["BroadcastExchangeExec", "on_build_pool", "BUILD_POOL_PREFIX"]
@@ -64,6 +67,9 @@ class BroadcastExchangeExec(TpuExec):
         self._future_lock = threading.Lock()
         self._submit_t: Optional[float] = None
 
+    def describe(self):
+        return "BroadcastExchangeExec"
+
     def num_partitions(self, ctx):
         return 1
 
@@ -95,12 +101,17 @@ class BroadcastExchangeExec(TpuExec):
                 stream = (torch.cuda.current_stream(ctx.device)
                           if ctx.device is not None
                           and ctx.device.type == "cuda" else None)
+                tc = ctx.trace or tracing.current()
 
                 def _build_task():
-                    if stream is None:
-                        return self._materialize(ctx)
-                    with torch.cuda.stream(stream):
-                        return self._materialize(ctx)
+                    # the build runs on a pool thread: seed it with the
+                    # submitting query's trace context
+                    with tracing.use(tc), tracing.span("broadcast.build",
+                                                       "pool_task"):
+                        if stream is None:
+                            return self._materialize(ctx)
+                        with torch.cuda.stream(stream):
+                            return self._materialize(ctx)
 
                 self._future = _build_pool().submit(_build_task)
             return self._future
@@ -118,6 +129,12 @@ class BroadcastExchangeExec(TpuExec):
             ctx.add_metric(self._op_id, "broadcastTimeoutFallbacks", 1)
             fut.cancel()        # a build not yet started runs here
             batches = self._materialize(ctx)
+        # the time the join was blocked on the build: a pool_wait edge
+        # of the critical path (the overlap before it is free)
+        waited = time.perf_counter() - t_await
+        if waited > 1e-3:
+            tracing.record_wait_span("broadcast.await_build", "pool_wait",
+                                     waited * 1e3, ctx)
         # the build time that ran while the stream side worked
         if self._submit_t is not None:
             overlap = max(0.0, t_await - self._submit_t)

@@ -35,6 +35,10 @@ class CoalesceBatchesExec(TpuExec):
         self.target = target_rows
         self.fan_in = max(1, fan_in)
 
+    def describe(self):
+        return (f"CoalesceBatchesExec[target={self.target}, "
+                f"fanIn={self.fan_in}]")
+
     def num_partitions(self, ctx):
         n = self.children[0].num_partitions(ctx)
         return max(1, -(-n // self.fan_in))

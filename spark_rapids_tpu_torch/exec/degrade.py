@@ -83,6 +83,14 @@ def should_degrade(ctx, node, e: BaseException) -> bool:
             ctx.pending_events.append({
                 "event": "degrade_to_host", "op": type(node).__name__,
                 "op_id": op_id, "failures": n, "error": repr(e)})
+    if pin:
+        # a zero-length marker span: the decision is instant, its cost
+        # (the host re-execution) shows as compute, but the trace says
+        # the query crossed onto the recovery path
+        from ..profiler import tracing
+        with tracing.span("degrade.to_host", "degrade", ctx,
+                          op=type(node).__name__, failures=n):
+            pass
     with _LOCK:
         _DEGRADATIONS[0] += 1
     return True

@@ -66,6 +66,7 @@ from ..ops.gather import take
 from ..ops.hash import partition_ids
 from ..ops.kernel_utils import cv_buffers
 from ..ops.partition_kernels import partition_ids_i32
+from ..profiler import tracing
 from .base import ExecContext, TpuExec
 from .batch import DeviceBatch, to_device, to_host
 from .exchange_pool import PermitRider, resolve_map_threads
@@ -85,6 +86,10 @@ class ShuffleExchangeExec(TpuExec):
         self._pieces: Optional[List[list]] = None
         self._pstats: Optional[List[int]] = None
         self._lock = threading.RLock()
+
+    def describe(self):
+        mode = "hash" if self.keys else "roundrobin"
+        return f"ShuffleExchangeExec[{mode}, n={self.n}]"
 
     def num_partitions(self, ctx):
         return self.n
@@ -190,12 +195,19 @@ class ShuffleExchangeExec(TpuExec):
         stream = (torch.cuda.current_stream(ctx.device)
                   if ctx.device is not None and ctx.device.type == "cuda"
                   else None)
+        # the span open on this thread (the stage driver's
+        # materialization) parents the map tasks
+        tc = tracing.current() or ctx.trace
 
         def task(mpid):
-            if stream is None:
-                return self._map_partition(ctx, mpid, rider, stop)
-            with torch.cuda.stream(stream):
-                return self._map_partition(ctx, mpid, rider, stop)
+            # the worker takes the query's trace context: its admission
+            # wait parents under this map task's span
+            with tracing.use(tc), tracing.span("exchange.map",
+                                               "pool_task", mpid=mpid):
+                if stream is None:
+                    return self._map_partition(ctx, mpid, rider, stop)
+                with torch.cuda.stream(stream):
+                    return self._map_partition(ctx, mpid, rider, stop)
 
         with cf.ThreadPoolExecutor(
                 threads, thread_name_prefix="tpu-exch-map") as pool:
@@ -308,6 +320,9 @@ class RangeShuffleExchangeExec(ShuffleExchangeExec):
             raise ValueError("range partitioning takes one numeric or "
                              "date key")
         self._bounds: Optional[torch.Tensor] = None
+
+    def describe(self):
+        return f"RangeShuffleExchangeExec[n={self.n}]"
 
     def _key(self, cvs, mask):
         kcv = self.keys[0].emit(EmitCtx(cvs, mask.shape[0], mask.device))

@@ -24,8 +24,11 @@ it runs one step at a time on the ridden permit), and the device never
 runs more tasks than there are permits: the ride spends admission the
 calling task already holds.
 
-The JAX package's lock-order witness, resource ledger and trace spans
-around the ride have no counterpart in the port (ROADMAP A.13).
+An admission wait that stalled a step over a millisecond is a
+back-dated `exchange.pool_admission` span (kind `pool_wait`) in the
+query's trace, as in the JAX package. Its lock-order witness and
+resource ledger around the ride wait for the second half of ROADMAP
+A.13.
 """
 from __future__ import annotations
 
@@ -139,7 +142,8 @@ class PermitRider:
             while self._alone is not None or self._queue:
                 self._gate.wait()
             self._active += 1
-            self._waited += time.perf_counter() - t0
+            waited = time.perf_counter() - t0
+            self._waited += waited
             if riding:
                 self._riding = me
         alone, counted = [False], [False]
@@ -175,6 +179,14 @@ class PermitRider:
                 self._gate.notify_all()
 
         try:
+            if waited > 1e-3:
+                # the admission wait that stalled this map step: a
+                # pool_wait edge of the query's trace (the worker was
+                # seeded by tracing.use); inside the try, so the step
+                # is always counted out
+                from ..profiler import tracing
+                tracing.record_wait_span("exchange.pool_admission",
+                                         "pool_wait", waited * 1e3)
             with on_pressure(run_alone):
                 yield
         finally:

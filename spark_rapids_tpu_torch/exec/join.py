@@ -163,6 +163,10 @@ class HashJoinExec(TpuExec):
         self.per_partition = per_partition
         self.condition = condition
 
+    def describe(self):
+        mode = "distributed" if self.per_partition else "single"
+        return f"HashJoinExec[{self.how}, {mode}]"
+
     def num_partitions(self, ctx):
         if self.per_partition:
             return self.children[0].num_partitions(ctx)
@@ -793,6 +797,9 @@ class NestedLoopJoinExec(HashJoinExec):
                  schema: Schema, condition: Expression):
         super().__init__(left, right, [], [], how, schema,
                          condition=condition)
+
+    def describe(self):
+        return f"NestedLoopJoinExec[{self.how}]"
 
     def num_partitions(self, ctx):
         return 1

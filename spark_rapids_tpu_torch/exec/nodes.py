@@ -190,6 +190,10 @@ class ParquetScanExec(TpuExec):
         self._rt_cache = None
         self._groups_cache = None
 
+    def describe(self):
+        f = f", filters={self.filters}" if self.filters else ""
+        return f"ParquetScanExec[{len(self.paths)} files{f}]"
+
     def _dead_positions(self, path):
         """The sorted dead row positions (int64) of a file with a
         deletion vector, or None; loaded once a file and shared by the
@@ -615,6 +619,9 @@ class ProjectExec(TpuExec):
         super().__init__([child], schema)
         self.bound = bound_exprs
 
+    def describe(self):
+        return f"ProjectExec[{', '.join(map(repr, self.bound))}]"
+
     def fusable_stage(self):
         def fn(cvs, mask):
             ctx = EmitCtx(cvs, mask.shape[0], mask.device)
@@ -648,6 +655,9 @@ class FilterExec(TpuExec):
     def __init__(self, child: TpuExec, bound_cond: Expression):
         super().__init__([child], child.schema)
         self.bound = bound_cond
+
+    def describe(self):
+        return f"FilterExec[{self.bound!r}]"
 
     def preserves_ordinals(self):
         return True
@@ -691,6 +701,9 @@ class LimitExec(TpuExec):
     def __init__(self, child: TpuExec, n: int):
         super().__init__([child], child.schema)
         self.n = n
+
+    def describe(self):
+        return f"LimitExec[{self.n}]"
 
     def num_partitions(self, ctx):
         return 1

@@ -69,6 +69,9 @@ class SortExec(TpuExec):
         self._base = None
         self._stages = None
 
+    def describe(self):
+        return f"SortExec[{self.orders}]"
+
     def num_partitions(self, ctx):
         return 1
 

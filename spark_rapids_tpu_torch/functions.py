@@ -8,13 +8,11 @@ the date and time functions, the time-zone conversions, the array,
 struct and map functions, explode, the higher-order functions,
 collect_list / collect_set, grouping_id, the window functions (to call
 `.over(spec)` on, `window.py`), bloom_filter_agg and might_contain, and
-the regex, JSON and URL functions build the port's expressions. The
-rest, udf and df_udf, raise NotPorted naming the ROADMAP item that
-ports them (A.12).
+the regex, JSON and URL functions build the port's expressions, and
+udf and df_udf wrap Python functions (`expr/udf.py`).
 """
 from __future__ import annotations
 
-from .errors import NotPorted
 from .expr import aggregates as _agg
 from .expr import collection_exprs as _ce
 from .expr import datetime_exprs as _de
@@ -23,6 +21,7 @@ from .expr.expressions import (Abs, CaseWhen, Cast, Coalesce,  # noqa: F401
                                ColumnRef, EqNullSafe, Expression, Greatest,
                                If, In, IsNaN, IsNull, Least, Literal,
                                MathUnary, Negate, Pmod, Round, col, lit)
+from .expr.udf import df_udf, udf  # noqa: F401  (public re-exports)
 
 __all__ = [
     "col", "lit", "sum", "count", "countDistinct", "count_distinct", "min",
@@ -49,7 +48,7 @@ __all__ = [
     "ntile", "lag", "lead", "first_value", "last_value", "nth_value",
     "bloom_filter_agg", "might_contain", "rlike", "regexp_extract",
     "regexp_replace", "get_json_object", "from_json", "to_json",
-    "parse_url",
+    "parse_url", "udf", "df_udf",
 ]
 
 
@@ -644,26 +643,3 @@ def to_json(e):
 def parse_url(e, part: str, key=None):
     from .expr.json_exprs import ParseUrl
     return ParseUrl(_to_expr(e), part, key)
-
-
-# ----------------------------------------------------------------------
-# The JAX module's other entries: each raises NotPorted naming the
-# ROADMAP item that ports it.
-# ----------------------------------------------------------------------
-_NOT_PORTED = {
-    "A.12": "udf df_udf",
-}
-
-
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotPorted(f"{name} (ROADMAP {item})")
-    fn.__name__ = fn.__qualname__ = name
-    fn.__doc__ = f"Raises NotPorted: {name} waits for ROADMAP {item}."
-    return fn
-
-
-for _item, _names in _NOT_PORTED.items():
-    for _name in _names.split():
-        globals()[_name] = _not_ported(_name, _item)
-del _item, _names, _name

@@ -17,13 +17,17 @@ its consumer's start:
 Each decision is returned as a record (and kept by the session for
 `DataFrame.last_aqe_decisions()`); the process counters `aqe_stats()`
 sum them with the calibration table's. A stage that fails to
-materialize fails the query. The JAX module's mesh branches
+materialize fails the query. Each materialization is an `aqe` span of
+the query's trace (`aqe.stage_materialize`,
+`aqe.demote_build_materialize`), the critical path's `plan` edge. The JAX module's mesh branches
 (`_maybe_demote_mesh`, the SPMD stage reshard) have no counterpart here.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any, Dict, List
+
+from ..profiler import tracing
 
 __all__ = ["run_stage_driver", "aqe_stats", "reset_stats"]
 
@@ -76,7 +80,9 @@ def run_stage_driver(root, ctx, conf) -> List[Dict[str, Any]]:
             visit(c)
         if isinstance(node, AQEShuffleReadExec):
             # the stage barrier: materialize and re-plan
-            with ctx.timer(node._op_id, "stageMaterializeTime"):
+            with tracing.span("aqe.stage_materialize", "aqe", ctx,
+                              lore_id=getattr(node, "lore_id", None)), \
+                    ctx.timer(node._op_id, "stageMaterializeTime"):
                 node.plan.groups(ctx)
             d = node.plan.decision
             if d is not None and id(node.plan) not in seen_plans:
@@ -123,7 +129,8 @@ def _maybe_demote(join, ctx, conf, decisions) -> None:
         return
     # the stage barrier: the build's map phase runs now and reports its
     # bytes, the runtime statistic the planning estimate missed
-    with ctx.timer(join._op_id, "stageMaterializeTime"):
+    with tracing.span("aqe.demote_build_materialize", "aqe", ctx), \
+            ctx.timer(join._op_id, "stageMaterializeTime"):
         build_bytes = int(sum(bex.stage_stats(ctx)))
     if build_bytes > thr:
         return

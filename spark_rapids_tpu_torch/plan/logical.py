@@ -4,7 +4,8 @@ Scans (in-memory Arrow, Parquet with its bind-time snapshot, Delta
 deletion vectors and version, CSV / JSON / ORC / Avro, cached device
 batches), Project, Filter, Aggregate (grouped or not), Expand (grouping
 sets), Join (every `how` of the JAX package), Sort, Limit, Union,
-Generate (explode), WindowOp and Repartition. Expressions bind against
+Generate (explode), WindowOp, the pandas nodes (MapInPandas,
+GroupedMapInPandas, CoGroupInPandas) and Repartition. Expressions bind against
 the child schema when a node is built, as in the JAX package, and each
 bound tree passes the type-signature gate (`typesig.check_tree`) at the
 JAX package's bind sites. A Project or Filter whose expression the
@@ -27,6 +28,7 @@ from .typesig import check_tree as _tsig
 __all__ = ["LogicalPlan", "InMemoryScan", "CachedScan", "ParquetScan",
            "TextScan", "Project", "Filter", "Aggregate", "Expand", "Join",
            "SortOrder", "Sort", "Limit", "Union", "Generate", "WindowOp",
+           "MapInPandas", "GroupedMapInPandas", "CoGroupInPandas",
            "Repartition"]
 
 
@@ -442,6 +444,69 @@ class WindowOp(LogicalPlan):
 
     def describe(self):
         return f"WindowOp[{[n for n, _ in self.wcols]}]"
+
+
+class MapInPandas(LogicalPlan):
+    """Batch-wise pandas transform in a pooled python worker process
+    (reference: GpuMapInPandasExec)."""
+
+    def __init__(self, child: LogicalPlan, fn, schema: Schema):
+        self.child = child
+        self.children = [child]
+        self.fn = fn
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        name = getattr(self.fn, "__name__", "fn")
+        return f"MapInPandas[{name}]"
+
+
+class GroupedMapInPandas(LogicalPlan):
+    """Per-group pandas transform (applyInPandas / AggregateInPandas):
+    the planner repartitions by key so groups are whole per partition
+    (reference: GpuFlatMapGroupsInPandasExec,
+    GpuAggregateInPandasExec.scala:51). `fn` is the worker-side wrapper
+    (already closed over the user function + keys)."""
+
+    def __init__(self, child: LogicalPlan, fn, schema: Schema,
+                 key_names):
+        self.child = child
+        self.children = [child]
+        self.fn = fn
+        self._schema = schema
+        self.key_names = list(key_names)
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"GroupedMapInPandas[keys={self.key_names}]"
+
+
+class CoGroupInPandas(LogicalPlan):
+    """Cogrouped pandas transform (reference:
+    GpuFlatMapCoGroupsInPandasExec): both children repartition by their
+    keys; fn is the worker-side _CoGroupApply wrapper."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, fn,
+                 schema: Schema, lkeys, rkeys):
+        self.children = [left, right]
+        self.fn = fn
+        self._schema = schema
+        self.lkeys = list(lkeys)
+        self.rkeys = list(rkeys)
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"CoGroupInPandas[{self.lkeys} x {self.rkeys}]"
 
 
 class Repartition(LogicalPlan):

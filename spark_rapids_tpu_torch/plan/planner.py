@@ -53,7 +53,14 @@ refuses it.
 A cross join without a condition is a broadcast hash join whatever the
 threshold (`how="cross"`); a condition with no equi keys is a
 `NestedLoopJoinExec`; any other condition rides the hash join. A mesh
-exchange and any node without a rule raise NotPorted.
+exchange and any node without a rule raise NotPorted. The pandas nodes
+become the python execs of `exec/python_exec.py`; a grouped or
+cogrouped one always sits over a hash exchange on its keys (one on
+each side), so every group is whole in one partition.
+
+After conversion every physical node takes a lore id (pre-order,
+`utils/lore.py`), which the audit and explain print; the ids in
+`sql.lore.idsToDump` get their inputs dumped.
 
 Placement has the JAX planner's three states (`PlanMeta`): `_tag` marks
 a Project or Filter whose expression the device cannot run `!cpu`
@@ -94,6 +101,7 @@ from ..exec.host_fallback import HostFilterExec, HostProjectExec
 from ..exec.runtime_filter import RuntimeBloomFilterExec, SharedBuildExec
 from ..exec.sort import SortExec
 from ..expr.expressions import BoundRef, UnsupportedExpr
+from ..utils.lore import apply_lore_dump, assign_lore_ids
 from . import logical as L
 from .cbo import apply_cbo
 from .optimizer import optimize
@@ -118,6 +126,10 @@ class PlanMeta:
         self.children = [PlanMeta(c) for c in kids]
         self.reasons: List[str] = []
         self.host_reasons: List[str] = []
+        # the physical subtree this node converted to (set by
+        # _convert): its lore id shows in explain, so an operator in a
+        # profile maps straight to a lore.idsToDump replay id
+        self.exec_node = None
 
     def will_not_work(self, reason: str):
         self.reasons.append(reason)
@@ -133,7 +145,9 @@ class PlanMeta:
         lines = []
         tag = ("!cpu" if self.host_reasons and not self.reasons
                else "*" if self.can_run_on_tpu else "!")
-        desc = f"{'  ' * indent}{tag} {self.node.describe()}"
+        lore = getattr(self.exec_node, "lore_id", None)
+        lore_tag = f" [loreId={lore}]" if lore is not None else ""
+        desc = f"{'  ' * indent}{tag}{lore_tag} {self.node.describe()}"
         if self.reasons:
             desc += "  <-- cannot run on TPU because " + "; ".join(
                 self.reasons)
@@ -530,6 +544,44 @@ def _maybe_bloom_prefilter(left, right, n, meta, conf):
                                   max(64, int(est_rows))), shared
 
 
+@_rule(L.MapInPandas)
+def _map_in_pandas(meta, conv, conf):
+    from ..exec.python_exec import ArrowEvalPythonExec
+    n = meta.node
+    return ArrowEvalPythonExec(conv(meta.children[0]), n.fn, n.schema)
+
+
+@_rule(L.GroupedMapInPandas)
+def _grouped_map_in_pandas(meta, conv, conf):
+    from ..exec.python_exec import GroupedMapPythonExec
+    from ..expr.expressions import col
+    n = meta.node
+    child = conv(meta.children[0])
+    nparts = max(1, conf.get(SHUFFLE_PARTITIONS))
+    keys = [col(k).bind(n.children[0].schema) for k in n.key_names]
+    # ALWAYS exchange: even at nparts=1 a multi-partition child must
+    # gather so a key spanning source partitions stays one group
+    child = ShuffleExchangeExec(child, nparts, keys, child.schema)
+    return GroupedMapPythonExec(child, n.fn, n.schema, n.key_names)
+
+
+@_rule(L.CoGroupInPandas)
+def _cogroup_in_pandas(meta, conv, conf):
+    from ..exec.python_exec import CoGroupPythonExec
+    from ..expr.expressions import col
+    n = meta.node
+    left = conv(meta.children[0])
+    right = conv(meta.children[1])
+    nparts = max(1, conf.get(SHUFFLE_PARTITIONS))
+    # ALWAYS exchange (even nparts=1): aligns partition counts across
+    # the two sides and gathers split groups
+    lkeys = [col(k).bind(n.children[0].schema) for k in n.lkeys]
+    rkeys = [col(k).bind(n.children[1].schema) for k in n.rkeys]
+    left = ShuffleExchangeExec(left, nparts, lkeys, left.schema)
+    right = ShuffleExchangeExec(right, nparts, rkeys, right.schema)
+    return CoGroupPythonExec(left, right, n.fn, n.schema)
+
+
 @_rule(L.Repartition)
 def _repart(meta, conv, conf):
     node = meta.node
@@ -564,12 +616,15 @@ class Planner:
         if self.conf.get(CBO_ENABLED):
             apply_cbo(meta, self.conf)
         # a conversion failure still audits and prints the tagged tree,
-        # then re-raises
+        # then re-raises; the lore ids are assigned before the audit and
+        # the explain, which print them
         root_exec, conv_err = None, None
         try:
             root_exec = self._convert(meta)
         except UnsupportedExpr as e:
             conv_err = e
+        if root_exec is not None:
+            assign_lore_ids(root_exec)
         report = audit_plan(meta, self.conf)
         self.last_audit = report
         if root_exec is not None:
@@ -592,7 +647,7 @@ class Planner:
             raise conv_err
         if self.conf.get(AUDIT_STRICT):
             report.raise_if_blocked()
-        return root_exec
+        return apply_lore_dump(root_exec, self.conf)
 
     def _tag(self, meta: PlanMeta):
         node = meta.node
@@ -621,6 +676,7 @@ class Planner:
         if not meta.can_run_on_tpu:
             raise UnsupportedExpr("; ".join(meta.reasons))
         out = rule(meta, self._convert, self.conf)
+        meta.exec_node = out
         # the harvest after the run keys observed rows by these
         attach_calibration_fps(meta.node, out)
         return out

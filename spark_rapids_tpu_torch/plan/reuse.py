@@ -25,6 +25,11 @@ from ..exec.base import ExecContext, TpuExec
 __all__ = ["reuse_exchanges", "ReusedExchangeExec", "node_fp"]
 
 
+#: public attributes that label a node rather than configure it
+_SKIP_ATTRS = {"children", "lore_id", "audit_report",
+               "exchange_reuse_hits"}
+
+
 def _norm_names(fp):
     """Erase column-name attributes from an expr_fp tuple: exchange
     subtrees hold bound expressions, which emit by ordinal, so `k` and a
@@ -123,7 +128,7 @@ def node_fp(node: TpuExec) -> Optional[tuple]:
     parts = [("cls", type(node).__name__),
              ("schema", _schema_fp(node.schema))]
     for k in sorted(vars(node)):
-        if k.startswith("_") or k == "children":
+        if k.startswith("_") or k in _SKIP_ATTRS:
             continue
         fp = _value_fp(vars(node)[k])
         if fp is None:
@@ -142,14 +147,20 @@ def node_fp(node: TpuExec) -> Optional[tuple]:
 class ReusedExchangeExec(TpuExec):
     """Stand-in for a duplicate exchange subtree: every read delegates to
     the first occurrence's materialization, shared under the target's
-    own lock. No children: the shared subtree belongs to its first
-    occurrence."""
+    own lock. It carries the replaced node's lore id and renders the
+    target's in describe(). No children: the shared subtree belongs to
+    its first occurrence."""
 
     def __init__(self, target: TpuExec, original: TpuExec):
         super().__init__([], original.schema)
         self.target = target
+        self.lore_id = getattr(original, "lore_id", None)
         self._hit_lock = threading.Lock()
         self._hit_ctxs = set()
+
+    def describe(self):
+        tid = getattr(self.target, "lore_id", "?")
+        return f"ReusedExchange[loreId={self.lore_id} -> {tid}]"
 
     def num_partitions(self, ctx):
         return self.target.num_partitions(ctx)

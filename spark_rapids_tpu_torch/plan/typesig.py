@@ -252,8 +252,8 @@ register("Literal", ALL_COMMON + NESTED, "constant")
 register("Alias", ALL_COMMON + NESTED, "name binding (pass-through)")
 register("ColumnRef", ALL_COMMON + NESTED, "column reference")
 register("PyUDF", ALL_COMMON,
-         "AST-compiled to expressions when possible, else "
-         "jax.pure_callback host evaluation (udf-compiler analog)")
+         "AST-compiled to expressions when possible, else a host "
+         "call over numpy (udf-compiler analog)")
 register("WindowExpr", NUMERIC + DATETIME + STRING + BOOL + NULL,
          "window function over its input column; ranking functions "
          "take no input (per-function frame rules enforced at bind)")

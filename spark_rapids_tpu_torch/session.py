@@ -11,10 +11,13 @@ and `.count()`, `rollup`, `cube` and `grouping_sets` (an Expand under
 the aggregate, with `grouping_id`), `join` (equi-keys by name, an
 expression `on`, a non-equi `condition`, cross), `sort`, `limit`,
 `union`, `repartition`, `cache` / `uncache`, `schema`, `explain`
-(ALL, NOT_ON_TPU, VALIDATE), `create_or_replace_temp_view`, `to_arrow`,
-`to_pydict`, `collect` and `count` on a DataFrame, `TpuSession.sql`
-(`sql/parser.py`) over the session's temp views, `set_conf` and
-`builder_get_or_create`. A session runs on one
+(ALL, NOT_ON_TPU, VALIDATE, ANALYZE), `create_or_replace_temp_view`,
+`to_arrow`, `to_torch`, `to_pydict`, `collect` and `count` on a
+DataFrame, the pandas transforms (`map_in_pandas`, and on a grouped
+DataFrame `apply_in_pandas`, `agg_in_pandas` and `cogroup`, run in
+pooled python worker processes: `exec/python_exec.py`),
+`TpuSession.sql` (`sql/parser.py`) over the session's temp views,
+`set_conf` and `builder_get_or_create`. A session runs on one
 torch device: CUDA unless the caller asks for another. Every action
 plans the logical tree afresh and executes it on that device: first the
 adaptive stage driver (`plan/aqe.py`), which materializes the shuffle
@@ -23,11 +26,20 @@ cardinalities go into the calibration table (`plan/stats.py`). What the
 device cannot evaluate in a Project or Filter runs on the host
 interpreter (`sql.allowCpuFallback`, on by default, as in the JAX
 package), and its output returns to the session's device.
+
+Every action runs inside the query profiler, as in the JAX package
+(`_action`): a trace of spans when `sql.trace.enabled` (planning, the
+adaptive stages, the pools' tasks and waits), the event log when
+`sql.eventLog.enabled` (`profiler/event_log.py`), and on the root
+operator's metrics the action's host syncs and kernel launches
+(`profiler/xla_stats.py`) and its critical-path shares; `last_metrics()`
+honours `sql.metrics.level`.
 """
 from __future__ import annotations
 
 import itertools
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -35,9 +47,9 @@ import torch
 from .columnar import dtypes as dt
 from .columnar.table import Schema
 from .config import TpuConf
-from .errors import NotPorted
 from .exec.base import ExecContext
 from .exec.nodes import collect_to_arrow
+from .exec.python_exec import close_plan_pools
 from .expr.aggregates import AggExpr, CountStar
 from .expr.collection_exprs import Explode
 from .expr.expressions import (Alias, BoundRef, Coalesce, ColumnRef,
@@ -51,8 +63,11 @@ from .plan import logical as L
 from .plan.aqe import run_stage_driver
 from .plan.planner import Planner
 from .plan.stats import harvest_calibration
+from .profiler import tracing, xla_stats
+from .profiler.event_log import next_query_id, profile_query
+from .utils.metrics import snapshot as metrics_snapshot
 
-__all__ = ["TpuSession", "DataFrame", "GroupedData"]
+__all__ = ["TpuSession", "DataFrame", "GroupedData", "CoGroupedData"]
 
 # a unique tag per join for the hidden names of colliding right-side
 # columns, so the hidden keys of different joins in one chain differ
@@ -132,6 +147,9 @@ class TpuSession:
         self.device = _resolve_device(device)
         self.read = DataFrameReader(self)
         self.semaphore = TpuSemaphore(self.conf.concurrent_tasks)
+        #: the event-log file of the last action that wrote one
+        #: (`sql.eventLog.enabled`), else None
+        self.last_event_log: Optional[str] = None
         TpuSession._active = self
 
     @staticmethod
@@ -301,6 +319,91 @@ class GroupedData:
 
     def count(self) -> "DataFrame":
         return self.agg(CountStar().alias("count"))
+
+    def _key_names(self):
+        names = [getattr(k, "name", None) for k in self._keys]
+        if any(n is None for n in names):
+            raise ValueError("pandas group transforms need plain column "
+                             "keys (got computed expressions)")
+        return names
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """Per-group pandas transform: `fn(pandas.DataFrame) ->
+        pandas.DataFrame` runs once per group in a pooled python worker
+        (reference: GroupedData.applyInPandas /
+        GpuFlatMapGroupsInPandasExec). Groups are repartitioned whole;
+        oversized partitions chunk at group boundaries."""
+        from .exec.python_exec import _GroupApply
+        out = _out_schema(schema)
+        names = self._key_names()
+        return DataFrame(self._df._session, L.GroupedMapInPandas(
+            self._df._plan, _GroupApply(fn, names), out, names))
+
+    applyInPandas = apply_in_pandas
+
+    def agg_in_pandas(self, _types=None, **named) -> "DataFrame":
+        """AggregateInPandas (reference:
+        GpuAggregateInPandasExec.scala:51): each kwarg is
+        name=(fn, col[, col...]); fn receives pandas Series (one per
+        col) for ONE group and returns a scalar. Output: key columns +
+        one row per group. Aggregate outputs default to FLOAT64;
+        non-float results declare their dtype via
+        `_types={name: DataType}`."""
+        from .columnar.table import Field
+        from .exec.python_exec import _AggApply
+        names = self._key_names()
+        aggs = {}
+        for out_name, spec in named.items():
+            fn = spec[0]
+            cols = [getattr(c, "name", c) for c in spec[1:]]
+            aggs[out_name] = (fn, cols)
+        child_schema = self._df._plan.schema
+        fields = [Field(n, child_schema[child_schema.index_of(n)].dtype)
+                  for n in names]
+        fields += [Field(n, (_types or {}).get(n, dt.FLOAT64))
+                   for n in aggs]
+        return DataFrame(self._df._session, L.GroupedMapInPandas(
+            self._df._plan, _AggApply(aggs, names), Schema(fields), names))
+
+    def cogroup(self, other: "GroupedData") -> "CoGroupedData":
+        """Pair two grouped frames for applyInPandas over matching key
+        groups (reference: GpuFlatMapCoGroupsInPandasExec)."""
+        return CoGroupedData(self, other)
+
+
+class CoGroupedData:
+    def __init__(self, left: GroupedData, right: GroupedData):
+        self._left = left
+        self._right = right
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """`fn(left_df, right_df) -> pandas.DataFrame` per matching key
+        group (either side may be empty)."""
+        from .exec.python_exec import _CoGroupApply
+        out = _out_schema(schema)
+        lnames = self._left._key_names()
+        rnames = self._right._key_names()
+        if len(lnames) != len(rnames):
+            raise ValueError("cogroup key counts differ")
+        lcols = list(self._left._df.schema.names)
+        rcols = list(self._right._df.schema.names)
+        wrapper = _CoGroupApply(fn, lnames, rnames, lcols, rcols)
+        return DataFrame(self._left._df._session, L.CoGroupInPandas(
+            self._left._df._plan, self._right._df._plan, wrapper, out,
+            lnames, rnames))
+
+    applyInPandas = apply_in_pandas
+
+
+def _out_schema(schema) -> Schema:
+    """A pandas transform's declared output: a Schema, (name, DataType)
+    pairs, or an Arrow schema."""
+    from .columnar.table import Field
+    if isinstance(schema, Schema):
+        return schema
+    if isinstance(schema, (list, tuple)):
+        return Schema([Field(n, t) for n, t in schema])
+    return Schema([Field(f.name, dt.from_arrow(f.type)) for f in schema])
 
 
 def _cache_batches(root, ctx) -> List:
@@ -576,7 +679,8 @@ class DataFrame:
         rows (`maybe_compact`), and consecutive small batches concatenate
         up to `sql.batchSizeRows`, so a query over the cache runs over
         fewer, dense batches."""
-        batches = self._run(_cache_batches)
+        with self._action("cache") as (root, ctx):
+            batches = _cache_batches(root, ctx)
         node = L.CachedScan(batches, self._plan.schema, source=self._plan)
         self._cached_node = node
         out = DataFrame(self._session, node)
@@ -600,6 +704,17 @@ class DataFrame:
         ks = [_to_expr(k) for k in keys] or None
         return DataFrame(self._session, L.Repartition(self._plan, n, ks))
 
+    def map_in_pandas(self, fn, schema) -> "DataFrame":
+        """Apply `fn(pandas.DataFrame) -> pandas.DataFrame` batch-wise in
+        a pooled python WORKER PROCESS, batches crossing as Arrow IPC
+        (reference: DataFrame.mapInPandas / GpuMapInPandasExec). `fn`
+        must be picklable; `schema` is the output schema
+        (Schema | list[(name, DataType)] | arrow schema)."""
+        return DataFrame(self._session,
+                         L.MapInPandas(self._plan, fn, _out_schema(schema)))
+
+    mapInPandas = map_in_pandas
+
     def physical_plan(self):
         """(root exec, its ExecContext): a fresh plan of this DataFrame
         on the session's device. The file scans' snapshots are re-statted
@@ -618,10 +733,14 @@ class DataFrame:
         physical tree; NOT_ON_TPU only the nodes that do not run on the
         device, and the findings; VALIDATE the plan audit
         (`report.lines()`). A plan that cannot run prints its tags, then
-        raises. The profiler (ANALYZE) is not ported."""
+        raises. ANALYZE runs the query and renders the tree annotated with
+        its runtime metrics (rows, batches, op time, shuffle bytes per
+        node, the top time sinks flagged, the root's launches, syncs and
+        critical path; `profiler/analyze.py`). Every node carries its
+        lore id."""
         mode_u = str(mode).upper()
         if mode_u == "ANALYZE":
-            raise NotPorted("explain ANALYZE: the profiler (ROADMAP A.13)")
+            return self._explain_analyze()
         if mode_u not in ("ALL", "NOT_ON_TPU", "VALIDATE"):
             raise ValueError(f"unknown explain mode {mode!r}")
         planner = Planner(self._session.conf.set(
@@ -643,14 +762,102 @@ class DataFrame:
             lines += phys
         return "\n".join(lines)
 
-    def _run(self, body):
-        """Plan afresh, run the stage driver, then `body(root, ctx)`."""
-        root, ctx = self.physical_plan()
+    def _explain_analyze(self) -> str:
+        from .profiler.analyze import TIMER_NOTE, render_analyze
+        from .profiler.event_log import op_metrics_records, plan_tree
+        self.to_arrow()
+        root = self._last_plan
+        recs = op_metrics_records(root, self._last_metrics)
+        by_lore = {r["lore_id"]: r["metrics"] for r in recs}
+        notes = [] if self._last_metrics_sync else [TIMER_NOTE]
+        text = render_analyze(plan_tree(root), by_lore,
+                              title="== EXPLAIN ANALYZE ==", notes=notes)
+        print(text)
+        return text
+
+    @contextmanager
+    def _action(self, action: str):
+        """One action under the query profiler (JAX `session.py:
+        968-1199`): the trace's root span opens before planning, the
+        plan is made afresh inside a `plan` span, the stage driver runs
+        (every shuffle stage materializes and re-plans before the
+        consumer), then the caller's body, given (root, ctx). After it
+        the plan's python workers stop, the root's metrics take the
+        action's host syncs and kernel launches, the event log (when
+        on) its records, and on success
+        the root its critical-path shares and the calibration table the
+        observed cardinalities."""
+        conf = self._session.conf
+        qid = next_query_id()
+        tc = tracing.start_trace(qid, conf)
+        rsp = None
+        if tc is not None:
+            # the root first, so the plan span parents under it
+            rsp = tracing.open_span("query", "query", tc, action=action)
+            tc = tracing.TraceContext(tc.trace_id, rsp.span_id, True)
         try:
-            run_stage_driver(root, ctx, self._session.conf)
-            return body(root, ctx)
+            with tracing.span("plan", "plan", tc):
+                root, ctx = self.physical_plan()
+        except BaseException:
+            if rsp is not None:
+                rsp.end()
+                tracing.drain_trace(qid)
+            raise
+        ctx.trace, ctx._root_span = tc, rsp
+        counts0 = xla_stats.snapshot()
+        try:
+            with tracing.use(tc), profile_query(
+                    self._session, root, ctx, action, qid) as w:
+                try:
+                    t0 = time.perf_counter()
+                    decisions = run_stage_driver(root, ctx, conf)
+                    ctx.set_metric(root._op_id, "stageDriverTime",
+                                   time.perf_counter() - t0)
+                    self._last_plan = root
+                    self._last_aqe_decisions = decisions
+                    if decisions and w is not None:
+                        w.emit("aqe_replan", action=action,
+                               decisions=decisions)
+                    yield root, ctx
+                finally:
+                    # the launch and sync counts ride the root's metrics
+                    # (in place of the JAX xlaCompiles / xlaDispatches),
+                    # set before the event log snapshots them
+                    d = xla_stats.delta(counts0)
+                    rid = root._op_id
+                    ctx.add_metric(rid, "hostSyncs", d["host_syncs"])
+                    ctx.add_metric(rid, "kernelLaunches",
+                                   d["kernel_launches"])
+                    ctx.add_metric(rid, "kernelLaunches.vector",
+                                   d["vector_launches"])
+                    ctx.add_metric(rid, "kernelLaunches.scalar",
+                                   d["scalar_launches"])
+                    # spill handles a failed or abandoned operator left,
+                    # and the python workers of its pandas execs
+                    ctx.close()
+                    close_plan_pools(root)
+                    self._last_events = list(ctx.pending_events)
+                    if w is not None:
+                        for ev in ctx.pending_events:
+                            kw = dict(ev)
+                            w.emit(kw.pop("event"), **kw)
         finally:
-            ctx.close()
+            # with the event log off the trace still closes here, so
+            # the summary exists and the span buffer drains
+            tracing.finish(ctx)
+        for c, pct in (ctx.trace_summary or {}).get("share_pct",
+                                                     {}).items():
+            if pct:
+                ctx.add_metric(root._op_id, f"criticalPathShare.{c}", pct)
+        # the observed cardinalities close the adaptive loop; advisory,
+        # it never fails the query (JAX `session.py:1050-1069`)
+        try:
+            harvest_calibration(root, ctx)
+        except Exception:
+            pass
+        self._last_metrics = {op: metrics_snapshot(m, ctx.metrics_level)
+                              for op, m in ctx.metrics.items()}
+        self._last_metrics_sync = ctx.metrics_sync
 
     def write_parquet(self, path: str, **kw):
         """Write the result as Parquet part files, one a physical
@@ -687,14 +894,7 @@ class DataFrame:
         import pyarrow as pa
 
         from .exec.nodes import _batch_to_arrow
-        root, ctx = self.physical_plan()
-        try:
-            t0 = time.perf_counter()
-            decisions = run_stage_driver(root, ctx, self._session.conf)
-            ctx.set_metric(root._op_id, "stageDriverTime",
-                           time.perf_counter() - t0)
-            self._last_plan = root
-            self._last_aqe_decisions = decisions
+        with self._action("write") as (root, ctx):
             for pid in range(root.num_partitions(ctx)):
                 tables = []
                 for b in root.execute_partition(ctx, pid):
@@ -702,40 +902,42 @@ class DataFrame:
                         tables.append(_batch_to_arrow(b))
                 if tables:
                     yield pid, pa.concat_tables(tables)
-        finally:
-            ctx.close()
-            self._last_events = list(ctx.pending_events)
-        try:
-            harvest_calibration(root, ctx)
-        except Exception:
-            pass
-        self._last_metrics = ctx.metrics
 
     def to_arrow(self):
-        root, ctx = self.physical_plan()
-        try:
-            # the stage driver: shuffle stages materialize and re-plan
-            # (coalesce, skew split, join demotion) before the consumer
-            # runs; a stage that fails fails the query
-            t0 = time.perf_counter()
-            decisions = run_stage_driver(root, ctx, self._session.conf)
-            ctx.set_metric(root._op_id, "stageDriverTime",
-                           time.perf_counter() - t0)
-            self._last_plan = root
-            self._last_aqe_decisions = decisions
-            out = collect_to_arrow(root, ctx)
-        finally:
-            # spill handles a failed or abandoned operator left open
-            ctx.close()
-            self._last_events = list(ctx.pending_events)
-        # the observed cardinalities close the adaptive loop; advisory,
-        # it never fails the query (JAX `session.py:1050-1069`)
-        try:
-            harvest_calibration(root, ctx)
-        except Exception:
-            pass
-        self._last_metrics = ctx.metrics
-        return out
+        with self._action("collect") as (root, ctx):
+            return collect_to_arrow(root, ctx)
+
+    def to_torch(self) -> Dict[str, tuple]:
+        """The result as torch tensors already on the session's device,
+        the ColumnarRdd analog (reference: sql-plugin-api ColumnarRdd,
+        the zero-copy hand-off to ML): {column: (data, validity)}, the
+        live rows compacted on the device, no host copy. Fixed-width
+        columns only (a string raises TypeError; use to_arrow). The JAX
+        package's counterpart is `to_jax`, which returns jax Arrays; the
+        port imports no JAX (ROADMAP C)."""
+        from .exec.batch import _torch_dtype
+        from .ops.concat import concat_cvs, concat_masks
+        from .ops.gather import compact
+        fields = self.schema.fields
+        for f in fields:
+            if f.dtype.is_variable_width or f.dtype.is_nested:
+                raise TypeError(
+                    f"to_torch exports fixed-width columns; {f.name} is "
+                    f"{f.dtype.simple_name()} (use to_arrow)")
+        with self._action("to_torch") as (root, ctx):
+            batches = list(root.execute_all(ctx))
+        dev = self._session.device
+        if not batches:
+            return {f.name: (torch.zeros(0, dtype=_torch_dtype(
+                f.dtype.np_dtype), device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+                for f in fields}
+        cvs = [concat_cvs([b.cvs()[i] for b in batches], f.dtype)
+               for i, f in enumerate(fields)]
+        mask = concat_masks([b.row_mask for b in batches])
+        dense, n = compact(cvs, mask)
+        return {f.name: (c.data[:n], c.validity[:n])
+                for f, c in zip(fields, dense)}
 
     def last_plan(self):
         """The physical plan root of this DataFrame's most recent action,
@@ -762,14 +964,18 @@ class DataFrame:
         """Per-operator metrics of this DataFrame's most recent action:
         host seconds per layer (scanTime, decodeTime, hashPassTime,
         sortPassTime, mergeTime, mapTime, sliceTime, reduceTime, buildTime,
-        probeTime, expandTime, sortTime, limitTime, collectTime; summed
-        over the collect's concurrent tasks, so a layer can exceed the
-        wall) and counts (mapBatches, skippedRowGroups, inputBatches,
-        hashPassBatches, sortPassBatches, mergePasses, numBucketSplits,
-        numBucketRecursions, a join's streamBatches, directProbeBatches,
-        sortedProbeBatches, countProbeBatches, fkOutputBatches,
-        expandOutputBatches, numSubPartitions, numSubPartRecursions, the
-        sort's oocRangePartitions, the root's semaphoreWaitMs)."""
+        probeTime, expandTime, sortTime, limitTime, collectTime,
+        pythonEvalTime; summed over the collect's concurrent tasks, so a
+        layer can exceed the wall) and counts (mapBatches,
+        skippedRowGroups, inputBatches, hashPassBatches, sortPassBatches,
+        mergePasses, numBucketSplits, numBucketRecursions, a join's
+        streamBatches, directProbeBatches, sortedProbeBatches,
+        countProbeBatches, fkOutputBatches, expandOutputBatches,
+        numSubPartitions, numSubPartRecursions, the sort's
+        oocRangePartitions, numGroupChunks; the root's semaphoreWaitMs,
+        hostSyncs, kernelLaunches and criticalPathShare.*), at or below
+        `sql.metrics.level` (every metric is MODERATE, as in the JAX
+        package)."""
         return getattr(self, "_last_metrics", {})
 
     def collect(self) -> List[tuple]:

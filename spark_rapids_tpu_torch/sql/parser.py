@@ -13,8 +13,7 @@ plans; standalone, this subset makes `session.sql(...)` work:
 Expressions: identifiers (qualified names too), string and number
 literals, + - * / %, comparisons, AND / OR / NOT, IS [NOT] NULL,
 [NOT] BETWEEN, [NOT] IN (...), [NOT] LIKE, CASE WHEN, CAST(e AS type),
-and function calls (the aggregates, then the port's `functions.py`, so
-a function that waits for a ROADMAP item raises NotPorted naming it).
+and function calls (the aggregates, then the port's `functions.py`).
 Subqueries: derived tables, [NOT] EXISTS and [NOT] IN (SELECT ...)
 rewritten to semi / anti joins, uncorrelated scalar subqueries run to a
 literal, correlated scalar subqueries decorrelated into a grouped
@@ -28,7 +27,6 @@ from __future__ import annotations
 import re
 
 from ..columnar import dtypes as dt
-from ..errors import NotPorted
 from ..expr import aggregates as agg
 from ..expr.expressions import (CaseWhen, Cast, ColumnRef, Literal,
                                 UnsupportedExpr)
@@ -941,14 +939,14 @@ def parse_sql(session, sql: str):
     from ..session import DataFrame
     from ..plan import logical as L
 
-    # EXPLAIN <select>: the one-row `plan` column of the port's explain
-    # (Spark's EXPLAIN output shape); ANALYZE needs the profiler
+    # EXPLAIN [ANALYZE] <select>: ANALYZE runs the query and renders the
+    # plan annotated with runtime metrics; plain EXPLAIN renders the
+    # placement tagging. Either way the result is a one-row `plan`
+    # column DataFrame (the Spark EXPLAIN output shape).
     m = re.match(r"\s*explain\b(\s+analyze\b)?", sql, re.IGNORECASE)
     if m:
-        if m.group(1):
-            raise NotPorted("EXPLAIN ANALYZE: the profiler (ROADMAP A.13)")
         inner = parse_sql(session, sql[m.end():])
-        text = inner.explain("ALL")
+        text = inner.explain("ANALYZE" if m.group(1) else "ALL")
         import pyarrow as pa
         return DataFrame(session,
                          L.InMemoryScan(pa.table({"plan": [text or ""]})))

@@ -93,8 +93,10 @@ def test_cbo_reason_in_explain_equals_jax():
         px = pq.explain("NOT_ON_TPU").splitlines()[0]
     reason = ("will run on CPU because CBO: ~3 input rows <= 64; host "
               "interpreter beats device dispatch at this size")
-    assert px.startswith("!cpu Filter[") and px.endswith(reason)
+    assert px.startswith("!cpu [loreId=1] Filter[") and px.endswith(reason)
     assert jx.split("  <-- ")[1] == px.split("  <-- ")[1]
+    # the tag and lore id agree too (both number the converted tree)
+    assert jx.split(" Filter[")[0] == px.split(" Filter[")[0]
 
 
 def test_cbo_is_a_no_op_with_the_fallback_off():

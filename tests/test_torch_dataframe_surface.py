@@ -12,7 +12,6 @@ import pytest
 
 import spark_rapids_tpu.functions as JF
 import spark_rapids_tpu_torch.functions as PF
-from spark_rapids_tpu_torch.errors import NotPorted
 from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
 from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.nodes import CachedScanExec, \
@@ -130,8 +129,9 @@ def test_explain_modes(fallback):
     """ALL, NOT_ON_TPU and VALIDATE with the host fallback off (the
     parity sessions) and on (the default): a plan that runs on the
     device reads the same either way, and its VALIDATE equals the JAX
-    package's but for the JAX lore ids and fused stages (ROADMAP C.28,
-    A.11)."""
+    package's, lore ids included (both number the converted tree before
+    any fusion), but for the JAX fused stages (ROADMAP A.11). ANALYZE
+    runs the query and names every node of the tree that ran."""
     import re
     conf = dict(SMALL)
     if fallback == "on":
@@ -141,7 +141,7 @@ def test_explain_modes(fallback):
         PF.sum("v").alias("sv"))
     text = d.explain()
     lines = text.splitlines()
-    assert lines[0].startswith("* Aggregate[")
+    assert lines[0].startswith("* [loreId=1] Aggregate[")
     assert any("InMemoryScan[rows=300]" in ln for ln in lines)
     assert "== Physical Plan ==" in lines
     assert any("HashAggregateExec" in ln for ln in lines)
@@ -151,8 +151,12 @@ def test_explain_modes(fallback):
     assert audit[-1] == "-- no findings: plan runs fully on TPU --"
     jd = js.create_dataframe(_table()).group_by("k").agg(
         JF.sum("v").alias("sv"))
-    want = re.sub(r" \[loreId=\d+\]", "", jd.explain("VALIDATE"))
+    want = jd.explain("VALIDATE")
     want = want.split("\n-- fused stages --")[0].splitlines()
     assert audit == want
-    with pytest.raises(NotPorted, match=r"ROADMAP A\.13"):
-        d.explain("ANALYZE")
+    assert re.search(r" \[loreId=1\] ", audit[1])
+    text = d.explain("ANALYZE").splitlines()
+    assert text[0] == "== EXPLAIN ANALYZE =="
+    assert text[1].startswith("[loreId=1] HashAggregateExec[")
+    assert any(re.match(r"\s+\[loreId=\d+\] InMemoryScanExec  rows=300 ",
+                        ln) for ln in text)

@@ -5,8 +5,9 @@ NotPorted, and its message names the ROADMAP item that ports it. The
 array, struct and map functions, explode, the higher-order functions,
 collect_list / collect_set and grouping_id (ROADMAP A.5), the window
 functions (A.6), bloom_filter_agg and might_contain (A.9), and the regex,
-JSON and URL functions (A.10) build since they were ported: their cases
-moved from WAITING to the building side, one case a name as before.
+JSON and URL functions (A.10), and udf and df_udf (A.12) build since
+they were ported: their cases moved from WAITING to the building side,
+one case a name as before. No name waits now.
 """
 import inspect
 import re
@@ -23,9 +24,7 @@ PUBLIC = sorted(n for n in dir(JF) if not n.startswith("_")
                 and n != "annotations")
 
 #: the entries that wait, by ROADMAP item
-WAITING = {
-    "A.12": ["udf", "df_udf"],
-}
+WAITING = {}
 ITEM_OF = {n: item for item, names in WAITING.items() for n in names}
 
 #: arguments for the ported functions that take more than one column
@@ -49,7 +48,11 @@ ARGS = {"round": ("x", 2), "lpad": ("x", 5, "*"), "rpad": ("x", 5),
         "from_json": ("x", pdt.StructType((pdt.StructField("a",
                                                           pdt.INT64),))),
         "parse_url": ("x", "QUERY", "k"),
-        "bloom_filter_agg": ("x", 1000)}
+        "bloom_filter_agg": ("x", 1000),
+        "udf": (lambda v: v + 1, pdt.INT64), "df_udf": (lambda v: v + 1,)}
+
+#: the UDF factories: what they return builds an expression of a column
+FACTORIES = ("udf", "df_udf")
 
 
 def test_every_public_name_exists():
@@ -76,4 +79,6 @@ def test_each_name_builds_or_names_its_item(name):
                    and p.kind in (p.POSITIONAL_ONLY,
                                   p.POSITIONAL_OR_KEYWORD))
         args = ("x", "y") if star else ("x", "y")[:need]
-    fn(*args)
+    out = fn(*args)
+    if name in FACTORIES:
+        assert isinstance(out("x"), PF.Expression)

@@ -4,10 +4,10 @@ expression the device cannot run evaluates on host rows, with the same
 Arrow output and the same NOT_ON_TPU tags and reasons; with the
 fallback off both packages refuse with the same text.
 
-The JAX explain carries lore ids (`[loreId=N]`), which the port has
-not (ROADMAP C.28): they are stripped before the comparison. A node's
-description is compared by its node name only, since the JAX package
-prints some expressions as Python object reprs."""
+Both explains carry lore ids (`[loreId=N]`, numbered alike: pre-order
+over the converted tree, before the JAX fusion pass), and they are
+compared. A node's description is compared by its node name only, since
+the JAX package prints some expressions as Python object reprs."""
 import contextlib
 import decimal
 import io
@@ -100,13 +100,13 @@ def _quiet(fn):
 
 
 def _tags(text):
-    """(indent + tag + node name, reason) per explain line, lore ids
-    stripped; findings lines whole."""
+    """(indent + tag + lore id + node name, reason) per explain line;
+    findings lines whole."""
     out = []
     for line in text.splitlines():
-        line = re.sub(r" \[loreId=\d+\]", "", line)
         head, _, reason = line.partition("  <-- ")
-        m = re.match(r"^(\s*)(\*|!cpu|!|!!|~) (\w+)", head)
+        m = re.match(r"^(\s*)(\*|!cpu|!|!!|~)( \[loreId=\d+\])? (\w+)",
+                     head)
         out.append((m.group(0), reason) if m else line)
     return out
 
@@ -207,4 +207,4 @@ def test_decimal128_to_string_placement_differs_rows_equal():
         tags.append(_quiet(lambda: q.explain("NOT_ON_TPU")))
     assert outs[1].equals(outs[0])
     assert tags[0] == ""
-    assert tags[1].startswith("!cpu Project[")
+    assert tags[1].startswith("!cpu [loreId=1] Project[")

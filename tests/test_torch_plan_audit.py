@@ -6,7 +6,6 @@ compared with the JAX lore ids stripped (ROADMAP C.28)."""
 import contextlib
 import decimal
 import io
-import re
 
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -21,7 +20,6 @@ from spark_rapids_tpu.expr.expressions import UnsupportedExpr as JUnsupported
 from spark_rapids_tpu.plan import typesig as jsig
 from spark_rapids_tpu.plan.planner import Planner as JPlanner
 from spark_rapids_tpu_torch.analysis import audit as paudit
-from spark_rapids_tpu_torch.errors import NotPorted
 from spark_rapids_tpu_torch.expr.expressions import (
     UnsupportedExpr as PUnsupported)
 from spark_rapids_tpu_torch.plan import typesig as psig
@@ -31,12 +29,11 @@ from spark_rapids_tpu_torch.plan.planner import Planner as PPlanner
 STRICT = {"spark.rapids.tpu.sql.audit.strict": True}
 
 
-def _strip(text: str) -> str:
-    return re.sub(r" \[loreId=\d+\]", "", text)
-
-
 def _findings(report):
-    return [_strip(v.describe()) for v in report.findings]
+    """The findings' text, lore ids included: both planners number the
+    converted tree (pre-order, before the JAX fusion pass), so equal
+    trees give equal ids."""
+    return [v.describe() for v in report.findings]
 
 
 def _reports(build, data, conf=None):
@@ -87,10 +84,10 @@ def test_strict_audit_refuses_before_execution(monkeypatch):
                        PUnsupported)):
         with pytest.raises(exc) as e:
             _upper_q(F, s.create_dataframe(STRINGS)).to_arrow()
-        msgs.append(_strip(str(e.value)))
+        msgs.append(str(e.value))
     assert msgs[1] == msgs[0]
-    assert "will_not_work Project: Upper in Project expr 'u' over string: " \
-        "kernel refuses strings" in msgs[1]
+    assert "will_not_work [loreId=1] Project: Upper in Project expr 'u' " \
+        "over string: kernel refuses strings" in msgs[1]
     assert executed == []
 
 
@@ -100,7 +97,7 @@ def test_non_strict_keeps_the_verdict(monkeypatch):
     j, p = _reports(_upper_q, STRINGS)
     assert _findings(p) == _findings(j)
     bad = p.of_kind(paudit.WILL_NOT_WORK)
-    assert len(bad) == 1 and bad[0].lore_id is None
+    assert len(bad) == 1 and bad[0].lore_id == 1    # the Project
     assert not p.ok
 
 
@@ -150,7 +147,7 @@ def test_explain_text_equals_jax_but_lore_ids_and_fused_stages(mode, case):
     for s, F in ((st.TpuSession(), JF), (pt.TpuSession(device="cpu"), PF)):
         q = builds[case](F, s.create_dataframe(data))
         with contextlib.redirect_stdout(io.StringIO()):
-            lines = _strip(q.explain(mode)).splitlines()
+            lines = q.explain(mode).splitlines()
         if "-- fused stages --" in lines:
             lines = lines[:lines.index("-- fused stages --")]
         texts.append(lines)
@@ -211,6 +208,16 @@ def test_decimal128_math_is_refused_at_bind_in_the_port():
 
 
 def test_explain_analyze_waits_for_the_profiler():
-    df = pt.TpuSession(device="cpu").create_dataframe({"a": [1]})
-    with pytest.raises(NotPorted, match=r"ROADMAP A\.13"):
-        df.explain("ANALYZE")
+    """The profiler landed (ROADMAP A.13): ANALYZE runs the query and
+    renders the tree that ran, each node with its lore id and rows, the
+    JAX renderer's layout, and the timer note."""
+    from spark_rapids_tpu_torch.profiler.analyze import TIMER_NOTE
+    df = pt.TpuSession(device="cpu").create_dataframe({"a": [1, 2, 3]})
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        text = df.filter(PF.col("a") > 1).explain("ANALYZE")
+    assert out.getvalue().rstrip("\n") == text
+    lines = text.splitlines()
+    assert lines[0] == "== EXPLAIN ANALYZE =="
+    assert lines[1].startswith("[loreId=1] FilterExec[(a#0 > ")
+    assert lines[2].startswith("  [loreId=2] InMemoryScanExec  rows=3")
+    assert lines[-1] == TIMER_NOTE

@@ -11,7 +11,6 @@ import pytest
 
 import spark_rapids_tpu as st
 import spark_rapids_tpu_torch as pt
-from spark_rapids_tpu_torch.errors import NotPorted
 from spark_rapids_tpu_torch.expr.expressions import UnsupportedExpr
 from spark_rapids_tpu_torch.workloads import tpch
 
@@ -145,16 +144,32 @@ def test_explain_statement_returns_the_plan(sessions):
         out = ps.sql("EXPLAIN SELECT k FROM t WHERE v > 10").to_arrow()
     assert out.column_names == ["plan"] and out.num_rows == 1
     text = out.column(0)[0].as_py()
-    assert text.startswith("* Project[") and "!cpu" not in text
+    assert text.startswith("* [loreId=1] Project[") and "!cpu" not in text
     assert "== Physical Plan ==" in text
-    with pytest.raises(NotPorted, match=r"ROADMAP A\.13"):
-        ps.sql("EXPLAIN ANALYZE SELECT k FROM t")
+    # EXPLAIN ANALYZE runs the statement and renders the tree that ran,
+    # as the JAX parser does
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = ps.sql("EXPLAIN ANALYZE SELECT k FROM t").to_arrow()
+    assert out.column_names == ["plan"] and out.num_rows == 1
+    lines = out.column(0)[0].as_py().splitlines()
+    assert lines[0] == "== EXPLAIN ANALYZE =="
+    assert lines[1].startswith("[loreId=1] ProjectExec[")
+    assert "rows=1000" in lines[2]
 
 
 def test_functions_resolve_through_the_port_functions_module(sessions):
     js, ps = sessions
-    with pytest.raises(NotPorted, match=r"ROADMAP A\.12"):
-        ps.sql("SELECT udf(s) FROM f")
+    # udf resolves to the port's udf factory since A.12 landed; SQL
+    # passes the column as its function and no return type, so both
+    # packages raise the same TypeError
+    msgs = []
+    for s in (js, ps):
+        with pytest.raises(TypeError) as e:
+            s.sql("SELECT udf(s) FROM f")
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0]
+    assert "missing 1 required positional argument: 'return_type'" \
+        in msgs[1]
     # rlike resolves to the port's RLike since A.10 landed; a SQL call
     # passes its pattern as a Literal, which neither package's regex
     # compiler takes
@@ -175,4 +190,5 @@ def test_a_host_expression_in_sql_falls_back(sessions):
     jt, pt_ = js.sql(sql).to_arrow(), ps.sql(sql).to_arrow()
     assert pt_.equals(jt)
     with contextlib.redirect_stdout(io.StringIO()):
-        assert "!cpu Filter" in ps.sql(sql).explain("NOT_ON_TPU")
+        assert "!cpu [loreId=3] Filter" in ps.sql(sql).explain(
+            "NOT_ON_TPU")
