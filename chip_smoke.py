@@ -37,7 +37,7 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      input batch; Q3, Q5 and Q13 are profiled below);
  11. TPC-H Q3 (`tpch.q3(customer, orders, lineitem)`) over
      `create_dataframe` of customer (1.5M rows), orders (15M) and the
-     lineitem table, twice, at the default conf: both joins planned
+     lineitem table, once, at the default conf: both joins planned
      shuffled (each `HashJoinExec` per partition over two adaptive
      readers of its `ShuffleExchangeExec`s), but for a join the stage
      driver demoted, which must be a broadcast join over a
@@ -346,7 +346,24 @@ TPC-H SF10 (60,012,150 lineitem rows in 1,048,576-row batches):
      (PROFILER_RECORDS), a lore id and an `op_metrics` record on every
      physical node, trace shares summing to 100 ± 0.5, the root's
      host syncs and kernel launches; then EXPLAIN ANALYZE of Q3, which
-     must name every node of the plan it ran.
+     must name every node of the plan it ran;
+ 68. `witnesses`, after the degradations' count: lockdep, the resource
+     ledger and racedep on by conf in raise mode (WITNESS_CONF), each
+     piece in a session of its own fault plan: `group_by(l_shipdate)`
+     under WITNESS_MAP_PLAN (the third map pass fails as an OOM and
+     with_retry splits that batch: one OOM, one split, the partition
+     kernel's launches counted, every one vector), exact against
+     `shipdate_reference`; Q3 at the default conf (its demoted
+     broadcast, the map pool's rides and permits, the build pool's wait
+     check), exact; a projection of lineitem's first
+     WITNESS_PROJECTION_ROWS rows in DEGRADE_BATCH_ROWS batches under
+     WITNESS_DEGRADE_PLAN (one batch recovered on the host), exact
+     against numpy. After each query `check_witness_reading`: no
+     lock-order finding, every strict ledger kind balanced and every
+     query ended balanced, no race, the injections the plan's and the
+     recoveries the injections; `group_by` and Q3 first read with the
+     witnesses off in the same phase (their cost). The witnesses are
+     then disabled and the plan cleared.
 
 Each Q6 revenue must equal `q6_numpy_baseline`; each Q1 result the exact
 integer reference `q1_reference` (numpy int64 per group, HALF_UP
@@ -855,10 +872,11 @@ class MapSideProbe:
             if exch._pieces is not None:
                 return ensure(exch, ctx)
             before = probe._pinned()
-            ensure(exch, ctx)
+            out = ensure(exch, ctx)
             after = probe._pinned()
             probe.host.append({k: after[k] - before[k] for k in PINNED_KEYS
                                if k in before and k in after})
+            return out
         self.cls._ensure_shuffled = counted
         return self
 
@@ -1745,10 +1763,9 @@ def q3_phases(session, tables, expect, profile=True) -> dict:
                 "pinned_host_over_map_side": probe.host,
                 "batch_tensors_by_device": dict(devs.seen)}, got
 
-    runs = []
-    for _ in range(2):
-        res, got = counted(session, check_q3_top, "default conf", True)
-        runs.append(res)
+    # one reading (the second was cut to pay for the witnesses phase)
+    res, got = counted(session, check_q3_top, "default conf", True)
+    runs = [res]
     launches["q3_shuffled"] = got
     full, got = counted(session, check_q3_full, "default conf, no limit",
                         True, limit=False)
@@ -7280,6 +7297,260 @@ def profiler_phase(session, tables, q3_expect):
           "check": "exact", "elapsed_s": time.perf_counter() - _START})
 
 
+# ----------------------------------------------------------------------
+# The runtime witnesses (lockdep, the resource ledger, racedep) and fault
+# injection on the card
+# ----------------------------------------------------------------------
+#: the witnesses' switches, every one in raise mode
+WITNESS_CONF = {"spark.rapids.tpu.sql.debug.lockdep.enabled": True,
+                "spark.rapids.tpu.sql.debug.lockdep.raiseOnCycle": True,
+                "spark.rapids.tpu.sql.debug.ledger.enabled": True,
+                "spark.rapids.tpu.sql.debug.ledger.raiseOnImbalance": True,
+                "spark.rapids.tpu.sql.debug.racedep.enabled": True,
+                "spark.rapids.tpu.sql.debug.racedep.raiseOnRace": True}
+FAULTS_PLAN_KEY = "spark.rapids.tpu.sql.debug.faults.plan"
+#: the third map pass fails as an OOM: with_retry splits that batch
+WITNESS_MAP_PLAN = "exchange.map:nth=3:raise=RESOURCE_EXHAUSTED"
+#: the second ProjectExec dispatch fails: that batch degrades to the host
+WITNESS_DEGRADE_PLAN = \
+    "device.dispatch:op=ProjectExec:nth=2:raise=InjectedFault"
+#: the degraded projection's rows (lineitem's first), in batches of
+#: DEGRADE_BATCH_ROWS so the plan's second dispatch exists
+WITNESS_PROJECTION_ROWS = 1 << 20
+
+
+def witness_projection(F, df):
+    return df.select((F.col("l_orderkey") * 7
+                      + F.col("l_linenumber")).alias("w"),
+                     (F.col("l_partkey") + F.col("l_suppkey")).alias("s"))
+
+
+def witness_projection_reference(lineitem):
+    import numpy as np
+    li = lineitem.slice(0, WITNESS_PROJECTION_ROWS)
+    return (li.column("l_orderkey").to_numpy() * 7
+            + li.column("l_linenumber").to_numpy().astype(np.int64),
+            li.column("l_partkey").to_numpy()
+            + li.column("l_suppkey").to_numpy())
+
+
+def witness_counters():
+    """The process witnesses' counters now: lockdep's graph and findings,
+    the ledger's per-kind acquires and releases and query verdicts,
+    racedep's slots and findings."""
+    from spark_rapids_tpu_torch.runtime import ledger, lockdep, racedep
+    lw, lg, rw = lockdep.witness(), ledger.ledger(), racedep.witness()
+    if lw is None or lg is None or rw is None:
+        raise AssertionError("witnesses: a witness is off")
+    lrep, grep, rrep = lw.report(), lg.report(), rw.report()
+    return {"lockdep": {k: lrep[k] for k in ("resources", "orderEdges",
+                                             "acquires", "findings")},
+            "ledger": {"kinds": {k: {"acquires": v["acquires"],
+                                     "releases": v["releases"]}
+                                 for k, v in grep["kinds"].items()},
+                       "balancedQueries": grep["balancedQueries"],
+                       "imbalancedQueries": grep["imbalancedQueries"],
+                       "findings": grep["findings"]},
+            "racedep": {k: rrep[k] for k in ("tracked", "shared",
+                                             "accesses", "findings")}}
+
+
+def witness_delta(before, after) -> dict:
+    """What one query added to the witnesses' counters (lockdep's graph
+    and racedep's slots as they stand after it)."""
+    kinds = {}
+    for k, v in after["ledger"]["kinds"].items():
+        b = before["ledger"]["kinds"].get(k, {"acquires": 0, "releases": 0})
+        kinds[k] = {"acquires": v["acquires"] - b["acquires"],
+                    "releases": v["releases"] - b["releases"]}
+    lg = {k: after["ledger"][k] - before["ledger"][k]
+          for k in ("balancedQueries", "imbalancedQueries", "findings")}
+    return {"lockdep": dict(after["lockdep"], findings=after["lockdep"][
+                "findings"] - before["lockdep"]["findings"]),
+            "ledger": dict(lg, kinds=kinds),
+            "racedep": dict(after["racedep"], findings=after["racedep"][
+                "findings"] - before["racedep"]["findings"])}
+
+
+def check_witness_reading(r, device_type="cuda"):
+    """Raise on a reading of the witnesses phase that fails a check: a
+    lock-order violation, a strict ledger kind out of balance or a query
+    that ended unbalanced, a race, injections other than the plan's,
+    recoveries other than the injections, and for the map split kernel
+    launches that are 0 (on the card) or not all vector."""
+    from spark_rapids_tpu_torch.runtime.ledger import STRICT_KINDS
+    what = r["name"]
+    if r["lockdep"]["findings"]:
+        raise AssertionError(f"witnesses {what}: lock-order findings "
+                             f"{r['lockdep']['findings']}")
+    lg = r["ledger"]
+    for kind in sorted(STRICT_KINDS):
+        c = lg["kinds"].get(kind, {"acquires": 0, "releases": 0})
+        if c["acquires"] != c["releases"]:
+            raise AssertionError(f"witnesses {what}: {kind} acquired "
+                                 f"{c['acquires']}, released "
+                                 f"{c['releases']}")
+    if lg["imbalancedQueries"] or lg["findings"] \
+            or lg["balancedQueries"] < 1:
+        raise AssertionError(f"witnesses {what}: ledger {lg}")
+    if r["racedep"]["findings"]:
+        raise AssertionError(f"witnesses {what}: races "
+                             f"{r['racedep']['findings']}")
+    if r["injections"] != r["planned"]:
+        raise AssertionError(f"witnesses {what}: injected "
+                             f"{r['injections']}, planned {r['planned']}")
+    raised = r["planned"].get("raise", 0)
+    if r["kind"] == "map_split":
+        if r["retry"]["ooms"] != raised or r["retry"]["splits"] != raised:
+            raise AssertionError(f"witnesses {what}: retry {r['retry']} "
+                                 f"for {raised} injected OOMs")
+        got = r["launches"]
+        if (device_type == "cuda" and got["all"] <= 0) \
+                or got["vector"] != got["all"] or got["scalar"]:
+            raise AssertionError(f"witnesses {what}: partition kernel "
+                                 f"launches {got}: more than 0 on the "
+                                 f"card, every one the vector kernel")
+    if r["kind"] == "degrade" and \
+            r["recoveries"].get("degradations", 0) != raised:
+        raise AssertionError(f"witnesses {what}: {r['recoveries']} for "
+                             f"{raised} injected dispatch failures")
+    if r["kind"] == "broadcast":
+        pool = sum(lg["kinds"].get(k, {"acquires": 0})["acquires"]
+                   for k in ("permit", "ride"))
+        if pool <= 0:
+            raise AssertionError(f"witnesses {what}: no permit or ride "
+                                 f"was witnessed")
+
+
+def witnesses_phase(session, tables, shipdate_expect, q3_expect,
+                    q3_conf=None) -> dict:
+    """Phase: the three witnesses on by conf (raise mode), each piece in
+    a session of its own fault plan: group_by(l_shipdate) under
+    WITNESS_MAP_PLAN (one map batch split by with_retry, the partition
+    kernel's launches counted), Q3 at the default conf (the demoted
+    broadcast, the map pool's rides and permits, the build pool's wait
+    check) and a projection of lineitem's first WITNESS_PROJECTION_ROWS
+    rows under WITNESS_DEGRADE_PLAN (one batch recovered on the host).
+    Each result exact; after each query lockdep's graph, the ledger's
+    per-kind counts and racedep's slots, checked by
+    `check_witness_reading`. Where no witness is on yet (the card's run),
+    `group_by` and Q3 are first read with them off, for their cost. The witnesses the phase turned on are then
+    disabled and the plan cleared. Locks made before the witnesses came
+    on (the module-level ones) are not wrapped: the readings cover the
+    per-instance locks of the plans. `q3_conf` adds to Q3's conf (a
+    rehearsal forces its joins shuffled). Returns the kernel's
+    launches."""
+    import numpy as np
+
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.memory import retry
+    from spark_rapids_tpu_torch.ops import partition_kernels as pk
+    from spark_rapids_tpu_torch.runtime import (faults, ledger, lockdep,
+                                                racedep)
+    from spark_rapids_tpu_torch.workloads import tpch
+    dev = session.device
+    customer, orders, lineitem = (tables[k] for k in ("customer", "orders",
+                                                      "lineitem"))
+    proj_expect = witness_projection_reference(lineitem)
+    readings = []
+    # the witnesses already on (a test run's env) stay on afterwards
+    prior = (lockdep.witness(), ledger.ledger(), racedep.witness())
+
+    def group_by(s):
+        return grouped_shipdate(s.create_dataframe(lineitem))
+
+    def q3(s):
+        return q3_query(tpch, s, (customer, orders, lineitem))
+
+    # the witnesses' cost: each query first with them off (and no plan),
+    # in this phase's conditions; skipped where a witness is already on
+    off = {}
+    if prior == (None, None, None):
+        faults.clear_plan()
+        for name, make, check in (
+                ("groupby_shipdate", group_by, lambda out: check_shipdate(
+                    out, shipdate_expect, "witnesses off")),
+                ("q3", q3, lambda out: check_q3_top(
+                    out, q3_expect, "witnesses off"))):
+            t0 = time.perf_counter()
+            out = make(session).to_arrow()
+            sync(dev)
+            off[name] = time.perf_counter() - t0
+            check(out)
+
+    def piece(name, kind, plan, planned, make, check, conf=None):
+        s = session_with(session, dict(WITNESS_CONF, **(conf or {}),
+                                       **{FAULTS_PLAN_KEY: plan}))
+        if plan is None:
+            faults.clear_plan()
+        else:
+            faults.install_plan(plan)     # its counters from 0
+        retry.reset_retry_stats()
+        faults.reset_recovery_stats()
+        before = witness_counters()
+        q = make(s)
+        pk.launches = pk.vector_launches = pk.scalar_launches = 0
+        t0 = time.perf_counter()
+        out = q.to_arrow()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        got = {"all": pk.launches, "vector": pk.vector_launches,
+               "scalar": pk.scalar_launches}
+        check(out)
+        r = {"name": name, "kind": kind, "plan": plan, "wall_s": wall,
+             "wall_off_s": off.get(name),
+             **witness_delta(before, witness_counters()),
+             "planned": planned, "injections": faults.injection_counts(),
+             "retry": retry.retry_stats(),
+             "recoveries": faults.recovery_stats(), "launches": got,
+             "broadcast_exchanges": sum(
+                 type(n).__name__ == "BroadcastExchangeExec"
+                 for n in plan_nodes(q.last_plan()))}
+        readings.append(r)
+        check_witness_reading(r, dev.type)
+        return r
+
+    def proj_check(out):
+        w, s_ = proj_expect
+        if not (np.array_equal(out.column("w").to_numpy(), w)
+                and np.array_equal(out.column("s").to_numpy(), s_)):
+            raise AssertionError("witnesses: the degraded projection "
+                                 "differs from numpy's")
+
+    try:
+        piece("groupby_shipdate", "map_split", WITNESS_MAP_PLAN,
+              {"injected": 1, "raise": 1}, group_by,
+              lambda out: check_shipdate(out, shipdate_expect,
+                                         "witnesses"))
+        piece("q3", "broadcast", None, {}, q3,
+              lambda out: check_q3_top(out, q3_expect, "witnesses"),
+              q3_conf)
+        piece("degraded_projection", "degrade", WITNESS_DEGRADE_PLAN,
+              {"injected": 1, "raise": 1},
+              lambda s: witness_projection(F, s.create_dataframe(
+                  lineitem.slice(0, WITNESS_PROJECTION_ROWS))),
+              proj_check,
+              {"spark.rapids.tpu.sql.batchSizeRows": DEGRADE_BATCH_ROWS})
+    finally:
+        for was, mod in zip(prior, (lockdep, ledger, racedep)):
+            if was is None:
+                mod.disable()
+        faults.clear_plan()
+        faults.reset_recovery_stats()
+    launches = readings[0]["launches"]
+    emit({"phase": "witnesses", "nvidia_smi": card_line(dev),
+          "readings": readings,
+          # Q3's difference is the witnesses'; group_by's adds the
+          # injected split's recovery (gc, empty_cache, the step alone)
+          "cost_s": {r["name"]: r["wall_s"] - r["wall_off_s"]
+                     for r in readings if r["wall_off_s"] is not None},
+          "unwrapped": "locks made before the witnesses came on (the "
+                       "module-level ones) are plain: the readings cover "
+                       "the plans' per-instance locks",
+          "check": "exact"})
+    return {"witnesses_groupby_shipdate": launches}
+
+
 def torch_peak_reset(device):
     if device.type == "cuda":
         import torch
@@ -7637,6 +7908,11 @@ def main() -> int:
         raise AssertionError(f"{degraded} batches degraded to the host; "
                              f"{sum(DEGRADE_INJECTED)} failures were "
                              f"injected")
+    # last: the witnesses and fault injection, after real_oom's caps and
+    # the degradations' count; the pinned cache stays warm from the
+    # profiler's Q3, so the phase's readings off and on meet it alike
+    by_path.update(witnesses_phase(session, tpch_tables, shipdate_expect,
+                                   q3_expect))
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("all", "vector", "scalar")}
 

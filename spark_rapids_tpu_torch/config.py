@@ -39,7 +39,10 @@ __all__ = ["TpuConf", "ConfEntry", "REGISTRY", "BATCH_SIZE_ROWS",
            "PYTHON_CONCURRENT_WORKERS", "PYTHON_GROUPED_CHUNK_BYTES",
            "METRICS_LEVEL", "METRICS_SYNC", "EVENT_LOG_ENABLED",
            "EVENT_LOG_DIR", "TRACE_ENABLED", "TRACE_SAMPLE_RATE",
-           "TELEMETRY_ENABLED", "LORE_DUMP_IDS", "LORE_DUMP_PATH"]
+           "TELEMETRY_ENABLED", "LORE_DUMP_IDS", "LORE_DUMP_PATH",
+           "FAULTS_PLAN", "RETRY_COVERAGE_ENABLED", "LOCKDEP_ENABLED",
+           "LOCKDEP_RAISE", "LEDGER_ENABLED", "LEDGER_RAISE",
+           "LEDGER_POISON", "RACEDEP_ENABLED", "RACEDEP_RAISE"]
 
 REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -465,6 +468,75 @@ LORE_DUMP_PATH = _conf(
                                       "srtpu-lore"),
     "Directory for LORE operator dumps (default under the process's "
     "temporary directory).", str)
+
+
+FAULTS_PLAN = _conf(
+    "sql.debug.faults.plan", None,
+    "Deterministic fault-injection plan (runtime/faults.py): "
+    "';'-separated rules `point[:selector]*[:action]` over the named "
+    "fault points (block.fetch, rpc.send, executor.task, "
+    "device.dispatch, exchange.map, spill.write, xla.compile, "
+    "mesh.collective, peer.fetch; the port fires device.dispatch, "
+    "exchange.map and spill.write, the others parse and stay inert "
+    "until their modules come). Selectors: nth=N, prob=P, seed=S, "
+    "times=K, query=SUB, op=NAME; actions: raise=NAME, delay=MS, "
+    "kill. Same plan + seed injects the identical failure sequence. "
+    "The SRTPU_FAULTS env var installs the same grammar process-wide. "
+    "None disables with zero overhead.", str)
+RETRY_COVERAGE_ENABLED = _conf(
+    "memory.retryCoverage.enabled", False,
+    "Track, per engine call-site, whether device reservations happen "
+    "inside an OOM-retry scope (with_retry / retry_no_split); the "
+    "reservations outside it are the ones that die instead of "
+    "spilling (reference: AllocationRetryCoverageTracker.scala). "
+    "Report via memory.diagnostics.coverage_report().", bool)
+LOCKDEP_ENABLED = _conf(
+    "sql.debug.lockdep.enabled", False,
+    "Runtime lockdep witness (runtime/lockdep.py): wrap engine locks, "
+    "the TpuSemaphore permit and the exchange ride slot, record the "
+    "acquisition-order graph, and report lock-order cycles at edge "
+    "formation time plus bounded-pool self-waits. Locks created "
+    "before the session exists are only covered when env "
+    "SRTPU_LOCKDEP=1 was set before import.", bool)
+LOCKDEP_RAISE = _conf(
+    "sql.debug.lockdep.raiseOnCycle", True,
+    "With lockdep enabled: raise LockOrderViolation / PoolSelfWait at "
+    "the acquisition that forms the cycle. False records findings for "
+    "the concurrency_report event without raising.", bool)
+LEDGER_ENABLED = _conf(
+    "sql.debug.ledger.enabled", False,
+    "Runtime resource ledger (runtime/ledger.py): count every "
+    "acquire / release of device and host reservations, staging "
+    "leases, spill handles, semaphore permits and ride slots, "
+    "attribute them to the submitting query, and assert the "
+    "owner-scoped kinds balance when the query ends. Budget "
+    "exhaustion errors attach an outstanding-holders dump, and every "
+    "logged query emits a resource_ledger event.", bool)
+LEDGER_RAISE = _conf(
+    "sql.debug.ledger.raiseOnImbalance", True,
+    "With the ledger enabled: raise ResourceLeakError when a query "
+    "finishes cleanly with owner-scoped resources outstanding. False "
+    "records findings for the resource_ledger event without raising; "
+    "error-path imbalances are recorded, never raised over the "
+    "original error.", bool)
+LEDGER_POISON = _conf(
+    "sql.debug.ledger.poison", False,
+    "With the ledger enabled: fill released cached staging buffers "
+    "with 0xAB before they return to the pool's free list, so a "
+    "use-after-release reads deterministic garbage.", bool)
+RACEDEP_ENABLED = _conf(
+    "sql.debug.racedep.enabled", False,
+    "Runtime data-race witness (runtime/racedep.py): Eraser-style "
+    "lockset tracking on the instrumented shared structures (the "
+    "telemetry registry, the operator metric store), reporting when "
+    "a shared slot's candidate lockset collapses to empty. Locks "
+    "created before the session exists are only lockset-visible when "
+    "env SRTPU_RACEDEP=1 was set before import.", bool)
+RACEDEP_RAISE = _conf(
+    "sql.debug.racedep.raiseOnRace", True,
+    "With racedep enabled: raise DataRaceDetected at the access that "
+    "collapses a shared slot's lockset. False records findings for "
+    "the race_report event without raising.", bool)
 
 
 class TpuConf:

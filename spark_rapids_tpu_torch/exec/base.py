@@ -20,22 +20,77 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, Iterator, List
+from typing import Callable, Dict, Generic, Iterator, List, Optional, TypeVar
 
 import torch
 
 from ..columnar.table import Schema
 from ..config import METRICS_LEVEL, METRICS_SYNC, TpuConf
+from ..runtime import lockdep, racedep
 from ..utils.metrics import parse_level, stream_barrier
 from .batch import DeviceBatch
 
-__all__ = ["TpuExec", "ExecContext", "OpMetrics", "collapse_fusable"]
+__all__ = ["TpuExec", "ExecContext", "OpMetrics", "collapse_fusable",
+           "Once"]
+
+T = TypeVar("T")
+
+
+class Once(Generic[T]):
+    """A value an operator computes once for all its consumers (an
+    exchange's map side, a broadcast's build). The owner's instance lock
+    guards the handoff only: the first caller computes outside it while
+    later callers wait for its end, and run the computation themselves
+    if it failed. So no lock is held while the operator's subtree runs
+    (ROADMAP C.5). `clear()` drops the value; a computation running at
+    that moment returns to its own caller and publishes nothing."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self._value: Optional[T] = None
+        self._running: Optional[threading.Event] = None
+        self._epoch = 0             # bumped by clear()
+
+    @property
+    def value(self) -> Optional[T]:
+        """The value if computed, without blocking; else None."""
+        return self._value
+
+    def get(self, compute: Callable[[], T]) -> T:
+        while True:
+            with self._lock:
+                if self._value is not None:
+                    return self._value
+                running = self._running
+                if running is None:
+                    running = self._running = threading.Event()
+                    epoch = self._epoch
+                    break
+            running.wait()
+        try:
+            value = compute()
+            with self._lock:
+                if epoch == self._epoch:
+                    self._value = value
+            return value
+        finally:
+            with self._lock:
+                self._running = None
+            running.set()
+
+    def clear(self):
+        with self._lock:
+            self._value = None
+            self._epoch += 1
+
 
 
 class ExecContext:
     """Per-query execution context: conf snapshot, device, metrics. A
     scan's prefetch thread and a broadcast build's thread add metrics
-    beside the calling thread, so every update holds a lock. `planning`
+    beside the calling thread, so every update holds a lock, and notes
+    its access to the data-race witness (`runtime/racedep.py`, the JAX
+    package's `MetricSet._values`). `planning`
     marks the planner's probes (`num_partitions` at plan time), which
     must not materialize an adaptive stage."""
 
@@ -45,8 +100,13 @@ class ExecContext:
         self.device = device
         self.planning = planning
         self.session = session
+        # the action's query id (`DataFrame._action`); the caller runs the
+        # plan under `_query_scope(ctx.query_id)`
+        self.query_id: Optional[str] = None
         self.metrics: Dict[str, Dict[str, float]] = {}
-        self._lock = threading.Lock()
+        # the metric store's lock (the JAX package's MetricSet._lock),
+        # which also guards the handles and the degrade state
+        self._lock = lockdep.lock("MetricSet._lock")
         self._handles: List = []
         # SharedBuildExec's per-run materialization cache:
         # {id(node): {pid: [spill handles]}}, closed by close()
@@ -99,11 +159,15 @@ class ExecContext:
 
     def add_metric(self, op_id: str, name: str, value: float):
         with self._lock:
+            racedep.note_access("MetricSet._values", f"{op_id}.{name}",
+                                write=True)
             m = self.metrics.setdefault(op_id, {})
             m[name] = m.get(name, 0) + value
 
     def set_metric(self, op_id: str, name: str, value: float):
         with self._lock:
+            racedep.note_access("MetricSet._values", f"{op_id}.{name}",
+                                write=True)
             self.metrics.setdefault(op_id, {})[name] = value
 
     def metrics_for(self, op_id: str) -> "OpMetrics":

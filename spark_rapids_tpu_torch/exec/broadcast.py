@@ -15,12 +15,17 @@ ordered before the probe's, which the joining thread enqueues after the
 build returns. An exception raised in the build reaches the caller of
 `await_build`. On timeout the waiting thread counts
 `broadcastTimeoutFallbacks` and joins the build (or, if it has not
-started, runs it) under the instance lock: the build never runs twice
-at once. A build whose subtree holds another broadcast join runs that
-nested build inline (`on_build_pool`): waiting on the pool from one of
-its own workers could park every worker behind itself. The build is a
-`broadcast.build` span of the query's trace, and a join's wait for it
-a back-dated `broadcast.await_build` span (kind `pool_wait`).
+started, runs it): the build never runs twice at once (the instance
+lock hands it to one thread, which builds outside the lock while the
+others wait for it). A build whose subtree holds another broadcast join
+runs that nested build inline (`on_build_pool`): waiting on the pool
+from one of its own workers could park every worker behind itself. The
+build is a `broadcast.build` span of the query's trace, and a join's
+wait for it a back-dated `broadcast.await_build` span (kind
+`pool_wait`). The instance locks are lockdep's
+`BroadcastExchangeExec._lock` and `._future_lock`, and `await_build`
+checks that no build worker waits on its own pool
+(`lockdep.check_pool_wait`).
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ from typing import List, Optional
 import torch
 
 from ..profiler import tracing
-from .base import ExecContext, TpuExec
+from ..runtime import lockdep
+from ..service.query_manager import _query_scope, current_query_id
+from .base import ExecContext, Once, TpuExec
 
 __all__ = ["BroadcastExchangeExec", "on_build_pool", "BUILD_POOL_PREFIX"]
 
@@ -61,10 +68,11 @@ def on_build_pool() -> bool:
 class BroadcastExchangeExec(TpuExec):
     def __init__(self, child: TpuExec, schema):
         super().__init__([child], schema)
-        self._lock = threading.RLock()
-        self._batches: Optional[List] = None
+        self._lock = lockdep.rlock("BroadcastExchangeExec._lock")
+        self._batches: Once[List] = Once(self._lock)
         self._future = None
-        self._future_lock = threading.Lock()
+        self._future_lock = lockdep.lock(
+            "BroadcastExchangeExec._future_lock")
         self._submit_t: Optional[float] = None
 
     def describe(self):
@@ -74,20 +82,21 @@ class BroadcastExchangeExec(TpuExec):
         return 1
 
     def _materialize(self, ctx: ExecContext) -> List:
-        with self._lock:
-            if self._batches is None:
-                child = self.children[0]
-                out = []
-                with ctx.timer(self._op_id, "buildTime"):
-                    for bpid in range(child.num_partitions(ctx)):
-                        out.extend(child.execute_partition(ctx, bpid))
-                ctx.add_metric(self._op_id, "numOutputBatches", len(out))
-                self._batches = out
-            return self._batches
+        """The build, once (`Once`: it runs outside the instance lock)."""
+        return self._batches.get(lambda: self._build(ctx))
+
+    def _build(self, ctx: ExecContext) -> List:
+        child = self.children[0]
+        out = []
+        with ctx.timer(self._op_id, "buildTime"):
+            for bpid in range(child.num_partitions(ctx)):
+                out.extend(child.execute_partition(ctx, bpid))
+        ctx.add_metric(self._op_id, "numOutputBatches", len(out))
+        return out
 
     def build_done(self) -> bool:
         """Whether the build is ready without blocking."""
-        if self._batches is not None:
+        if self._batches.value is not None:
             return True
         f = self._future
         return f is not None and f.done()
@@ -102,12 +111,13 @@ class BroadcastExchangeExec(TpuExec):
                           if ctx.device is not None
                           and ctx.device.type == "cuda" else None)
                 tc = ctx.trace or tracing.current()
+                qid = current_query_id()
 
                 def _build_task():
                     # the build runs on a pool thread: seed it with the
-                    # submitting query's trace context
-                    with tracing.use(tc), tracing.span("broadcast.build",
-                                                       "pool_task"):
+                    # submitting query's trace context and query scope
+                    with _query_scope(qid), tracing.use(tc), tracing.span(
+                            "broadcast.build", "pool_task"):
                         if stream is None:
                             return self._materialize(ctx)
                         with torch.cuda.stream(stream):
@@ -121,6 +131,10 @@ class BroadcastExchangeExec(TpuExec):
         past it, count the fallback and join or run the build on this
         thread."""
         fut = self.submit_build(ctx)
+        # blocking on a build future from a build worker parks the
+        # bounded pool behind itself (the join's on_build_pool() gate
+        # makes this unreachable; the witness proves it stays that way)
+        lockdep.check_pool_wait(BUILD_POOL_PREFIX)
         t_await = time.perf_counter()
         try:
             batches = fut.result(timeout_secs if timeout_secs

@@ -14,16 +14,16 @@ Two errors always propagate: an OOM belongs to split-and-retry
 (`memory/retry.py`), as in the JAX package, and a CUDA runtime error
 (`torch.AcceleratorError`, or a RuntimeError of the CUDA runtime) leaves
 the context unusable, so a host re-run would read the batch through a
-broken context (ROADMAP C.27). Until the fault-recovery counters are
-ported (ROADMAP A.13), each degradation also counts in this module's
-process-wide `degradations()`, which the JAX package keeps as
-`note_recovery("degradations")`.
+broken context (ROADMAP C.27). Each degradation counts as
+`note_recovery("degradations")` in `runtime/faults.py`, as in the JAX
+package; `degradations()` reads that counter.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
+
+from ..runtime.faults import note_recovery, recovery_stats, \
+    reset_recovery_stats
 
 __all__ = ["should_degrade", "host_filter_batch", "host_project_batch",
            "is_cuda_runtime_error", "degradations", "reset_degradations",
@@ -33,23 +33,21 @@ __all__ = ["should_degrade", "host_filter_batch", "host_project_batch",
 #: device at all for this query
 FAILURE_THRESHOLD = 2
 
-_LOCK = threading.Lock()
-_DEGRADATIONS = [0]
-
 # the heads of the CUDA runtime's and driver's error messages
 _CUDA_MARKERS = ("CUDA error", "CUDA driver error", "cuda runtime error",
                  "device-side assert")
 
 
 def degradations() -> int:
-    """Batches recovered on the host since the last reset, process-wide."""
-    with _LOCK:
-        return _DEGRADATIONS[0]
+    """Batches recovered on the host since the last reset, process-wide
+    (`recovery_stats()["degradations"]`)."""
+    return recovery_stats().get("degradations", 0)
 
 
 def reset_degradations():
-    with _LOCK:
-        _DEGRADATIONS[0] = 0
+    """Zero the process's recovery counters (`runtime/faults.py`), of
+    which the port keeps only `degradations` until ROADMAP A.15."""
+    reset_recovery_stats()
 
 
 def is_cuda_runtime_error(e: BaseException) -> bool:
@@ -91,8 +89,7 @@ def should_degrade(ctx, node, e: BaseException) -> bool:
         with tracing.span("degrade.to_host", "degrade", ctx,
                           op=type(node).__name__, failures=n):
             pass
-    with _LOCK:
-        _DEGRADATIONS[0] += 1
+    note_recovery("degradations")
     return True
 
 

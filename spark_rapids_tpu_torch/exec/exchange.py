@@ -52,7 +52,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import threading
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +67,9 @@ from ..ops.hash import partition_ids
 from ..ops.kernel_utils import cv_buffers
 from ..ops.partition_kernels import partition_ids_i32
 from ..profiler import tracing
-from .base import ExecContext, TpuExec
+from ..runtime import faults, lockdep
+from ..service.query_manager import _query_scope, current_query_id
+from .base import ExecContext, Once, TpuExec
 from .batch import DeviceBatch, to_device, to_host
 from .exchange_pool import PermitRider, resolve_map_threads
 
@@ -81,11 +83,10 @@ class ShuffleExchangeExec(TpuExec):
         super().__init__([child], schema)
         self.n = num_partitions
         self.keys = list(bound_keys) if bound_keys else None
-        # per reduce partition: host pieces [(cols, rows, bytes)] in map
-        # order, and the bytes of each reduce partition
-        self._pieces: Optional[List[list]] = None
-        self._pstats: Optional[List[int]] = None
-        self._lock = threading.RLock()
+        self._lock = lockdep.rlock("ShuffleExchangeExec._lock")
+        # the map side's output, (pieces, pstats): per reduce partition
+        # its host pieces [(cols, rows, bytes)] in map order, and its bytes
+        self._map_out: Once[Tuple[List[list], List[int]]] = Once(self._lock)
 
     def describe(self):
         mode = "hash" if self.keys else "roundrobin"
@@ -112,6 +113,11 @@ class ShuffleExchangeExec(TpuExec):
         """Partition one batch on the device; return its host copy:
         per-column buffer trees (`columnar/column.py`) sorted by target,
         and the counts."""
+        if faults.ACTIVE:
+            # inside the with_retry wrapper: an injected
+            # RESOURCE_EXHAUSTED takes the split-and-retry path
+            faults.hit("exchange.map", query_id=current_query_id(),
+                       op=type(self).__name__)
         cvs, mask = batch.cvs(), batch.row_mask
         pids = self._partition_ids(cvs, mask)
         eff = torch.where(mask, pids, self.n)
@@ -124,15 +130,28 @@ class ShuffleExchangeExec(TpuExec):
         cols = [tree_from_flat(f.dtype, host) for f in self.schema.fields]
         return cols, next(host)
 
-    def _ensure_shuffled(self, ctx: ExecContext):
-        with self._lock:
-            if self._pieces is None:
-                self._run_map(ctx)
+    def _ensure_shuffled(self, ctx: ExecContext
+                         ) -> Tuple[List[list], List[int]]:
+        """The map side's (pieces, pstats), run once (`Once`)."""
+        return self._map_out.get(lambda: self._run_map(ctx))
+
+    @property
+    def _pieces(self) -> Optional[List[list]]:
+        """The map side's pieces if it has run (without running it)."""
+        out = self._map_out.value
+        return None if out is None else out[0]
+
+    @property
+    def _pstats(self) -> Optional[List[int]]:
+        """The map side's bytes per reduce partition if it has run."""
+        out = self._map_out.value
+        return None if out is None else out[1]
+
+    def _prepare_map(self, ctx: ExecContext):
+        """What the map side needs first (the range exchange's bounds)."""
 
     def release(self):
-        with self._lock:
-            self._pieces = None
-            self._pstats = None
+        self._map_out.clear()
         super().release()
 
     def _map_partition(self, ctx: ExecContext, mpid: int, rider=None,
@@ -198,12 +217,14 @@ class ShuffleExchangeExec(TpuExec):
         # the span open on this thread (the stage driver's
         # materialization) parents the map tasks
         tc = tracing.current() or ctx.trace
+        qid = current_query_id()
 
         def task(mpid):
-            # the worker takes the query's trace context: its admission
-            # wait parents under this map task's span
-            with tracing.use(tc), tracing.span("exchange.map",
-                                               "pool_task", mpid=mpid):
+            # the worker takes the query's trace context and query scope:
+            # its admission wait parents under this map task's span, and
+            # what it reserves is the query's
+            with _query_scope(qid), tracing.use(tc), tracing.span(
+                    "exchange.map", "pool_task", mpid=mpid):
                 if stream is None:
                     return self._map_partition(ctx, mpid, rider, stop)
                 with torch.cuda.stream(stream):
@@ -225,13 +246,14 @@ class ShuffleExchangeExec(TpuExec):
         ctx.add_metric(self._op_id, "mapPoolAloneSteps", rider.alone_steps)
         return [f.result() for f in futs]
 
-    def _run_map(self, ctx: ExecContext):
+    def _run_map(self, ctx: ExecContext) -> Tuple[List[list], List[int]]:
         """Every map task, on the pool when `sql.exec.exchange.mapThreads`
         resolves to more than one worker. Each task fills pieces for its
         own map partition, and they merge in map-partition order, so the
         pool's completion order never changes what a reduce partition
         reads: its pieces, and a double sum over them, are those of the
         serial map side."""
+        self._prepare_map(ctx)
         child = self.children[0]
         nparts = child.num_partitions(ctx)
         threads = resolve_map_threads(ctx, nparts)
@@ -250,15 +272,13 @@ class ShuffleExchangeExec(TpuExec):
         m.set("shufflePartitionBytesMin", ordered[0])
         m.set("shufflePartitionBytesMedian", ordered[len(ordered) // 2])
         m.set("shufflePartitionBytesMax", ordered[-1])
-        self._pstats = pstats
-        self._pieces = pieces
+        return pieces, pstats
 
     # ---- adaptive stage API --------------------------------------------
     def stage_stats(self, ctx: ExecContext) -> List[int]:
         """Materialize the map stage; the bytes of each reduce partition
         (the MapOutputStatistics analog)."""
-        self._ensure_shuffled(ctx)
-        return self._pstats
+        return self._ensure_shuffled(ctx)[1]
 
     def read_slice(self, ctx: ExecContext, rpid: int, chunk: int = 0,
                    nchunks: int = 1) -> Optional[DeviceBatch]:
@@ -266,10 +286,10 @@ class ShuffleExchangeExec(TpuExec):
         batch (None when it holds no rows): the pieces whose first byte
         falls in the slice's byte range, so the slices of a partition
         cover its pieces exactly once."""
-        self._ensure_shuffled(ctx)
-        subs = self._pieces[rpid]
+        pieces, pstats = self._ensure_shuffled(ctx)
+        subs = pieces[rpid]
         if nchunks > 1:
-            total = self._pstats[rpid]
+            total = pstats[rpid]
             lo = total * chunk // nchunks
             hi = total * (chunk + 1) // nchunks
             sel, acc = [], 0
@@ -279,7 +299,7 @@ class ShuffleExchangeExec(TpuExec):
                 acc += p[2]
             subs = sel
         ctx.add_metric(self._op_id, "shuffleBytesRead",
-                       self._pstats[rpid] // max(nchunks, 1))
+                       pstats[rpid] // max(nchunks, 1))
         total = sum(rows for _, rows, _ in subs)
         if total == 0:
             return None
@@ -334,7 +354,7 @@ class RangeShuffleExchangeExec(ShuffleExchangeExec):
             x = x.to(torch.int64)
         return x.contiguous(), kcv.validity
 
-    def _ensure_bounds(self, ctx: ExecContext):
+    def _prepare_map(self, ctx: ExecContext):
         if self._bounds is not None:
             return
         first = next(iter(self.children[0].execute_partition(ctx, 0)),
@@ -356,11 +376,6 @@ class RangeShuffleExchangeExec(ShuffleExchangeExec):
         bounds = self._bounds.to(key.dtype)
         pids = torch.searchsorted(bounds, key, right=True).to(torch.int32)
         return torch.where(valid, pids, 0)
-
-    def _ensure_shuffled(self, ctx: ExecContext):
-        with self._lock:
-            self._ensure_bounds(ctx)
-            super()._ensure_shuffled(ctx)
 
 
 def range_key_ok(dtype) -> bool:

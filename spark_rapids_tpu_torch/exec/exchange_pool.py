@@ -26,9 +26,9 @@ calling task already holds.
 
 An admission wait that stalled a step over a millisecond is a
 back-dated `exchange.pool_admission` span (kind `pool_wait`) in the
-query's trace, as in the JAX package. Its lock-order witness and
-resource ledger around the ride wait for the second half of ROADMAP
-A.13.
+query's trace, as in the JAX package. A ride is noted to the lock-order
+witness as `PermitRider.ride` and to the resource ledger as the `ride`
+kind; a real permit notes itself in `TpuSemaphore`.
 """
 from __future__ import annotations
 
@@ -37,6 +37,8 @@ import os
 import threading
 import time
 from contextlib import contextmanager
+
+from ..runtime import ledger, lockdep
 
 __all__ = ["resolve_map_threads", "PermitRider"]
 
@@ -75,6 +77,9 @@ class PermitRider:
     holds, such as a chained exchange it is materializing, cannot
     deadlock the pool); `alone_steps` counts the steps that ran alone
     (the exchange's `mapPoolAloneSteps`)."""
+
+    #: the lockdep resource key of the ride slot (any instance)
+    RIDE = "PermitRider.ride"
 
     def __init__(self, sem):
         self._sem = sem
@@ -124,10 +129,14 @@ class PermitRider:
                 return
             if self._rider.acquire(timeout=0.05):
                 break
+        lockdep.note_acquired(self.RIDE)
+        ledger.note_acquire("ride", tag="PermitRider.step")
         try:
             with self._gated(t0, riding=True):
                 yield
         finally:
+            lockdep.note_released(self.RIDE)
+            ledger.note_release("ride")
             self._rider.release()
 
     @contextmanager

@@ -30,6 +30,8 @@ from ..io.file_cache import cached_local_path
 from ..io.snapshot import verify_snapshot
 from ..memory.host import staging_pool
 from ..ops.kernel_utils import CV
+from ..runtime import faults
+from ..service.query_manager import current_query_id
 from ..utils import transfer
 from . import degrade
 from .base import ExecContext, TpuExec
@@ -634,6 +636,10 @@ class ProjectExec(TpuExec):
         for batch in self.children[0].execute_partition(ctx, pid):
             if self._op_id not in ctx.degraded:
                 try:
+                    if faults.ACTIVE:
+                        faults.hit("device.dispatch",
+                                   query_id=current_query_id(),
+                                   op="ProjectExec")
                     cvs, _ = stage(batch.cvs(), batch.row_mask)
                 except Exception as e:  # noqa: BLE001 - classified below
                     if not degrade.should_degrade(ctx, self, e):
@@ -675,6 +681,10 @@ class FilterExec(TpuExec):
         for batch in self.children[0].execute_partition(ctx, pid):
             if self._op_id not in ctx.degraded:
                 try:
+                    if faults.ACTIVE:
+                        faults.hit("device.dispatch",
+                                   query_id=current_query_id(),
+                                   op="FilterExec")
                     _, mask = stage(batch.cvs(), batch.row_mask)
                 except Exception as e:  # noqa: BLE001 - classified below
                     if not degrade.should_degrade(ctx, self, e):

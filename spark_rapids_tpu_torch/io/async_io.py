@@ -19,6 +19,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional
 
+from ..service.query_manager import _query_scope, current_query_id
+
 __all__ = ["TrafficController", "AsyncWriteQueue", "controller_for",
            "async_stats"]
 
@@ -116,10 +118,13 @@ class AsyncWriteQueue:
         """Blocks under the byte budget, then schedules fn(*args)."""
         self._raise_if_failed()
         self.controller.acquire(nbytes)
+        # the write works for the submitting query: carry its scope
+        qid = current_query_id()
 
         def run():
             try:
-                return fn(*args)
+                with _query_scope(qid):
+                    return fn(*args)
             except BaseException as e:      # noqa: BLE001 - deferred
                 with self._lock:
                     if self._error is None:

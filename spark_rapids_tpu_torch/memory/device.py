@@ -19,6 +19,12 @@ The budget on CUDA is `torch.cuda.mem_get_info()`'s total times
 `memory.tpu.allocFraction`, unless `memory.tpu.poolBytes` sets it. A CPU
 session has no device memory to ask: its default is
 `CPU_DEFAULT_BYTES` times the fraction, or the explicit budget.
+
+Every reservation records the retry coverage of its call site (when
+`memory.retryCoverage.enabled`), the peak gauge and the query's
+attribution (`memory/diagnostics.py`), and notes the `device_bytes`
+kind to the resource ledger, whose holders' dump a `BudgetExceeded`
+carries (`runtime/ledger.py`).
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import torch
+
+from ..runtime import ledger
 
 __all__ = ["DeviceManager", "BudgetExceeded", "device_manager",
            "CPU_DEFAULT_BYTES"]
@@ -99,9 +107,18 @@ class DeviceManager:
             self._reserved += nbytes
             self._charge(threading.get_ident(), nbytes)
             cur = self._reserved
-        from .diagnostics import record_device_watermark
-        record_device_watermark(cur)
+        self._note_reserved(nbytes, cur, "DeviceManager.try_reserve")
         return True
+
+    @staticmethod
+    def _note_reserved(nbytes: int, cur: int, tag: str):
+        """A reservation was granted: the peak gauge, the query's
+        attribution and the resource ledger's `device_bytes` kind."""
+        from .diagnostics import record_device_watermark, \
+            record_query_bytes
+        record_device_watermark(cur)
+        record_query_bytes("device", nbytes)
+        ledger.note_acquire("device_bytes", nbytes, tag=tag)
 
     def reserve(self, nbytes: int):
         """Reserve, spilling as needed. When the spill hooks cannot make
@@ -109,7 +126,10 @@ class DeviceManager:
         holds a reservation, wait for a release (at most `_WAIT_S` in
         all) and try again; otherwise raise BudgetExceeded at once,
         unless nothing else is reserved (one reservation of any size is
-        admitted)."""
+        admitted). Retry coverage records once per logical reservation,
+        here at entry."""
+        from .diagnostics import record_allocation
+        record_allocation()
         if self.try_reserve(nbytes):
             return
         with self._lock:
@@ -128,9 +148,12 @@ class DeviceManager:
                     break
                 left = deadline - time.monotonic()
                 if left <= 0 or not self._release_may_come(me):
-                    raise BudgetExceeded(
+                    exc = BudgetExceeded(
                         f"need {nbytes} bytes, reserved {self._reserved} "
                         f"of {self.budget} and spill store exhausted")
+                    # who holds the budget, by thread and query
+                    ledger.attach_dump(exc)
+                    raise exc
                 # another task holds bytes (two pool workers each merging
                 # more than the budget): wait for a release, looking
                 # again now and then (a holder may exit or start waiting)
@@ -139,8 +162,7 @@ class DeviceManager:
                     self._released.wait(min(left, _LOOK_S))
                 finally:
                     self._waiting.discard(me)
-        from .diagnostics import record_device_watermark
-        record_device_watermark(nbytes)
+        self._note_reserved(nbytes, nbytes, "DeviceManager.reserve")
 
     def _release_may_come(self, me: int) -> bool:
         """Whether another thread that holds bytes can still release
@@ -168,6 +190,8 @@ class DeviceManager:
                 with self._lock:
                     needed = nbytes - (self.budget - self._reserved)
                 if needed > 0:
+                    from .diagnostics import record_query_spill
+                    record_query_spill(needed)
                     freed += int(hook(needed) or 0)
                 else:
                     raced = True
@@ -188,6 +212,9 @@ class DeviceManager:
             self._charge(threading.get_ident() if owner is None else owner,
                          -nbytes)
             self._released.notify_all()
+        from .diagnostics import record_query_bytes
+        record_query_bytes("device", -nbytes)
+        ledger.note_release("device_bytes", nbytes)
 
     def trigger_spill(self, nbytes: Optional[int] = None):
         """Ask the spill hooks to free memory proactively (the retry

@@ -19,6 +19,11 @@ buffer is a uint8 tensor with a numpy view of the same bytes
 pinned memory is expensive (`cudaHostAlloc`), so the pool keeps every
 buffer it made, up to `memory.host.stagingPoolBytes`, for the next
 chunk, row group, file and query.
+
+Reservations note the `host_bytes` kind and leases the `staging_lease`
+kind to the resource ledger (`runtime/ledger.py`), and count toward the
+current query's attribution (`memory/diagnostics.py`); in the ledger's
+poison mode a released cached buffer is filled with 0xAB.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from ..runtime import ledger
 
 __all__ = ["HostMemoryManager", "HostBudgetExceeded", "host_manager",
            "PinnedStagingPool", "StagingBuffer", "staging_pool"]
@@ -72,8 +79,11 @@ class HostMemoryManager:
             self._reserved += nbytes
             self._holders += 1
             cur = self._reserved
-        from .diagnostics import record_host_watermark
+        from .diagnostics import record_host_watermark, record_query_bytes
         record_host_watermark(cur)
+        record_query_bytes("host", nbytes)
+        ledger.note_acquire("host_bytes", nbytes,
+                            tag="HostMemoryManager.try_reserve")
         return True
 
     def reserve(self, nbytes: int):
@@ -85,15 +95,19 @@ class HostMemoryManager:
         with self._lock:
             self.metrics["pressureCalls"] += 1
             hooks = list(self._hooks)
+        from .diagnostics import record_query_spill
+        record_query_spill(nbytes)
         for fn in hooks:
             freed = int(fn(nbytes) or 0)
             with self._lock:
                 self.metrics["pressureFreed"] += freed
             if self.try_reserve(nbytes):
                 return
-        raise HostBudgetExceeded(
+        exc = HostBudgetExceeded(
             f"host reservation of {nbytes} bytes over budget "
             f"{self.budget} ({self.reserved} reserved)")
+        ledger.attach_dump(exc)   # who holds the budget, by thread/query
+        raise exc
 
     def force_reserve(self, nbytes: int):
         """Unconditional reservation (soft admit): the accounting may
@@ -102,13 +116,19 @@ class HostMemoryManager:
             self._reserved += nbytes
             self._holders += 1
             cur = self._reserved
-        from .diagnostics import record_host_watermark
+        from .diagnostics import record_host_watermark, record_query_bytes
         record_host_watermark(cur)
+        record_query_bytes("host", nbytes)
+        ledger.note_acquire("host_bytes", nbytes,
+                            tag="HostMemoryManager.force_reserve")
 
     def release(self, nbytes: int):
         with self._lock:
             self._reserved = max(0, self._reserved - nbytes)
             self._holders = max(0, self._holders - 1)
+        from .diagnostics import record_query_bytes
+        record_query_bytes("host", -nbytes)
+        ledger.note_release("host_bytes", nbytes)
 
 
 # ----------------------------------------------------------------------
@@ -182,7 +202,10 @@ class PinnedStagingPool:
             lst = self._free.get(cap)
             if lst:
                 self.metrics["stagingPoolHits"] += 1
-                return StagingBuffer(lst.pop(), nbytes, self, True)
+                buf = StagingBuffer(lst.pop(), nbytes, self, True)
+                ledger.note_acquire("staging_lease", cap, token=id(buf),
+                                    tag="PinnedStagingPool.acquire")
+                return buf
             grow = self._held + cap <= self.max_bytes
             if grow:
                 self._held += cap
@@ -197,12 +220,20 @@ class PinnedStagingPool:
                 self._held -= cap
                 self.metrics["stagingPoolHeldBytes"] = self._held
             grow = False
-        buf = torch.empty(cap, dtype=torch.uint8, pin_memory=self.pinned)
-        return StagingBuffer(buf, nbytes, self, grow)
+        t = torch.empty(cap, dtype=torch.uint8, pin_memory=self.pinned)
+        buf = StagingBuffer(t, nbytes, self, grow)
+        ledger.note_acquire("staging_lease", cap, token=id(buf),
+                            tag="PinnedStagingPool.acquire")
+        return buf
 
     def release(self, buf: StagingBuffer):
+        ledger.note_release("staging_lease", buf.capacity, token=id(buf))
         if not buf._cached:
             return                            # transient: let GC take it
+        if ledger.poison_enabled():
+            # a use-after-release reads 0xAB, not whatever the next
+            # lease happens to write
+            buf.array.fill(ledger.POISON_BYTE)
         with self._lock:
             self._free.setdefault(buf.capacity, []).append(buf.tensor)
 

@@ -36,6 +36,11 @@ __all__ = ["with_retry", "retry_no_split", "split_batch_in_half",
            "reset_retry_stats", "on_pressure"]
 
 MAX_SPLITS = 12
+#: a split falls at a multiple of this many rows, so each half's view of
+#: a fixed-width column starts as aligned as the whole (16 B for 32-bit
+#: values, 4 B for the validity bytes) and the partition kernel's vector
+#: variant takes it (`ops/partition_kernels.py` `variant`)
+SPLIT_ALIGN_ROWS = 8
 
 
 class OutOfCoreError(Exception):
@@ -119,7 +124,9 @@ def split_batch_in_half(batch):
     (one host read of the ranges' ends for all string columns), so a
     gather over a half sizes its output by the half's bytes. A nested
     column's half is gathered (one more host read, for its sizes). The
-    halves need not be of equal or power-of-two length."""
+    halves need not be of equal or power-of-two length: the split falls
+    at the middle rounded down to a multiple of SPLIT_ALIGN_ROWS (at the
+    middle below twice that many rows; ROADMAP C.45)."""
     from ..exec.batch import DeviceBatch
     from ..ops.gather import gather_cols
     from ..utils.transfer import fetch_ints
@@ -127,6 +134,8 @@ def split_batch_in_half(batch):
     if cap < 2:
         raise OutOfCoreError("cannot split a batch of one row")
     half = cap // 2
+    if half >= SPLIT_ALIGN_ROWS:
+        half -= half % SPLIT_ALIGN_ROWS
     cols = batch.table.columns
     strs = [c for c in cols if c.offsets is not None and not c.children]
     ends = iter(fetch_ints([c.offsets[i] for c in strs

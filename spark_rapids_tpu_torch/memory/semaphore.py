@@ -7,8 +7,9 @@ holds a permit while it runs device work and releases it around host
 work (the D2H copy and the Arrow conversion of the collect), so another
 task's kernels can run meanwhile. `acquire` takes an optional cancel
 token (an object whose `check()` raises) and returns the seconds it
-waited. The JAX package's lock-order witness and resource ledger have
-no counterpart in the port.
+waited. Every permit granted and returned is noted to the lock-order
+witness as `TpuSemaphore.permit` and to the resource ledger as the
+`permit` kind (`runtime/lockdep.py`, `runtime/ledger.py`).
 """
 from __future__ import annotations
 
@@ -18,7 +19,14 @@ import threading
 import time
 from contextlib import contextmanager
 
+from ..runtime import ledger, lockdep
+
 __all__ = ["TpuSemaphore"]
+
+# the lockdep resource key for any permit of any TpuSemaphore instance:
+# class-keying lets the witness see permit-then-lock against
+# lock-then-permit inversions across threads
+PERMIT = "TpuSemaphore.permit"
 
 
 class TpuSemaphore:
@@ -78,6 +86,8 @@ class TpuSemaphore:
             self.metrics["acquireWaitTime"] += waited
             self._note_held(+1)
             self._cond.notify_all()
+        lockdep.note_acquired(PERMIT)
+        ledger.note_acquire("permit", tag="TpuSemaphore.acquire")
         return waited
 
     def try_acquire(self) -> bool:
@@ -85,18 +95,23 @@ class TpuSemaphore:
         never steals from a waiter."""
         with self._cond:
             self._purge_dead()
-            if self._available > 0 and not self._waiters:
+            got = self._available > 0 and not self._waiters
+            if got:
                 self._available -= 1
                 self.metrics["acquires"] += 1
                 self._note_held(+1)
-                return True
-            return False
+        if got:
+            lockdep.note_acquired(PERMIT)
+            ledger.note_acquire("permit", tag="TpuSemaphore.try_acquire")
+        return got
 
     def release(self):
         with self._cond:
             self._available += 1
             self._note_held(-1)
             self._cond.notify_all()
+        lockdep.note_released(PERMIT)
+        ledger.note_release("permit")
 
     @contextmanager
     def hold(self, priority: int = 0, token=None):

@@ -22,7 +22,10 @@ deleted when the handle comes back or closes.
 
 One lock serializes every handle's state changes across all stores
 (a spill hook of one store may fire while another store's handle is
-being materialized on the same thread).
+being materialized on the same thread): lockdep's `SpillStore._lock`.
+A handle notes the `spill_handle` kind to the resource ledger from its
+registration to its close, and the disk write is the `spill.write`
+fault point (`runtime/faults.py`).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 
 from ..columnar.column import Column
 from ..columnar.table import Table
+from ..runtime import faults, ledger, lockdep
 from .device import DeviceManager, device_manager
 from .host import HostBudgetExceeded, HostMemoryManager
 
@@ -43,7 +47,9 @@ __all__ = ["SpillStore", "SpillableBatchHandle", "spill_store"]
 
 DEVICE, HOST, DISK = "device", "host", "disk"
 
-_LOCK = threading.RLock()
+# lockdep's SpillStore._lock (made at import: wrapped only when the
+# witness is on from the env before the engine imports)
+_LOCK = lockdep.rlock("SpillStore._lock")
 _ALIGN = 16
 
 
@@ -139,6 +145,10 @@ class SpillableBatchHandle:
         with _LOCK:
             if self._pinned or self.closed or self.state == DISK:
                 return 0
+            if faults.ACTIVE:
+                # before any state moves: a failed write leaves the
+                # handle where it was
+                faults.hit("spill.write")
             if self.state == DEVICE:
                 self._host, self._layout = _to_host(_tensors(self._batch))
                 self._leave_device()
@@ -221,6 +231,7 @@ class SpillableBatchHandle:
             self._release_host()
             self._host = None
             self.store._remove(self)
+        ledger.note_release("spill_handle", token=self.id)
 
 
 class SpillStore:
@@ -267,6 +278,8 @@ class SpillStore:
                 h.closed = True
                 self._handles.pop(h.id, None)
             raise
+        ledger.note_acquire("spill_handle", h.nbytes, token=h.id,
+                            tag=f"SpillStore.add_batch[{h.id[:8]}]")
         h.unpin()
         return h
 

@@ -149,6 +149,17 @@ def render_analyze(tree: dict, metrics_by_lore: Dict[Optional[int], dict],
                     cps, key=cps.get, reverse=True)
                 if cps[c] >= 1.0)
             ann.append(f"criticalPath={dom} [{tops}]")
+        # the resource ledger (root node, when the ledger is on):
+        # staging-lease traffic this action and the balance verdict
+        if m.get("ledgerBalanced") is not None:
+            parts = []
+            if m.get("ledgerLeaseAcquires"):
+                parts.append(f"leases={int(m['ledgerLeaseAcquires'])}")
+            if m.get("ledgerPeakLeases"):
+                parts.append(f"peak={int(m['ledgerPeakLeases'])}")
+            parts.append("balanced=" + ("yes" if m["ledgerBalanced"]
+                                        else "NO"))
+            ann.append("ledger[" + " ".join(parts) + "]")
         if ann:
             line += "  " + " ".join(ann)
         if lid in rank:

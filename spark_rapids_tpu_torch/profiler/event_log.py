@@ -13,7 +13,16 @@ the JAX package's typed records, so its `read_event_log` and
                  plan/aqe.py; when any replan decision was taken)
   degrade_to_host {op, op_id, failures, error}  (exec/degrade.py)
   op_metrics    {ops: [{lore_id, name, describe, metrics}]}
-  watermarks    {devicePeakBytes, hostPeakBytes}
+  concurrency_report{enabled, resources, orderEdges, maxOrderGraph,
+                 acquires, findings}  (runtime/lockdep.py, when on)
+  resource_ledger{enabled, kinds: {kind: {acquires, releases,
+                 outstanding, peakOutstanding}}, balanceOk,
+                 balancedQueries, imbalancedQueries, findings}
+                (runtime/ledger.py, when on)
+  race_report   {enabled, tracked, shared, accesses, findings,
+                 perturbed}  (runtime/racedep.py, when on)
+  watermarks    {devicePeakBytes, hostPeakBytes, spill?, hostPressure?,
+                 queryAttribution?}  (memory/diagnostics.py)
   kernel_launches {host_syncs, kernel_launches, vector_launches,
                  scalar_launches}   (profiler/xla_stats.py; in place of
                  the JAX `xla_compile` record)
@@ -28,9 +37,7 @@ Records of the JAX schema the port cannot write yet: `query_queued`,
 need the query manager and the fleet, ROADMAP A.15), `result_cache`
 (A.15), `compile` and `xla_compile` (no compiled programs; see
 `kernel_launches`), `stage_submit` / `stage_complete` / `fetch_retry`
-(the distributed runner, A.15) and `concurrency_report` /
-`resource_ledger` / `race_report` (the runtime witnesses, the second
-half of A.13).
+(the distributed runner, A.15).
 
 `session.py` wraps every action (`profile_query`). Metric values honor
 `spark.rapids.tpu.sql.metrics.level`; op time is the sum of the
@@ -254,6 +261,16 @@ def profile_query(session, root, ctx, action: str, query_id: str):
         try:
             w.emit("op_metrics", ops=op_metrics_records(
                 root, ctx.metrics, ctx.metrics_level))
+            from ..runtime import ledger, lockdep, racedep
+            lw = lockdep.witness()
+            if lw is not None:
+                w.emit("concurrency_report", **lw.report())
+            lg = ledger.ledger()
+            if lg is not None:
+                w.emit("resource_ledger", **lg.report())
+            rw = racedep.witness()
+            if rw is not None:
+                w.emit("race_report", **rw.report())
             w.emit("watermarks", **diagnostics.watermarks_snapshot())
             w.emit("kernel_launches", **xla_stats.delta(counts0))
             wall = time.perf_counter() - t0

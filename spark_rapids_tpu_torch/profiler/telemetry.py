@@ -20,8 +20,11 @@ Gauges come in two flavors: set-value (`gauge(name).set(v)`) and
 callback (`register_gauge_fn(name, fn)`); callbacks are sampled at
 snapshot time, which keeps watermark reporting out of every hot path.
 The built-in gauges read the port's `memory/diagnostics.py` watermarks
-and the dropped-span count; the JAX module's program-cache,
-result-cache and compile-pool gauges wait for ROADMAP A.11 and A.15.
+(peaks and the spill stores' counters) and the dropped-span count; the
+JAX module's program-cache, result-cache and compile-pool gauges wait
+for ROADMAP A.11 and A.15. The registry's lock is lockdep's
+`telemetry._LOCK`, and every registry access is noted to the data-race
+witness (`telemetry.registry`).
 
 Instruments auto-create on first touch and live for the process; the
 registry never raises into engine code (a telemetry failure must not
@@ -33,10 +36,12 @@ import math
 import threading
 from typing import Callable, Dict, Optional
 
+from ..runtime import lockdep, racedep
+
 __all__ = ["counter", "gauge", "histogram", "register_gauge_fn",
            "snapshot", "render_prometheus", "reset", "Histogram"]
 
-_LOCK = threading.Lock()
+_LOCK = lockdep.lock("telemetry._LOCK")
 _COUNTERS: Dict[str, "Counter"] = {}
 _GAUGES: Dict[str, "Gauge"] = {}
 _GAUGE_FNS: Dict[str, Callable[[], object]] = {}
@@ -162,6 +167,7 @@ class Histogram:
 # ---------------------------------------------------------------------
 def counter(name: str) -> Counter:
     with _LOCK:
+        racedep.note_access("telemetry.registry", name, write=True)
         c = _COUNTERS.get(name)
         if c is None:
             c = _COUNTERS[name] = Counter(name)
@@ -170,6 +176,7 @@ def counter(name: str) -> Counter:
 
 def gauge(name: str) -> Gauge:
     with _LOCK:
+        racedep.note_access("telemetry.registry", name, write=True)
         g = _GAUGES.get(name)
         if g is None:
             g = _GAUGES[name] = Gauge(name)
@@ -178,6 +185,7 @@ def gauge(name: str) -> Gauge:
 
 def histogram(name: str) -> Histogram:
     with _LOCK:
+        racedep.note_access("telemetry.registry", name, write=True)
         h = _HISTOGRAMS.get(name)
         if h is None:
             h = _HISTOGRAMS[name] = Histogram(name)
@@ -212,6 +220,8 @@ def _builtin_gauges() -> Dict[str, object]:
         wm = diagnostics.watermarks_snapshot()
         out["memory_device_peak_bytes"] = wm.get("devicePeakBytes", 0)
         out["memory_host_peak_bytes"] = wm.get("hostPeakBytes", 0)
+        for k, v in (wm.get("spill") or {}).items():
+            out[f"spill_{k}"] = v
     except Exception:
         pass
     try:
@@ -225,6 +235,7 @@ def _builtin_gauges() -> Dict[str, object]:
 def snapshot() -> dict:
     """The whole registry as one JSON-able dict."""
     with _LOCK:
+        racedep.note_access("telemetry.registry")
         counters = {n: c.value for n, c in _COUNTERS.items()}
         gauges = {n: g.value for n, g in _GAUGES.items()}
         fns = dict(_GAUGE_FNS)

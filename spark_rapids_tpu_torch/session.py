@@ -46,7 +46,7 @@ import torch
 
 from .columnar import dtypes as dt
 from .columnar.table import Schema
-from .config import TpuConf
+from .config import RETRY_COVERAGE_ENABLED, TpuConf
 from .exec.base import ExecContext
 from .exec.nodes import collect_to_arrow
 from .exec.python_exec import close_plan_pools
@@ -57,6 +57,7 @@ from .expr.expressions import (Alias, BoundRef, Coalesce, ColumnRef,
 from .functions import _to_expr
 from .io.snapshot import refresh_plan_snapshots
 from .memory.device import device_manager
+from .memory.diagnostics import enable_retry_coverage
 from .memory.semaphore import TpuSemaphore
 from .memory.spill import spill_store
 from .plan import logical as L
@@ -65,6 +66,8 @@ from .plan.planner import Planner
 from .plan.stats import harvest_calibration
 from .profiler import tracing, xla_stats
 from .profiler.event_log import next_query_id, profile_query
+from .runtime import faults, ledger, lockdep, racedep
+from .service.query_manager import _query_scope
 from .utils.metrics import snapshot as metrics_snapshot
 
 __all__ = ["TpuSession", "DataFrame", "GroupedData", "CoGroupedData"]
@@ -151,6 +154,14 @@ class TpuSession:
         #: (`sql.eventLog.enabled`), else None
         self.last_event_log: Optional[str] = None
         TpuSession._active = self
+        # the runtime witnesses and the fault plan from the conf (JAX
+        # `session.py:50-58`): a witness turned on here wraps only the
+        # locks made from now on
+        enable_retry_coverage(bool(self.conf.get(RETRY_COVERAGE_ENABLED)))
+        lockdep.maybe_enable_from_conf(self.conf)
+        ledger.maybe_enable_from_conf(self.conf)
+        racedep.maybe_enable_from_conf(self.conf)
+        faults.install_from_conf(self.conf)
 
     @staticmethod
     def builder_get_or_create(conf: Optional[Dict] = None,
@@ -679,7 +690,8 @@ class DataFrame:
         rows (`maybe_compact`), and consecutive small batches concatenate
         up to `sql.batchSizeRows`, so a query over the cache runs over
         fewer, dense batches."""
-        with self._action("cache") as (root, ctx):
+        with self._action("cache") as (root, ctx), \
+                _query_scope(ctx.query_id):
             batches = _cache_batches(root, ctx)
         node = L.CachedScan(batches, self._plan.schema, source=self._plan)
         self._cached_node = node
@@ -786,78 +798,119 @@ class DataFrame:
         action's host syncs and kernel launches, the event log (when
         on) its records, and on success
         the root its critical-path shares and the calibration table the
-        observed cardinalities."""
+        observed cardinalities. The query scope is open over these steps
+        but not across the `yield`: the caller runs the plan under
+        `_query_scope(ctx.query_id)`, a generator only between its own
+        yields, so two interleaved streams never trade query ids."""
         conf = self._session.conf
         qid = next_query_id()
-        tc = tracing.start_trace(qid, conf)
-        rsp = None
-        if tc is not None:
-            # the root first, so the plan span parents under it
-            rsp = tracing.open_span("query", "query", tc, action=action)
-            tc = tracing.TraceContext(tc.trace_id, rsp.span_id, True)
+        lg = ledger.ledger()
+        lease0 = (lg.report()["kinds"].get("staging_lease", {})
+                  .get("acquires", 0) if lg is not None else 0)
+        ended = False
         try:
-            with tracing.span("plan", "plan", tc):
-                root, ctx = self.physical_plan()
-        except BaseException:
-            if rsp is not None:
-                rsp.end()
-                tracing.drain_trace(qid)
-            raise
-        ctx.trace, ctx._root_span = tc, rsp
-        counts0 = xla_stats.snapshot()
-        try:
-            with tracing.use(tc), profile_query(
-                    self._session, root, ctx, action, qid) as w:
+            # the query scope tags this thread's reservations (and,
+            # carried by the pools, their workers') with the query id
+            with _query_scope(qid) as scope:
+                tc = tracing.start_trace(qid, conf)
+                rsp = None
+                if tc is not None:
+                    # the root first, so the plan span parents under it
+                    rsp = tracing.open_span("query", "query", tc,
+                                            action=action)
+                    tc = tracing.TraceContext(tc.trace_id, rsp.span_id, True)
                 try:
-                    t0 = time.perf_counter()
-                    decisions = run_stage_driver(root, ctx, conf)
-                    ctx.set_metric(root._op_id, "stageDriverTime",
-                                   time.perf_counter() - t0)
-                    self._last_plan = root
-                    self._last_aqe_decisions = decisions
-                    if decisions and w is not None:
-                        w.emit("aqe_replan", action=action,
-                               decisions=decisions)
-                    yield root, ctx
+                    with tracing.span("plan", "plan", tc):
+                        root, ctx = self.physical_plan()
+                except BaseException:
+                    if rsp is not None:
+                        rsp.end()
+                        tracing.drain_trace(qid)
+                    raise
+                ctx.trace, ctx._root_span = tc, rsp
+                ctx.query_id = qid
+                counts0 = xla_stats.snapshot()
+                try:
+                    with tracing.use(tc), profile_query(
+                            self._session, root, ctx, action, qid) as w:
+                        try:
+                            t0 = time.perf_counter()
+                            decisions = run_stage_driver(root, ctx, conf)
+                            ctx.set_metric(root._op_id, "stageDriverTime",
+                                           time.perf_counter() - t0)
+                            self._last_plan = root
+                            self._last_aqe_decisions = decisions
+                            if decisions and w is not None:
+                                w.emit("aqe_replan", action=action,
+                                       decisions=decisions)
+                            with scope.suspended():
+                                yield root, ctx
+                        finally:
+                            # the launch and sync counts ride the root's
+                            # metrics (in place of the JAX xlaCompiles /
+                            # xlaDispatches), set before the event log
+                            # snapshots them
+                            d = xla_stats.delta(counts0)
+                            rid = root._op_id
+                            ctx.add_metric(rid, "hostSyncs", d["host_syncs"])
+                            ctx.add_metric(rid, "kernelLaunches",
+                                           d["kernel_launches"])
+                            ctx.add_metric(rid, "kernelLaunches.vector",
+                                           d["vector_launches"])
+                            ctx.add_metric(rid, "kernelLaunches.scalar",
+                                           d["scalar_launches"])
+                            # spill handles a failed or abandoned operator
+                            # left, and the python workers of its pandas
+                            # execs
+                            ctx.close()
+                            close_plan_pools(root)
+                            self._last_events = list(ctx.pending_events)
+                            if w is not None:
+                                for ev in ctx.pending_events:
+                                    kw = dict(ev)
+                                    w.emit(kw.pop("event"), **kw)
                 finally:
-                    # the launch and sync counts ride the root's metrics
-                    # (in place of the JAX xlaCompiles / xlaDispatches),
-                    # set before the event log snapshots them
-                    d = xla_stats.delta(counts0)
+                    # with the event log off the trace still closes here, so
+                    # the summary exists and the span buffer drains
+                    tracing.finish(ctx)
+                for c, pct in (ctx.trace_summary or {}).get("share_pct",
+                                                             {}).items():
+                    if pct:
+                        ctx.add_metric(root._op_id,
+                                       f"criticalPathShare.{c}", pct)
+                # the observed cardinalities close the adaptive loop; advisory,
+                # it never fails the query (JAX `session.py:1050-1069`)
+                try:
+                    harvest_calibration(root, ctx)
+                except Exception:
+                    pass
+                # the query's owner-scoped resources (leases, permits, rides)
+                # balance, or ResourceLeakError (JAX QueryManager._finalize)
+                ended = True
+                ledger.note_query_end(qid, "FINISHED")
+                if lg is not None:
+                    # the ledger's verdict and this action's lease traffic on
+                    # the root (JAX `session.py:1186-1197`)
+                    rep = lg.report()
+                    sk = rep["kinds"].get("staging_lease", {})
+                    leases = int(sk.get("acquires", 0) - lease0)
                     rid = root._op_id
-                    ctx.add_metric(rid, "hostSyncs", d["host_syncs"])
-                    ctx.add_metric(rid, "kernelLaunches",
-                                   d["kernel_launches"])
-                    ctx.add_metric(rid, "kernelLaunches.vector",
-                                   d["vector_launches"])
-                    ctx.add_metric(rid, "kernelLaunches.scalar",
-                                   d["scalar_launches"])
-                    # spill handles a failed or abandoned operator left,
-                    # and the python workers of its pandas execs
-                    ctx.close()
-                    close_plan_pools(root)
-                    self._last_events = list(ctx.pending_events)
-                    if w is not None:
-                        for ev in ctx.pending_events:
-                            kw = dict(ev)
-                            w.emit(kw.pop("event"), **kw)
+                    if leases:
+                        ctx.add_metric(rid, "ledgerLeaseAcquires", leases)
+                    ctx.add_metric(rid, "ledgerPeakLeases",
+                                   int(sk.get("peakOutstanding", 0)))
+                    ctx.add_metric(rid, "ledgerBalanced",
+                                   int(bool(rep["balanceOk"])))
+                self._last_metrics = {
+                    op: metrics_snapshot(m, ctx.metrics_level)
+                    for op, m in ctx.metrics.items()}
+                self._last_metrics_sync = ctx.metrics_sync
         finally:
-            # with the event log off the trace still closes here, so
-            # the summary exists and the span buffer drains
-            tracing.finish(ctx)
-        for c, pct in (ctx.trace_summary or {}).get("share_pct",
-                                                     {}).items():
-            if pct:
-                ctx.add_metric(root._op_id, f"criticalPathShare.{c}", pct)
-        # the observed cardinalities close the adaptive loop; advisory,
-        # it never fails the query (JAX `session.py:1050-1069`)
-        try:
-            harvest_calibration(root, ctx)
-        except Exception:
-            pass
-        self._last_metrics = {op: metrics_snapshot(m, ctx.metrics_level)
-                              for op, m in ctx.metrics.items()}
-        self._last_metrics_sync = ctx.metrics_sync
+            if not ended:
+                try:
+                    ledger.note_query_end(qid, "FAILED")
+                except ledger.ResourceLeakError:
+                    pass    # recorded; the query's own error propagates
 
     def write_parquet(self, path: str, **kw):
         """Write the result as Parquet part files, one a physical
@@ -897,14 +950,18 @@ class DataFrame:
         with self._action("write") as (root, ctx):
             for pid in range(root.num_partitions(ctx)):
                 tables = []
-                for b in root.execute_partition(ctx, pid):
-                    with ctx.timer(root._op_id, "collectTime"):
-                        tables.append(_batch_to_arrow(b))
+                # the scope over this partition's execution only: the
+                # consumer runs between the yields
+                with _query_scope(ctx.query_id):
+                    for b in root.execute_partition(ctx, pid):
+                        with ctx.timer(root._op_id, "collectTime"):
+                            tables.append(_batch_to_arrow(b))
                 if tables:
                     yield pid, pa.concat_tables(tables)
 
     def to_arrow(self):
-        with self._action("collect") as (root, ctx):
+        with self._action("collect") as (root, ctx), \
+                _query_scope(ctx.query_id):
             return collect_to_arrow(root, ctx)
 
     def to_torch(self) -> Dict[str, tuple]:
@@ -924,7 +981,8 @@ class DataFrame:
                 raise TypeError(
                     f"to_torch exports fixed-width columns; {f.name} is "
                     f"{f.dtype.simple_name()} (use to_arrow)")
-        with self._action("to_torch") as (root, ctx):
+        with self._action("to_torch") as (root, ctx), \
+                _query_scope(ctx.query_id):
             batches = list(root.execute_all(ctx))
         dev = self._session.device
         if not batches:

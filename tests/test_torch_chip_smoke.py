@@ -1654,3 +1654,116 @@ def test_python_udfs_and_profiler_checks_reject_a_fault(tpch_small,
     monkeypatch.setattr(critical_path, "summarize", skewed)
     with pytest.raises(AssertionError, match="trace shares"):
         chip_smoke.profiler_phase(s, tables, q3)
+
+
+def test_witnesses_phase_rehearses_on_the_cpu(tpch_small, capsys,
+                                              monkeypatch):
+    """The witnesses phase over gen_all(0.01) in 4096-row batches, as
+    the card runs it: the witnesses off at its start (the suite's are
+    set aside), so it reads `group_by` and Q3 off first, then turns them
+    on by conf in raise mode. The split group-by, Q3 (its joins shuffled
+    here) and the degraded projection exact; one injection each where
+    planned, the OOM split once, one batch recovered on the host; no
+    lock-order, ledger or race finding; no kernel launch off the card;
+    the witnesses it turned on off again and the plan cleared."""
+    import spark_rapids_tpu_torch as pt
+    from spark_rapids_tpu_torch.runtime import (faults, ledger, lockdep,
+                                                racedep)
+    monkeypatch.setattr(lockdep, "_WITNESS", None)
+    monkeypatch.setattr(ledger, "_LEDGER", None)
+    monkeypatch.setattr(racedep, "_WITNESS", None)
+    s = pt.TpuSession({"spark.rapids.tpu.sql.batchSizeRows": 4096},
+                      device="cpu")
+    li = tpch_small["lineitem"]
+    tables = tuple(tpch_small[k] for k in ("customer", "orders",
+                                           "lineitem"))
+    by_path = chip_smoke.witnesses_phase(
+        s, tpch_small, chip_smoke.shipdate_reference(li),
+        chip_smoke.q3_reference(*tables),
+        q3_conf={"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1})
+    assert by_path == {"witnesses_groupby_shipdate": {
+        "all": 0, "vector": 0, "scalar": 0}}
+    line = _phase_lines(capsys)["witnesses"]
+    assert line["check"] == "exact"
+    r = {x["name"]: x for x in line["readings"]}
+    assert list(r) == ["groupby_shipdate", "q3", "degraded_projection"]
+    assert r["groupby_shipdate"]["retry"]["splits"] == 1
+    assert r["groupby_shipdate"]["injections"] == {"injected": 1,
+                                                   "raise": 1}
+    assert r["q3"]["injections"] == {}
+    assert r["degraded_projection"]["recoveries"] == {"degradations": 1}
+    assert set(line["cost_s"]) == {"groupby_shipdate", "q3"}
+    for x in r.values():
+        assert x["lockdep"]["findings"] == 0
+        assert x["racedep"]["findings"] == 0
+        assert x["ledger"]["balancedQueries"] >= 1
+    assert (lockdep.witness(), ledger.ledger(), racedep.witness()) \
+        == (None, None, None)
+    assert not faults.ACTIVE
+
+
+def _witness_reading(**over):
+    r = {"name": "groupby_shipdate", "kind": "map_split",
+         "lockdep": {"resources": 6, "orderEdges": 7, "acquires": 900,
+                     "findings": 0},
+         "ledger": {"kinds": {"permit": {"acquires": 40, "releases": 40},
+                              "ride": {"acquires": 18, "releases": 18},
+                              "spill_handle": {"acquires": 5,
+                                               "releases": 3}},
+                    "balancedQueries": 1, "imbalancedQueries": 0,
+                    "findings": 0},
+         "racedep": {"tracked": 80, "shared": 12, "accesses": 500,
+                     "findings": 0},
+         "planned": {"injected": 1, "raise": 1},
+         "injections": {"injected": 1, "raise": 1},
+         "retry": {"ooms": 1, "splits": 1, "retries": 0},
+         "recoveries": {},
+         "launches": {"all": 59, "vector": 59, "scalar": 0}}
+    for k, v in over.items():
+        r[k] = v
+    return r
+
+
+@pytest.mark.parametrize("fault", [
+    "none", "finding", "imbalance", "query_imbalance", "race",
+    "injection_off_by_one", "split_missing", "no_launches",
+    "scalar_launch", "degrade_missing", "no_pool_witnessed"])
+def test_witness_checks_reject_a_fault(fault):
+    """`check_witness_reading` passes a clean reading and fails one with
+    a lock-order finding, a strict kind out of balance, an unbalanced
+    query, a race, an injection count off by one, recoveries unlike the
+    injections, 0 launches on the card, a scalar launch, or a broadcast
+    query whose pool nobody witnessed."""
+    check = chip_smoke.check_witness_reading
+    r = _witness_reading()
+    lg = r["ledger"]
+    bad = {
+        "finding": dict(r, lockdep=dict(r["lockdep"], findings=1)),
+        "imbalance": dict(r, ledger=dict(lg, kinds=dict(
+            lg["kinds"], ride={"acquires": 18, "releases": 17}))),
+        "query_imbalance": dict(r, ledger=dict(lg, imbalancedQueries=1)),
+        "race": dict(r, racedep=dict(r["racedep"], findings=1)),
+        "injection_off_by_one": dict(r, injections={"injected": 2,
+                                                    "raise": 2}),
+        "split_missing": dict(r, retry={"ooms": 1, "splits": 0,
+                                        "retries": 0}),
+        "no_launches": dict(r, launches={"all": 0, "vector": 0,
+                                         "scalar": 0}),
+        "scalar_launch": dict(r, launches={"all": 59, "vector": 58,
+                                           "scalar": 1}),
+        "degrade_missing": dict(r, name="degraded_projection",
+                                kind="degrade", recoveries={}),
+        "no_pool_witnessed": dict(
+            r, name="q3", kind="broadcast", planned={}, injections={},
+            ledger=dict(lg, kinds={"spill_handle": {"acquires": 2,
+                                                    "releases": 2}})),
+    }
+    if fault == "none":
+        check(r)
+        check(dict(r, launches={"all": 0, "vector": 0, "scalar": 0}),
+              "cpu")                  # off the card the plain version
+        check(dict(r, name="degraded_projection", kind="degrade",
+                   recoveries={"degradations": 1}))
+        return
+    with pytest.raises(AssertionError, match="witnesses"):
+        check(bad[fault])

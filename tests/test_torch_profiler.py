@@ -35,8 +35,7 @@ NO_FUSION = {"spark.rapids.tpu.sql.exec.stageFusion.enabled": False}
 #: JAX records the port cannot write yet (ROADMAP C.39): the query
 #: service's admission records and the XLA compile accounting; the
 #: port's `kernel_launches` record stands in the latter's place
-JAX_ONLY = {"query_queued", "query_admitted", "xla_compile", "compile",
-            "concurrency_report", "resource_ledger", "race_report"}
+JAX_ONLY = {"query_queued", "query_admitted", "xla_compile", "compile"}
 PORT_ONLY = {"kernel_launches"}
 
 
